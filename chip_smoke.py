@@ -1,0 +1,301 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one CUDA card (an H100 is the
+target).  Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
+   the card's name and power limit and the CUDA toolkit version.
+2. The full-size DR loop: ``StreamingJob`` on 8 stacked workers, 32
+   partitions, 8 x 262,144 state rows, over 8 drifting-Zipf batches of
+   4 Mi records; asserts zero overflow, at least one repartition that
+   lowers the mean imbalance, exact counts of 64 sampled keys, and that
+   both kernels were launched by that run.
+3. Each kernel against its plain PyTorch version on the card, on inputs
+   from phase 2 (split replicas on and off, invalid sentinel records, an
+   empty heavy table, a capacity that overflows): every output must be
+   equal exactly.
+4. The phase-2 configuration on a small stream, on the card and on the
+   CPU: identical per-batch metrics and final state.
+5. Times: each kernel and its plain version (CUDA events, median of 20
+   after 3 warm-ups) beside the kernel's byte bound; the median wall per
+   batch and the device time of one state merge.
+
+The last two lines of standard output are the ``kernels`` JSON line and
+the result line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at the 700 W limit)
+SOURCE = "src/repro_torch/kernels/csrc/route_kernels.cu"
+REPLACES = {
+    "route_bucketize": "src/repro/kernels/route_bucketize.py:155",
+    "lookup_dispatch": "src/repro/kernels/lookup_dispatch.py:136",
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fn, *, warmup=3, reps=20) -> float:
+    """Median device time of ``fn()`` in ms (CUDA events around each call)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(got, want) -> float:
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
+        if g.numel():
+            err = max(err, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+    return err
+
+
+def route_bytes(keys, vals, tables, num_lanes, capacity=None, split=False) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once (every send-buffer cell, fills included)."""
+    w, n = keys.shape
+    b = tables[0].numel()
+    nbytes = w * n * (4 + 1)                       # keys, valid
+    nbytes += b * 4 * (3 if split else 2) + tables[2].numel() * 4
+    nbytes += w * n * 8 + w * num_lanes * 4        # part, slot, counts
+    if capacity is not None:
+        dim = vals.shape[2]
+        nbytes += w * n * 4 * dim                  # vals
+        nbytes += w * num_lanes * capacity * (1 + 4 + 4 + 4 * dim)
+    return nbytes
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.hashing import KEY_SENTINEL
+    from repro_torch.core.partitioner import uniform_partitioner
+    from repro_torch.core.state import merge_into
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import drifting_zipf
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+    from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sent = int(KEY_SENTINEL)
+
+    # ---- phase 1: build and describe -----------------------------------
+    t = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t
+    card = card_line()
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    log(f"phase 1: built {SOURCE} in {build_s:.2f} s; card {card}; "
+        f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; {nvcc}")
+
+    # ---- phase 2: the full-size DR loop --------------------------------
+    dr = DRConfig(imbalance_trigger=1.2, migration_cost_weight=0.2)
+    job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
+                  capacity_factor=2.0, dr=dr)
+    t = time.perf_counter()
+    batches = list(drifting_zipf(8, 4_194_304, num_keys=1_000_000, exponent=1.3,
+                                 drift_every=3, drift_fraction=0.3, seed=0))
+    log(f"phase 2: generated 8 x 4,194,304 keys in {time.perf_counter() - t:.1f} s")
+    job = StreamingJob(device="cuda", **job_kw)
+    route_bucketize.launches = 0
+    lookup_dispatch.launches = 0
+    walls = []
+    for b in batches:
+        t = time.perf_counter()
+        m = job.process_batch(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        log(f"  batch {m.batch}: imbalance {m.imbalance:.4f} worker {m.worker_imbalance:.4f} "
+            f"{m.action} rel_mig {m.relative_migration:.4f} overflow {m.overflow} "
+            f"state_rows {m.state_rows} shipped {m.shipped_rows} wall {walls[-1]:.3f} s")
+    launches = {"route_bucketize": route_bucketize.launches,
+                "lookup_dispatch": lookup_dispatch.launches}
+    ms = job.metrics
+    assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+    reps = [i for i, m in enumerate(ms) if m.repartitioned]
+    assert reps, "no repartition was taken"
+    before = np.mean([m.imbalance for m in ms[: reps[0] + 1]])
+    after = np.mean([m.imbalance for m in ms[reps[0] + 1:]])
+    assert after < before, (before, after)
+    all_keys = torch.as_tensor(np.concatenate(batches), device=dev)
+    uniq, counts = torch.unique(all_keys, return_counts=True)
+    assert int(counts.max()) < 2**24
+    rng = np.random.default_rng(0)
+    pick = np.concatenate([[int(torch.argmax(counts))],
+                           rng.choice(len(uniq), 63, replace=False)])
+    for i in pick:
+        key, want = int(uniq[i]), float(counts[i])
+        got = job.state_count(key)
+        assert got == want, (key, got, want)
+    assert all(v > 0 for v in launches.values()), launches
+    log(f"phase 2: repartitions at batches {reps}; mean imbalance {before:.4f} -> "
+        f"{after:.4f}; 64 exact counts; launches {launches}")
+
+    # ---- phase 3: each kernel against its plain version ----------------
+    part = job.drm.partitioner
+    w = job.num_workers
+    keys = torch.as_tensor(batches[-1].astype(np.int32), device=dev).reshape(w, -1)
+    valid = keys != sent
+    vals = torch.ones(keys.shape + (1,), dtype=torch.float32, device=dev)
+    cap = job._shuffle_spec.capacity
+    state_keys = job.state_keys.clone()
+    state_valid = state_keys != sent
+    top = int(uniq[pick[0]])
+    split = part.with_splits({top: 4})
+    empty = uniform_partitioner(job.num_partitions, part.num_hosts, part.seed)
+
+    def padded(p, *, n_part, pad_empty):
+        return ops.pad_heavy_tables(p.tables(dev), num_partitions=n_part, pad_empty=pad_empty)
+
+    equal = {"route_bucketize": [], "lookup_dispatch": []}
+    errs = {"route_bucketize": 0.0, "lookup_dispatch": 0.0}
+    # the same keys with a seeded tenth turned into invalid sentinel records
+    gen = torch.Generator(device=dev).manual_seed(0)
+    holes = torch.rand(keys.shape, generator=gen, device=dev) < 0.1
+    keys_holed = keys.masked_fill(holes, sent)
+    valid_holed = keys_holed != sent
+    rb_cases = [
+        ("main path, splits on", part, 32, cap, True, keys, valid),
+        ("splits off", part, 0, cap, True, keys, valid),
+        ("split key x4", split, 32, cap, True, keys, valid),
+        ("invalid sentinel records", split, 32, cap, True, keys_holed, valid_holed),
+        ("empty heavy table, tile padded", empty, 32, cap, True, keys, valid),
+        ("empty heavy table, unpadded", empty, 0, cap, False, keys, valid),
+        ("capacity overflow", split, 32, 4096, True, keys, valid),
+    ]
+    for name, p, n_part, c, pad_empty, k, v in rb_cases:
+        hk, hp, hr = padded(p, n_part=n_part, pad_empty=pad_empty)
+        args = (k, v, vals, hk, hp, p.tables(dev).host_to_part, hr)
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, capacity=c,
+                  key_fill=sent, num_partitions=n_part)
+        got = route_bucketize(*args, **kw)
+        want = route_bucketize_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(g, x) for g, x in zip(got, want))
+        errs["route_bucketize"] = max(errs["route_bucketize"], max_abs_err(got, want))
+        equal["route_bucketize"].append(ok)
+        dropped = int((got[2] - c).clamp(min=0).sum())
+        log(f"phase 3: route_bucketize [{name}] B={hk.numel()} cap={c} "
+            f"invalid={int((~v).sum())} dropped={dropped} equal={ok}")
+    ld_cases = [
+        ("migrate path (final state)", part, 0, state_keys, state_valid),
+        ("split key x4", split, 32, state_keys, state_valid),
+        ("empty heavy table", empty, 0, keys, valid),
+    ]
+    for name, p, n_part, k, v in ld_cases:
+        hk, hp, hr = padded(p, n_part=n_part, pad_empty=False)
+        args = (k, v, hk, hp, p.tables(dev).host_to_part, hr)
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, num_partitions=n_part)
+        got = lookup_dispatch(*args, **kw)
+        want = lookup_dispatch_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(g, x) for g, x in zip(got, want))
+        errs["lookup_dispatch"] = max(errs["lookup_dispatch"], max_abs_err(got, want))
+        equal["lookup_dispatch"].append(ok)
+        log(f"phase 3: lookup_dispatch [{name}] B={hk.numel()} n={k.shape[1]} equal={ok}")
+    assert all(all(v) for v in equal.values()), equal
+
+    # ---- phase 4: card against CPU -------------------------------------
+    small = list(drifting_zipf(6, 65_536, num_keys=50_000, exponent=1.3,
+                               drift_every=2, seed=1))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        j = StreamingJob(device=device, **job_kw)
+        j.run(small)
+        runs[device] = j
+    skip = {"wall_time_s", "exchange_wall_s"}
+    for a, b in zip(runs["cuda"].metrics, runs["cpu"].metrics):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
+        assert not diff, (a.batch, diff)
+    for name in ("state_keys", "state_vals"):
+        assert torch.equal(getattr(runs["cuda"], name).cpu(), getattr(runs["cpu"], name)), name
+    log(f"phase 4: card and CPU trajectories identical over {len(small)} batches "
+        f"(repartitions {sum(m.repartitioned for m in runs['cpu'].metrics)}), state equal")
+
+    # ---- phase 5: times --------------------------------------------------
+    hk, hp, hr = padded(part, n_part=32, pad_empty=True)
+    h2p = part.tables(dev).host_to_part
+    rb_args = (keys, valid, vals, hk, hp, h2p, hr)
+    rb_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, capacity=cap,
+                 key_fill=sent, num_partitions=32)
+    lk, lp, _ = padded(part, n_part=0, pad_empty=False)
+    ld_args = (state_keys, state_valid, lk, lp, h2p, None)
+    ld_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, num_partitions=0)
+    timing = {
+        "route_bucketize": (
+            cuda_ms(lambda: route_bucketize(*rb_args, **rb_kw)),
+            cuda_ms(lambda: route_bucketize_plain(*rb_args, **rb_kw)),
+            route_bytes(keys, vals, (hk, hp, h2p), w, cap, split=True)),
+        "lookup_dispatch": (
+            cuda_ms(lambda: lookup_dispatch(*ld_args, **ld_kw)),
+            cuda_ms(lambda: lookup_dispatch_plain(*ld_args, **ld_kw)),
+            route_bytes(state_keys, None, (lk, lp, h2p), w)),
+    }
+    res = job._shuffle(part.tables(dev), keys, vals, valid)
+    merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
+                                          res.values, res.valid), warmup=1, reps=5)
+    wall_ms = statistics.median(walls) * 1e3
+    kernels = []
+    for name, (k_ms, p_ms, nbytes) in timing.items():
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name], "equal": all(equal[name]),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes, "library_ms": None,
+        })
+        log(f"phase 5: {name}: {k_ms:.4f} ms (bound {bound_ms:.4f} ms from {nbytes} bytes, "
+            f"plain {p_ms:.4f} ms); launches in phase 2: {launches[name]}")
+    log(f"phase 5: median wall per batch {wall_ms:.1f} ms; state merge {merge_ms:.3f} ms "
+        f"on the device; card {card}")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

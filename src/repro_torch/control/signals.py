@@ -1,0 +1,198 @@
+"""System signals: what the control plane actually observes.
+
+The paper's repartitioning decisions are "system-aware": they key on
+measured load, not static assumptions.  :class:`Signals` is the one record
+the streaming job hands the policy stack at a safe point — per-partition
+loads, overflow counts and exchange-lane accounting (rows the backend
+*shipped* vs. the rows the spec *provisioned*, and the per-lane overflow
+vector).  :class:`Telemetry` is the accumulator the job feeds during normal
+work (no extra measurement passes — the DRW principle); a ``snapshot`` at a
+safe point turns the window into a ``Signals`` record and opens the next
+window.
+
+Only the fields this slice's serial streaming path records are ported; the
+split-phase walls, per-backend wall EWMA, split-key, per-distance-class,
+queue and fault vectors arrive with their features (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.compat import host_fetch, safe_point
+from repro_torch.core.migration import fold_to_workers
+from repro_torch.exchange.spec import ExchangeStats
+
+__all__ = ["Signals", "Telemetry"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Signals:
+    """One safe point's view of the system, as the policies consume it.
+
+    ``loads`` is the only required field: per-partition record counts
+    observed over the window.  Everything else defaults to "unknown" so
+    host-side unit tests can build a minimal record.
+    """
+
+    loads: np.ndarray                      # float64[N] per-partition work
+    num_workers: int = 1                   # physical workers under the N partitions
+    records: float = 0.0                   # records processed this window
+    window_wall_s: float = 0.0             # wall time the window spanned
+    shuffle_overflow: int = 0              # shuffle rows dropped for capacity
+    migration_overflow: int = 0            # migration rows dropped for capacity
+    exchange_rows: int = 0                 # rows the backend shipped through lanes
+    exchange_padded_rows: int = 0          # rows the specs provisioned (L * capacity)
+    exchange_occupied_rows: int | None = None  # rows actually live in the
+                                           # buffers; None when the window
+                                           # recorded no exchange
+    exchange_wall_s: float = 0.0           # wall time inside the exchange path
+    lane_overflow: np.ndarray | None = None  # int64[L] capacity drops per lane
+    state_rows: int = 0                    # live keyed-state rows (migration scale)
+    at_safe_point: bool = True             # decisions may act only when True
+    consumer: str = ""                     # which runtime emitted this
+
+    @property
+    def imbalance(self) -> float:
+        """max/mean per-partition load (1.0 when nothing was observed)."""
+        loads = np.asarray(self.loads, np.float64)
+        if loads.size == 0 or not loads.sum():
+            return 1.0
+        return float(loads.max() / max(loads.mean(), 1e-12))
+
+    @property
+    def worker_loads(self) -> np.ndarray:
+        """Loads folded to worker granularity (partition p on worker p % W)."""
+        return fold_to_workers(self.loads, self.num_workers)
+
+    @property
+    def worker_imbalance(self) -> float:
+        w = self.worker_loads
+        if w.size == 0 or not w.sum():
+            return 1.0
+        return float(w.max() / max(w.mean(), 1e-12))
+
+    @property
+    def throughput(self) -> float:
+        """Records/s over the window; 0.0 when the window is unmeasured."""
+        if self.records <= 0 or self.window_wall_s <= 0:
+            return 0.0
+        return self.records / self.window_wall_s
+
+
+class Telemetry:
+    """Windowed accumulator turning runtime counters into ``Signals``.
+
+    The job calls the ``record_*`` hooks during normal work (shuffle,
+    migration); ``snapshot`` emits the window's :class:`Signals` at a safe
+    point and — when the safe point consumes the window — resets for the
+    next one.  Peeking at a non-safe point leaves the window accumulating,
+    so a decision gated on checkpoint ticks sees everything since the
+    previous tick.
+    """
+
+    def __init__(self, consumer: str = ""):
+        self.consumer = consumer
+        self._reset()
+
+    def _reset(self) -> None:
+        self._records = 0.0
+        self._shuffle_overflow = 0
+        self._migration_overflow = 0
+        self._exchange_rows = 0
+        self._exchange_padded_rows = 0
+        self._exchange_occupied_rows: int | None = None
+        self._exchange_wall_s = 0.0
+        self._lane_overflow: np.ndarray | None = None
+        # exchanges recorded this window whose count fields may still live
+        # on device — folded (one host fetch each) at the next snapshot, so
+        # recording never blocks between safe points
+        self._pending_stats: list[ExchangeStats] = []
+        # the window clock starts at the first recording, not at reset:
+        # setup/idle time between construction (or a checkpoint) and the
+        # next batch must not read as a throughput collapse
+        self._t0: float | None = None
+
+    def _touch(self) -> None:
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+
+    # -- recording hooks (called during normal work) -----------------------
+    def record_batch(self, records: float) -> None:
+        self._touch()
+        self._records += float(records)
+
+    def record_exchange(self, stats: ExchangeStats) -> None:
+        """Fold one exchange's :class:`ExchangeStats` into the window.
+
+        ``stats`` is constructed by the plane
+        (``repro_torch.core.shuffle.shuffle_stats`` / ``migrate_stats``), so
+        the job never assembles measurement fields itself.  The count fields
+        may be device values: recording only queues the record, and the host
+        fetch happens at the next :meth:`snapshot` (the safe point)."""
+        self._touch()
+        self._exchange_wall_s += float(stats.wall_s)
+        self._pending_stats.append(stats)
+
+    def _flush_pending(self) -> None:
+        """Fold the queued exchange records' count fields — the one place
+        device telemetry becomes host ints, inside a safe-point region."""
+        if not self._pending_stats:
+            return
+        with safe_point():
+            for stats in self._pending_stats:
+                rows = int(host_fetch(stats.rows))
+                self._exchange_rows += rows
+                self._exchange_padded_rows += (
+                    rows if stats.padded_rows is None
+                    else int(host_fetch(stats.padded_rows))
+                )
+                add = (rows if stats.occupied_rows is None
+                       else int(host_fetch(stats.occupied_rows)))
+                self._exchange_occupied_rows = (
+                    add if self._exchange_occupied_rows is None
+                    else self._exchange_occupied_rows + add
+                )
+                if stats.lane_overflow is not None:
+                    v = np.asarray(host_fetch(stats.lane_overflow), np.int64)
+                    self._lane_overflow = (v.copy() if self._lane_overflow is None
+                                           else self._lane_overflow + v)
+        self._pending_stats.clear()
+
+    def record_overflow(self, shuffle: int = 0, migration: int = 0) -> None:
+        self._touch()
+        self._shuffle_overflow += int(shuffle)
+        self._migration_overflow += int(migration)
+
+    # -- safe point --------------------------------------------------------
+    def snapshot(
+        self,
+        loads: np.ndarray,
+        *,
+        num_workers: int = 1,
+        state_rows: int = 0,
+        at_safe_point: bool = True,
+    ) -> Signals:
+        self._flush_pending()
+        sig = Signals(
+            loads=np.asarray(loads, np.float64),
+            num_workers=int(num_workers),
+            records=self._records,
+            window_wall_s=(max(time.perf_counter() - self._t0, 0.0)
+                           if self._t0 is not None else 0.0),
+            shuffle_overflow=self._shuffle_overflow,
+            migration_overflow=self._migration_overflow,
+            exchange_rows=self._exchange_rows,
+            exchange_padded_rows=self._exchange_padded_rows,
+            exchange_occupied_rows=self._exchange_occupied_rows,
+            exchange_wall_s=self._exchange_wall_s,
+            lane_overflow=self._lane_overflow,
+            state_rows=int(state_rows),
+            at_safe_point=at_safe_point,
+            consumer=self.consumer,
+        )
+        if at_safe_point:
+            self._reset()
+        return sig

@@ -1,0 +1,402 @@
+"""Dynamic Repartitioning Master — host of the control-plane policy stack.
+
+Lives in the driver process.  Per safe point it
+
+1. merges the DRW local histograms into the global counter sketch,
+2. runs the policy stack over the window's
+   :class:`~repro_torch.control.Signals` (``evaluate``) in the reference's
+   precedence — health, resize, split, repartition, backend — and
+3. records every decision, declined ones included, in the
+   :class:`~repro_torch.control.DecisionLog`, handing taken actions back to
+   the driver to execute at the safe point.
+
+A port of ``repro.core.drm`` for the default-config path: every
+``DRConfig`` field and its validation are copied; the features the slice
+does not run yet (:data:`UNPORTED`) raise ``NotImplementedError`` at
+construction.  Snapshots carry the reference's keys, so they round-trip
+between the packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.control.actions import Action, NoOp, Repartition
+from repro_torch.control.health import HealthPolicy
+from repro_torch.control.log import DecisionLog
+from repro_torch.control.policy import (
+    BackendPolicy,
+    RepartitionPolicy,
+    ResizePolicy,
+    SplitPolicy,
+)
+from repro_torch.control.signals import Signals
+from repro_torch.core.histogram import CounterSketch
+from repro_torch.core.partitioner import Partitioner
+from repro_torch.exchange.backends import resolve_backend
+
+__all__ = ["DRConfig", "DRDecision", "DRMaster", "UNPORTED"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DRConfig:
+    """Control-plane configuration for the DR module (one frozen record).
+
+    Most fields tune one policy each (see the inline comments); the
+    exchange-pipeline knobs interact and deserve spelling out:
+
+    * ``overlap_exchange`` (default on) — the streaming driver issues batch
+      N+1's route/count phase before batch N's row ship drains (pipeline
+      depth 1 of latency hiding).  Bit-identical to the serial driver by
+      construction.
+    * ``pipeline_depth`` — ``1`` keeps the ship-behind-host-work overlap;
+      ``2`` additionally pre-routes batch N+1 (route -> bucketize -> start)
+      before batch N's decision section runs, so the device pipeline holds
+      two in-flight stages and the per-batch start sync costs ~nothing.
+      Any taken control action first drains *both* stages and replays the
+      pre-routed batch under the new partitioner, so trajectories stay
+      bit-identical to serial.  Values outside ``{1, 2}`` raise
+      ``ValueError`` at construction.  Depth 2 engages only in
+      ``StreamingJob.run`` (the driver needs one batch of lookahead);
+      direct ``process_batch`` calls degrade gracefully to depth 1.
+    * ``split_least_load`` — replica pick for split hot keys: off (default)
+      every route uses the stateless fmix32 offset; on, the lower-loaded of
+      two hashed replica candidates (not ported yet).
+
+    Every field and its validation are the reference's; the port's
+    :class:`DRMaster` runs the default-config path and raises
+    ``NotImplementedError`` for the features it does not run yet (see
+    :data:`UNPORTED`).
+    """
+
+    lam: float = 2.0                 # histogram scale factor: B = lam * N
+    eps: float = 0.01                # KIP load slack
+    ewma_alpha: float = 0.5          # weight of the newest histogram
+    sketch_capacity: int = 512       # DRM counter sketch size
+    sketch_decay: float = 0.9
+    imbalance_trigger: float = 1.2   # repartition when measured imb exceeds
+    migration_cost_weight: float = 1.0  # batches of gain a migration must pay for
+    min_batches_between: int = 1     # safe-point spacing (1 = every boundary)
+    mode: str = "stream"             # "stream" | "batch" (replay-once)
+    tight: bool = True               # waterfilled host re-binning (beyond-paper;
+                                     # False = faithful Algorithm 1 packing)
+    # -- elastic resize: grow/shrink the partition (logical worker) count --
+    elastic: bool = False            # let the DRM decide to resize
+    min_partitions: int = 1          # shrink floor (also floored at num_workers)
+    max_partitions: int = 256        # grow ceiling
+    grow_trigger: float = 1.5        # sustained imbalance above this => grow
+    shrink_trigger: float = 1.05     # sustained imbalance below this => shrink
+    resize_patience: int = 2         # consecutive safe points before acting
+    resize_factor: int = 2           # grow/shrink multiplies/divides by this
+    # -- control-plane hysteresis + capacity-target signal -----------------
+    resize_cooldown: int = 0         # min safe points between resizes (0 = off);
+                                     # the oscillation guard on top of patience
+    target_throughput: float = 0.0   # per-worker records/s capacity target;
+                                     # sustained below => shrink even if the
+                                     # imbalance sits in the trigger dead zone
+    # -- exchange-transport actuator (dense <-> ragged auto-selection) -----
+    auto_backend: bool = False       # let the BackendPolicy flip the transport
+    backend_ragged_below: float = 0.5  # dense -> ragged when the padding
+                                     # fraction stays below this
+    backend_dense_above: float = 0.9 # ragged -> dense when it stays above
+                                     # (the gap between the two is the dead
+                                     # zone that stops threshold straddling)
+    backend_patience: int = 2        # consecutive safe points before flipping
+    backend_cooldown: int = 0        # min safe points between flips (0 = off)
+    # -- hot-key splitting (Partial-Key-Grouping as a control action) ------
+    split_keys_enabled: bool = False # let the SplitPolicy replicate hot keys
+    split_max_replicas: int = 8      # fan-out ceiling per split key
+    split_trigger: float = 1.3       # split when the top key's share alone
+                                     # exceeds this many worker fair budgets
+    unsplit_trigger: float = 0.8     # collapse a split key cooled below this
+                                     # (the gap to split_trigger is the dead
+                                     # zone that stops split/unsplit churn)
+    split_patience: int = 2          # consecutive safe points before acting
+    split_cooldown: int = 0          # min safe points between split actions
+    # -- split-phase exchange overlap --------------------------------------
+    overlap_exchange: bool = True    # issue batch N+1's route/count phase
+                                     # before batch N's row ship drains
+                                     # (bit-identical to serial; the
+                                     # port runs the serial driver)
+    pipeline_depth: int = 1          # 1 = ship-behind-host-work overlap;
+                                     # 2 = additionally pre-route batch N+1
+                                     # before batch N's decision section
+                                     # (see the class docstring)
+    split_least_load: bool = False   # two-choice least-load replica pick
+                                     # for split hot keys
+    # -- failure domains: auto-snapshots, replay, lane health --------------
+    snapshot_interval: int = 0       # auto-snapshot every N batches (0 = off);
+                                     # also bounds the zero-loss replay
+                                     # buffer — a worker loss restores the
+                                     # last snapshot and replays at most
+                                     # this many batches
+    health_enabled: bool = False     # let the HealthPolicy act on per-lane
+                                     # straggle/failure evidence
+    health_straggler_ms: float = 50.0  # quarantine when a lane's straggle
+                                     # EWMA stays past this many ms
+    health_failure_threshold: int = 3  # evict after this many *consecutive*
+                                     # failed windows on one lane
+    health_patience: int = 2         # consecutive sick safe points before
+                                     # a health action may fire
+    health_cooldown: int = 0         # min safe points between health
+                                     # actions (0 = off)
+    health_recover_after: int = 0    # probe (re-admit) a quarantined lane
+                                     # after this many safe points
+                                     # (0 = never re-admit)
+
+    def __post_init__(self):
+        if self.pipeline_depth not in (1, 2):
+            raise ValueError(
+                f"pipeline_depth must be 1 (ship-behind-host-work overlap) or "
+                f"2 (batch-ahead route), got {self.pipeline_depth!r}"
+            )
+        # knob relationships are validated unconditionally — a config whose
+        # dead zones are inverted is wrong even while its feature flag is off
+        if self.grow_trigger <= self.shrink_trigger:
+            raise ValueError(
+                "elastic resize needs a trigger-gap dead zone: "
+                f"grow_trigger {self.grow_trigger} <= shrink_trigger "
+                f"{self.shrink_trigger}"
+            )
+        if self.backend_ragged_below >= self.backend_dense_above:
+            raise ValueError(
+                "backend auto-selection needs a threshold dead zone: "
+                f"backend_ragged_below {self.backend_ragged_below} >= "
+                f"backend_dense_above {self.backend_dense_above}"
+            )
+        if self.split_trigger <= self.unsplit_trigger:
+            raise ValueError(
+                "hot-key splitting needs a trigger-gap dead zone: "
+                f"split_trigger {self.split_trigger} <= "
+                f"unsplit_trigger {self.unsplit_trigger}"
+            )
+        for knob in ("min_batches_between", "resize_patience",
+                     "resize_cooldown", "backend_patience",
+                     "backend_cooldown", "split_patience", "split_cooldown",
+                     "snapshot_interval", "health_patience",
+                     "health_cooldown", "health_recover_after",
+                     "health_straggler_ms", "target_throughput"):
+            if getattr(self, knob) < 0:
+                raise ValueError(
+                    f"{knob} must be >= 0, got {getattr(self, knob)!r}")
+        if self.health_failure_threshold < 1:
+            raise ValueError(
+                "health_failure_threshold must be >= 1 (0 would evict a "
+                f"healthy lane), got {self.health_failure_threshold!r}")
+
+
+
+@dataclasses.dataclass(frozen=True)
+class DRDecision:
+    repartition: bool
+    partitioner: Partitioner
+    planned_imbalance: float
+    measured_imbalance: float
+    est_migration: float
+    reason: str
+
+
+# (DRConfig field, test that it asks for an unported feature, ROADMAP item)
+UNPORTED = (
+    ("elastic", lambda v: bool(v), "queue 1 item 6 (ResizePolicy)"),
+    ("split_keys_enabled", lambda v: bool(v), "queue 1 item 6 (SplitPolicy)"),
+    ("auto_backend", lambda v: bool(v), "queue 1 item 6 (BackendPolicy)"),
+    ("health_enabled", lambda v: bool(v), "queue 1 item 7 (failure domains)"),
+    ("split_least_load", lambda v: bool(v), "queue 1 item 2 (two-choice pick)"),
+    ("snapshot_interval", lambda v: v > 0, "queue 1 item 7 (zero-loss recovery)"),
+    ("pipeline_depth", lambda v: v == 2, "queue 1 item 7 (depth-2 staging)"),
+)
+
+_HEALTH_KEYS = ("health_num_lanes", "quarantined_lane", "quarantined_tick",
+                "last_health_action")
+
+
+def _reject_unported(config: DRConfig) -> None:
+    for field, asks, item in UNPORTED:
+        value = getattr(config, field)
+        if asks(value):
+            raise NotImplementedError(
+                f"DRConfig.{field}={value!r} is not ported yet (ROADMAP.md, {item})")
+
+
+class DRMaster:
+    def __init__(self, initial: Partitioner, config: DRConfig = DRConfig(),
+                 *, consumer: str = "stream", exchange_backend=None,
+                 exchange_topology=None):
+        _reject_unported(config)
+        if exchange_topology is not None:
+            raise NotImplementedError(
+                "ExchangeTopology is not ported yet (ROADMAP.md, queue 1 item 4)")
+        self.config = config
+        self.partitioner = initial
+        # the transport the hosted runtime exchanges through — its sizing
+        # rule prices candidate migration plans.  None = dense.
+        self.exchange_backend = resolve_backend(exchange_backend)
+        self.exchange_topology = None
+        self.sketch = CounterSketch(config.sketch_capacity, decay=config.sketch_decay)
+        self.batches_seen = 0
+        self.last_repartition = -(10**9)
+        self.last_resize = -(10**9)
+        self.last_backend_switch = -(10**9)
+        self.history: list[dict] = []
+        # policy state the disabled policies would carry, kept so snapshots
+        # hold the reference's keys and values
+        self.grow_streak = 0
+        self.shrink_streak = 0
+        self.backend_streak = 0
+        self.split_keys: dict[int, int] = dict(initial.split_map())
+        self.split_streak = 0
+        self.last_split = -(10**9)
+        self.repartition_policy = RepartitionPolicy()
+        self.resize_policy = ResizePolicy()
+        self.backend_policy = BackendPolicy()
+        self.split_policy = SplitPolicy()
+        self.health_policy = HealthPolicy()
+        self.decisions = DecisionLog(consumer)
+
+    # -- DRW ingestion ------------------------------------------------------
+    def observe(self, hist_keys: np.ndarray, hist_counts: np.ndarray,
+                total_records: float | None = None) -> None:
+        """Merge stacked worker histograms [W, K] into the DRM sketch.
+
+        ``total_records`` is the true number of records the workers saw
+        (top-k summaries undercount the tail mass)."""
+        k = np.asarray(hist_keys).reshape(-1)
+        c = np.asarray(hist_counts).reshape(-1).astype(np.float64)
+        m = (k >= 0) & (c > 0)
+        if m.any():
+            keys, inv = np.unique(k[m], return_inverse=True)
+            counts = np.zeros(len(keys))
+            np.add.at(counts, inv, c[m])
+            self.sketch.update_counts(keys.astype(np.int64), counts, total=total_records)
+
+    # -- the one safe-point entry -------------------------------------------
+    def evaluate(self, signals: Signals, *, requested_resize: int | None = None,
+                 policies_enabled: bool = True) -> Action:
+        """Run the policy stack over one safe point's signals (the
+        reference's precedence; with the default config health, resize,
+        split and backend decline as disabled and the repartition policy
+        decides).  Every safe-point outcome lands in :attr:`decisions`."""
+        n = self.partitioner.num_partitions
+        detail: dict = {}
+        if not signals.at_safe_point:
+            return NoOp("not-checkpoint-tick", signals.imbalance)
+        if requested_resize is not None and int(requested_resize) != n:
+            raise NotImplementedError(
+                "elastic resize is not ported yet (ROADMAP.md, queue 1 item 6)")
+        if not policies_enabled:
+            action = NoOp("dr-disabled", signals.imbalance)
+        else:
+            action = self.health_policy.evaluate(self, signals)
+            if action.reason != "health-disabled":
+                detail["health_declined"] = action.reason
+            action = self.resize_policy.evaluate(self, signals)
+            if action.reason != "elastic-disabled":
+                detail["resize_declined"] = action.reason
+            action = self.split_policy.evaluate(self, signals)
+            if action.reason != "split-disabled":
+                detail["split_declined"] = action.reason
+            action = self.repartition_policy.evaluate(self, signals)
+            if isinstance(action, Repartition):
+                self._install(action)
+            else:
+                switch = self.backend_policy.evaluate(self, signals)
+                if switch.reason != "auto-backend-disabled":
+                    detail["backend_declined"] = switch.reason
+        self.decisions.record(action, tick=self.batches_seen,
+                              imbalance=signals.imbalance, detail=detail)
+        return action
+
+    def _install(self, action: Repartition) -> None:
+        """Swap in a taken repartition at the safe point (DRM bookkeeping)."""
+        self.partitioner = action.partitioner
+        if self.split_keys:
+            self.partitioner = self.partitioner.with_splits(self.split_keys)
+        self.last_repartition = self.batches_seen
+        d = DRDecision(True, action.partitioner, action.planned_imbalance,
+                       action.measured_imbalance, action.est_migration, "repartition")
+        self.history.append(dataclasses.asdict(d) | {"batch": self.batches_seen})
+
+    # -- checkpoint integration ----------------------------------------------
+    def snapshot(self) -> dict:
+        """The reference's DRM snapshot keys (flat: no topology or health)."""
+        p = self.partitioner
+        split_items = sorted(self.split_keys.items())
+        return {
+            "num_partitions": p.num_partitions,
+            "heavy_keys": p.heavy_keys,
+            "heavy_parts": p.heavy_parts,
+            "host_to_part": p.host_to_part,
+            "seed": p.seed,
+            "heavy_repl": (p.heavy_repl if p.heavy_repl is not None
+                           else np.ones(p.heavy_keys.shape[0], np.int32)),
+            "split_keys": np.asarray([k for k, _ in split_items], np.int64),
+            "split_repl": np.asarray([d for _, d in split_items], np.int64),
+            "last_split": np.int64(self.last_split),
+            "split_streak": np.int64(self.split_streak),
+            # copies: the sketch decays its counts in place, which would
+            # otherwise rewrite a snapshot kept while the job runs on
+            "sketch_keys": self.sketch._keys.copy(),
+            "sketch_counts": self.sketch._counts.copy(),
+            "sketch_floor": np.float64(self.sketch._floor),
+            "sketch_total": np.float64(self.sketch.total),
+            "batches_seen": np.int64(self.batches_seen),
+            "last_repartition": np.int64(self.last_repartition),
+            "last_resize": np.int64(self.last_resize),
+            "grow_streak": np.int64(self.grow_streak),
+            "shrink_streak": np.int64(self.shrink_streak),
+            "last_backend_switch": np.int64(self.last_backend_switch),
+            "backend_streak": np.int64(self.backend_streak),
+            "exchange_backend": np.str_(self.exchange_backend.name),
+            **self.decisions.to_arrays(),
+        }
+
+    @classmethod
+    def restore(cls, snap: dict, config: DRConfig = DRConfig()) -> "DRMaster":
+        """Rebuild a master from a snapshot of either package.  Raises on keys
+        of features this port does not run yet (topology, lane health)."""
+        topo = sorted(k for k in snap if k.startswith("topology_"))
+        if topo:
+            raise NotImplementedError(
+                f"snapshot carries {topo}: ExchangeTopology is not ported yet "
+                "(ROADMAP.md, queue 1 item 4)")
+        health = sorted(k for k in snap if k in _HEALTH_KEYS or k.startswith("health_"))
+        if health:
+            raise NotImplementedError(
+                f"snapshot carries {health}: lane health is not ported yet "
+                "(ROADMAP.md, queue 1 item 7)")
+        p = Partitioner(
+            int(snap["num_partitions"]),
+            np.asarray(snap["heavy_keys"]),
+            np.asarray(snap["heavy_parts"]),
+            np.asarray(snap["host_to_part"]),
+            int(snap["seed"]),
+            heavy_repl=(np.asarray(snap["heavy_repl"], np.int32)
+                        if "heavy_repl" in snap else None),
+        )
+        drm = cls(p, config, consumer=str(snap.get("decisions_consumer", "stream")),
+                  exchange_backend=str(snap["exchange_backend"])
+                  if "exchange_backend" in snap else None)
+        drm.sketch._keys = np.array(snap["sketch_keys"])
+        drm.sketch._counts = np.array(snap["sketch_counts"], np.float64)
+        drm.sketch._floor = float(snap["sketch_floor"])
+        drm.sketch.total = float(snap["sketch_total"])
+        drm.batches_seen = int(snap["batches_seen"])
+        if "last_repartition" in snap:
+            drm.last_repartition = int(snap["last_repartition"])
+        drm.last_resize = int(snap.get("last_resize", -(10**9)))
+        drm.grow_streak = int(snap.get("grow_streak", 0))
+        drm.shrink_streak = int(snap.get("shrink_streak", 0))
+        drm.last_backend_switch = int(snap.get("last_backend_switch", -(10**9)))
+        drm.backend_streak = int(snap.get("backend_streak", 0))
+        if "split_keys" in snap:
+            drm.split_keys = dict(zip(
+                np.asarray(snap["split_keys"]).astype(int).tolist(),
+                np.asarray(snap["split_repl"]).astype(int).tolist(),
+            ))
+        drm.last_split = int(snap.get("last_split", -(10**9)))
+        drm.split_streak = int(snap.get("split_streak", 0))
+        if "decisions_tick" in snap:
+            drm.decisions = DecisionLog.from_arrays(snap)
+        return drm

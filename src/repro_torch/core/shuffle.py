@@ -1,0 +1,191 @@
+"""Keyed shuffle and state migration over stacked workers.
+
+One shuffle step, for W workers held as ``[W, n_local]`` tensors on one
+device, built on the exchange plane (:mod:`repro_torch.exchange`):
+
+1. every worker routes its local keys with the fused
+   route -> slot -> bucketize pass (the ``route_bucketize`` CUDA kernel on
+   the card, its plain version on the CPU),
+2. the dense backend's all-to-all (the lane/worker transpose) moves the
+   ``[W, L, cap]`` send buffers and they are unpacked,
+3. the DRW hook emits each worker's top-k histogram and the global
+   per-partition loads.
+
+State migration (:func:`make_migrate_step`) is the same exchange with lanes
+sized by the planner (``migration_capacity``), routed by the
+``lookup_dispatch`` kernel at worker granularity.  Both are the fused
+serial steps of ``repro.core.shuffle``; the split ``start`` / ``finish``
+halves and the send-buffer pool of the overlapped driver are not ported
+yet.  Partitions may outnumber workers; ``worker = partition % W``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashing import KEY_SENTINEL
+from repro_torch.core.histogram import local_topk_histogram
+from repro_torch.core.partitioner import PartitionerTables
+from repro_torch.exchange import (
+    ExchangeSpec,
+    ExchangeStats,
+    Payload,
+    make_exchange,
+    route_bucketize,
+    route_dispatch,
+)
+from repro_torch.exchange.spec import DISTANCE_CLASSES
+
+__all__ = [
+    "MigrateResult",
+    "ShuffleResult",
+    "make_migrate_step",
+    "make_shuffle_step",
+    "migrate_stats",
+    "shuffle_stats",
+]
+
+_SENT = int(KEY_SENTINEL)
+
+
+class ShuffleResult(NamedTuple):
+    keys: torch.Tensor       # int32[W, W*cap]   received keys per worker (sentinel padded)
+    values: torch.Tensor     # f32[W, W*cap, D]  received payloads
+    valid: torch.Tensor      # bool[W, W*cap]
+    part: torch.Tensor       # int32[W, W*cap]   destination partition of each record
+    loads: torch.Tensor      # int64[N]          global per-partition record counts
+    hist_keys: torch.Tensor  # int32[W, K]       DRW local top-k keys
+    hist_counts: torch.Tensor  # int32[W, K]
+    overflow: torch.Tensor   # int64[]           records dropped for capacity globally
+    lane_overflow: torch.Tensor  # int32[W]      global per-lane capacity drops
+    shipped_rows: torch.Tensor   # int64[]       rows the backend moved, all workers
+    shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
+
+
+class MigrateResult(NamedTuple):
+    kept_keys: torch.Tensor   # int32[W, S] rows staying put (moved rows -> sentinel)
+    kept_vals: torch.Tensor   # f32[W, S, D]
+    kept_valid: torch.Tensor  # bool[W, S]
+    recv_keys: torch.Tensor   # int32[W, W*cap]
+    recv_vals: torch.Tensor   # f32[W, W*cap, D]
+    recv_valid: torch.Tensor  # bool[W, W*cap]
+    moved: torch.Tensor       # int64[] rows that crossed workers
+    total: torch.Tensor       # int64[] live state rows
+    overflow: torch.Tensor    # int64[] rows dropped for lane capacity
+    lane_overflow: torch.Tensor  # int32[W]
+    shipped_rows: torch.Tensor   # int64[]
+    shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
+
+
+def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
+                      hist_k: int = 64, num_hosts: int, seed: int = 0,
+                      backend=None):
+    """Build the shuffle step for a fixed worker count and lane capacity:
+    ``step(tables, keys[W, n], vals[W, n, D], valid[W, n]) -> ShuffleResult``.
+    """
+    ex = make_exchange(ExchangeSpec(num_lanes=num_workers, capacity=capacity,
+                                    axis="data"), backend)
+
+    def step(tables: PartitionerTables, keys, vals, valid) -> ShuffleResult:
+        part, buffers = route_bucketize(
+            ex, tables, keys, valid, vals, num_hosts=num_hosts, seed=seed,
+            num_partitions=num_partitions)
+        dest = torch.where(valid, part, 0).to(torch.int64)
+        hk, hc, _ = local_topk_histogram(keys, valid, hist_k)
+        loads = torch.zeros(num_partitions, dtype=torch.int64, device=keys.device)
+        loads.index_add_(0, dest.reshape(-1), valid.reshape(-1).to(torch.int64))
+        res = ex.all_to_all(buffers)
+        rva, (rk, rv, rp) = res.unpack()
+        send = buffers.send
+        return ShuffleResult(
+            rk, rv, rva, rp, loads, hk, hc, send.overflow.sum(),
+            send.lane_overflow.sum(dim=0), res.shipped_rows.sum(),
+            torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=keys.device))
+
+    step.exchange = ex
+    return step
+
+
+def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
+                      lane_capacity: int | None = None, seed: int = 0,
+                      spec: ExchangeSpec | None = None, backend=None):
+    """Operator-state migration for a partitioner swap:
+    ``migrate(new_tables, state_keys[W, S], state_vals[W, S, D]) ->
+    MigrateResult``.
+
+    Each worker re-evaluates the new partitioner on its stored keys (home
+    routing: ``num_partitions`` stays 0 so split partials converge) and
+    ships rows whose worker changed; rows on lane ``me`` stay put, so that
+    lane's count is zeroed before the bucketize.  ``lane_capacity`` bounds
+    the per-(src, dst) rows (default: the full state table)."""
+    if spec is None:
+        cap = state_capacity if lane_capacity is None else min(lane_capacity, state_capacity)
+        spec = ExchangeSpec(num_lanes=num_workers, capacity=cap, axis="data")
+    ex = make_exchange(spec, backend)
+
+    def migrate(new_tables: PartitionerTables, state_keys, state_vals) -> MigrateResult:
+        dev = state_keys.device
+        me = torch.arange(num_workers, device=dev, dtype=torch.int32)[:, None]
+        valid = state_keys != _SENT
+        part, slot, counts = route_dispatch(
+            new_tables, state_keys, valid, num_hosts=num_hosts, seed=seed,
+            num_lanes=num_workers)
+        dest = torch.where(valid, part % num_workers, me)
+        moving = valid & (dest != me)
+        counts = counts.clone()
+        counts.diagonal().zero_()
+        buffers = ex.bucketize(
+            torch.where(moving, dest, me), moving,
+            [Payload(torch.where(moving, state_keys, _SENT), _SENT),
+             Payload(state_vals, 0)],
+            slot=slot, counts=counts)
+        res = ex.all_to_all(buffers)
+        rva, (rk, rv) = res.unpack()
+        send = buffers.send
+        return MigrateResult(
+            torch.where(moving, _SENT, state_keys), state_vals, valid & ~moving,
+            rk, rv, rva, moving.sum(), valid.sum(), send.overflow.sum(),
+            send.lane_overflow.sum(dim=0), res.shipped_rows.sum(),
+            torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=dev))
+
+    migrate.exchange = ex
+    return migrate
+
+
+# ---------------------------------------------------------------------------
+# Plane-side telemetry constructors (host records for Telemetry).
+# ---------------------------------------------------------------------------
+
+
+def shuffle_stats(res: ShuffleResult, spec: ExchangeSpec, num_workers: int, *,
+                  wall_s: float = 0.0) -> ExchangeStats:
+    """:class:`ExchangeStats` for one shuffle step: rows per worker (the
+    global counters divided by ``num_workers``), ``padded`` the spec's
+    per-worker provision.  Reads device counters, so call it at a safe
+    point."""
+    shipped = int(res.shipped_rows) // num_workers
+    occupied = max(int(res.loads.sum()) - int(res.overflow), 0) // num_workers
+    return ExchangeStats(
+        rows=shipped,
+        wall_s=wall_s,
+        padded_rows=spec.rows,
+        occupied_rows=occupied,
+        lane_overflow=res.lane_overflow.cpu().numpy(),
+    )
+
+
+def migrate_stats(*, shipped_rows, buffer_rows: int, moved_rows: int, overflow: int,
+                  num_workers: int, lane_overflow=None,
+                  wall_s: float = 0.0) -> ExchangeStats:
+    """:class:`ExchangeStats` for one state migration: ``buffer_rows`` is the
+    per-worker lane provision, ``moved_rows`` the rows that crossed
+    workers (globally summed, like ``shipped_rows`` and ``overflow``)."""
+    return ExchangeStats(
+        rows=int(shipped_rows) // num_workers,
+        wall_s=wall_s,
+        padded_rows=int(buffer_rows),
+        occupied_rows=max(int(moved_rows) - int(overflow), 0) // num_workers,
+        lane_overflow=None if lane_overflow is None else np.asarray(lane_overflow),
+    )

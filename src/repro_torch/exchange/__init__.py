@@ -1,0 +1,37 @@
+"""Exchange plane for stacked workers — routed all-to-all for the shuffle
+and state migration, split spec + backend.  See
+:mod:`repro_torch.exchange.plane` (binding), :mod:`repro_torch.exchange.spec`
+(shapes) and :mod:`repro_torch.exchange.backends` (transports)."""
+from repro_torch.exchange.backends import (
+    DenseBackend,
+    ExchangeBackend,
+    LocalBackend,
+    resolve_backend,
+)
+from repro_torch.exchange.plane import (
+    Exchange,
+    ExchangeResult,
+    ExchangeSpec,
+    ExchangeStats,
+    Payload,
+    SendInfo,
+    make_exchange,
+    route_bucketize,
+    route_dispatch,
+)
+
+__all__ = [
+    "DenseBackend",
+    "Exchange",
+    "ExchangeBackend",
+    "ExchangeResult",
+    "ExchangeSpec",
+    "ExchangeStats",
+    "LocalBackend",
+    "Payload",
+    "SendInfo",
+    "make_exchange",
+    "resolve_backend",
+    "route_bucketize",
+    "route_dispatch",
+]

@@ -1,0 +1,162 @@
+"""Exchange backends: the *how* of a routed exchange, for stacked workers.
+
+An :class:`ExchangeBackend` implements the plane's verbs — ``bucketize`` /
+``all_to_all`` / ``cost`` — against one
+:class:`~repro_torch.exchange.spec.ExchangeSpec`.  The port's first
+transport keeps all W workers on one device as ``[W, ...]`` tensors, so the
+dense all-to-all is the lane/worker transpose ``[W_src, L, cap] ->
+[L, W_src, cap]``: row ``j`` of worker ``i``'s buffer lands at position
+``i`` of worker ``j``, exactly the tiled all-to-all of
+``repro.exchange.backends.DenseBackend``.
+
+* :class:`DenseBackend` — the capacity-padded all-to-all: every lane ships
+  ``capacity`` rows.
+* :class:`LocalBackend` — ``axis=None``: bucketize only, nothing ships.
+
+The ragged and hierarchical transports and the ``torch.distributed``
+transport are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Protocol, Sequence, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.exchange.spec import ExchangeResult, ExchangeSpec, Payload, SendInfo
+from repro_torch.kernels.ref import dispatch_count_ref, scatter_rows
+
+__all__ = [
+    "DenseBackend",
+    "ExchangeBackend",
+    "LocalBackend",
+    "resolve_backend",
+]
+
+
+@runtime_checkable
+class ExchangeBackend(Protocol):
+    """The verbs every exchange transport implements."""
+
+    name: str
+
+    def bucketize(self, spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
+                  slot=None, counts=None) -> ExchangeResult: ...
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
+
+    def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
+             slack: float = 1.25) -> float: ...
+
+
+def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
+               slot=None, counts=None) -> ExchangeResult:
+    """Scatter records into ``[W, L, capacity]`` buffers; count overflow.
+
+    ``slot`` and ``counts`` may be precomputed (the route kernels emit
+    both); otherwise they come from the plain stable dispatch count.  A
+    valid record is lost either to a full lane or to a lane outside
+    ``[0, num_lanes)`` — both are counted, never silently dropped.
+    """
+    lane = torch.where(valid, lane, torch.zeros_like(lane)).to(torch.int32)
+    if slot is None:
+        slot, counts = dispatch_count_ref(lane, valid, num_parts=spec.num_lanes)
+    w = lane.shape[0]
+    in_range = (lane >= 0) & (lane < spec.num_lanes)
+    ok = valid & in_range & (slot >= 0) & (slot < spec.capacity)
+    overflow = (valid & (~in_range | (slot >= spec.capacity))).sum(dim=1)
+    if counts is not None:
+        # slots run 0..count-1, so the excess over capacity is what dropped
+        lane_overflow = (counts - spec.capacity).clamp(min=0).to(torch.int32)
+    else:
+        lane_overflow = torch.zeros((w, spec.num_lanes), dtype=torch.int32,
+                                    device=lane.device)
+        dropped = valid & in_range & (slot >= spec.capacity)
+        lane_overflow.scatter_add_(1, lane.clamp(0, spec.num_lanes - 1).to(torch.int64),
+                                   dropped.to(torch.int32))
+    shape = (w, spec.num_lanes, spec.capacity)
+    num_cells = w * spec.rows
+    worker = torch.arange(w, device=lane.device, dtype=torch.int64)[:, None]
+    cell = torch.where(ok, (worker * spec.num_lanes + lane) * spec.capacity + slot,
+                       num_cells)
+    buf_valid = scatter_rows(cell, num_cells, ok, False, shape)
+    bufs = tuple(scatter_rows(cell, num_cells, p.data, p.fill, shape) for p in payloads)
+    return ExchangeResult(
+        buf_valid, bufs, SendInfo(lane, slot, ok, overflow, lane_overflow),
+        shipped_rows=torch.zeros(w, dtype=torch.int64, device=lane.device),
+    )
+
+
+class DenseBackend:
+    """The capacity-padded transport: the stacked lane/worker transpose."""
+
+    name = "dense"
+
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts)
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """Row ``j`` of worker ``i`` -> position ``i`` of worker ``j``."""
+        if spec.axis is None:
+            return buffers
+        w = buffers.valid.shape[0]
+        if w != spec.num_lanes:
+            raise ValueError(f"stacked all-to-all needs one lane per worker: "
+                             f"{w} workers, {spec.num_lanes} lanes")
+        return buffers._replace(
+            valid=buffers.valid.transpose(0, 1).contiguous(),
+            payloads=tuple(b.transpose(0, 1).contiguous() for b in buffers.payloads),
+            shipped_rows=torch.full((w,), spec.rows, dtype=torch.int64,
+                                    device=buffers.valid.device),
+        )
+
+    def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
+             slack: float = 1.25) -> float:
+        """Every lane provisions (and ships) the peak planned lane mass."""
+        plan_rows = np.asarray(plan_rows, np.float64)
+        if plan_rows.size == 0:
+            return 0.0
+        return float(plan_rows.max()) * slack
+
+
+class LocalBackend:
+    """``axis=None`` fast path: bucketize only, no collective, nothing ships."""
+
+    name = "local"
+
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts)
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        if spec.axis is not None:
+            raise ValueError(f"LocalBackend cannot cross worker axis {spec.axis!r}; "
+                             "use the dense backend")
+        return buffers
+
+    def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
+             slack: float = 1.25) -> float:
+        return 0.0
+
+
+_BACKENDS = {"dense": DenseBackend, "local": LocalBackend}
+_NOT_PORTED = ("ragged", "hierarchical")
+
+
+def resolve_backend(backend, spec: ExchangeSpec | None = None) -> ExchangeBackend:
+    """Turn a backend name (or instance, or ``None``) into an instance;
+    ``None`` is local for an ``axis=None`` spec, else dense."""
+    if backend is None:
+        return LocalBackend() if spec is not None and spec.axis is None else DenseBackend()
+    if isinstance(backend, str):
+        if backend in _NOT_PORTED:
+            raise NotImplementedError(
+                f"the {backend} exchange backend is not ported yet "
+                "(ROADMAP.md, queue 1 item 4)")
+        try:
+            return _BACKENDS[backend]()
+        except KeyError:
+            raise ValueError(
+                f"unknown exchange backend {backend!r}; have {sorted(_BACKENDS)}"
+            ) from None
+    return backend
+

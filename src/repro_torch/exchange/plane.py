@@ -1,0 +1,110 @@
+"""The exchange plane: ``route -> bucketize -> all_to_all -> unpack`` for
+stacked workers.
+
+An :class:`~repro_torch.exchange.spec.ExchangeSpec` names the static shape
+of one exchange, an :class:`~repro_torch.exchange.backends.ExchangeBackend`
+moves the buffers, and :class:`Exchange` binds the two for the consumers —
+the micro-batch shuffle and the state migration (``repro_torch.core.
+shuffle``).  The routing hot path always goes through the route kernels'
+wrappers (:mod:`repro_torch.kernels.ops`): the CUDA kernels on the card,
+their plain PyTorch versions on the CPU.
+
+The reference's split ``start`` / ``finish`` halves (the overlapped
+driver's seam) are not ported yet; the fused call is what the serial
+driver runs.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.hashing import KEY_SENTINEL
+from repro_torch.core.partitioner import PartitionerTables
+from repro_torch.exchange.backends import ExchangeBackend, resolve_backend
+from repro_torch.exchange.spec import (
+    ExchangeResult,
+    ExchangeSpec,
+    ExchangeStats,
+    Payload,
+    SendInfo,
+)
+from repro_torch.kernels import ops
+
+__all__ = [
+    "Exchange",
+    "ExchangeResult",
+    "ExchangeSpec",
+    "ExchangeStats",
+    "Payload",
+    "SendInfo",
+    "make_exchange",
+    "route_bucketize",
+    "route_dispatch",
+]
+
+
+def route_dispatch(tables: PartitionerTables, keys, valid, *, num_hosts: int,
+                   seed: int, num_lanes: int, num_partitions: int = 0):
+    """Fused key -> partition lookup + lane slot assignment (the
+    ``lookup_dispatch`` kernel): ``(part[W, n], slot[W, n], counts[W, L])``.
+
+    ``num_partitions > 0`` activates hot-key splitting; the migration path
+    leaves it 0 so every key routes to its home."""
+    return ops.route_slots(keys, valid, tables, num_hosts=num_hosts, seed=seed,
+                           num_lanes=num_lanes, num_partitions=num_partitions)
+
+
+def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid, vals,
+                    *, num_hosts: int, seed: int, key_fill: int = int(KEY_SENTINEL),
+                    num_partitions: int = 0):
+    """Fused route -> bucketize for the shuffle's ``(keys, vals, part)``
+    payload triple (the ``route_bucketize`` kernel).
+
+    Returns ``(part[W, n], buffers)`` — the per-record partition ids plus a
+    bucketized :class:`ExchangeResult` ready for the collective."""
+    spec = exchange.spec
+    part, slot, counts, buf_valid, bk, bv, bp = ops.route_bucketize(
+        keys, valid, tables, vals, num_hosts=num_hosts, seed=seed,
+        num_lanes=spec.num_lanes, capacity=spec.capacity, key_fill=key_fill,
+        num_partitions=num_partitions)
+    lane = torch.where(valid, part % spec.num_lanes, 0).to(torch.int32)
+    ok = valid & (slot >= 0) & (slot < spec.capacity)
+    # lanes are `part % L`, always in range: the capacity drops per lane
+    # (and their sum) fall out of the dispatch counts
+    lane_overflow = (counts - spec.capacity).clamp(min=0).to(torch.int32)
+    overflow = lane_overflow.sum(dim=1)
+    buffers = ExchangeResult(
+        buf_valid, (bk, bv, bp),
+        SendInfo(lane, slot, ok, overflow, lane_overflow),
+        shipped_rows=torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device),
+    )
+    return part, buffers
+
+
+class Exchange:
+    """One :class:`ExchangeSpec` bound to one :class:`ExchangeBackend`."""
+
+    def __init__(self, spec: ExchangeSpec, backend: str | ExchangeBackend | None = None):
+        self.spec = spec
+        self.backend = resolve_backend(backend, spec)
+
+    def bucketize(self, lane, valid, payloads: Sequence[Payload], slot=None,
+                  counts=None) -> ExchangeResult:
+        """Build the lane-major ``[W, L, capacity]`` send buffers."""
+        return self.backend.bucketize(self.spec, lane, valid, payloads,
+                                      slot=slot, counts=counts)
+
+    def all_to_all(self, buffers: ExchangeResult) -> ExchangeResult:
+        return self.backend.all_to_all(self.spec, buffers)
+
+    def __call__(self, lane, valid, payloads: Sequence[Payload], slot=None,
+                 counts=None) -> ExchangeResult:
+        return self.all_to_all(self.bucketize(lane, valid, payloads, slot=slot,
+                                              counts=counts))
+
+
+def make_exchange(spec: ExchangeSpec, backend: str | ExchangeBackend | None = None) -> Exchange:
+    """Build the exchange primitive for one static spec (``"dense"`` /
+    ``"local"``, an instance, or ``None`` to auto-select)."""
+    return Exchange(spec, backend)

@@ -1,0 +1,118 @@
+"""Fused partition lookup + lane slot (``lookup_dispatch``) for W stacked
+workers: the CUDA kernel's wrapper, beside its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/lookup_dispatch.py::
+lookup_dispatch``.  The kernel (``csrc/route_kernels.cu``) is bounded by
+device-memory bytes on an H100 and ranks records deterministically in three
+passes; the source's header says how.
+
+On a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.lookup_dispatch_ref`); on a CUDA tensor it
+launches the kernel or raises.  ``lookup_dispatch.launches`` counts the
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashing import seed_mix
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import lookup_dispatch_ref
+
+__all__ = ["lookup_dispatch", "lookup_dispatch_plain"]
+
+MAX_LANES = 1024
+MAX_HOSTS = 8192
+
+
+def lookup_dispatch_plain(keys, valid, heavy_keys, heavy_parts, host_to_part,
+                          heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
+                          num_partitions=0):
+    """The plain PyTorch version of :func:`lookup_dispatch` (any device)."""
+    return lookup_dispatch_ref(
+        keys, valid, heavy_keys, heavy_parts, host_to_part, seed=seed,
+        num_hosts=num_hosts, num_lanes=num_lanes,
+        heavy_repl=heavy_repl if num_partitions > 0 else None,
+        num_partitions=num_partitions)
+
+
+def _fail(msg: str):
+    raise ValueError(f"route kernel input: {msg}")
+
+
+def check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part,
+                       heavy_repl, *, num_hosts, num_lanes, num_partitions):
+    """Raise ``ValueError`` on anything the CUDA route kernels do not take."""
+    dev = keys.device
+    if dev.type != "cuda":
+        _fail(f"keys on {dev}: the kernel path takes CUDA tensors only")
+    if keys.dim() != 2 or keys.dtype != torch.int32:
+        _fail(f"keys must be int32[W, n], got {keys.dtype}{list(keys.shape)}")
+    if valid.dtype != torch.bool or valid.shape != keys.shape:
+        _fail(f"valid must be bool{list(keys.shape)}, got {valid.dtype}{list(valid.shape)}")
+    tables = [heavy_keys, heavy_parts, host_to_part]
+    if num_partitions > 0:
+        if heavy_repl is None:
+            _fail("splitting (num_partitions > 0) needs the replica table")
+        tables.append(heavy_repl)
+    for t in [keys, valid] + tables:
+        if t.device != dev:
+            _fail(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            _fail("tensors must be contiguous")
+    for t in tables:
+        if t.dim() != 1 or t.dtype != torch.int32:
+            _fail(f"tables must be int32 vectors, got {t.dtype}{list(t.shape)}")
+    b = heavy_keys.shape[0]
+    if heavy_parts.shape[0] != b or (num_partitions > 0 and heavy_repl.shape[0] != b):
+        _fail("heavy tables differ in length")
+    if host_to_part.shape[0] != num_hosts or num_hosts & (num_hosts - 1) or num_hosts > MAX_HOSTS:
+        _fail(f"host table must hold num_hosts = a power of two <= {MAX_HOSTS} entries")
+    if not 1 <= num_lanes <= MAX_LANES:
+        _fail(f"num_lanes must be in [1, {MAX_LANES}], got {num_lanes}")
+    if keys.shape[0] > 65535 or keys.numel() >= 2**31:
+        _fail("too many records for one launch")
+
+
+def route_scratch(keys, num_lanes):
+    w, n = keys.shape
+    blk = build.library().rk_block_records()
+    return torch.empty((w, num_lanes, -(-n // blk)), dtype=torch.int32, device=keys.device)
+
+
+def lookup_dispatch(keys, valid, heavy_keys, heavy_parts, host_to_part,
+                    heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
+                    num_partitions=0):
+    """``(part int32[W, n], slot int32[W, n], counts int32[W, L])`` for keys
+    ``int32[W, n]`` of W stacked workers.
+
+    ``slot`` is each valid record's stable rank within lane ``part % L``
+    (-1 when invalid).  ``num_partitions > 0`` turns on the split-key
+    replica pick from ``heavy_repl``."""
+    if keys.device.type == "cpu":
+        return lookup_dispatch_plain(
+            keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
+            seed=seed, num_hosts=num_hosts, num_lanes=num_lanes,
+            num_partitions=num_partitions)
+    check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
+                       num_hosts=num_hosts, num_lanes=num_lanes,
+                       num_partitions=num_partitions)
+    lib = build.library()
+    w, n = keys.shape
+    part = torch.empty_like(keys)
+    slot = torch.empty_like(keys)
+    counts = torch.empty((w, num_lanes), dtype=torch.int32, device=keys.device)
+    scratch = route_scratch(keys, num_lanes)
+    repl = heavy_repl.data_ptr() if num_partitions > 0 else None
+    code = lib.rk_lookup_dispatch(
+        keys.data_ptr(), valid.data_ptr(), w, n,
+        heavy_keys.data_ptr(), heavy_parts.data_ptr(), repl, heavy_keys.shape[0],
+        host_to_part.data_ptr(), num_hosts, seed_mix(seed), num_lanes, num_partitions,
+        part.data_ptr(), slot.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(keys.device).cuda_stream)
+    build.check(code, "lookup_dispatch")
+    lookup_dispatch.launches += 1
+    return part, slot, counts
+
+
+lookup_dispatch.launches = 0

@@ -1,0 +1,151 @@
+"""Plain PyTorch versions of the route kernels (no custom kernel, any device).
+
+These are the oracles the CUDA kernels are held to, and what the kernel
+wrappers run when handed CPU tensors.  Each mirrors its counterpart in
+``repro.kernels.ref`` bit for bit.
+
+Records are stacked per worker: ``keys`` is ``int32[W, n]`` (a 1-D ``[n]``
+input is one worker and returns 1-D outputs).  The split-replica hash folds
+in the record's *worker-local* index, as the reference's shard-local
+``arange`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashing import GOLDEN, fmix32, mul32, seed_mix
+
+__all__ = [
+    "dispatch_count_ref",
+    "lookup_dispatch_ref",
+    "partition_apply_ref",
+    "route_bucketize_ref",
+    "scatter_rows",
+    "split_choice_ref",
+]
+
+
+def _stacked(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    return (x, False) if x.dim() >= 2 else (x.unsqueeze(0), True)
+
+
+def scatter_rows(cell: torch.Tensor, num_cells: int, data: torch.Tensor, fill,
+                 shape: tuple) -> torch.Tensor:
+    """Scatter ``data[W, n, ...]`` to flat cell ids ``cell[W, n]`` of a buffer
+    ``shape + data.shape[2:]`` prefilled with ``fill``.  Rows whose cell is
+    ``num_cells`` land in one trailing spare cell that is cut off, so they
+    drop out without a data-dependent mask."""
+    trailing = tuple(data.shape[2:])
+    buf = torch.full((num_cells + 1,) + trailing, fill, dtype=data.dtype,
+                     device=data.device)
+    buf[cell.reshape(-1)] = data.reshape((-1,) + trailing)
+    return buf[:num_cells].view(tuple(shape) + trailing)
+
+
+def _heavy_index(keys: torch.Tensor, heavy_keys: torch.Tensor):
+    """(index of the first heavy row >= key, clipped; whether it equals key)."""
+    b = heavy_keys.shape[0]
+    idx = torch.searchsorted(heavy_keys, keys.contiguous()).clamp_(max=b - 1)
+    return idx, heavy_keys[idx] == keys
+
+
+def partition_apply_ref(keys, heavy_keys, heavy_parts, host_to_part, *,
+                        seed=0, num_hosts=4096):
+    """key -> partition: heavy-table hit, else the hashed host's partition."""
+    keys, one = _stacked(keys.to(torch.int32))
+    mixed = fmix32(keys.to(torch.int64) ^ seed_mix(seed))
+    part = host_to_part[mixed & (num_hosts - 1)]
+    if heavy_keys.shape[0] > 0:
+        idx, hit = _heavy_index(keys, heavy_keys)
+        part = torch.where(hit, heavy_parts[idx], part)
+    part = part.to(torch.int32)
+    return part[0] if one else part
+
+
+def split_choice_ref(keys, heavy_keys, heavy_repl, *, seed=0, num_partitions=0,
+                     home=None, part_loads=None):
+    """Replica pick for split heavy keys: ``(hit, offset)`` with the offset
+    ``(fmix32(idx * golden ^ mixed) & 0x7FFFFFFF) % max(repl, 1)``.
+
+    The two-choice least-load pick (``part_loads``) is not ported yet."""
+    if part_loads is not None:
+        raise NotImplementedError(
+            "the two-choice least-load replica pick is not ported yet "
+            "(ROADMAP.md, queue 1 item 2)")
+    keys, one = _stacked(keys.to(torch.int32))
+    mixed = fmix32(keys.to(torch.int64) ^ seed_mix(seed))
+    idx = torch.arange(keys.shape[1], device=keys.device, dtype=torch.int64)
+    h = fmix32(mul32(idx, GOLDEN)[None, :] ^ mixed)
+    bidx, hit = _heavy_index(keys, heavy_keys)
+    d = heavy_repl[bidx].to(torch.int64).clamp(min=1)
+    offset = ((h & 0x7FFFFFFF) % d).to(torch.int32)
+    return (hit[0], offset[0]) if one else (hit, offset)
+
+
+def dispatch_count_ref(dest, valid, *, num_parts):
+    """Stable rank of each valid record within its destination (-1 when
+    invalid) and the per-destination counts, via a stable sort."""
+    dest, one = _stacked(dest.to(torch.int32))
+    valid = valid.reshape(dest.shape)
+    w, n = dest.shape
+    key = torch.where(valid, dest.to(torch.int64), num_parts)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    counts = torch.zeros((w, num_parts + 1), dtype=torch.int64, device=dest.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    start = torch.cumsum(counts, dim=1) - counts
+    pos = torch.arange(n, device=dest.device, dtype=torch.int64).expand(w, n)
+    rank_sorted = pos - torch.gather(start, 1, sorted_key)
+    slot = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    slot = torch.where(valid, slot, -1).to(torch.int32)
+    counts = counts[:, :num_parts].to(torch.int32)
+    return (slot[0], counts[0]) if one else (slot, counts)
+
+
+def lookup_dispatch_ref(keys, valid, heavy_keys, heavy_parts, host_to_part, *,
+                        seed=0, num_hosts=4096, num_lanes,
+                        heavy_repl=None, num_partitions=0, part_loads=None):
+    """Partition lookup + lane slot in one call: ``(part, slot, counts)``."""
+    part = partition_apply_ref(keys, heavy_keys, heavy_parts, host_to_part,
+                               seed=seed, num_hosts=num_hosts)
+    if heavy_repl is not None and num_partitions > 0 and heavy_keys.shape[0] > 0:
+        hit, offset = split_choice_ref(
+            keys, heavy_keys, heavy_repl, seed=seed,
+            num_partitions=num_partitions, home=part, part_loads=part_loads)
+        part = torch.where(hit, (part + offset) % num_partitions, part).to(torch.int32)
+    slot, counts = dispatch_count_ref(part % num_lanes, valid, num_parts=num_lanes)
+    return part, slot, counts
+
+
+def route_bucketize_ref(keys, valid, vals, heavy_keys, heavy_parts, host_to_part, *,
+                        seed=0, num_hosts=4096, num_lanes, capacity, key_fill,
+                        heavy_repl=None, num_partitions=0, part_loads=None):
+    """Route + slot + scatter into ``[W, L, capacity]`` send buffers.
+
+    Returns ``(part, slot, counts, buf_valid, buf_keys, buf_vals, buf_part)``;
+    records whose slot is at or past ``capacity`` drop out, and cells no
+    record fills hold ``key_fill`` / 0 / 0 / False."""
+    part, slot, counts = lookup_dispatch_ref(
+        keys, valid, heavy_keys, heavy_parts, host_to_part,
+        seed=seed, num_hosts=num_hosts, num_lanes=num_lanes,
+        heavy_repl=heavy_repl, num_partitions=num_partitions,
+        part_loads=part_loads)
+    k, one = _stacked(keys.to(torch.int32))
+    p, _ = _stacked(part)
+    s, _ = _stacked(slot)
+    v = valid.reshape(k.shape)
+    x = vals.reshape(k.shape + vals.shape[-1:])
+    w = k.shape[0]
+    shape = (w, num_lanes, capacity)
+    cells = w * num_lanes * capacity
+    ok = v & (s >= 0) & (s < capacity)
+    lane = (p % num_lanes).to(torch.int64)
+    worker = torch.arange(w, device=k.device, dtype=torch.int64)[:, None]
+    cell = torch.where(ok, (worker * num_lanes + lane) * capacity + s, cells)
+    buf_valid = scatter_rows(cell, cells, ok, False, shape)
+    buf_keys = scatter_rows(cell, cells, k, int(key_fill), shape)
+    buf_part = scatter_rows(cell, cells, torch.where(v, p, 0), 0, shape)
+    buf_vals = scatter_rows(cell, cells, x, 0.0, shape)
+    if one:
+        buf_valid, buf_keys, buf_vals, buf_part = (
+            buf_valid[0], buf_keys[0], buf_vals[0], buf_part[0])
+    return part, slot, counts, buf_valid, buf_keys, buf_vals, buf_part

@@ -1,0 +1,90 @@
+"""Fused route + slot + bucketize (``route_bucketize``) for W stacked
+workers: the CUDA kernel's wrapper, beside its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/route_bucketize.py::
+route_bucketize``.  That kernel scattered by one-hot matmuls and carried
+int32 channels as 16-bit f32 halves for the wrapper to recombine; the CUDA
+kernel (``csrc/route_kernels.cu``) stores int32 natively and writes the
+fills itself, so its outputs are the send buffers as the exchange plane
+consumes them.  It is bounded by device-memory bytes on an H100.
+
+On a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.route_bucketize_ref`); on a CUDA tensor it
+launches the kernel or raises.  ``route_bucketize.launches`` counts the
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashing import seed_mix
+from repro_torch.kernels import build
+from repro_torch.kernels.lookup_dispatch import check_route_inputs, route_scratch
+from repro_torch.kernels.ref import route_bucketize_ref
+
+__all__ = ["route_bucketize", "route_bucketize_plain"]
+
+
+def route_bucketize_plain(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
+                          heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
+                          capacity, key_fill, num_partitions=0):
+    """The plain PyTorch version of :func:`route_bucketize` (any device)."""
+    return route_bucketize_ref(
+        keys, valid, vals, heavy_keys, heavy_parts, host_to_part, seed=seed,
+        num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
+        key_fill=key_fill, heavy_repl=heavy_repl if num_partitions > 0 else None,
+        num_partitions=num_partitions)
+
+
+def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
+                    heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
+                    capacity, key_fill, num_partitions=0):
+    """Returns ``(part[W, n], slot[W, n], counts[W, L], buf_valid[W, L, cap]
+    bool, buf_keys[W, L, cap] int32, buf_vals[W, L, cap, D] f32,
+    buf_part[W, L, cap] int32)`` for keys ``int32[W, n]`` and vals
+    ``f32[W, n, D]`` of W stacked workers.
+
+    Records whose slot is at or past ``capacity`` drop out (the counts keep
+    them); empty cells hold ``key_fill`` / 0 / 0 / False."""
+    if keys.device.type == "cpu":
+        return route_bucketize_plain(
+            keys, valid, vals, heavy_keys, heavy_parts, host_to_part, heavy_repl,
+            seed=seed, num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
+            key_fill=key_fill, num_partitions=num_partitions)
+    check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
+                       num_hosts=num_hosts, num_lanes=num_lanes,
+                       num_partitions=num_partitions)
+    w, n = keys.shape
+    if (vals.dtype != torch.float32 or vals.dim() != 3 or vals.shape[:2] != keys.shape
+            or vals.device != keys.device or not vals.is_contiguous()):
+        raise ValueError(f"route kernel input: vals must be contiguous f32[{w}, {n}, D] "
+                         f"on {keys.device}, got {vals.dtype}{list(vals.shape)}")
+    if not 0 <= capacity < 2**31 // max(w * num_lanes, 1):
+        raise ValueError(f"route kernel input: capacity {capacity} out of range")
+    lib = build.library()
+    dim = vals.shape[2]
+    dev = keys.device
+    part = torch.empty_like(keys)
+    slot = torch.empty_like(keys)
+    counts = torch.empty((w, num_lanes), dtype=torch.int32, device=dev)
+    scratch = route_scratch(keys, num_lanes)
+    shape = (w, num_lanes, capacity)
+    buf_valid = torch.empty(shape, dtype=torch.bool, device=dev)
+    buf_keys = torch.empty(shape, dtype=torch.int32, device=dev)
+    buf_vals = torch.empty(shape + (dim,), dtype=torch.float32, device=dev)
+    buf_part = torch.empty(shape, dtype=torch.int32, device=dev)
+    repl = heavy_repl.data_ptr() if num_partitions > 0 else None
+    code = lib.rk_route_bucketize(
+        keys.data_ptr(), valid.data_ptr(), vals.data_ptr(), dim, w, n,
+        heavy_keys.data_ptr(), heavy_parts.data_ptr(), repl, heavy_keys.shape[0],
+        host_to_part.data_ptr(), num_hosts, seed_mix(seed), num_lanes, num_partitions,
+        capacity, int(key_fill), part.data_ptr(), slot.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), buf_valid.data_ptr(), buf_keys.data_ptr(),
+        buf_vals.data_ptr(), buf_part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "route_bucketize")
+    route_bucketize.launches += 1
+    return part, slot, counts, buf_valid, buf_keys, buf_vals, buf_part
+
+
+route_bucketize.launches = 0

@@ -1,0 +1,263 @@
+"""The port's route kernels, held against the reference on the CPU.
+
+On the CPU each kernel wrapper runs its plain PyTorch version; these tests
+hold those plain versions (and the padding wrappers in
+``repro_torch.kernels.ops``) to ``repro.kernels.ref`` and to the Pallas
+kernels run in interpret mode, on the shapes ``tests/test_kernels.py``
+sweeps plus an empty heavy table, split replicas with d > 1, invalid
+sentinel records and capacity overflow.  Integer outputs must be equal
+exactly; the f32 payloads are copied, never summed, so they are equal too.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Histogram, kip_update, uniform_partitioner
+from repro.data.generators import zipf_keys
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core.partitioner import PartitionerTables
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+from repro_torch.kernels.route_bucketize import route_bucketize
+
+SENT = 2**31 - 1
+
+
+def _t(x, dtype=None):
+    t = torch.as_tensor(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def _port_tables(t) -> PartitionerTables:
+    return PartitionerTables(*(_t(np.asarray(x), torch.int32) for x in t))
+
+
+def _kip(num_parts, seed=0, splits=None):
+    stream = zipf_keys(8192, num_keys=2_000, exponent=1.2, seed=seed)
+    hist = Histogram.exact(stream).top(64)
+    p = kip_update(uniform_partitioner(num_parts, heavy_capacity=128), hist)
+    if splits:
+        p = p.with_splits({int(hist.keys[i]): d for i, d in enumerate(splits)})
+    return p, stream
+
+
+def _batch(stream, n, seed, dim=2, sentinel_invalid=True):
+    rng = np.random.default_rng(seed)
+    keys = stream[:n].astype(np.int32)
+    valid = rng.random(n) < 0.85
+    if sentinel_invalid:
+        keys = np.where(valid, keys, SENT).astype(np.int32)
+    vals = rng.normal(size=(n, dim)).astype(np.float32)
+    return keys, valid, vals
+
+
+def _eq(got, want, names):
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)
+
+
+RB_NAMES = ("part", "slot", "counts", "buf_valid", "buf_keys", "buf_vals", "buf_part")
+
+
+# ---------------------------------------------------------------------------
+# plain versions against repro.kernels.ref
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("b", [128, 512])
+@pytest.mark.parametrize("num_hosts", [1024, 4096])
+def test_partition_apply_matches_reference(n, b, num_hosts):
+    rng = np.random.default_rng(n + b)
+    keys = rng.integers(0, 2**30, n).astype(np.int32)
+    heavy = np.sort(rng.choice(2**30, b // 2, replace=False)).astype(np.int32)
+    hk = np.concatenate([heavy, np.full(b - len(heavy), SENT, np.int32)])
+    hp = np.concatenate([rng.integers(0, 16, len(heavy)), np.zeros(b - len(heavy))]).astype(np.int32)
+    table = rng.integers(0, 16, num_hosts).astype(np.int32)
+    keys[: b // 4] = heavy[: b // 4]
+    keys[-3:] = SENT
+    for seed in (0, 7):
+        want = jref.partition_apply_ref(jnp.asarray(keys), jnp.asarray(hk), jnp.asarray(hp),
+                                        jnp.asarray(table), seed=seed, num_hosts=num_hosts)
+        got = tref.partition_apply_ref(_t(keys), _t(hk), _t(hp), _t(table),
+                                       seed=seed, num_hosts=num_hosts)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [512, 2048])
+@pytest.mark.parametrize("num_parts", [4, 16, 256])
+def test_dispatch_count_matches_reference(n, num_parts):
+    rng = np.random.default_rng(n * num_parts)
+    dest = rng.integers(0, num_parts, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    want = jref.dispatch_count_ref(jnp.asarray(dest), jnp.asarray(valid), num_parts=num_parts)
+    got = tref.dispatch_count_ref(_t(dest), _t(valid), num_parts=num_parts)
+    _eq(got, want, ("slot", "counts"))
+
+
+@pytest.mark.parametrize("repl", [(2,), (4, 3), (8, 1, 5)])
+def test_split_choice_matches_reference(repl):
+    p, stream = _kip(16, splits=repl)
+    keys, valid, _ = _batch(stream, 3000, 1)
+    t = p.tables()
+    want = jref.split_choice_ref(jnp.asarray(keys), t.heavy_keys, t.heavy_repl,
+                                 seed=p.seed, num_partitions=16)
+    got = tref.split_choice_ref(_t(keys), *(_t(np.asarray(x)) for x in
+                                            (t.heavy_keys, t.heavy_repl)),
+                                seed=p.seed, num_partitions=16)
+    _eq(got, want, ("hit", "offset"))
+
+
+def test_split_choice_two_choice_pick_is_not_ported():
+    with pytest.raises(NotImplementedError, match="least-load"):
+        tref.split_choice_ref(_t(np.zeros(4, np.int32)), _t(np.zeros(1, np.int32)),
+                              _t(np.ones(1, np.int32)), num_partitions=4,
+                              part_loads=_t(np.zeros(4, np.float32)))
+
+
+@pytest.mark.parametrize("num_lanes,num_partitions,splits", [
+    (4, 0, None), (8, 0, None), (4, 16, (4, 2)), (8, 32, (8,)), (1, 8, (3,))])
+def test_lookup_dispatch_matches_reference(num_lanes, num_partitions, splits):
+    p, stream = _kip(max(num_partitions, num_lanes), splits=splits)
+    keys, valid, _ = _batch(stream, 2500, num_lanes)
+    t = p.tables()
+    want = jref.lookup_dispatch_ref(
+        jnp.asarray(keys), jnp.asarray(valid), t.heavy_keys, t.heavy_parts, t.host_to_part,
+        seed=p.seed, num_hosts=p.num_hosts, num_lanes=num_lanes,
+        heavy_repl=t.heavy_repl if num_partitions else None, num_partitions=num_partitions)
+    pt = _port_tables(t)
+    got = tref.lookup_dispatch_ref(
+        _t(keys), _t(valid), pt.heavy_keys, pt.heavy_parts, pt.host_to_part,
+        seed=p.seed, num_hosts=p.num_hosts, num_lanes=num_lanes,
+        heavy_repl=pt.heavy_repl if num_partitions else None, num_partitions=num_partitions)
+    _eq(got, want, ("part", "slot", "counts"))
+
+
+@pytest.mark.parametrize("n,num_lanes,capacity", [(512, 4, 32), (1024, 8, 128), (2048, 16, 200)])
+@pytest.mark.parametrize("num_partitions,splits", [(0, None), (16, (4, 2))])
+def test_route_bucketize_matches_reference(n, num_lanes, capacity, num_partitions, splits):
+    """All seven outputs, lanes past capacity included (the sweep's shapes)."""
+    p, stream = _kip(max(num_lanes, num_partitions), splits=splits)
+    keys, valid, vals = _batch(stream, n, n)
+    t = p.tables()
+    want = jref.route_bucketize_ref(
+        jnp.asarray(keys), jnp.asarray(valid), jnp.asarray(vals), t.heavy_keys,
+        t.heavy_parts, t.host_to_part, seed=p.seed, num_hosts=p.num_hosts,
+        num_lanes=num_lanes, capacity=capacity, key_fill=SENT,
+        heavy_repl=t.heavy_repl if num_partitions else None, num_partitions=num_partitions)
+    pt = _port_tables(t)
+    got = tref.route_bucketize_ref(
+        _t(keys), _t(valid), _t(vals), pt.heavy_keys, pt.heavy_parts, pt.host_to_part,
+        seed=p.seed, num_hosts=p.num_hosts, num_lanes=num_lanes, capacity=capacity,
+        key_fill=SENT, heavy_repl=pt.heavy_repl if num_partitions else None,
+        num_partitions=num_partitions)
+    _eq(got, want, RB_NAMES)
+
+
+def test_stacked_workers_use_worker_local_index():
+    """W stacked workers in one call == the reference run per worker shard
+    (the split-replica hash folds in the worker-local index)."""
+    w, n, lanes, cap = 4, 700, 4, 150
+    p, stream = _kip(16, splits=(4, 3))
+    keys, valid, vals = _batch(np.concatenate([stream] * 2), w * n, 3)
+    t = p.tables()
+    pt = _port_tables(t)
+    got = tref.route_bucketize_ref(
+        _t(keys).reshape(w, n), _t(valid).reshape(w, n), _t(vals).reshape(w, n, 2),
+        pt.heavy_keys, pt.heavy_parts, pt.host_to_part, seed=p.seed,
+        num_hosts=p.num_hosts, num_lanes=lanes, capacity=cap, key_fill=SENT,
+        heavy_repl=pt.heavy_repl, num_partitions=16)
+    for i in range(w):
+        sl = slice(i * n, (i + 1) * n)
+        want = jref.route_bucketize_ref(
+            jnp.asarray(keys[sl]), jnp.asarray(valid[sl]), jnp.asarray(vals[sl]),
+            t.heavy_keys, t.heavy_parts, t.host_to_part, seed=p.seed,
+            num_hosts=p.num_hosts, num_lanes=lanes, capacity=cap, key_fill=SENT,
+            heavy_repl=t.heavy_repl, num_partitions=16)
+        _eq([g[i] for g in got], want, RB_NAMES)
+
+
+# ---------------------------------------------------------------------------
+# the padding wrappers against the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["kip", "split", "empty", "overflow"])
+def test_ops_route_bucketize_matches_pallas_interpret(case):
+    """``repro_torch.kernels.ops.route_bucketize`` (plain version on the CPU)
+    == ``repro.kernels.ops.route_bucketize(..., interpret=True)`` on all
+    seven outputs, the parts of invalid sentinel records included (they hit
+    a sentinel pad row: part 0)."""
+    n, lanes, cap, num_partitions = 512, 4, 128, 0
+    if case == "empty":
+        p = uniform_partitioner(8)
+        stream = zipf_keys(4096, num_keys=2_000, exponent=1.2, seed=5)
+        num_partitions = 8
+    else:
+        p, stream = _kip(8, splits=(4, 2) if case in ("split", "overflow") else None)
+        num_partitions = 8 if case in ("split", "overflow") else 0
+    if case == "overflow":
+        cap = 40
+    keys, valid, vals = _batch(stream, n, 11)
+    t = p.tables()
+    want = jops.route_bucketize(
+        jnp.asarray(keys), jnp.asarray(valid), t, jnp.asarray(vals), num_hosts=p.num_hosts,
+        seed=p.seed, num_lanes=lanes, capacity=cap, key_fill=SENT,
+        num_partitions=num_partitions, interpret=True)
+    got = tops.route_bucketize(
+        _t(keys), _t(valid), _port_tables(t), _t(vals), num_hosts=p.num_hosts,
+        seed=p.seed, num_lanes=lanes, capacity=cap, key_fill=SENT,
+        num_partitions=num_partitions)
+    _eq(got, want, RB_NAMES)
+    if case == "overflow":
+        assert int((got[2] - cap).clamp(min=0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["kip", "split", "empty"])
+def test_ops_route_slots_matches_pallas_interpret(case):
+    """``ops.route_slots`` pads the heavy table to the tile but adds no tile
+    to an empty one.  The reference's Pallas kernel cannot take an empty
+    heavy table (its zero-width block fails), so that case is held to the
+    reference's jnp twin, which its exchange plane runs off the TPU."""
+    lanes = 8
+    if case == "empty":
+        p = uniform_partitioner(16)
+        stream = zipf_keys(4096, num_keys=2_000, exponent=1.2, seed=6)
+    else:
+        p, stream = _kip(16, splits=(4,) if case == "split" else None)
+    num_partitions = 16 if case == "split" else 0
+    keys, valid, _ = _batch(stream, 768, 12)
+    t = p.tables()
+    if case == "empty":
+        assert t.heavy_keys.shape[0] == 0
+        want = jref.lookup_dispatch_ref(
+            jnp.asarray(keys), jnp.asarray(valid), t.heavy_keys, t.heavy_parts,
+            t.host_to_part, seed=p.seed, num_hosts=p.num_hosts, num_lanes=lanes)
+    else:
+        want = jops.route_slots(jnp.asarray(keys), jnp.asarray(valid), t,
+                                num_hosts=p.num_hosts, seed=p.seed, num_lanes=lanes,
+                                num_partitions=num_partitions)
+    got = tops.route_slots(_t(keys), _t(valid), _port_tables(t), num_hosts=p.num_hosts,
+                           seed=p.seed, num_lanes=lanes, num_partitions=num_partitions)
+    _eq(got, want, ("part", "slot", "counts"))
+
+
+def test_kernel_wrappers_on_cpu_equal_plain_versions():
+    """The wrappers' CPU path is the plain version, output for output."""
+    p, stream = _kip(8, splits=(2,))
+    keys, valid, vals = _batch(stream, 1000, 2)
+    k, v, x = _t(keys).reshape(2, -1), _t(valid).reshape(2, -1), _t(vals).reshape(2, -1, 2)
+    hk, hp, hr = tops.pad_heavy_tables(_port_tables(p.tables()), num_partitions=8,
+                                       pad_empty=True)
+    h2p = _t(p.host_to_part, torch.int32)
+    kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=4, num_partitions=8)
+    _eq(lookup_dispatch(k, v, hk, hp, h2p, hr, **kw),
+        tref.lookup_dispatch_ref(k, v, hk, hp, h2p, heavy_repl=hr, **kw),
+        ("part", "slot", "counts"))
+    _eq(route_bucketize(k, v, x, hk, hp, h2p, hr, capacity=100, key_fill=SENT, **kw),
+        tref.route_bucketize_ref(k, v, x, hk, hp, h2p, heavy_repl=hr, capacity=100,
+                                 key_fill=SENT, **kw),
+        RB_NAMES)
