@@ -22,6 +22,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Times: each kernel and its plain version (CUDA events, median of 20
    after 3 warm-ups) beside the kernel's byte bound; the median wall per
    batch and the device time of one state merge.
+6. The batch path at the paper's size (Fig. 4, as
+   ``benchmarks/bench_spark_like.py`` records it): 10,000,000-record Zipf
+   jobs over 1,000,000 keys, 35 partitions, exponents 1.0 to 2.0, a 10%
+   prefix sample and ``DRConfig(mode="batch", lam=4.0, eps=0.003)``.  Each
+   ``BatchJob`` on the card must equal the same job on the CPU in every
+   field and the host ``Partitioner.lookup_np``; the replayed buffer is
+   bucketized into its 35 partitions without a slot (zero overflow, every
+   record exactly once); ``ops.count_sketch`` at widths 2048 and 8192 must
+   equal the host ``CountMinSketch``.  All three batch kernels must have
+   been launched by that run.
+7. Each batch kernel against its plain version on the card (heavy tables
+   full, empty and hit by sentinel keys, 35 stacked rows; out-of-range and
+   invalid destinations, 1 to 1024 parts; sketch widths 1000 to 8192,
+   depths 1 to 8, invalid records): every output equal exactly.
+8. Times of the batch kernels at phase 6's shapes (exponent 1.2), as in
+   phase 5, and the median ``BatchJob.run`` wall per job, split into the
+   host planning, the upload and the device passes.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -41,10 +58,19 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at the 700 W limit)
 SOURCE = "src/repro_torch/kernels/csrc/route_kernels.cu"
+BATCH_SOURCE = "src/repro_torch/kernels/csrc/batch_kernels.cu"
 REPLACES = {
     "route_bucketize": "src/repro/kernels/route_bucketize.py:155",
     "lookup_dispatch": "src/repro/kernels/lookup_dispatch.py:136",
+    "partition_apply": "src/repro/kernels/partition_apply.py:72",
+    "dispatch_count": "src/repro/kernels/dispatch_count.py:60",
+    "sketch_update": "src/repro/kernels/sketch_update.py:50",
 }
+# phase 6: the paper's Fig. 4 batch jobs (benchmarks/bench_spark_like.py)
+BATCH_RECORDS = 10_000_000
+BATCH_KEYS = 1_000_000
+BATCH_PARTS = 35
+EXPONENTS = (1.0, 1.2, 1.4, 1.6, 1.8, 2.0)
 
 
 def log(*args):
@@ -96,6 +122,24 @@ def route_bytes(keys, vals, tables, num_lanes, capacity=None, split=False) -> in
         nbytes += w * n * 4 * dim                  # vals
         nbytes += w * num_lanes * capacity * (1 + 4 + 4 + 4 * dim)
     return nbytes
+
+
+def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase) -> list[dict]:
+    """The ``kernels`` line's entries: ``timing[name] = (ms, plain_ms,
+    bytes)``; no single PyTorch call computes any of these functions, so
+    ``library_ms`` is null."""
+    rows = []
+    for name, (k_ms, p_ms, nbytes) in timing.items():
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name], "equal": all(equal[name]),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes, "library_ms": None,
+        })
+        log(f"phase {phase}: {name}: {k_ms:.4f} ms (bound {bound_ms:.4f} ms from {nbytes} "
+            f"bytes, plain {p_ms:.4f} ms); launches in phase {path_phase}: {launches[name]}")
+    return rows
 
 
 def main() -> int:
@@ -276,25 +320,189 @@ def main() -> int:
     merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
                                           res.values, res.valid), warmup=1, reps=5)
     wall_ms = statistics.median(walls) * 1e3
-    kernels = []
-    for name, (k_ms, p_ms, nbytes) in timing.items():
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[name], "equal": all(equal[name]),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "bytes": nbytes, "library_ms": None,
-        })
-        log(f"phase 5: {name}: {k_ms:.4f} ms (bound {bound_ms:.4f} ms from {nbytes} bytes, "
-            f"plain {p_ms:.4f} ms); launches in phase 2: {launches[name]}")
+    kernels = kernel_rows(timing, SOURCE, launches, errs, equal, phase=5, path_phase=2)
     log(f"phase 5: median wall per batch {wall_ms:.1f} ms; state merge {merge_ms:.3f} ms "
         f"on the device; card {card}")
+    del job, runs, res, batches, all_keys
+    torch.cuda.empty_cache()
+
+    kernels += batch_phases(dev, sent)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def batch_phases(dev, sent) -> list[dict]:
+    """Phases 6-8: the batch replay path and its three kernels."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.histogram import CountMinSketch, Histogram
+    from repro_torch.core.partitioner import kip_update, uniform_partitioner
+    from repro_torch.core.replay import BatchJob, replay_partition
+    from repro_torch.data.generators import zipf_keys
+    from repro_torch.exchange import ExchangeSpec, Payload, make_exchange
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+    from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
+    from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
+
+    names = ("partition_apply", "dispatch_count", "sketch_update")
+    dr = DRConfig(mode="batch", lam=4.0, eps=0.003)
+
+    # ---- phase 6: the batch path at the paper's size -------------------
+    jobs, run_walls = {}, []
+    partition_apply.launches = dispatch_count.launches = sketch_update.launches = 0
+    for e in EXPONENTS:
+        keys = zipf_keys(BATCH_RECORDS, num_keys=BATCH_KEYS, exponent=e, seed=int(e * 10))
+        t = time.perf_counter()
+        got = BatchJob(BATCH_PARTS, dr=dr, device=dev).run(keys)
+        torch.cuda.synchronize()
+        run_walls.append(time.perf_counter() - t)
+        want = BatchJob(BATCH_PARTS, dr=dr, device="cpu").run(keys)
+        assert (got.imbalance_before, got.imbalance_after, got.replayed_records,
+                got.sample_fraction) == (want.imbalance_before, want.imbalance_after,
+                                         want.replayed_records, want.sample_fraction), e
+        gp, wp = got.partitioner, want.partitioner
+        assert (gp.num_partitions, gp.seed, gp.heavy_repl) == (wp.num_partitions, wp.seed,
+                                                               wp.heavy_repl), e
+        for tab in ("heavy_keys", "heavy_parts", "host_to_part"):
+            assert np.array_equal(getattr(gp, tab), getattr(wp, tab)), (e, tab)
+        assign = got.assignments
+        assert assign.device.type == dev.type and assign.dtype == torch.int32
+        assert torch.equal(assign.cpu(), want.assignments), e
+        assert np.array_equal(assign.cpu().numpy(), gp.lookup_np(keys)), e
+        assert got.imbalance_after <= got.imbalance_before, e
+
+        # the shuffle reads the replayed buffer: bucketize it, no slot given
+        dkeys = torch.as_tensor(keys.astype(np.int32), device=dev)
+        loads = torch.bincount(assign, minlength=BATCH_PARTS)
+        cap = int(loads.max())
+        valid = torch.ones((1, BATCH_RECORDS), dtype=torch.bool, device=dev)
+        res = make_exchange(ExchangeSpec(num_lanes=BATCH_PARTS, capacity=cap)).bucketize(
+            assign[None], valid, [Payload(dkeys[None], sent)])
+        assert int(res.send.overflow.sum()) == 0 and bool(res.send.ok.all())
+        assert int(res.valid.sum()) == BATCH_RECORDS
+        cell_keys = res.payloads[0][0][assign.long(), res.send.slot[0].long()]
+        assert torch.equal(cell_keys, dkeys), e       # every record in its own cell
+        assert torch.equal(res.valid[0].sum(dim=1), loads), e
+
+        sketch_max = 0.0
+        for width in (2048, 8192):
+            sk = ops.count_sketch(dkeys, depth=4, width=width)
+            cms = CountMinSketch(4, width)
+            cms.update(keys)
+            sketch_max = max(sketch_max, float(sk.max()))
+            assert sketch_max < 2**24
+            assert np.array_equal(sk.cpu().numpy().astype(np.float64), cms.table), (e, width)
+        jobs[e] = (keys, got)
+        log(f"phase 6: exponent {e}: imbalance {got.imbalance_before:.4f} -> "
+            f"{got.imbalance_after:.4f}, replayed {got.replayed_records}, heavy keys "
+            f"{gp.num_heavy}, largest partition {cap}, largest sketch cell {sketch_max:.0f}; "
+            f"card == CPU == lookup_np; bucketize overflow 0; sketches == CountMinSketch; "
+            f"run wall {run_walls[-1]:.3f} s")
+    launches = {"partition_apply": partition_apply.launches,
+                "dispatch_count": dispatch_count.launches,
+                "sketch_update": sketch_update.launches}
+    assert all(v > 0 for v in launches.values()), launches
+    assert jobs[1.2][1].imbalance_after < jobs[1.2][1].imbalance_before
+    log(f"phase 6: {len(EXPONENTS)} jobs of {BATCH_RECORDS:,} records; launches {launches}")
+
+    # ---- phase 7: each batch kernel against its plain version ----------
+    keys, job = jobs[1.2]
+    dkeys = torch.as_tensor(keys.astype(np.int32), device=dev)
+    assign = job.assignments
+    kip = job.partitioner
+    uhp = uniform_partitioner(BATCH_PARTS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    holes = torch.rand(dkeys.shape, generator=gen, device=dev) < 0.1
+    rows = BATCH_PARTS * (BATCH_RECORDS // BATCH_PARTS)
+    equal = {n: [] for n in names}
+    errs = {n: 0.0 for n in names}
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        equal[name].append(ok)
+        log(f"phase 7: {name} [{label}] equal={ok}")
+
+    for label, p, k in [("KIP table", kip, dkeys), ("empty heavy table", uhp, dkeys),
+                        ("10% sentinel keys", kip, dkeys.masked_fill(holes, sent)),
+                        ("35 stacked rows", kip, dkeys[:rows].view(BATCH_PARTS, -1))]:
+        hk, hp, _ = ops.pad_heavy_tables(p.tables(dev), num_partitions=0, pad_empty=False)
+        args = (k, hk, hp, p.tables(dev).host_to_part)
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts)
+        hold("partition_apply", f"{label}, B={hk.numel()}", partition_apply(*args, **kw),
+             partition_apply_plain(*args, **kw))
+    ones = torch.ones_like(dkeys, dtype=torch.bool)
+    wild = assign.clone()
+    wild[holes] = torch.where(dkeys[holes] % 2 == 0, -3, BATCH_PARTS + 5).to(torch.int32)
+    some = ~(torch.rand(dkeys.shape, generator=gen, device=dev) < 0.2)
+    for label, d, v, n in [
+            ("replay assignments", assign, ones, BATCH_PARTS),
+            ("out-of-range destinations", wild, ones, BATCH_PARTS),
+            ("out-of-range + invalid", wild, some, BATCH_PARTS),
+            ("1 part", (dkeys % 3 - 1).to(torch.int32), some, 1),
+            ("1024 parts", (dkeys % 1030 - 2).to(torch.int32), some, 1024),
+            ("35 stacked rows", wild[:rows].view(BATCH_PARTS, -1),
+             some[:rows].view(BATCH_PARTS, -1), BATCH_PARTS)]:
+        hold("dispatch_count", label, dispatch_count(d, v, num_parts=n),
+             dispatch_count_plain(d, v, num_parts=n))
+    for depth, width, v in [(4, 2048, ones), (4, 8192, ones), (8, 8192, some),
+                            (1, 1000, some), (8, 1000, ones), (8, 2048, some)]:
+        got = sketch_update(dkeys, v, depth=depth, width=width)
+        assert float(got.max()) < 2**24
+        hold("sketch_update", f"depth {depth}, width {width}, invalid {int((~v).sum())}",
+             got, sketch_update_plain(dkeys, v, depth=depth, width=width))
+    assert all(all(v) for v in equal.values()), equal
+
+    # ---- phase 8: times ------------------------------------------------
+    hk, hp, _ = ops.pad_heavy_tables(kip.tables(dev), num_partitions=0, pad_empty=False)
+    h2p = kip.tables(dev).host_to_part
+    pa_args, pa_kw = (dkeys, hk, hp, h2p), dict(seed=kip.seed, num_hosts=kip.num_hosts)
+    n = BATCH_RECORDS
+    timing = {
+        "partition_apply": (
+            cuda_ms(lambda: partition_apply(*pa_args, **pa_kw)),
+            cuda_ms(lambda: partition_apply_plain(*pa_args, **pa_kw)),
+            n * (4 + 4) + (hk.numel() + hp.numel() + h2p.numel()) * 4),
+        "dispatch_count": (
+            cuda_ms(lambda: dispatch_count(assign, ones, num_parts=BATCH_PARTS)),
+            cuda_ms(lambda: dispatch_count_plain(assign, ones, num_parts=BATCH_PARTS)),
+            n * (4 + 1 + 4) + BATCH_PARTS * 4),
+        "sketch_update": (
+            cuda_ms(lambda: sketch_update(dkeys, ones, depth=4, width=2048)),
+            cuda_ms(lambda: sketch_update_plain(dkeys, ones, depth=4, width=2048)),
+            n * (4 + 1) + 4 * 2048 * 4),
+    }
+    kernels = kernel_rows(timing, BATCH_SOURCE, launches, errs, equal, phase=8, path_phase=6)
+
+    # one job's wall, split: host planning, upload, device passes (exponent 1.2)
+    plan, upload, passes = [], [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        u = uniform_partitioner(BATCH_PARTS)
+        hist = Histogram.exact(keys[: int(0.1 * n)]).top(int(dr.lam * BATCH_PARTS))
+        k = kip_update(u, hist, eps=dr.eps)
+        t1 = time.perf_counter()
+        buf = torch.as_tensor(keys.astype(np.int32), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for p in (u, k):
+            torch.bincount(replay_partition(p, buf), minlength=BATCH_PARTS).cpu()
+        t3 = time.perf_counter()
+        plan.append(t1 - t)
+        upload.append(t2 - t1)
+        passes.append(t3 - t2)
+    log(f"phase 8: BatchJob.run median wall per job {statistics.median(run_walls) * 1e3:.1f} ms "
+        f"over {len(EXPONENTS)} exponents; at exponent 1.2: host planning (prefix histogram "
+        f"+ kip_update) {statistics.median(plan) * 1e3:.1f} ms, upload (int32 cast + copy) "
+        f"{statistics.median(upload) * 1e3:.1f} ms, device passes (2 x partition_apply + "
+        f"load counts) {statistics.median(passes) * 1e3:.2f} ms (medians of 5)")
+    return kernels
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ exact summaries of each micro-batch during normal routing work
 (:func:`local_topk_histogram`, on the device); the master merges them into
 a drift-respecting :class:`CounterSketch` on the host.
 
-``Histogram`` and ``CounterSketch`` are numpy and bit-identical to
-``repro.core.histogram``; the reference's other host sketches are not
-ported yet.
+``Histogram``, ``CounterSketch`` and ``CountMinSketch`` are numpy and
+bit-identical to ``repro.core.histogram``; the reference's ``SpaceSaving``
+and ``LossyCounting`` sketches are not ported yet (ROADMAP.md, queue 1
+item 3).
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["CounterSketch", "Histogram", "local_topk_histogram"]
+from repro_torch.core.hashing import GOLDEN, fmix32
+
+__all__ = ["CountMinSketch", "CounterSketch", "Histogram", "local_topk_histogram"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +197,57 @@ class CounterSketch:
     @property
     def memory_items(self) -> int:
         return len(self._keys)
+
+
+class CountMinSketch:
+    """Count-min sketch + candidate set, vectorized over batches.
+
+    The device path for the row updates is the ``sketch_update`` kernel
+    (:func:`repro_torch.kernels.ops.count_sketch`); this host class mirrors
+    it bit for bit (the same fmix32 row hashing) and adds the top-k
+    candidate tracking the kernel leaves to the host.
+    """
+
+    def __init__(self, depth: int, width: int, candidates: int = 256):
+        self.depth, self.width = depth, width
+        self.table = np.zeros((depth, width), np.float64)
+        self.total = 0.0
+        self.k = candidates
+        self._cand: dict[int, float] = {}
+
+    def _rows(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.asarray(keys, np.int64)
+        return np.stack([fmix32((keys ^ (d * GOLDEN)) & 0xFFFFFFFF) % self.width
+                         for d in range(self.depth)])  # [depth, n]
+
+    def update(self, key_batch: np.ndarray) -> None:
+        keys, counts = np.unique(np.asarray(key_batch, np.int64), return_counts=True)
+        self.total += float(counts.sum())
+        cols = self._rows(keys)
+        for d in range(self.depth):
+            np.add.at(self.table[d], cols[d], counts)
+        est = self.estimate(keys)
+        for k, e in zip(keys.tolist(), est.tolist()):
+            self._cand[k] = e
+        if len(self._cand) > self.k:
+            keep = sorted(self._cand.items(), key=lambda kv: -kv[1])[: self.k]
+            self._cand = dict(keep)
+
+    def estimate(self, keys: np.ndarray) -> np.ndarray:
+        cols = self._rows(keys)
+        ests = np.stack([self.table[d, cols[d]] for d in range(self.depth)])
+        return ests.min(axis=0)
+
+    def histogram(self, top_b: int | None = None) -> Histogram:
+        if not self._cand:
+            return Histogram(np.zeros(0, np.int64), np.zeros(0), 0.0)
+        keys = np.fromiter(self._cand.keys(), np.int64, len(self._cand))
+        h = Histogram.from_counts(keys, self.estimate(keys), total=max(self.total, 1e-30))
+        return h.top(top_b) if top_b is not None else h
+
+    @property
+    def memory_items(self) -> int:
+        return self.depth * self.width + len(self._cand)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.exchange.spec import ExchangeResult, ExchangeSpec, Payload, SendInfo
-from repro_torch.kernels.ref import dispatch_count_ref, scatter_rows
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import scatter_rows
 
 __all__ = [
     "DenseBackend",
@@ -54,13 +55,14 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
     """Scatter records into ``[W, L, capacity]`` buffers; count overflow.
 
     ``slot`` and ``counts`` may be precomputed (the route kernels emit
-    both); otherwise they come from the plain stable dispatch count.  A
-    valid record is lost either to a full lane or to a lane outside
-    ``[0, num_lanes)`` — both are counted, never silently dropped.
+    both); otherwise they come from the ``dispatch_count`` kernel
+    (``ops.dispatch_slots``; its plain version on the CPU).  A valid record
+    is lost either to a full lane or to a lane outside ``[0, num_lanes)`` —
+    both are counted, never silently dropped.
     """
     lane = torch.where(valid, lane, torch.zeros_like(lane)).to(torch.int32)
     if slot is None:
-        slot, counts = dispatch_count_ref(lane, valid, num_parts=spec.num_lanes)
+        slot, counts = ops.dispatch_slots(lane, valid, num_parts=spec.num_lanes)
     w = lane.shape[0]
     in_range = (lane >= 0) & (lane < spec.num_lanes)
     ok = valid & in_range & (slot >= 0) & (slot < spec.capacity)

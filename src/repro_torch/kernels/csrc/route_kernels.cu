@@ -32,7 +32,7 @@
 // except `part` (written once in pass 1, read once in pass 3):
 //   * the 16 KB host table sits in shared memory, read with a gather (the
 //     TPU kernel's one-hot matmul lookup is not needed);
-//   * the heavy table is binary-searched through the read-only cache;
+//   * the heavy table is binary-searched in device memory (it stays in L1/L2);
 //   * ranks are deterministic, never taken in atomic order: pass 1 counts
 //     (worker, block, lane) records, pass 2 scans the counts over blocks for
 //     each (worker, lane) and yields `counts`, pass 3 ranks records stably
@@ -42,19 +42,12 @@
 //   * int32 payloads are stored natively (no 16-bit f32 halves);
 //   * the fill pass writes only cells past each lane's count, so every
 //     buffer cell is written exactly once.
-// Speed beyond this simple correct shape is later work.
+// Speed beyond this simple correct shape is later work.  The hash, the
+// heavy-table search and the rank building blocks live in route_common.cuh.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "route_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 8;
-constexpr int kBlock = kThreads * kPerThread;  // records per block
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kGolden = 0x9E3779B9u;
 
 struct RouteArgs {
   const int32_t* keys;         // [W, n]
@@ -88,45 +81,23 @@ struct ScatterArgs {
   int32_t* buf_part;           // [W, L, capacity]
 };
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
 // The route stage both kernels share: key -> partition.
 __device__ __forceinline__ int route_part(const RouteArgs& a, int32_t key, int idx,
                                           const int32_t* s_host) {
   const uint32_t mixed = fmix32(static_cast<uint32_t>(key) ^ a.seed_mix);
   int part = s_host[mixed & static_cast<uint32_t>(a.num_hosts - 1)];
-  if (a.num_heavy > 0) {
-    int lo = 0, hi = a.num_heavy;  // lower bound of key in the heavy table
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(a.heavy_keys + mid) < key) lo = mid + 1; else hi = mid;
-    }
-    const int j = lo < a.num_heavy ? lo : a.num_heavy - 1;
-    if (__ldg(a.heavy_keys + j) == key) {
-      part = __ldg(a.heavy_parts + j);
-      if (a.num_partitions > 0) {
-        int d = __ldg(a.heavy_repl + j);
-        d = d > 1 ? d : 1;
-        const uint32_t h = fmix32(static_cast<uint32_t>(idx) * kGolden ^ mixed);
-        const int offset = static_cast<int>(h & 0x7FFFFFFFu) % d;
-        part = (part + offset) % a.num_partitions;
-      }
+  const int j = heavy_find(a.heavy_keys, a.num_heavy, key);
+  if (j >= 0) {
+    part = __ldg(a.heavy_parts + j);
+    if (a.num_partitions > 0) {
+      int d = __ldg(a.heavy_repl + j);
+      d = d > 1 ? d : 1;
+      const uint32_t h = fmix32(static_cast<uint32_t>(idx) * kGolden ^ mixed);
+      const int offset = static_cast<int>(h & 0x7FFFFFFFu) % d;
+      part = (part + offset) % a.num_partitions;
     }
   }
   return part;
-}
-
-// Record handled by (warp, lane) in round j of block b: each warp owns a
-// contiguous run of 32 * kPerThread records, so in-warp order is index order.
-__device__ __forceinline__ int record_index(int b, int warp, int lane, int j) {
-  return b * kBlock + warp * (32 * kPerThread) + j * 32 + lane;
 }
 
 // Pass 1: route every record, store its part, count valid records per lane.
@@ -148,51 +119,11 @@ __global__ void route_count_kernel(RouteArgs a) {
       a.part[row + i] = p;
       if (a.valid[row + i]) l = p % a.num_lanes;
     }
-    const unsigned peers = __match_any_sync(kFull, l);
-    if (l >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s_count[l], __popc(peers));
+    count_lane(l, s_count);
   }
   __syncthreads();
   for (int l = threadIdx.x; l < a.num_lanes; l += kThreads)
     a.block_counts[(static_cast<int64_t>(w) * a.num_lanes + l) * a.num_blocks + b] = s_count[l];
-}
-
-// Exclusive scan of one value per thread across the block; `total` gets the
-// block's sum.  s_warp holds kWarps ints.
-__device__ __forceinline__ int block_exclusive_scan(int x, int32_t* s_warp, int& total) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int incl = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  total = 0;
-  for (int k = 0; k < kWarps; ++k) {
-    const int s = s_warp[k];
-    if (k < warp) before += s;
-    total += s;
-  }
-  __syncthreads();
-  return before + incl - x;
-}
-
-// Pass 2: one block per (worker, lane) row of block_counts: exclusive scan
-// over the record blocks, in place; the row total is the lane's count.
-__global__ void lane_scan_kernel(int32_t* block_counts, int32_t* counts, int num_blocks) {
-  __shared__ int32_t s_warp[kWarps];
-  int32_t* row = block_counts + static_cast<int64_t>(blockIdx.x) * num_blocks;
-  int carry = 0;
-  for (int start = 0; start < num_blocks; start += kThreads) {
-    const int i = start + threadIdx.x;
-    const int x = i < num_blocks ? row[i] : 0;
-    int total;
-    const int excl = block_exclusive_scan(x, s_warp, total);
-    if (i < num_blocks) row[i] = carry + excl;
-    carry += total;
-  }
-  if (threadIdx.x == 0) counts[blockIdx.x] = carry;
 }
 
 // Pass 3: stable in-block rank per lane, slot = block offset + rank; with
@@ -205,35 +136,23 @@ __global__ void rank_kernel(RouteArgs a, ScatterArgs s) {
   for (int k = threadIdx.x; k < kWarps * L; k += kThreads) s_wcount[k] = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;
   const int64_t row = static_cast<int64_t>(w) * a.n;
-  int32_t* mine = s_wcount + warp * L;
   int lane_of[kPerThread];
   int rank[kPerThread];
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int i = record_index(b, warp, lane, j);
-    int l = -1;
-    if (i < a.n && a.valid[row + i]) l = a.part[row + i] % L;
-    const unsigned peers = __match_any_sync(kFull, l);
-    const int r = l >= 0 ? mine[l] + __popc(peers & lower) : 0;
-    __syncwarp();
-    if (l >= 0 && lane == __ffs(peers) - 1) mine[l] += __popc(peers);
-    __syncwarp();
-    lane_of[j] = l;
-    rank[j] = r;
+    lane_of[j] = i < a.n && a.valid[row + i] ? a.part[row + i] % L : -1;
   }
+  warp_lane_ranks(lane_of, rank, s_wcount, L);
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int i = record_index(b, warp, lane, j);
     if (i >= a.n) continue;
     const int l = lane_of[j];
-    int sl = -1;
-    if (l >= 0) {
-      sl = a.block_counts[(static_cast<int64_t>(w) * L + l) * a.num_blocks + b] + rank[j];
-      for (int k = 0; k < warp; ++k) sl += s_wcount[k * L + l];
-    }
+    const int sl = l >= 0 ? lane_slot(a.block_counts, s_wcount, w, b, l, L, a.num_blocks,
+                                      rank[j]) : -1;
     a.slot[row + i] = sl;
     if (kScatter && l >= 0 && sl < s.capacity) {
       const int64_t cell = (static_cast<int64_t>(w) * L + l) * s.capacity + sl;

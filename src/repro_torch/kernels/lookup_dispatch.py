@@ -43,23 +43,16 @@ def _fail(msg: str):
 def check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part,
                        heavy_repl, *, num_hosts, num_lanes, num_partitions):
     """Raise ``ValueError`` on anything the CUDA route kernels do not take."""
-    dev = keys.device
-    if dev.type != "cuda":
-        _fail(f"keys on {dev}: the kernel path takes CUDA tensors only")
-    if keys.dim() != 2 or keys.dtype != torch.int32:
-        _fail(f"keys must be int32[W, n], got {keys.dtype}{list(keys.shape)}")
-    if valid.dtype != torch.bool or valid.shape != keys.shape:
-        _fail(f"valid must be bool{list(keys.shape)}, got {valid.dtype}{list(valid.shape)}")
     tables = [heavy_keys, heavy_parts, host_to_part]
     if num_partitions > 0:
         if heavy_repl is None:
             _fail("splitting (num_partitions > 0) needs the replica table")
         tables.append(heavy_repl)
-    for t in [keys, valid] + tables:
-        if t.device != dev:
-            _fail(f"tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            _fail("tensors must be contiguous")
+    build.require_cuda("route kernel", keys, valid, *tables)
+    if keys.dim() != 2 or keys.dtype != torch.int32:
+        _fail(f"keys must be int32[W, n], got {keys.dtype}{list(keys.shape)}")
+    if valid.dtype != torch.bool or valid.shape != keys.shape:
+        _fail(f"valid must be bool{list(keys.shape)}, got {valid.dtype}{list(valid.shape)}")
     for t in tables:
         if t.dim() != 1 or t.dtype != torch.int32:
             _fail(f"tables must be int32 vectors, got {t.dtype}{list(t.shape)}")

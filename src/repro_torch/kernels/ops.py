@@ -1,4 +1,4 @@
-"""Public wrappers around the route kernels, with the reference's padding
+"""Public wrappers around the port's kernels, with the reference's padding
 and sentinel rules (``repro.kernels.ops``).
 
 * Heavy tables are padded to a multiple of ``KEY_LANES`` (128) rows with
@@ -6,20 +6,34 @@ and sentinel rules (``repro.kernels.ops``).
   records carry the sentinel key, so they "hit" a pad row and route to
   partition 0; every consumer masks their part.
 * ``route_bucketize`` pads one whole tile of sentinel rows when the heavy
-  table is empty; ``route_slots`` does not.
+  table is empty; ``route_slots`` and ``apply_partitioner`` do not (their
+  kernels take ``B = 0``; the reference's Pallas kernels do not).
 * Records need no padding: the CUDA kernels mask the ragged edge.  The
   capacity is exactly the caller's (the TPU kernel's 128-column padding of
   it was internal to that kernel).
+* ``valid`` defaults to all records in ``count_sketch`` and
+  ``dispatch_slots``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.hashing import KEY_SENTINEL
+from repro_torch.kernels.dispatch_count import dispatch_count
 from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+from repro_torch.kernels.partition_apply import partition_apply
 from repro_torch.kernels.route_bucketize import route_bucketize as _route_bucketize_kernel
+from repro_torch.kernels.sketch_update import sketch_update
 
-__all__ = ["KEY_LANES", "pad_heavy_tables", "route_bucketize", "route_slots"]
+__all__ = [
+    "KEY_LANES",
+    "apply_partitioner",
+    "count_sketch",
+    "dispatch_slots",
+    "pad_heavy_tables",
+    "route_bucketize",
+    "route_slots",
+]
 
 KEY_LANES = 128
 
@@ -63,3 +77,29 @@ def route_bucketize(keys, valid, tables, vals, *, num_hosts: int, seed: int = 0,
         tables.host_to_part.contiguous(), hr, seed=seed, num_hosts=num_hosts,
         num_lanes=num_lanes, capacity=capacity, key_fill=key_fill,
         num_partitions=num_partitions)
+
+
+def apply_partitioner(keys, tables, *, num_hosts: int, seed: int = 0):
+    """Partition id of every key (``[W, n]`` or ``[n]``) under
+    :class:`~repro_torch.core.partitioner.PartitionerTables`: the batch
+    replay's assignment pass (see :mod:`repro_torch.kernels.partition_apply`)."""
+    hk, hp, _ = pad_heavy_tables(tables, num_partitions=0, pad_empty=False)
+    return partition_apply(keys.to(torch.int32).contiguous(), hk, hp,
+                           tables.host_to_part.contiguous(), seed=seed,
+                           num_hosts=num_hosts)
+
+
+def count_sketch(keys, valid=None, *, depth: int = 4, width: int = 2048):
+    """``float32[depth, width]`` count-min sketch of the batch (one per
+    worker for ``[W, n]`` keys; see :mod:`repro_torch.kernels.sketch_update`)."""
+    keys = keys.to(torch.int32).contiguous()
+    valid = torch.ones_like(keys, dtype=torch.bool) if valid is None else valid
+    return sketch_update(keys, valid.to(torch.bool).contiguous(), depth=depth, width=width)
+
+
+def dispatch_slots(dest, valid=None, *, num_parts: int):
+    """``(slot, counts)`` for building the all-to-all send buffers (see
+    :mod:`repro_torch.kernels.dispatch_count`)."""
+    dest = dest.to(torch.int32).contiguous()
+    valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+    return dispatch_count(dest, valid.to(torch.bool).contiguous(), num_parts=num_parts)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the route kernels (no custom kernel, any device).
+"""Plain PyTorch versions of the CUDA kernels (no custom kernel, any device).
 
 These are the oracles the CUDA kernels are held to, and what the kernel
 wrappers run when handed CPU tensors.  Each mirrors its counterpart in
@@ -21,6 +21,7 @@ __all__ = [
     "partition_apply_ref",
     "route_bucketize_ref",
     "scatter_rows",
+    "sketch_update_ref",
     "split_choice_ref",
 ]
 
@@ -83,12 +84,17 @@ def split_choice_ref(keys, heavy_keys, heavy_repl, *, seed=0, num_partitions=0,
 
 
 def dispatch_count_ref(dest, valid, *, num_parts):
-    """Stable rank of each valid record within its destination (-1 when
-    invalid) and the per-destination counts, via a stable sort."""
+    """Stable rank of each valid record within its destination and the
+    per-destination counts, via a stable sort.
+
+    As in the reference, an invalid record gets slot -1 and a valid record
+    whose destination lies outside ``[0, num_parts)`` gets slot 0 and is
+    not counted (the exchange counts it as overflow)."""
     dest, one = _stacked(dest.to(torch.int32))
     valid = valid.reshape(dest.shape)
     w, n = dest.shape
-    key = torch.where(valid, dest.to(torch.int64), num_parts)
+    counted = valid & (dest >= 0) & (dest < num_parts)
+    key = torch.where(counted, dest.to(torch.int64), num_parts)
     sorted_key, order = torch.sort(key, dim=1, stable=True)
     counts = torch.zeros((w, num_parts + 1), dtype=torch.int64, device=dest.device)
     counts.scatter_add_(1, key, torch.ones_like(key))
@@ -96,9 +102,26 @@ def dispatch_count_ref(dest, valid, *, num_parts):
     pos = torch.arange(n, device=dest.device, dtype=torch.int64).expand(w, n)
     rank_sorted = pos - torch.gather(start, 1, sorted_key)
     slot = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
-    slot = torch.where(valid, slot, -1).to(torch.int32)
+    slot = torch.where(counted, slot, torch.where(valid, 0, -1)).to(torch.int32)
     counts = counts[:, :num_parts].to(torch.int32)
     return (slot[0], counts[0]) if one else (slot, counts)
+
+
+def sketch_update_ref(keys, valid, *, depth=4, width=2048):
+    """Count-min sketch ``float32[depth, width]`` (``[W, depth, width]`` for
+    stacked keys): row ``d`` adds ``valid`` at column
+    ``fmix32(key ^ (d * golden mod 2**32)) % width``, summed in float32
+    as the reference does (exact while a cell stays below 2**24)."""
+    keys, one = _stacked(keys.to(torch.int32))
+    valid = valid.reshape(keys.shape)
+    w = keys.shape[0]
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    add = valid.to(torch.float32)
+    out = torch.zeros((w, depth, width), dtype=torch.float32, device=keys.device)
+    for d in range(depth):
+        col = fmix32(k ^ ((d * GOLDEN) & 0xFFFFFFFF)) % width
+        out[:, d].scatter_add_(1, col, add)
+    return out[0] if one else out
 
 
 def lookup_dispatch_ref(keys, valid, heavy_keys, heavy_parts, host_to_part, *,

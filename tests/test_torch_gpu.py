@@ -1,4 +1,4 @@
-"""The CUDA route kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These need a CUDA device and the CUDA toolkit (the kernels are built from
 ``src/repro_torch/kernels/csrc`` at first use); without a device they skip.
@@ -10,14 +10,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.histogram import Histogram
+from repro_torch.core.histogram import CountMinSketch, Histogram
 from repro_torch.core.partitioner import kip_update, uniform_partitioner
+from repro_torch.core.replay import BatchJob
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.core.drm import DRConfig
 from repro_torch.data.generators import drifting_zipf, zipf_keys
 from repro_torch.kernels import ops
+from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
 from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
 from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
 
 pytestmark = pytest.mark.gpu
 SENT = 2**31 - 1
@@ -93,3 +97,75 @@ def test_streaming_job_card_equals_cpu(cuda):
                                     b.overflow, b.reason, b.shipped_rows)
     assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
     assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
+
+
+@pytest.mark.parametrize("w,n,b,num_hosts,sentinels", [
+    (1, 100_000, 256, 4096, False),
+    (35, 3000, 0, 4096, True),          # empty heavy table
+    (4, 50_000, 256, 4096, True),       # sentinel keys hit pad rows: part 0
+    (2, 20_000, 16384, 8192, False),    # tables past the default 48 KB
+])
+def test_partition_apply_equals_plain(cuda, w, n, b, num_hosts, sentinels):
+    rng = np.random.default_rng(n + b)
+    keys = zipf_keys(w * n, num_keys=50_000, exponent=1.1, seed=b).astype(np.int32)
+    live = np.unique(keys)[: b // 2] if b else np.zeros(0, np.int32)
+    hk = np.concatenate([live, np.full(b - len(live), SENT, np.int32)]).astype(np.int32)
+    hp = np.concatenate([rng.integers(0, 35, len(live)), np.zeros(b - len(live))])
+    if sentinels:
+        keys[rng.random(len(keys)) < 0.1] = SENT
+    args = [torch.as_tensor(a, dtype=torch.int32, device=cuda) for a in
+            (keys.reshape(w, n), hk, hp, rng.integers(0, 35, num_hosts))]
+    before = partition_apply.launches
+    got = partition_apply(*args, seed=3, num_hosts=num_hosts)
+    want = partition_apply_plain(*args, seed=3, num_hosts=num_hosts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and partition_apply.launches == before + 1
+
+
+@pytest.mark.parametrize("w,n,num_parts", [(1, 1_000_000, 35), (3, 5000, 1),
+                                           (2, 70_000, 1024), (8, 2048, 7)])
+def test_dispatch_count_equals_plain(cuda, w, n, num_parts):
+    rng = np.random.default_rng(n)
+    dest = rng.integers(-2, num_parts + 2, (w, n)).astype(np.int32)
+    valid = rng.random((w, n)) < 0.8
+    d, v = torch.as_tensor(dest, device=cuda), torch.as_tensor(valid, device=cuda)
+    before = dispatch_count.launches
+    got = dispatch_count(d, v, num_parts=num_parts)
+    want = dispatch_count_plain(d, v, num_parts=num_parts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert dispatch_count.launches == before + 1
+    got1 = dispatch_count(d[0].contiguous(), v[0].contiguous(), num_parts=num_parts)
+    assert all(torch.equal(g, x[0]) for g, x in zip(got1, want))
+
+
+@pytest.mark.parametrize("w,depth,width", [(1, 4, 2048), (1, 8, 8192), (3, 1, 1000),
+                                           (2, 8, 2048), (1, 4, 8192)])
+def test_sketch_update_equals_plain(cuda, w, depth, width):
+    rng = np.random.default_rng(width + depth)
+    keys = zipf_keys(w * 200_000, num_keys=100_000, exponent=1.4, seed=depth)
+    k = torch.as_tensor(keys.astype(np.int32).reshape(w, -1), device=cuda)
+    v = torch.as_tensor(rng.random(k.shape) < 0.9, device=cuda)
+    before = sketch_update.launches
+    got = sketch_update(k, v, depth=depth, width=width)
+    want = sketch_update_plain(k, v, depth=depth, width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and sketch_update.launches == before + 1
+    cms = CountMinSketch(depth, width)
+    cms.update(keys[: k.shape[1]][v[0].cpu().numpy()])
+    np.testing.assert_array_equal(got[0].cpu().numpy().astype(np.float64), cms.table)
+
+
+def test_batch_job_card_equals_cpu(cuda):
+    keys = zipf_keys(400_000, num_keys=50_000, exponent=1.2, seed=12)
+    dr = DRConfig(mode="batch", lam=4.0, eps=0.003)
+    before = partition_apply.launches
+    card = BatchJob(35, dr=dr, device=cuda).run(keys)
+    cpu = BatchJob(35, dr=dr, device="cpu").run(keys)
+    assert partition_apply.launches == before + 2
+    assert (card.imbalance_before, card.imbalance_after, card.replayed_records) == (
+        cpu.imbalance_before, cpu.imbalance_after, cpu.replayed_records)
+    assert card.assignments.device.type == "cuda"
+    assert torch.equal(card.assignments.cpu(), cpu.assignments)
+    np.testing.assert_array_equal(card.assignments.cpu().numpy(),
+                                  card.partitioner.lookup_np(keys))

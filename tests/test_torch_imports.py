@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels.dispatch_count as dc_mod
 import repro_torch.kernels.lookup_dispatch as ld_mod
+import repro_torch.kernels.partition_apply as pa_mod
 import repro_torch.kernels.route_bucketize as rb_mod
+import repro_torch.kernels.sketch_update as su_mod
 from repro_torch.compat import resolve_device
+from repro_torch.core.replay import BatchJob
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import lookup_dispatch_ref, route_bucketize_ref
@@ -69,6 +73,16 @@ def test_streaming_job_defaults_to_cuda():
     assert StreamingJob(device="cpu").state_keys.device.type == "cpu"
 
 
+def test_batch_job_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert BatchJob(8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchJob(8)
+    res = BatchJob(8, device="cpu").run(np.arange(1000))
+    assert res.assignments.device.type == "cpu"
+
+
 def _inputs():
     rng = np.random.default_rng(0)
     keys = torch.as_tensor(rng.integers(0, 2**30, (2, 300)).astype(np.int32))
@@ -112,6 +126,9 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
 
     monkeypatch.setattr(ld_mod, "lookup_dispatch_plain", plain_called)
     monkeypatch.setattr(rb_mod, "route_bucketize_plain", plain_called)
+    monkeypatch.setattr(pa_mod, "partition_apply_plain", plain_called)
+    monkeypatch.setattr(dc_mod, "dispatch_count_plain", plain_called)
+    monkeypatch.setattr(su_mod, "sketch_update_plain", plain_called)
     monkeypatch.setattr(build, "library", no_library)
     with FakeTensorMode():
         keys = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
@@ -126,8 +143,32 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         with pytest.raises(NoLibrary):
             rb_mod.route_bucketize(keys, valid, vals, hk, hp, h2p, num_lanes=4,
                                    capacity=64, key_fill=SENT)
-        with pytest.raises(ValueError, match="int32"):   # checked before any launch
+        with pytest.raises(NoLibrary):
+            pa_mod.partition_apply(keys, hk, hp, h2p)
+        with pytest.raises(NoLibrary):
+            none = torch.empty(0, dtype=torch.int32, device="cuda")
+            pa_mod.partition_apply(keys, none, none, h2p)  # B = 0 is taken
+        with pytest.raises(NoLibrary):
+            dc_mod.dispatch_count(keys, valid, num_parts=1024)
+        with pytest.raises(NoLibrary):
+            su_mod.sketch_update(keys, valid, depth=8, width=1000)
+        # checked before any launch
+        with pytest.raises(ValueError, match="int32"):
             ld_mod.lookup_dispatch(keys.long(), valid, hk, hp, h2p, num_lanes=4)
+        with pytest.raises(ValueError, match="power of two"):
+            pa_mod.partition_apply(keys, hk, hp, h2p, num_hosts=1000)
+        with pytest.raises(ValueError, match="num_parts"):
+            dc_mod.dispatch_count(keys, valid, num_parts=1025)
+        with pytest.raises(ValueError, match="depth"):
+            su_mod.sketch_update(keys, valid, depth=9)
+        with pytest.raises(ValueError, match="bool"):
+            su_mod.sketch_update(keys, keys, depth=2)
     meta = [t.to("meta") for t in _inputs()]
     with pytest.raises(ValueError, match="CUDA"):
         ld_mod.lookup_dispatch(meta[0], meta[1], *meta[3:], num_lanes=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa_mod.partition_apply(meta[0], *meta[3:])
+    with pytest.raises(ValueError, match="CUDA"):
+        dc_mod.dispatch_count(meta[0], meta[1], num_parts=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        su_mod.sketch_update(meta[0], meta[1])

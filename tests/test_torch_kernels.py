@@ -7,6 +7,8 @@ kernels run in interpret mode, on the shapes ``tests/test_kernels.py``
 sweeps plus an empty heavy table, split replicas with d > 1, invalid
 sentinel records and capacity overflow.  Integer outputs must be equal
 exactly; the f32 payloads are copied, never summed, so they are equal too.
+The count-min sketch sums 1.0s in float32, exact below 2**24, so it is
+equal exactly as well.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +22,11 @@ from repro.kernels import ref as jref
 from repro_torch.core.partitioner import PartitionerTables
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.dispatch_count import dispatch_count
 from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+from repro_torch.kernels.partition_apply import partition_apply
 from repro_torch.kernels.route_bucketize import route_bucketize
+from repro_torch.kernels.sketch_update import sketch_update
 
 SENT = 2**31 - 1
 
@@ -261,3 +266,128 @@ def test_kernel_wrappers_on_cpu_equal_plain_versions():
         tref.route_bucketize_ref(k, v, x, hk, hp, h2p, heavy_repl=hr, capacity=100,
                                  key_fill=SENT, **kw),
         RB_NAMES)
+
+
+# ---------------------------------------------------------------------------
+# the batch path's kernels: partition_apply, dispatch_count, sketch_update
+# ---------------------------------------------------------------------------
+
+
+def _dests(n, num_parts, seed):
+    """Destinations with out-of-range values (negative and >= num_parts)
+    and a seeded fifth of invalid records."""
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, num_parts, n).astype(np.int32)
+    out = rng.random(n) < 0.1
+    dest[out] = rng.choice([-7, -1, num_parts, num_parts + 3], int(out.sum()))
+    valid = rng.random(n) >= 0.2
+    return dest, valid
+
+
+@pytest.mark.parametrize("n,num_parts", [(512, 1), (512, 4), (2048, 16), (1536, 1024)])
+def test_dispatch_count_out_of_range_and_invalid(n, num_parts):
+    """Out-of-range valid records get slot 0 and no count, invalid ones -1,
+    as the jnp twin and the Pallas kernel (interpret) give them."""
+    dest, valid = _dests(n, num_parts, n + num_parts)
+    want = jref.dispatch_count_ref(jnp.asarray(dest), jnp.asarray(valid), num_parts=num_parts)
+    got = tref.dispatch_count_ref(_t(dest), _t(valid), num_parts=num_parts)
+    _eq(got, want, ("slot", "counts"))
+    pallas = jops.dispatch_slots(jnp.asarray(dest), jnp.asarray(valid), num_parts=num_parts)
+    _eq(tops.dispatch_slots(_t(dest), _t(valid), num_parts=num_parts), pallas,
+        ("slot", "counts"))
+    oor = valid & ((dest < 0) | (dest >= num_parts))
+    assert oor.any() and (~valid).any()
+    assert (got[0].numpy()[oor] == 0).all() and (got[0].numpy()[~valid] == -1).all()
+
+
+def test_dispatch_count_stacked_workers_are_independent():
+    w, n, num_parts = 3, 700, 8
+    dest, valid = _dests(w * n, num_parts, 5)
+    slot, counts = tref.dispatch_count_ref(_t(dest).reshape(w, n), _t(valid).reshape(w, n),
+                                           num_parts=num_parts)
+    for i in range(w):
+        sl = slice(i * n, (i + 1) * n)
+        want = jref.dispatch_count_ref(jnp.asarray(dest[sl]), jnp.asarray(valid[sl]),
+                                       num_parts=num_parts)
+        _eq((slot[i], counts[i]), want, ("slot", "counts"))
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+@pytest.mark.parametrize("depth,width", [(1, 2048), (2, 512), (4, 1000), (8, 1024)])
+def test_sketch_update_matches_reference(n, depth, width):
+    """The plain version == the jnp twin == the Pallas kernel (interpret),
+    a width that is not a power of two and invalid records included."""
+    rng = np.random.default_rng(n + depth + width)
+    keys = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    keys[: n // 2] = rng.integers(0, 300, n // 2)  # repeated keys
+    valid = rng.random(n) < 0.9
+    want = jref.sketch_update_ref(jnp.asarray(keys), jnp.asarray(valid), depth=depth,
+                                  width=width)
+    got = tref.sketch_update_ref(_t(keys), _t(valid), depth=depth, width=width)
+    assert got.dtype == torch.float32 and got.shape == (depth, width)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    pallas = jops.count_sketch(jnp.asarray(keys), jnp.asarray(valid), depth=depth, width=width)
+    np.testing.assert_array_equal(
+        tops.count_sketch(_t(keys), _t(valid), depth=depth, width=width).numpy(),
+        np.asarray(pallas))
+
+
+def test_sketch_update_stacked_workers_and_default_valid():
+    w, n = 3, 500
+    keys = zipf_keys(w * n, num_keys=400, exponent=1.1, seed=9).astype(np.int32)
+    got = tops.count_sketch(_t(keys).reshape(w, n), depth=3, width=777)
+    assert got.shape == (w, 3, 777)
+    for i in range(w):
+        want = jref.sketch_update_ref(jnp.asarray(keys[i * n:(i + 1) * n]),
+                                      jnp.ones(n, bool), depth=3, width=777)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[i].sum(dim=1).numpy(), np.full(3, n, np.float32))
+
+
+@pytest.mark.parametrize("case", ["kip", "sentinel_keys", "stacked", "empty"])
+def test_ops_apply_partitioner_matches_pallas_interpret(case):
+    """``ops.apply_partitioner`` pads the heavy table to the tile with
+    sentinel keys and part 0, as the reference does.  A key equal to the
+    sentinel takes a pad row's part, 0.  The reference's Pallas wrapper
+    cannot take an empty heavy table (the uniform partitioner), so that case
+    is held to the jnp twin."""
+    if case == "empty":
+        p = uniform_partitioner(35)
+        stream = zipf_keys(4096, num_keys=2_000, exponent=1.2, seed=7)
+    else:
+        p, stream = _kip(35)
+    keys = stream[:2000].astype(np.int32)
+    if case == "sentinel_keys":
+        keys[np.random.default_rng(1).random(len(keys)) < 0.1] = SENT
+    t = p.tables()
+    if case == "empty":
+        assert t.heavy_keys.shape[0] == 0
+        want = jref.partition_apply_ref(jnp.asarray(keys), t.heavy_keys, t.heavy_parts,
+                                        t.host_to_part, seed=p.seed, num_hosts=p.num_hosts)
+    else:
+        want = jops.apply_partitioner(jnp.asarray(keys), t, num_hosts=p.num_hosts, seed=p.seed)
+    k = _t(keys).reshape(4, 500) if case == "stacked" else _t(keys)
+    got = tops.apply_partitioner(k, _port_tables(t), num_hosts=p.num_hosts, seed=p.seed)
+    assert got.shape == k.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.reshape(-1).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.reshape(-1).numpy(), p.lookup_np(keys))
+
+
+def test_batch_kernel_wrappers_on_cpu_equal_plain_versions_and_launch_nothing():
+    p, stream = _kip(8)
+    keys = _t(stream[:1200].astype(np.int32)).reshape(2, -1)
+    valid = keys % 7 != 0
+    hk, hp, _ = tops.pad_heavy_tables(_port_tables(p.tables()), num_partitions=0,
+                                      pad_empty=False)
+    h2p = _t(p.host_to_part, torch.int32)
+    dest = (keys % 11 - 1).to(torch.int32)
+    before = (partition_apply.launches, dispatch_count.launches, sketch_update.launches)
+    assert torch.equal(partition_apply(keys, hk, hp, h2p, seed=p.seed, num_hosts=p.num_hosts),
+                       tref.partition_apply_ref(keys, hk, hp, h2p, seed=p.seed,
+                                                num_hosts=p.num_hosts))
+    _eq(dispatch_count(dest, valid, num_parts=9),
+        tref.dispatch_count_ref(dest, valid, num_parts=9), ("slot", "counts"))
+    assert torch.equal(sketch_update(keys, valid, depth=3, width=1000),
+                       tref.sketch_update_ref(keys, valid, depth=3, width=1000))
+    assert (partition_apply.launches, dispatch_count.launches,
+            sketch_update.launches) == before
