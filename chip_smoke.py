@@ -6,8 +6,9 @@ target).  Run from the repository root:
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
-   the card's name and power limit and the CUDA toolkit version.
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once) and print the card's name and power
+   limit and the CUDA toolkit version.
 2. The full-size DR loop: ``StreamingJob`` on 8 stacked workers, 32
    partitions, 8 x 262,144 state rows, over 8 drifting-Zipf batches of
    4 Mi records; asserts zero overflow, at least one repartition that
@@ -39,6 +40,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. Times of the batch kernels at phase 6's shapes (exponent 1.2), as in
    phase 5, and the median ``BatchJob.run`` wall per job, split into the
    host planning, the upload and the device passes.
+9. Serving at gemma-2b's full published width and depth (18 layers, bf16
+   parameters and compute, random weights from a seeded generator on the
+   card): 32 requests with the traffic of the reference launcher
+   (``src/repro/launch/serve.py``: session 7 with probability 0.3, else
+   uniform over [0, 1000)), prompts of 256-2048 tokens, 16 new tokens,
+   routed by ``DRScheduler.route`` to 4 replicas, each a 4-slot
+   ``ServeEngine`` with ``max_len`` 2064, then ``checkpoint``.  Asserts 16
+   tokens in the vocabulary for every request, finite logits, one
+   flash-kernel launch per layer per prefill (576) and the checkpoint's
+   schema.
+10. The flash kernel against its plain version on the card: gemma-2b's
+    prefill shapes (G = 1, P = 8, hd = 256, Sq = Sk in 1, 100, 512, 2048)
+    and hd 16, 64, 128, 192 with G > 1, P in 1, 2; causal, non-causal and
+    window 96; float32 within 2e-5 and bf16 within 2e-2.
+11. The card against the CPU: gemma-2b at full width but depth 2 in
+    float32 (TF32 off), both from the same CPU-initialised weights; four
+    prompts of 128-256 tokens, 8 teacher-forced steps: logits within 1e-3,
+    greedy tokens equal wherever the CPU's top-two margin exceeds 1e-2.
+12. Times: the flash kernel at gemma-2b's prefill shapes (Sq 512, 1024,
+    2048, bf16, causal) beside its bound, its plain version and
+    ``scaled_dot_product_attention`` on the same inputs (k, v expanded to
+    the 8 heads; timed only); the prefill wall at those lengths and the
+    kernel's share of it; phase 9's median prefill wall per request,
+    decode wall per token and tokens per second.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -57,6 +82,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at the 700 W limit)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; f32
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE = "src/repro_torch/kernels/csrc/route_kernels.cu"
 BATCH_SOURCE = "src/repro_torch/kernels/csrc/batch_kernels.cu"
 REPLACES = {
@@ -65,6 +92,7 @@ REPLACES = {
     "partition_apply": "src/repro/kernels/partition_apply.py:72",
     "dispatch_count": "src/repro/kernels/dispatch_count.py:60",
     "sketch_update": "src/repro/kernels/sketch_update.py:50",
+    "flash_attention": "src/repro/kernels/flash_attention.py:73",
 }
 # phase 6: the paper's Fig. 4 batch jobs (benchmarks/bench_spark_like.py)
 BATCH_RECORDS = 10_000_000
@@ -169,7 +197,8 @@ def main() -> int:
     card = card_line()
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    log(f"phase 1: built {SOURCE} in {build_s:.2f} s; card {card}; "
+    built = ", ".join(p.name for p in build.sources())
+    log(f"phase 1: built {built} in {build_s:.2f} s; card {card}; "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; {nvcc}")
 
     # ---- phase 2: the full-size DR loop --------------------------------
@@ -327,6 +356,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels += batch_phases(dev, sent)
+    torch.cuda.empty_cache()
+    kernels += serve_phases(dev, card)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -503,6 +534,267 @@ def batch_phases(dev, sent) -> list[dict]:
         f"{statistics.median(upload) * 1e3:.1f} ms, device passes (2 x partition_apply + "
         f"load counts) {statistics.median(passes) * 1e3:.2f} ms (medians of 5)")
     return kernels
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def causal_flash_cost(g, p, s, hd, dtype):
+    """(bytes, FLOPs) causal flash attention over Sq = Sk = s needs: q, k,
+    v read once and the output written once; 4*hd FLOPs per visible (q, k)
+    pair, s(s+1)/2 of them."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * g * p * s * hd + 2 * g * s * hd) * size
+    return nbytes, 4 * g * p * hd * (s * (s + 1) // 2)
+
+
+def profile_serving(model, params, cfg, pol, rng, dev, max_len) -> None:
+    """Device time by kernel (``torch.profiler``) of one 1024-token prefill
+    and of 8 decode steps, beside the same work's wall clock unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
+    one = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+
+    def prefill(_=None):
+        return model.prefill(params, {"tokens": toks}, cfg, pol, max_len=max_len)[1]
+
+    def decode(cache):
+        for _ in range(8):
+            model.decode_step(params, cache, one, cfg, pol)
+
+    cases = {"prefill of 1024 tokens": (lambda: None, prefill),
+             "8 decode steps after it": (prefill, decode)}
+    for name, (setup, work) in cases.items():
+        walls = []
+        for _ in range(3):
+            state = setup()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            work(state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        state = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            work(state)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy: dict[str, float] = {}
+        for e in kern:
+            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        total = sum(busy.values())
+        wall = statistics.median(walls) * 1e3
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        log(f"phase 12: profile, {name}: wall {wall:.2f} ms unprofiled (median of 3); "
+            f"{len(kern)} kernel launches, device busy {total:.2f} ms "
+            f"({100 * total / wall:.1f}% of the wall, idle {100 - 100 * total / wall:.1f}%)")
+        for kname, ms in top:
+            log(f"phase 12:   {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  {kname[:90]}")
+
+
+def serve_phases(dev, card) -> list[dict]:
+    """Phases 9-12: DR-routed serving of gemma-2b and the flash kernel."""
+    import repro_torch.models.model as model
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+
+    bf16 = torch.bfloat16
+    cfg = get_config("gemma-2b")
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+
+    # ---- phase 9: full-width serving through DRScheduler + ServeEngine ----
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"phase 9: gemma-2b: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} q heads "
+        f"over {cfg.num_kv_heads} kv head, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
+        f"initialised on the card in {time.perf_counter() - t:.1f} s")
+    n_req, max_new, n_rep, slots, max_len = 32, 16, 4, 4, 2064
+    rng = np.random.default_rng(0)
+    sessions = np.where(rng.random(n_req) < 0.3, 7, rng.integers(0, 1000, n_req))
+    lens = rng.integers(256, 2049, n_req)
+    sched = DRScheduler(n_rep)
+    engines = [ServeEngine(cfg, params, pol, slots=slots, max_len=max_len, device=dev)
+               for _ in range(n_rep)]
+    queues: list[list] = [[] for _ in range(n_rep)]
+    for i in range(n_req):
+        req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
+                      max_new_tokens=max_new, session_key=int(sessions[i]))
+        queues[sched.route(req.session_key, cost_tokens=max_new)].append(req)
+
+    # time each prefill and decode step the engines make, and check their logits
+    walls = {"prefill": [], "decode": []}
+    finite = []
+    orig = {"prefill": model.prefill, "decode": model.decode_step}
+
+    def timed(kind):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](*a, **k)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    try:
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        for r, (eng, q) in enumerate(zip(engines, queues)):
+            eng.run(q, max_ticks=200)
+            log(f"phase 9: replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
+                f"{eng.steps} ticks")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        launches = flash_attention.launches
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    info = sched.checkpoint(sessions)
+    reqs = [r for q in queues for r in q]
+    assert len(reqs) == n_req
+    for r in reqs:
+        assert len(r.out_tokens) == max_new and r.done, (r.rid, r.out_tokens)
+        assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
+    assert finite and all(finite), "non-finite logits"
+    assert launches == cfg.num_layers * n_req, launches
+    assert set(info) == {"repartitioned", "resized", "num_replicas", "imbalance",
+                         "moved_sessions", "reason", "backend", "overlapped"}, info
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    prefill_ms = statistics.median(walls["prefill"]) * 1e3
+    decode_ms = statistics.median(walls["decode"]) * 1e3
+    log(f"phase 9: routed={sched.routed} imbalance={sched.imbalance():.2f}; prompts "
+        f"{int(lens.min())}-{int(lens.max())} tokens (mean {lens.mean():.1f}); {tokens} tokens "
+        f"in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); flash launches {launches} "
+        f"(= {cfg.num_layers} layers x {n_req} prefills); all logits finite")
+    log(f"phase 9: DR checkpoint: {info}")
+    del engines
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the flash kernel against its plain version -------------
+    errs = {torch.float32: 0.0, bf16: 0.0}
+    tol = {torch.float32: 2e-5, bf16: 2e-2}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(1, 8, sq, 256) for sq in (1, 100, 512, 2048)]
+    cases += [(g, p, sq, hd) for hd, g, p in ((16, 3, 2), (64, 2, 1), (128, 4, 2), (192, 2, 2))
+              for sq in (7, 300)]
+    n_cases = 0
+    for g, p, sq, hd in cases:
+        for dtype in (torch.float32, bf16):
+            q = torch.randn((g, p, sq, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((g, sq, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((g, sq, hd), generator=gen, device=dev).to(dtype)
+            for causal, window in ((True, 0), (False, 0), (True, 96)):
+                got = flash_attention(q, k, v, causal=causal, window=window)
+                want = flash_attention_plain(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == q.shape
+                err = float((got.float() - want.float()).abs().max())
+                errs[dtype] = max(errs[dtype], err)
+                n_cases += 1
+                assert err <= tol[dtype], (g, p, sq, hd, dtype, causal, window, err)
+    log(f"phase 10: flash_attention: {n_cases} cases within tolerance; max abs error "
+        f"{errs[torch.float32]:.3g} in float32 (<= 2e-5), {errs[bf16]:.3g} in bf16 (<= 2e-2)")
+
+    # ---- phase 11: card against CPU, full width, depth 2, float32 ---------
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    pol32 = Policy()
+    cpu_params = model.init_params(cfg2, 1, pol32, device="cpu")
+    card_params = _to(cpu_params, dev)
+    rng = np.random.default_rng(1)
+    worst, checked, margins_skipped = 0.0, 0, 0
+    for i in range(4):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(128, 257)))
+        toks = torch.as_tensor(prompt[None].astype(np.int64))
+        lc, cc = model.prefill(cpu_params, {"tokens": toks}, cfg2, pol32, max_len=272)
+        lg, cg = model.prefill(card_params, {"tokens": toks.to(dev)}, cfg2, pol32, max_len=272)
+        for step in range(8):
+            a = lc[0, -1, :cfg.vocab_size]
+            b = lg[0, -1, :cfg.vocab_size].cpu()
+            assert bool(torch.isfinite(b).all())
+            worst = max(worst, float((a - b).abs().max()))
+            checked += 1
+            top2 = torch.topk(a.double(), 2).values
+            nxt = int(torch.argmax(a))
+            if float(top2[0] - top2[1]) > 1e-2:
+                assert int(torch.argmax(b)) == nxt, (i, step)
+            else:
+                margins_skipped += 1
+            if step == 7:
+                break
+            lc, cc = model.decode_step(cpu_params, cc, torch.tensor([[nxt]]), cfg2, pol32)
+            lg, cg = model.decode_step(card_params, cg, torch.tensor([[nxt]], device=dev),
+                                       cfg2, pol32)
+    assert worst <= 1e-3, worst
+    log(f"phase 11: gemma-2b depth 2, float32, TF32 off: {checked} teacher-forced steps over 4 "
+        f"prompts; max |logit card - CPU| {worst:.3g} (<= 1e-3); greedy tokens equal "
+        f"({margins_skipped} steps with a top-two margin <= 1e-2 not compared)")
+    del cpu_params, card_params, cc, cg
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: times ----------------------------------------------------
+    import torch.nn.functional as F
+
+    rows = {}
+    for sq in (512, 1024, 2048):
+        q = torch.randn((1, 8, sq, 256), generator=gen, device=dev).to(bf16)
+        k = torch.randn((1, sq, 256), generator=gen, device=dev).to(bf16)
+        v = torch.randn((1, sq, 256), generator=gen, device=dev).to(bf16)
+        ke, ve = (x[:, None].expand(1, 8, sq, 256).contiguous() for x in (k, v))
+        k_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
+        nbytes, flops = causal_flash_cost(1, 8, sq, 256, bf16)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[bf16]) * 1e3
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, sq)), device=dev)
+        pre = []
+        for _ in range(4):
+            t = time.perf_counter()
+            model.prefill(params, {"tokens": toks}, cfg, pol, max_len=max_len)
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t)
+        pre_ms = statistics.median(pre[1:]) * 1e3
+        rows[sq] = (k_ms, p_ms, l_ms, bound_ms, nbytes, flops)
+        log(f"phase 12: flash_attention G=1 P=8 hd=256 Sq=Sk={sq} bf16 causal: {k_ms:.4f} ms "
+            f"(bound {bound_ms:.4f} ms by operations: {flops:,} FLOP, {nbytes:,} bytes; "
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s); plain {p_ms:.4f} ms; SDPA {l_ms:.4f} ms; "
+            f"prefill of {sq} tokens {pre_ms:.2f} ms, of which flash {cfg.num_layers} x "
+            f"{k_ms:.4f} ms = {100 * cfg.num_layers * k_ms / pre_ms:.1f}%")
+    profile_serving(model, params, cfg, pol, rng, dev, max_len)
+    log(f"phase 12: phase 9 medians: prefill {prefill_ms:.2f} ms per request "
+        f"({len(walls['prefill'])} prefills), decode {decode_ms:.2f} ms per token "
+        f"({len(walls['decode'])} steps, one slot each); {tokens / serve_s:.1f} tokens/s; "
+        f"card {card}")
+    k_ms, p_ms, l_ms, bound_ms, nbytes, flops = rows[2048]
+    return [{
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": REPLACES["flash_attention"], "launches": launches,
+        "max_abs_err": max(errs.values()), "max_abs_err_f32": errs[torch.float32],
+        "max_abs_err_bf16": errs[bf16], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / PEAK_FLOPS[bf16] > nbytes / HBM_BYTES_PER_S
+        else "bytes", "bytes": nbytes, "flops": flops, "library_ms": l_ms,
+        "shape": "G=1 P=8 Sq=Sk=2048 hd=256 bf16 causal",
+    }]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,9 @@
-"""Carry a reference job's state across: build a port ``StreamingJob`` from
-the numpy dict ``repro.core.streaming.StreamingJob.snapshot()`` returns.
+"""Carry a reference job's state or model across.
+
+``job_from_reference_snapshot`` builds a port ``StreamingJob`` from the
+numpy dict ``repro.core.streaming.StreamingJob.snapshot()`` returns;
+``params_from_jax`` turns the reference's LM parameter tree (as numpy
+arrays) into the port's per-layer parameters.
 
 The snapshot's keys are the reference's own (state tables, partitioner
 tables with ``heavy_repl``, split fields, sketch, tick counters, decision
@@ -11,11 +15,16 @@ yet — ``topology_*``, lane health / quarantine, a backend other than
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.compat import resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
+from repro_torch.models.modules import Policy
+from repro_torch.models.transformer import check_supported
 
-__all__ = ["job_from_reference_snapshot"]
+__all__ = ["job_from_reference_snapshot", "params_from_jax"]
 
 
 def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
@@ -42,3 +51,46 @@ def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
     )
     job.restore(snap)
     return job
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # arrays fetched from jax are read-only
+        a = a.copy()
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: go through the bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) -> dict:
+    """The port's parameters from the reference's ``transformer.init_params``
+    tree (numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``), cast to
+    ``pol.param_dtype`` on ``device`` (``None``: the CUDA device).
+
+    The reference stacks each pattern position's blocks ``[periods, ...]``
+    under ``blocks.b{j}``; the port keeps one dict per layer, layer
+    ``period * len(pattern) + j``.  ``embed.tok``, ``lm_head``,
+    ``final_norm`` and ``tail{j}`` map one to one."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, pol.param_dtype, dev)
+
+    out = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"])}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = conv(tree["lm_head"])
+    stacked = conv(tree["blocks"])
+
+    def layer(node, i):
+        return {k: layer(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
+
+    out["layers"] = [layer(stacked[f"b{j}"], per)
+                     for per in range(cfg.num_periods) for j in range(len(cfg.pattern))]
+    for j in range(len(cfg.tail)):
+        out[f"tail{j}"] = conv(tree[f"tail{j}"])
+    return out

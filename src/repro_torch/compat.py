@@ -10,10 +10,14 @@ Host-sync instrumentation (``host_fetch`` / ``safe_point`` /
 its device->host conversions through :func:`host_fetch`, which counts
 fetches of tensors that live off the CPU made outside a
 ``with safe_point():`` region.
+
+:func:`overlap_enabled` reads the reference's ``REPRO_DISABLE_OVERLAP``
+switch; the serving scheduler reports it at each checkpoint.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ import torch
 __all__ = [
     "host_fetch",
     "host_sync_count",
+    "overlap_enabled",
     "resolve_device",
     "safe_point",
 ]
@@ -66,3 +71,10 @@ def host_fetch(x):
             _sync_state["count"] += 1
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def overlap_enabled() -> bool:
+    """True unless ``REPRO_DISABLE_OVERLAP`` forces the serial exchange path
+    (``0``/``false``/unset leave the overlap on), as the reference's."""
+    disabled = os.environ.get("REPRO_DISABLE_OVERLAP", "")
+    return disabled.lower() in ("", "0", "false")

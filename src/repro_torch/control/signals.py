@@ -10,9 +10,11 @@ work (no extra measurement passes — the DRW principle); a ``snapshot`` at a
 safe point turns the window into a ``Signals`` record and opens the next
 window.
 
-Only the fields this slice's serial streaming path records are ported; the
-split-phase walls, per-backend wall EWMA, split-key, per-distance-class,
-queue and fault vectors arrive with their features (ROADMAP.md, queue 1).
+Only the fields the ported consumers record are ported: the serial
+streaming path's, and the serving scheduler's replica queue depths,
+count-phase wall and per-backend wall EWMA.  The ship/hidden walls,
+split-key, per-distance-class and fault vectors arrive with their features
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -49,7 +51,11 @@ class Signals:
                                            # buffers; None when the window
                                            # recorded no exchange
     exchange_wall_s: float = 0.0           # wall time inside the exchange path
+    exchange_count_wall_s: float = 0.0     # wall blocking on the count phase
+    backend_wall_ewma: dict | None = None  # backend name -> EWMA of exchange
+                                           # wall (long-lived, not windowed)
     lane_overflow: np.ndarray | None = None  # int64[L] capacity drops per lane
+    queue_depths: np.ndarray | None = None # serving replica queue depths
     state_rows: int = 0                    # live keyed-state rows (migration scale)
     at_safe_point: bool = True             # decisions may act only when True
     consumer: str = ""                     # which runtime emitted this
@@ -95,6 +101,9 @@ class Telemetry:
 
     def __init__(self, consumer: str = ""):
         self.consumer = consumer
+        # per-backend exchange wall EWMA: long-lived evidence, not reset
+        # with the window
+        self.wall_ewma: dict[str, float] = {}
         self._reset()
 
     def _reset(self) -> None:
@@ -105,7 +114,9 @@ class Telemetry:
         self._exchange_padded_rows = 0
         self._exchange_occupied_rows: int | None = None
         self._exchange_wall_s = 0.0
+        self._count_wall_s = 0.0
         self._lane_overflow: np.ndarray | None = None
+        self._queues: np.ndarray | None = None
         # exchanges recorded this window whose count fields may still live
         # on device — folded (one host fetch each) at the next snapshot, so
         # recording never blocks between safe points
@@ -131,9 +142,18 @@ class Telemetry:
         (``repro_torch.core.shuffle.shuffle_stats`` / ``migrate_stats``), so
         the job never assembles measurement fields itself.  The count fields
         may be device values: recording only queues the record, and the host
-        fetch happens at the next :meth:`snapshot` (the safe point)."""
+        fetch happens at the next :meth:`snapshot` (the safe point).  The
+        wall fields are host floats and fold at once: ``count_wall_s`` into
+        the window, and ``wall_s`` (when positive) into the per-backend EWMA
+        of ``stats.backend``."""
         self._touch()
-        self._exchange_wall_s += float(stats.wall_s)
+        wall = float(stats.wall_s)
+        self._exchange_wall_s += wall
+        if stats.count_wall_s is not None:
+            self._count_wall_s += float(stats.count_wall_s)
+        if stats.backend is not None and wall > 0.0:
+            prev = self.wall_ewma.get(stats.backend)
+            self.wall_ewma[stats.backend] = wall if prev is None else 0.7 * prev + 0.3 * wall
         self._pending_stats.append(stats)
 
     def _flush_pending(self) -> None:
@@ -166,6 +186,11 @@ class Telemetry:
         self._shuffle_overflow += int(shuffle)
         self._migration_overflow += int(migration)
 
+    def record_queues(self, depths: np.ndarray) -> None:
+        """The serving replicas' queue depths at this point of the window."""
+        self._touch()
+        self._queues = np.asarray(depths, np.float64)
+
     # -- safe point --------------------------------------------------------
     def snapshot(
         self,
@@ -188,7 +213,10 @@ class Telemetry:
             exchange_padded_rows=self._exchange_padded_rows,
             exchange_occupied_rows=self._exchange_occupied_rows,
             exchange_wall_s=self._exchange_wall_s,
+            exchange_count_wall_s=self._count_wall_s,
+            backend_wall_ewma=dict(self.wall_ewma) if self.wall_ewma else None,
             lane_overflow=self._lane_overflow,
+            queue_depths=self._queues,
             state_rows=int(state_rows),
             at_safe_point=at_safe_point,
             consumer=self.consumer,

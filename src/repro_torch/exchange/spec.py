@@ -47,9 +47,12 @@ class ExchangeStats:
     * ``occupied_rows`` — rows live in the shipped lanes; ``None`` = ``rows``.
     * ``lane_overflow`` — per-lane capacity drops or ``None``.
     * ``wall_s`` — host wall time of the exchange path.
+    * ``count_wall_s`` — wall blocking on the count phase; ``None`` when
+      not split (the serving scheduler books 0.0 under overlap).
+    * ``backend`` — transport name the measurements belong to.
 
-    The split-phase walls, backend name, split-key and per-distance-class
-    fields of the reference record arrive with their features.
+    The ship/hidden walls, split-key and per-distance-class fields of the
+    reference record arrive with their features.
     """
 
     rows: int
@@ -57,6 +60,8 @@ class ExchangeStats:
     padded_rows: int | None = None
     occupied_rows: int | None = None
     lane_overflow: np.ndarray | None = None
+    count_wall_s: float | None = None
+    backend: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "bk_dispatch_count": ([_P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     # keys valid W n depth width | acc out | stream
     "bk_sketch_update": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+    # q k v o | G P Sq Sk hd dtype | causal window q_offset scale | stream
+    "fa_flash_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,6 +4,10 @@ These are the oracles the CUDA kernels are held to, and what the kernel
 wrappers run when handed CPU tensors.  Each mirrors its counterpart in
 ``repro.kernels.ref`` bit for bit.
 
+``flash_attention_ref`` is the plain version of the flash-attention kernel:
+the reference's jnp chunked flash (``repro.models.attention.
+flash_attention``) in the Pallas kernel's ``[G, P, Sq, hd]`` layout.
+
 Records are stacked per worker: ``keys`` is ``int32[W, n]`` (a 1-D ``[n]``
 input is one worker and returns 1-D outputs).  The split-replica hash folds
 in the record's *worker-local* index, as the reference's shard-local
@@ -16,7 +20,9 @@ import torch
 from repro_torch.core.hashing import GOLDEN, fmix32, mul32, seed_mix
 
 __all__ = [
+    "block_visible",
     "dispatch_count_ref",
+    "flash_attention_ref",
     "lookup_dispatch_ref",
     "partition_apply_ref",
     "route_bucketize_ref",
@@ -172,3 +178,72 @@ def route_bucketize_ref(keys, valid, vals, heavy_keys, heavy_parts, host_to_part
         buf_valid, buf_keys, buf_vals, buf_part = (
             buf_valid[0], buf_keys[0], buf_vals[0], buf_part[0])
     return part, slot, counts, buf_valid, buf_keys, buf_vals, buf_part
+
+
+NEG_INF = -1e30
+
+
+def block_visible(causal: bool, window: int, q0: int, q1: int, k0: int, k1: int) -> bool:
+    """May any (q, k) pair of the block q in [q0, q1), k in [k0, k1) attend?"""
+    if causal and k0 > q1 - 1:
+        return False
+    if window > 0 and k1 - 1 < q0 - window + 1:
+        return False
+    return True
+
+
+def flash_attention_ref(q, k, v, *, causal, window=0, q_offset=0, q_chunk=256,
+                        kv_chunk=512, block_skip=True, p_bf16=False):
+    """Attention of ``q [G, P, Sq, hd]`` over ``k, v [G, Sk, hd]``, in
+    float32 with an online softmax over ``kv_chunk`` blocks, ``q_chunk``
+    rows at a time; the result in q's type.
+
+    q row i sits at position ``q_offset + i``, k row j at j; the mask keeps
+    ``kpos <= qpos`` when causal and ``kpos > qpos - window`` when
+    ``window > 0``, masked scores are -1e30, and ``block_skip`` skips blocks
+    the mask hides entirely.  ``p_bf16`` rounds the softmax weights to bf16
+    for the PV product (summed in float32), as the jnp flash does."""
+    g, p, sq, hd = q.shape
+    sk = k.shape[1]
+    scale = hd**-0.5
+    qc, kc = max(1, min(q_chunk, sq)), max(1, min(kv_chunk, sk))
+    outs = []
+    for q0 in range(0, sq, qc):
+        q1 = min(q0 + qc, sq)
+        qb = q[:, :, q0:q1].to(torch.float32) * scale
+        acc = torch.zeros((g, p, q1 - q0, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((g, p, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        qpos = q_offset + q0 + torch.arange(q1 - q0, device=q.device)[:, None]
+        for k0 in range(0, sk, kc):
+            k1 = min(k0 + kc, sk)
+            if block_skip and not block_visible(causal, window, q0 + q_offset,
+                                                q1 + q_offset, k0, k1):
+                continue
+            kb = k[:, k0:k1].to(torch.float32)
+            vb = v[:, k0:k1].to(torch.float32)
+            s = torch.einsum("gpqh,gkh->gpqk", qb, kb)
+            kpos = k0 + torch.arange(k1 - k0, device=q.device)[None, :]
+            ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= kpos <= qpos
+            if window > 0:
+                ok &= kpos > qpos - window
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            if p_bf16:
+                pw = torch.exp((s - m_new[..., None]).to(torch.bfloat16))
+                l = l * corr + pw.sum(dim=-1, dtype=torch.float32)
+                pv = torch.einsum("gpqk,gkh->gpqh", pw.to(torch.float32),
+                                  vb.to(torch.bfloat16).to(torch.float32))
+            else:
+                pw = torch.exp(s - m_new[..., None])
+                l = l * corr + pw.sum(dim=-1)
+                pv = torch.einsum("gpqk,gkh->gpqh", pw, vb)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    if not outs:
+        return torch.empty_like(q)
+    return torch.cat(outs, dim=2).to(q.dtype)

@@ -2,7 +2,10 @@
 
 These need a CUDA device and the CUDA toolkit (the kernels are built from
 ``src/repro_torch/kernels/csrc`` at first use); without a device they skip.
-Every output must be equal exactly.  On the card:
+Every output of the routing and batch kernels must be equal exactly; the
+flash-attention kernel sums in another order than its plain version, so it
+is held within 2e-5 in float32 and 2e-2 in bf16 (the reference's own
+tolerances, ``tests/test_flash_kernel.py``).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -18,6 +21,7 @@ from repro_torch.core.drm import DRConfig
 from repro_torch.data.generators import drifting_zipf, zipf_keys
 from repro_torch.kernels import ops
 from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
 from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
 from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
@@ -169,3 +173,83 @@ def test_batch_job_card_equals_cpu(cuda):
     assert torch.equal(card.assignments.cpu(), cpu.assignments)
     np.testing.assert_array_equal(card.assignments.cpu().numpy(),
                                   card.partitioner.lookup_np(keys))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,p,sq,hd", [
+    (1, 8, 1, 256), (1, 8, 100, 256), (1, 8, 300, 256),      # gemma-2b: MQA, P = 8
+    (3, 2, 7, 16), (2, 2, 300, 64), (4, 1, 129, 128), (2, 2, 100, 192), (1, 4, 2048, 128),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+def test_flash_attention_equals_plain(cuda, dtype, g, p, sq, hd, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(sq * hd + g)
+    q = torch.randn((g, p, sq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((g, sq, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((g, sq, hd), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_q_offset_and_unequal_lengths(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 3, 50, 64), generator=gen, device=cuda)
+    k = torch.randn((2, 170, 64), generator=gen, device=cuda)
+    v = torch.randn((2, 170, 64), generator=gen, device=cuda)
+    for causal, window in ((True, 0), (True, 40), (False, 0)):
+        got = flash_attention(q, k, v, causal=causal, window=window, q_offset=120)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=120)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 64, 256), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 64, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="attn_p_bf16"):
+        flash_attention(q, k, k, causal=True, p_bf16=True)
+    for hd in (8, 24, 272):
+        qh, kh = torch.zeros((1, 8, 64, hd), device=cuda), torch.zeros((1, 64, hd), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(qh, kh, kh, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3), k, k, causal=True)
+
+
+def test_serve_engine_card_equals_cpu(cuda):
+    """Smoke gemma-2b and gemma3 in float32 (TF32 off): the card's engine
+    gives the CPU's tokens, with one flash launch per layer per prefill."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("gemma-2b", "gemma3-27b"):
+        cfg = reduce_for_smoke(get_config(arch))
+        pol = Policy()
+        params = model.init_params(cfg, 0, pol, device="cpu")
+        card_params = {k: _to(v, cuda) for k, v in params.items()}
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, 20).astype(np.int32) for _ in range(3)]
+        out = {}
+        before = flash_attention.launches
+        for dev, p in (("cpu", params), (cuda, card_params)):
+            reqs = [Request(i, pr, 5) for i, pr in enumerate(prompts)]
+            ServeEngine(cfg, p, pol, slots=2, max_len=32, device=dev).run(reqs)
+            out[str(dev)] = [r.out_tokens for r in reqs]
+        assert flash_attention.launches == before + 3 * cfg.num_layers
+        assert out["cuda"] == out["cpu"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch.kernels.dispatch_count as dc_mod
+import repro_torch.kernels.flash_attention as fa_mod
 import repro_torch.kernels.lookup_dispatch as ld_mod
 import repro_torch.kernels.partition_apply as pa_mod
 import repro_torch.kernels.route_bucketize as rb_mod
@@ -129,6 +130,7 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
     monkeypatch.setattr(pa_mod, "partition_apply_plain", plain_called)
     monkeypatch.setattr(dc_mod, "dispatch_count_plain", plain_called)
     monkeypatch.setattr(su_mod, "sketch_update_plain", plain_called)
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", plain_called)
     monkeypatch.setattr(build, "library", no_library)
     with FakeTensorMode():
         keys = torch.zeros((2, 300), dtype=torch.int32, device="cuda")
@@ -163,6 +165,23 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
             su_mod.sketch_update(keys, valid, depth=9)
         with pytest.raises(ValueError, match="bool"):
             su_mod.sketch_update(keys, keys, depth=2)
+        def qkv(g, p, sq, sk, hd, dtype=torch.bfloat16):
+            return (torch.zeros((g, p, sq, hd), dtype=dtype, device="cuda"),
+                    torch.zeros((g, sk, hd), dtype=dtype, device="cuda"),
+                    torch.zeros((g, sk, hd), dtype=dtype, device="cuda"))
+
+        with pytest.raises(NoLibrary):
+            fa_mod.flash_attention(*qkv(2, 8, 100, 100, 256), causal=True)  # ragged Sq
+        with pytest.raises(NoLibrary):
+            fa_mod.flash_attention(*qkv(3, 1, 1, 7, 16, torch.float32), causal=False,
+                                   window=96)
+        with pytest.raises(NotImplementedError, match="attn_p_bf16"):
+            fa_mod.flash_attention(*qkv(1, 8, 64, 64, 256), causal=True, p_bf16=True)
+        for hd in (24, 8, 272):
+            with pytest.raises(ValueError, match="head_dim"):
+                fa_mod.flash_attention(*qkv(1, 2, 64, 64, hd), causal=True)
+        with pytest.raises(ValueError, match="float32 or all bf16"):
+            fa_mod.flash_attention(*qkv(1, 2, 64, 64, 64, torch.float16), causal=True)
     meta = [t.to("meta") for t in _inputs()]
     with pytest.raises(ValueError, match="CUDA"):
         ld_mod.lookup_dispatch(meta[0], meta[1], *meta[3:], num_lanes=4)
@@ -172,3 +191,7 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         dc_mod.dispatch_count(meta[0], meta[1], num_parts=4)
     with pytest.raises(ValueError, match="CUDA"):
         su_mod.sketch_update(meta[0], meta[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention(torch.zeros((1, 1, 4, 16), device="meta"),
+                               torch.zeros((1, 4, 16), device="meta"),
+                               torch.zeros((1, 4, 16), device="meta"), causal=True)

@@ -9,6 +9,12 @@ sentinel records and capacity overflow.  Integer outputs must be equal
 exactly; the f32 payloads are copied, never summed, so they are equal too.
 The count-min sketch sums 1.0s in float32, exact below 2**24, so it is
 equal exactly as well.
+
+The flash-attention plain version is held to the Pallas kernel in
+interpret mode on every case of ``tests/test_flash_kernel.py``, and to the
+jnp flash and a naive oracle on ragged lengths the Pallas kernel rejects,
+at the reference's own tolerances: 2e-5 in float32, 2e-2 in bf16 (the
+sums run in another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +25,13 @@ from repro.core import Histogram, kip_update, uniform_partitioner
 from repro.data.generators import zipf_keys
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_tpu
+from repro.models.attention import flash_attention as jnp_flash
 from repro_torch.core.partitioner import PartitionerTables
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.dispatch_count import dispatch_count
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lookup_dispatch import lookup_dispatch
 from repro_torch.kernels.partition_apply import partition_apply
 from repro_torch.kernels.route_bucketize import route_bucketize
@@ -391,3 +400,106 @@ def test_batch_kernel_wrappers_on_cpu_equal_plain_versions_and_launch_nothing():
                        tref.sketch_update_ref(keys, valid, depth=3, width=1000))
     assert (partition_apply.launches, dispatch_count.launches,
             sketch_update.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def _naive_attention(q, k, v, causal, window):
+    """Softmax attention written out: q [G, P, Sq, hd], k/v [G, Sk, hd]."""
+    q, k, v = (np.asarray(x, np.float64) for x in (q, k, v))
+    sq, sk, hd = q.shape[2], k.shape[1], q.shape[3]
+    s = np.einsum("gpqh,gkh->gpqk", q, k) * hd**-0.5
+    qpos, kpos = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    ok = np.ones((sq, sk), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    s = np.where(ok, s, -1e30)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("gpqk,gkh->gpqh", w / w.sum(-1, keepdims=True), v)
+
+
+def _qkv(g, p, sq, sk, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((g, p, sq, hd)).astype(np.float32),
+            rng.standard_normal((g, sk, hd)).astype(np.float32),
+            rng.standard_normal((g, sk, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk", [(256, 256, 128, 128), (512, 512, 256, 256)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+@pytest.mark.parametrize("g,p,hd", [(2, 2, 64), (1, 4, 128)])
+def test_flash_plain_matches_pallas_interpret(sq, sk, bq, bk, causal, window, g, p, hd):
+    """Every case of ``tests/test_flash_kernel.py``, with the plain version
+    chunked as the Pallas kernel tiles."""
+    q, k, v = _qkv(g, p, sq, sk, hd, sq + g + hd + int(causal))
+    want = flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, window=window, bq=bq, bk=bk, interpret=True)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window,
+                          q_chunk=bq, kv_chunk=bk)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_on_the_jnp_flash_case(dtype):
+    """``tests/test_flash_kernel.py::test_kernel_matches_jnp_flash``'s inputs
+    in both types: the plain version equals the Pallas kernel."""
+    q, k, v = _qkv(2, 2, 256, 256, 64, 0)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jq, jk, jv = (jnp.asarray(x, jd) for x in (q, k, v))
+    want = flash_attention_tpu(jq, jk, jv, causal=True, bq=128, bk=128, interpret=True)
+    got = flash_attention(*(_t(np.asarray(x.astype(jnp.float32))).to(td) for x in (jq, jk, jv)),
+                          causal=True, q_chunk=128, kv_chunk=128)
+    assert got.dtype == td
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq", [1, 7, 100, 300])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+def test_flash_plain_ragged_lengths(sq, causal, window):
+    """Lengths the Pallas kernel rejects (``Sq % bq != 0``): held to the jnp
+    flash at the same chunks and to the naive oracle."""
+    g, p, hd = 2, 4, 16
+    q, k, v = _qkv(g, p, sq, sq, hd, sq)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window,
+                          q_chunk=64, kv_chunk=64)
+    jq = jnp.asarray(q.transpose(2, 0, 1, 3)[None])           # [1, Sq, G, P, hd]
+    want = jnp_flash(jq, jnp.asarray(k.transpose(1, 0, 2)[None]),
+                     jnp.asarray(v.transpose(1, 0, 2)[None]), causal=causal, window=window,
+                     q_chunk=64, kv_chunk=64)
+    want = np.asarray(want)[0].transpose(1, 2, 0, 3)           # back to [G, P, Sq, hd]
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), _naive_attention(q, k, v, causal, window),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_plain_bf16_weights_match_jnp_flash(window):
+    """``p_bf16`` (bf16 softmax weights for the PV product) exists only in
+    the plain version; it follows the jnp flash's rounding."""
+    sq, g, p, hd = 40, 1, 2, 32
+    q, k, v = _qkv(g, p, sq, sq, hd, 3)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=window, p_bf16=True,
+                          q_chunk=16, kv_chunk=16)
+    want = jnp_flash(jnp.asarray(q.transpose(2, 0, 1, 3)[None]),
+                     jnp.asarray(k.transpose(1, 0, 2)[None]),
+                     jnp.asarray(v.transpose(1, 0, 2)[None]), causal=True, window=window,
+                     q_chunk=16, kv_chunk=16, p_bf16=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[0].transpose(1, 2, 0, 3),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_wrapper_on_cpu_takes_the_plain_version_and_launches_nothing():
+    q, k, v = _qkv(3, 2, 70, 70, 48, 9)
+    before = flash_attention.launches
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=20)
+    want = tref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True, window=20)
+    assert torch.equal(got, want) and flash_attention.launches == before
