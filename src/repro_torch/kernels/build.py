@@ -24,6 +24,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _L = ctypes.c_int64
+_LP = ctypes.POINTER(ctypes.c_int64)
 
 _SIGNATURES = {
     "rk_block_records": ([], _I),
@@ -41,9 +42,10 @@ _SIGNATURES = {
     "bk_dispatch_count": ([_P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     # keys valid W n depth width | acc out | stream
     "bk_sketch_update": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
-    # q k v o | G P Sq Sk hd dtype | causal window q_offset scale | stream
-    "fa_flash_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _P], _I),
+    # q k v o | B G P Sq Sk hd dtype p_bf16 | causal window q_offset scale |
+    # q k v o strides | stream
+    "fa_flash_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _LP, _LP, _LP, _LP, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

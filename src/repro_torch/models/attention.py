@@ -8,7 +8,7 @@ The head layout is the reference's (``head_layout``): q heads padded to
 ``tp = 1`` nothing is padded and the kv gather is skipped.
 
 ``flash_attention`` keeps the reference's layout (q ``[B, Sq, Hkv_p, qps,
-hd]``) and hands the kernel ``[G = B * Hkv_p, P = qps, Sq, hd]``: on the
+hd]``) and hands it to the kernel as strided views, with no copy: on the
 card the CUDA kernel (``repro_torch.kernels.flash_attention``), on the CPU
 its plain version.  Decode attention is plain PyTorch: it was never a
 Pallas kernel.  M-RoPE raises ``NotImplementedError`` (ROADMAP.md, queue 1
@@ -148,17 +148,15 @@ def flash_attention(
     block_skip: bool = True,
     p_bf16: bool = False,
 ) -> torch.Tensor:
-    """The reference's signature and layout over the flash kernel; the
-    chunk sizes and ``block_skip`` reach only the plain version (CPU)."""
+    """The reference's signature and layout over the flash kernel, which
+    reads these views as they are and writes a contiguous ``[B, Sq, Hkv_p
+    * qps * hd]`` buffer (returned as its ``[B, Sq, Hkv_p, qps, hd]`` view);
+    the chunk sizes and ``block_skip`` reach only the plain version (CPU)."""
     b, sq, g, qps, hd = q.shape
-    sk = k.shape[1]
-    qk = q.permute(0, 2, 3, 1, 4).reshape(b * g, qps, sq, hd).contiguous()
-    kk = k.permute(0, 2, 1, 3).reshape(b * g, sk, hd).contiguous()
-    vk = v.permute(0, 2, 1, 3).reshape(b * g, sk, hd).contiguous()
-    out = kflash.flash_attention(qk, kk, vk, causal=causal, window=window, q_offset=q_offset,
-                                 p_bf16=p_bf16, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                 block_skip=block_skip)
-    return out.reshape(b, g, qps, sq, hd).permute(0, 3, 1, 2, 4)
+    out = kflash.flash_attention_seq_major(q, k, v, causal=causal, window=window,
+                                           q_offset=q_offset, p_bf16=p_bf16, q_chunk=q_chunk,
+                                           kv_chunk=kv_chunk, block_skip=block_skip)
+    return out.view(b, sq, g, qps, hd)
 
 
 def decode_attention(

@@ -57,7 +57,7 @@ class Policy:
     attn_q_chunk: int = 2048         # the plain flash version's chunks
     attn_kv_chunk: int = 2048
     attn_block_skip: bool = True     # skip fully-masked kv blocks
-    attn_p_bf16: bool = False        # bf16 softmax weights (plain version only)
+    attn_p_bf16: bool = False        # bf16 softmax weights for the PV product
     remat_policy: str = "nothing"
     moe_capacity_factor: float = 0.0
     exchange_backend: object = None

@@ -5,7 +5,8 @@ These need a CUDA device and the CUDA toolkit (the kernels are built from
 Every output of the routing and batch kernels must be equal exactly; the
 flash-attention kernel sums in another order than its plain version, so it
 is held within 2e-5 in float32 and 2e-2 in bf16 (the reference's own
-tolerances, ``tests/test_flash_kernel.py``).  On the card:
+tolerances, ``tests/test_flash_kernel.py``), and within 2e-2 wherever
+``p_bf16`` rounds the softmax weights to bf16.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -175,24 +176,57 @@ def test_batch_job_card_equals_cpu(cuda):
                                   card.partitioner.lookup_np(keys))
 
 
+@pytest.mark.parametrize("p_bf16", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,p,sq,hd", [
-    (1, 8, 1, 256), (1, 8, 100, 256), (1, 8, 300, 256),      # gemma-2b: MQA, P = 8
+    (1, 8, 1, 256), (1, 8, 100, 256), (1, 8, 300, 256), (1, 8, 2048, 256),  # gemma-2b
     (3, 2, 7, 16), (2, 2, 300, 64), (4, 1, 129, 128), (2, 2, 100, 192), (1, 4, 2048, 128),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
-def test_flash_attention_equals_plain(cuda, dtype, g, p, sq, hd, causal, window):
+def test_flash_attention_equals_plain(cuda, dtype, g, p, sq, hd, causal, window, p_bf16):
+    """float32 within 2e-5, bf16 within 2e-2; ``p_bf16`` rounds the weights
+    to bf16 in both versions, so a last-bit difference in a score may flip
+    a rounding and the bf16 tolerance holds for float32 inputs too."""
     gen = torch.Generator(device=cuda).manual_seed(sq * hd + g)
     q = torch.randn((g, p, sq, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((g, sq, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((g, sq, hd), generator=gen, device=cuda).to(dtype)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window, p_bf16=p_bf16)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, p_bf16=p_bf16)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all())
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    tol = 2e-2 if dtype == torch.bfloat16 or p_bf16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("p_bf16", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_the_models_strided_views(cuda, dtype, p_bf16):
+    """``models.attention.flash_attention`` hands the kernel q, k, v as the
+    attention block makes them, non-contiguous ``[B, S, G, P, hd]`` /
+    ``[B, S, G, hd]`` views of one projection, and gets the output written
+    into ``[B, S, G * P * hd]``; held to the plain version."""
+    from repro_torch.models.attention import flash_attention as model_flash
+
+    b, s, g, p, hd = 2, 300, 2, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((b, s, (g * p + 2 * g) * hd), generator=gen, device=cuda).to(dtype)
+    q = x[..., : g * p * hd].unflatten(-1, (g, p, hd))
+    k = x[..., g * p * hd: (g * p + g) * hd].unflatten(-1, (g, hd))
+    v = x[..., (g * p + g) * hd:].unflatten(-1, (g, hd))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    before = flash_attention.launches
+    got = model_flash(q, k, v, causal=True, window=96, p_bf16=p_bf16)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.shape == (b, s, g, p, hd)
+    want = flash_attention_plain(q.permute(0, 2, 3, 1, 4).reshape(b * g, p, s, hd),
+                                 k.permute(0, 2, 1, 3).reshape(b * g, s, hd),
+                                 v.permute(0, 2, 1, 3).reshape(b * g, s, hd),
+                                 causal=True, window=96, p_bf16=p_bf16)
+    want = want.reshape(b, g, p, s, hd).permute(0, 3, 1, 2, 4)
+    tol = 2e-2 if dtype == torch.bfloat16 or p_bf16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -210,8 +244,11 @@ def test_flash_attention_q_offset_and_unequal_lengths(cuda):
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 64, 256), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 64, 256), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="attn_p_bf16"):
-        flash_attention(q, k, k, causal=True, p_bf16=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qr, kr, vr = (torch.randn(t.shape, generator=gen, device=cuda).to(t.dtype) for t in (q, k, k))
+    torch.testing.assert_close(flash_attention(qr, kr, vr, causal=True, p_bf16=True).float(),
+                               flash_attention_plain(qr, kr, vr, causal=True,
+                                                     p_bf16=True).float(), rtol=2e-2, atol=2e-2)
     for hd in (8, 24, 272):
         qh, kh = torch.zeros((1, 8, 64, hd), device=cuda), torch.zeros((1, 64, hd), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
@@ -245,6 +282,87 @@ def test_serve_engine_card_equals_cpu(cuda):
             out[str(dev)] = [r.out_tokens for r in reqs]
         assert flash_attention.launches == before + 3 * cfg.num_layers
         assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemma_prefill_with_bf16_softmax_weights_card_equals_cpu(cuda, dtype, monkeypatch):
+    """``Policy(attn_p_bf16=True)`` on the card: a gemma-2b prefill at full
+    width, depth 2 (float32 runs the scalar kernel's mode, bf16 the
+    tensor-core kernel's), held to the CPU's plain version within the bf16
+    tolerance, 2e-2 relative to the logits' scale (bf16 rounds every
+    activation relative to its size).  Attention is a small part of the
+    logits, so each layer's attention output is held too: the card's to
+    the plain version on the card's own inputs, and the first layer's to
+    the CPU's, within 2e-2 relative to its scale."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention, model
+    from repro_torch.models.modules import Policy
+
+    seen = {"cpu": [], "cuda": []}
+    model_flash = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        out = model_flash(q, k, v, **kw)
+        seen[q.device.type].append((q, k, v, kw, out))
+        return out
+
+    monkeypatch.setattr(attention, "flash_attention", recorded)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2)
+    pol = Policy(param_dtype=dtype, compute_dtype=dtype, attn_p_bf16=True)
+    params = model.init_params(cfg, 0, pol, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 200)))
+    want, _ = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=208)
+    before = flash_attention.launches
+    got, _ = model.prefill(_to(params, cuda), {"tokens": toks.to(cuda)}, cfg, pol, max_len=208)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    want = want[0, :, : cfg.vocab_size].float()
+    got = got[0, :, : cfg.vocab_size].float().cpu()
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2e-2 * scale
+
+    assert len(seen["cuda"]) == len(seen["cpu"]) == cfg.num_layers
+    for layer, (q, k, v, kw, out) in enumerate(seen["cuda"]):
+        assert kw["p_bf16"] and out.dtype == dtype
+        plain = model_flash(q.cpu(), k.cpu(), v.cpu(), **kw).float()
+        att_scale = max(1.0, float(plain.abs().max()))
+        assert float((out.float().cpu() - plain).abs().max()) <= 2e-2 * att_scale, layer
+    cpu_out, card_out = seen["cpu"][0][-1].float(), seen["cuda"][0][-1].float().cpu()
+    att_scale = max(1.0, float(cpu_out.abs().max()))
+    assert float((card_out - cpu_out).abs().max()) <= 2e-2 * att_scale
+
+
+@pytest.mark.parametrize("p_bf16", [False, True])
+def test_flash_attention_is_deterministic_under_concurrent_load(cuda, p_bf16):
+    """The bf16 kernel's K/V ring (TMA loads on mbarriers) under load: the
+    gemma-2b 2048-token shape launched on four streams at once beside a
+    copy that keeps the memory busy, eight rounds; every output equals,
+    bit for bit, the output of a launch on an idle card (the kernel sums in
+    a fixed order, so a stage read before its load landed would show)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((1, 8, 2048, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((1, 2048, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((1, 2048, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    want = flash_attention(q, k, v, causal=True, p_bf16=p_bf16)
+    torch.cuda.synchronize()
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    dst = torch.empty_like(src)
+    streams = [torch.cuda.Stream() for _ in range(5)]
+    outs = []
+    for _ in range(8):
+        with torch.cuda.stream(streams[4]):
+            for _ in range(4):
+                dst.copy_(src)
+        for st in streams[:4]:
+            with torch.cuda.stream(st):
+                outs.append(flash_attention(q, k, v, causal=True, p_bf16=p_bf16))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, want)
 
 
 def _to(tree, dev):
