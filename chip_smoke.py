@@ -16,13 +16,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    both kernels were launched by that run.
 3. Each kernel against its plain PyTorch version on the card, on inputs
    from phase 2 (split replicas on and off, invalid sentinel records, an
-   empty heavy table, a capacity that overflows): every output must be
-   equal exactly.
+   empty heavy table, a capacity that overflows), and on the edges of the
+   one-pass rank and the 16-byte fill: n below one tile and 3 tiles + 1,
+   35 stacked rows, 1024 lanes, 3 x 5 x 200,001 cells (ragged tails, no
+   lane full), capacity 0, every record invalid, no records, each with its
+   outputs handed out dirty: every output must be equal exactly.
+   Then route_bucketize at phase 2's shapes on four streams at once beside
+   a busy copy: every output bit-equal to an idle card's.
 4. The phase-2 configuration on a small stream, on the card and on the
    CPU: identical per-batch metrics and final state.
-5. Times: each kernel and its plain version (CUDA events, median of 20
-   after 3 warm-ups) beside the kernel's byte bound; the median wall per
-   batch and the device time of one state merge.
+5. Times: each kernel and its plain version (CUDA events around one call,
+   median of 20 after 3 warm-ups) beside the kernel's byte bound, and the
+   kernel's own device time (``torch.profiler``, its kernels and memsets by
+   name over 20 calls, an L2 flush between calls for route_bucketize),
+   split by device kernel; the median wall per batch and the device time
+   of one state merge.
 6. The batch path at the paper's size (Fig. 4, as
    ``benchmarks/bench_spark_like.py`` records it): 10,000,000-record Zipf
    jobs over 1,000,000 keys, 35 partitions, exponents 1.0 to 2.0, a 10%
@@ -37,11 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    have been launched by that run.
 7. Each batch kernel against its plain version on the card (heavy tables
    full, empty and hit by sentinel keys, 35 stacked rows; out-of-range and
-   invalid destinations, 1 to 1024 parts; sketch widths 1000 to 8192,
-   depths 1 to 8, invalid records): every output equal exactly.
+   invalid destinations, 1 to 1024 parts, n below one tile and 3 tiles +
+   1, every record invalid, no records, outputs handed out dirty; sketch
+   widths 1000 to 8192, depths 1 to 8, invalid records): every output
+   equal exactly.  Then dispatch_count at phase 6's shape on four streams
+   at once beside a busy copy: every output bit-equal to an idle card's.
 8. Times of the batch kernels at phase 6's shapes (exponent 1.2), as in
-   phase 5, and the median ``BatchJob.run`` wall per job, split into the
-   host planning, the upload and the device passes.
+   phase 5 (an L2 flush between calls for dispatch_count's device time),
+   and the median ``BatchJob.run`` wall per job, split into the host
+   planning, the upload and the device passes.
 9. Serving at gemma-2b's full published width and depth (18 layers, bf16
    parameters and compute, random weights from a seeded generator on the
    card): 32 requests with the traffic of the reference launcher
@@ -83,6 +95,7 @@ the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -99,6 +112,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE = "src/repro_torch/kernels/csrc/route_kernels.cu"
 BATCH_SOURCE = "src/repro_torch/kernels/csrc/batch_kernels.cu"
+# records per tile of each kernel's one-pass lane rank (csrc/lane_rank.cuh, kTileOf)
+TILES = {"lookup_dispatch": 4096, "route_bucketize": 4096, "dispatch_count": 8192}
+# each kernel's own device work, by the profiler's names for it
+DEVICE_NAMES = {
+    "route_bucketize": ("fill_kernel", "route_rank_kernel"),
+    "lookup_dispatch": ("route_rank_kernel", "Memset"),
+    "partition_apply": ("partition_apply_kernel",),
+    "dispatch_count": ("dispatch_rank_kernel", "Memset"),
+    "sketch_update": ("sketch_count_kernel", "to_float_kernel", "Memset"),
+}
 REPLACES = {
     "route_bucketize": "src/repro/kernels/route_bucketize.py:155",
     "lookup_dispatch": "src/repro/kernels/lookup_dispatch.py:136",
@@ -141,22 +164,105 @@ def cuda_ms(fn, *, warmup=3, reps=20) -> float:
 
 
 def device_ms(fn, *, n=20) -> float:
-    """Device time of ``fn()`` in ms: the summed durations of the card's
+    """Device time of ``fn()`` in ms: the summed durations of all the card's
     kernels, copies and memsets over ``n`` calls (``torch.profiler``)
     divided by ``n``, after a warm-up; the host's launch time is not in
     it."""
+    return own_device_time(fn, ("",), n=n)[0]
+
+
+def own_device_time(fn, names, *, flush=None, n=20):
+    """``(ms, {device kernel: ms}, device operations per call)`` of the
+    card's kernels and memsets whose names contain one of ``names``, over
+    ``n`` calls of ``fn()`` after a warm-up (``torch.profiler``): each
+    kernel's mean duration times its launches a call (its events over
+    ``n``, rounded), so a session that loses a few events (seen: 18 of 20)
+    does not bias the time.  ``flush()``, run before each call and not
+    counted, evicts the inputs from the L2 cache.  A profiling session now
+    and then records no device activity at all (seen on an H100 after a
+    dozen sessions in one process); such a session is run again,
+    up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        total: dict[str, float] = {}  # ms and events by full kernel name
+        seen: dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(s in e.name for s in names):
+                total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                seen[e.name] = seen.get(e.name, 0) + 1
+        by_name: dict[str, float] = {}
+        ops = 0
+        for full, ms in total.items():
+            per_call = max(1, round(seen[full] / n))
+            short = next(s for s in names if s in full)
+            by_name[short] = by_name.get(short, 0.0) + ms / seen[full] * per_call
+            ops += per_call
+        if by_name:
+            return sum(by_name.values()), by_name, ops
+        log(f"profiler: session {attempt + 1} recorded none of {names}; running it again")
+    raise AssertionError(f"the profiler saw none of {names} in three sessions")
+
+
+def l2_flush(dev):
+    """A write over 128 MiB, more than the H100's 50 MB L2 (an elementwise
+    kernel, so no name in DEVICE_NAMES matches it)."""
+    buf = torch.zeros(32 << 20, dtype=torch.int32, device=dev)
+    return lambda: buf.add_(1)
+
+
+@contextlib.contextmanager
+def dirty_outputs():
+    """Inside, every tensor that ``torch.empty`` and ``torch.empty_like``
+    make starts as 0x5A bytes, so an output cell a kernel forgets to write
+    shows (the wrappers allocate their outputs and scratch with them)."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def dirty(t):
+        if t.numel():
+            t.view(-1).view(torch.uint8).fill_(0x5A)
+        return t
+
+    torch.empty = lambda *a, **k: dirty(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: dirty(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def differ_under_load(dev, fn, want, *, rounds=3, streams=4) -> tuple[int, int]:
+    """``(outputs that differ, outputs)``: ``fn()`` launched on ``streams``
+    streams at once, ``rounds`` times, beside a 256 MiB copy looping on
+    another stream; each output tuple is held bit for bit to ``want``, an
+    idle card's."""
+    torch.cuda.synchronize()
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    side = [torch.cuda.Stream() for _ in range(streams + 1)]
+    differ = total = 0
+    for _ in range(rounds):
+        outs = []
+        with torch.cuda.stream(side[-1]):
+            for _ in range(4):
+                dst.copy_(src)
+        for st in side[:-1]:
+            with torch.cuda.stream(st):
+                outs.append(fn())
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert events, "the profiler saw no device activity"
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
+        differ += sum(not all(torch.equal(g, w) for g, w in zip(o, want)) for o in outs)
+        total += len(outs)
+        del outs
+    return differ, total
 
 
 def excess_over_bf16_rounding(got, ref) -> float:
@@ -196,19 +302,25 @@ def route_bytes(keys, vals, tables, num_lanes, capacity=None, split=False) -> in
 
 def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase) -> list[dict]:
     """The ``kernels`` line's entries: ``timing[name] = (ms, plain_ms,
-    bytes)``; no single PyTorch call computes any of these functions, so
-    ``library_ms`` is null."""
+    bytes, (device ms, by device kernel, device operations per call))``; no
+    single PyTorch call computes any of these functions, so ``library_ms``
+    is null."""
     rows = []
-    for name, (k_ms, p_ms, nbytes) in timing.items():
+    for name, (k_ms, p_ms, nbytes, (d_ms, split, ops)) in timing.items():
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "equal": all(equal[name]),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "bytes": nbytes, "library_ms": None,
+            "bytes": nbytes, "library_ms": None, "device_ms": d_ms,
+            "device_split_ms": split, "device_ops_per_call": ops,
         })
-        log(f"phase {phase}: {name}: {k_ms:.4f} ms (bound {bound_ms:.4f} ms from {nbytes} "
-            f"bytes, plain {p_ms:.4f} ms); launches in phase {path_phase}: {launches[name]}")
+        log(f"phase {phase}: {name}: {k_ms:.4f} ms by events around one call, device time "
+            f"{d_ms:.4f} ms ({100 * bound_ms / d_ms:.1f}% of the bound {bound_ms:.4f} ms from "
+            f"{nbytes} bytes; by device kernel "
+            f"{', '.join(f'{k} {v:.4f}' for k, v in split.items())}; "
+            f"{ops:g} device operations a call), plain {p_ms:.4f} ms; launches in phase "
+            f"{path_phase}: {launches[name]}")
     return rows
 
 
@@ -224,7 +336,8 @@ def main() -> int:
     from repro_torch.core.streaming import StreamingJob
     from repro_torch.data.generators import drifting_zipf
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+    from repro_torch.kernels.lookup_dispatch import (RANK_KERNELS, lookup_dispatch,
+                                                     lookup_dispatch_plain)
     from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
 
     dev = torch.device("cuda")
@@ -348,7 +461,64 @@ def main() -> int:
         errs["lookup_dispatch"] = max(errs["lookup_dispatch"], max_abs_err(got, want))
         equal["lookup_dispatch"].append(ok)
         log(f"phase 3: lookup_dispatch [{name}] B={hk.numel()} n={k.shape[1]} equal={ok}")
+
+    # the edges of the one-pass rank and of the fill, outputs handed out dirty
+    lib = build.library()
+    assert {k: lib.rk_tile_records(i) for k, i in RANK_KERNELS.items()} == TILES
+    tile = TILES["route_bucketize"]  # lookup_dispatch's too
+    wide = uniform_partitioner(1030, part.num_hosts, part.seed)  # parts over all 1024 lanes
+    n35 = keys.numel() // 35
+    rows35 = keys.reshape(-1)[: 35 * n35].view(35, -1)
+    none = torch.full_like(keys, sent)
+    edge_cases = [
+        ("below one tile", split, 32, keys[:, :1000], w, cap),
+        ("3 tiles + 1", split, 32, keys[:, : 3 * tile + 1], w, cap),
+        ("35 stacked rows", split, 32, rows35, w, 2 * n35 // w),
+        ("1024 lanes", wide, 0, keys, 1024, 4096),
+        ("3 x 5 x 200,001 cells", split, 32, keys[:3], 5, 200_001),
+        ("capacity 0", split, 32, keys, w, 0),
+        ("every record invalid", split, 32, none, w, cap),
+        ("no records", split, 32, keys[:, :0], w, cap),
+    ]
+    for name, p, n_part, k, lanes, c in edge_cases:
+        k = k.contiguous()
+        v = k != sent
+        x = torch.ones(k.shape + (1,), dtype=torch.float32, device=dev)
+        hk, hp, hr = padded(p, n_part=n_part, pad_empty=True)
+        h2p = p.tables(dev).host_to_part
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=lanes, num_partitions=n_part)
+        for kname, run, plain, extra in [
+                ("lookup_dispatch", lookup_dispatch, lookup_dispatch_plain, {}),
+                ("route_bucketize", route_bucketize, route_bucketize_plain,
+                 dict(capacity=c, key_fill=sent))]:
+            args = (k, v) + ((x,) if kname == "route_bucketize" else ()) + (hk, hp, h2p, hr)
+            want = plain(*args, **kw, **extra)
+            with dirty_outputs():
+                got = run(*args, **kw, **extra)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(g, x_) for g, x_ in zip(got, want))
+            errs[kname] = max(errs[kname], max_abs_err(got, want))
+            equal[kname].append(ok)
+            log(f"phase 3: {kname} [{name}] W={k.shape[0]} n={k.shape[1]} L={lanes}"
+                f"{f' cap={c}' if extra else ''} invalid={int((~v).sum())} dirty outputs "
+                f"equal={ok}")
+    del none, rows35
     assert all(all(v) for v in equal.values()), equal
+
+    # the look-back's timing differs under load; the ranks must not
+    hk, hp, hr = padded(part, n_part=32, pad_empty=True)
+    main_args = (keys, valid, vals, hk, hp, part.tables(dev).host_to_part, hr)
+    main_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, capacity=cap,
+                   key_fill=sent, num_partitions=32)
+    want = route_bucketize(*main_args, **main_kw)
+    differ, total = differ_under_load(dev, lambda: route_bucketize(*main_args, **main_kw), want)
+    assert all(torch.equal(g, x_) for g, x_ in zip(
+        want, route_bucketize_plain(*main_args, **main_kw)))
+    assert differ == 0, (differ, total)
+    log(f"phase 3: route_bucketize at phase 2's shapes on 4 streams beside a busy copy: "
+        f"{differ} of {total} outputs differ from an idle card's")
+    del want
+    torch.cuda.empty_cache()
 
     # ---- phase 4: card against CPU -------------------------------------
     small = list(drifting_zipf(6, 65_536, num_keys=50_000, exponent=1.3,
@@ -377,16 +547,23 @@ def main() -> int:
     lk, lp, _ = padded(part, n_part=0, pad_empty=False)
     ld_args = (state_keys, state_valid, lk, lp, h2p, None)
     ld_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, num_partitions=0)
+    flush = l2_flush(dev)
     timing = {
         "route_bucketize": (
             cuda_ms(lambda: route_bucketize(*rb_args, **rb_kw)),
             cuda_ms(lambda: route_bucketize_plain(*rb_args, **rb_kw)),
-            route_bytes(keys, vals, (hk, hp, h2p), w, cap, split=True)),
+            route_bytes(keys, vals, (hk, hp, h2p), w, cap, split=True),
+            own_device_time(lambda: route_bucketize(*rb_args, **rb_kw),
+                            DEVICE_NAMES["route_bucketize"], flush=flush)),
         "lookup_dispatch": (
             cuda_ms(lambda: lookup_dispatch(*ld_args, **ld_kw)),
             cuda_ms(lambda: lookup_dispatch_plain(*ld_args, **ld_kw)),
-            route_bytes(state_keys, None, (lk, lp, h2p), w)),
+            route_bytes(state_keys, None, (lk, lp, h2p), w),
+            own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
+                            DEVICE_NAMES["lookup_dispatch"])),
     }
+    del flush
+    assert timing["route_bucketize"][3][2] <= 2, timing["route_bucketize"][3]
     res = job._shuffle(part.tables(dev), keys, vals, valid)
     merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
                                           res.values, res.valid), warmup=1, reps=5)
@@ -523,6 +700,7 @@ def batch_phases(dev, sent) -> list[dict]:
     wild = assign.clone()
     wild[holes] = torch.where(dkeys[holes] % 2 == 0, -3, BATCH_PARTS + 5).to(torch.int32)
     some = ~(torch.rand(dkeys.shape, generator=gen, device=dev) < 0.2)
+    tile = TILES["dispatch_count"]
     for label, d, v, n in [
             ("replay assignments", assign, ones, BATCH_PARTS),
             ("out-of-range destinations", wild, ones, BATCH_PARTS),
@@ -530,8 +708,14 @@ def batch_phases(dev, sent) -> list[dict]:
             ("1 part", (dkeys % 3 - 1).to(torch.int32), some, 1),
             ("1024 parts", (dkeys % 1030 - 2).to(torch.int32), some, 1024),
             ("35 stacked rows", wild[:rows].view(BATCH_PARTS, -1),
-             some[:rows].view(BATCH_PARTS, -1), BATCH_PARTS)]:
-        hold("dispatch_count", label, dispatch_count(d, v, num_parts=n),
+             some[:rows].view(BATCH_PARTS, -1), BATCH_PARTS),
+            ("below one tile", wild[:1000], some[:1000], BATCH_PARTS),
+            ("3 tiles + 1", wild[: 3 * tile + 1], some[: 3 * tile + 1], BATCH_PARTS),
+            ("every record invalid", wild, torch.zeros_like(some), BATCH_PARTS),
+            ("no records", wild[:0], some[:0], BATCH_PARTS)]:
+        with dirty_outputs():
+            got = dispatch_count(d, v, num_parts=n)
+        hold("dispatch_count", f"{label}, dirty outputs", got,
              dispatch_count_plain(d, v, num_parts=n))
     for depth, width, v in [(4, 2048, ones), (4, 8192, ones), (8, 8192, some),
                             (1, 1000, some), (8, 1000, ones), (8, 2048, some)]:
@@ -540,26 +724,41 @@ def batch_phases(dev, sent) -> list[dict]:
         hold("sketch_update", f"depth {depth}, width {width}, invalid {int((~v).sum())}",
              got, sketch_update_plain(dkeys, v, depth=depth, width=width))
     assert all(all(v) for v in equal.values()), equal
+    want = dispatch_count(assign, ones, num_parts=BATCH_PARTS)
+    differ, total = differ_under_load(
+        dev, lambda: dispatch_count(assign, ones, num_parts=BATCH_PARTS), want)
+    assert differ == 0, (differ, total)
+    log(f"phase 7: dispatch_count at phase 6's shape on 4 streams beside a busy copy: "
+        f"{differ} of {total} outputs differ from an idle card's")
+    del want
 
     # ---- phase 8: times ------------------------------------------------
     hk, hp, _ = ops.pad_heavy_tables(kip.tables(dev), num_partitions=0, pad_empty=False)
     h2p = kip.tables(dev).host_to_part
     pa_args, pa_kw = (dkeys, hk, hp, h2p), dict(seed=kip.seed, num_hosts=kip.num_hosts)
     n = BATCH_RECORDS
+    flush = l2_flush(dev)
     timing = {
         "partition_apply": (
             cuda_ms(lambda: partition_apply(*pa_args, **pa_kw)),
             cuda_ms(lambda: partition_apply_plain(*pa_args, **pa_kw)),
-            n * (4 + 4) + (hk.numel() + hp.numel() + h2p.numel()) * 4),
+            n * (4 + 4) + (hk.numel() + hp.numel() + h2p.numel()) * 4,
+            own_device_time(lambda: partition_apply(*pa_args, **pa_kw),
+                            DEVICE_NAMES["partition_apply"])),
         "dispatch_count": (
             cuda_ms(lambda: dispatch_count(assign, ones, num_parts=BATCH_PARTS)),
             cuda_ms(lambda: dispatch_count_plain(assign, ones, num_parts=BATCH_PARTS)),
-            n * (4 + 1 + 4) + BATCH_PARTS * 4),
+            n * (4 + 1 + 4) + BATCH_PARTS * 4,
+            own_device_time(lambda: dispatch_count(assign, ones, num_parts=BATCH_PARTS),
+                            DEVICE_NAMES["dispatch_count"], flush=flush)),
         "sketch_update": (
             cuda_ms(lambda: sketch_update(dkeys, ones, depth=4, width=2048)),
             cuda_ms(lambda: sketch_update_plain(dkeys, ones, depth=4, width=2048)),
-            n * (4 + 1) + 4 * 2048 * 4),
+            n * (4 + 1) + 4 * 2048 * 4,
+            own_device_time(lambda: sketch_update(dkeys, ones, depth=4, width=2048),
+                            DEVICE_NAMES["sketch_update"])),
     }
+    del flush
     kernels = kernel_rows(timing, BATCH_SOURCE, launches, errs, equal, phase=8, path_phase=6)
 
     # one job's wall, split: host planning, upload, device passes (exponent 1.2)

@@ -39,10 +39,11 @@
 //     each block loads the tables once; the heavy table is binary-searched
 //     (first match, as searchsorted).  The TPU kernel's one-hot matmuls are
 //     not needed.
-//   * dispatch_count: route_kernels.cu's three deterministic passes with the
-//     destination given: per-(worker, block, lane) counts, a per-(worker,
-//     lane) exclusive scan over blocks that yields `counts`, then a stable
-//     in-block rank.  No rank depends on atomic order; the TPU kernel's
+//   * dispatch_count: the one-pass stable lane rank of lane_rank.cuh (one
+//     kernel: ticketed tiles, a ballot multisplit in the warp, a decoupled
+//     look-back over the tiles of a worker) with the destination as the
+//     lane; dest and valid are read once, after one memset of the rank
+//     scratch.  No rank depends on timing; the TPU kernel's
 //     triangular-matmul prefix and sequential carry are not needed.
 //   * sketch_update: a block keeps the depth x width int32 rows in shared
 //     memory when they fit (warp-aggregated atomics: equal columns of a
@@ -51,39 +52,9 @@
 //     atomics, warp-aggregated too.  A last pass converts to float32.
 // Speed beyond this simple correct shape is later work.
 
-#include "route_common.cuh"
+#include "lane_rank.cuh"
 
 namespace {
-
-constexpr int kMaxSharedBytes = 200 * 1024;  // of the 227 KB a block may use
-constexpr int kDefaultSharedBytes = 48 * 1024;
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
-// Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB.
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kDefaultSharedBytes)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Blocks for a grid-stride kernel: enough to fill every SM at the occupancy
-// the kernel reaches with `smem` bytes of shared memory, no more than the
-// records need.
-template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem, int64_t needed) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  const int64_t want = static_cast<int64_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
-  return static_cast<int>(needed < want ? needed : want);
-}
 
 // ---- partition_apply ---------------------------------------------------
 
@@ -114,60 +85,44 @@ __global__ void partition_apply_kernel(const int32_t* keys, int64_t total,
 
 // ---- dispatch_count ----------------------------------------------------
 
-__device__ __forceinline__ int dest_lane(const int32_t* dest, const uint8_t* valid,
-                                         int64_t at, int num_parts) {
-  if (!valid[at]) return -1;
-  const int d = dest[at];
-  return d >= 0 && d < num_parts ? d : -1;
-}
+// The records of rank_tiles for dispatch_count: a record's lane is its
+// destination when valid and in [0, N); a valid record outside takes slot
+// 0, an invalid one -1.
+struct DestRecords {
+  static constexpr bool kStaged = false;
+  const int32_t* dest;
+  const uint8_t* valid;
+  int num_parts;
+  int32_t* slot;
 
-// Pass 1: per-(worker, block, dest) counts of valid in-range records.
-__global__ void dest_count_kernel(const int32_t* dest, const uint8_t* valid, int n,
-                                  int num_parts, int num_blocks, int32_t* block_counts) {
-  extern __shared__ int32_t s_count[];
-  const int b = blockIdx.x, w = blockIdx.y;
-  for (int l = threadIdx.x; l < num_parts; l += kThreads) s_count[l] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(w) * n;
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    count_lane(i < n ? dest_lane(dest, valid, row + i, num_parts) : -1, s_count);
+  __device__ __forceinline__ void load(int64_t row, int first, int n, int p0,
+                                       int (&lane_of)[kChunk]) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const int i = first + p0 + 32 * j;
+      const bool in = i < n;
+      const int d = in ? dest[row + i] : -1;
+      const bool on = in && valid[row + i];
+      lane_of[j] = !on ? -1 : d >= 0 && d < num_parts ? d : -2;
+    }
   }
-  __syncthreads();
-  for (int l = threadIdx.x; l < num_parts; l += kThreads)
-    block_counts[(static_cast<int64_t>(w) * num_parts + l) * num_blocks + b] = s_count[l];
-}
 
-// Pass 3: stable in-block rank, slot = dest's offset before the block +
-// rank; 0 for a valid out-of-range record, -1 for an invalid one.
-__global__ void dest_rank_kernel(const int32_t* dest, const uint8_t* valid, int n,
-                                 int num_parts, int num_blocks, const int32_t* block_counts,
-                                 int32_t* slot) {
-  extern __shared__ int32_t s_wcount[];  // [kWarps][N] running per-warp counts
-  const int b = blockIdx.x, w = blockIdx.y;
-  for (int k = threadIdx.x; k < kWarps * num_parts; k += kThreads) s_wcount[k] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(w) * n;
-  int lane_of[kPerThread];
-  int rank[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    lane_of[j] = i < n ? dest_lane(dest, valid, row + i, num_parts) : -1;
+  __device__ __forceinline__ void prefetch(int64_t at, int count) {
+    prefetch_l2(dest + at, count * 4);
+    prefetch_l2(valid + at, count);
   }
-  warp_lane_ranks(lane_of, rank, s_wcount, num_parts);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    if (i >= n) continue;
-    const int l = lane_of[j];
-    slot[row + i] = l >= 0 ? lane_slot(block_counts, s_wcount, w, b, l, num_parts,
-                                       num_blocks, rank[j])
-                           : (valid[row + i] ? 0 : -1);
-  }
+
+  __device__ __forceinline__ void emit(int, int64_t at, int, int, int sl, int) { slot[at] = sl; }
+
+  __device__ __forceinline__ void flush(int, int64_t, int, const int32_t*, const int32_t*, int) {}
+};
+
+__global__ void __launch_bounds__(kThreads) dispatch_rank_kernel(
+    const int32_t* dest, const uint8_t* valid, int num_workers, int n, int num_parts,
+    int32_t* slot, int32_t* counts, RankScratch r) {
+  extern __shared__ int32_t s_rank[];  // rank_shared_ints(tile, N)
+  DestRecords rec{dest, valid, num_parts, slot};
+  rank_tiles(rec, r, num_workers, n, counts, s_rank);
 }
 
 // ---- sketch_update -----------------------------------------------------
@@ -238,25 +193,23 @@ int bk_partition_apply(const int32_t* keys, int64_t total, const int32_t* heavy_
 }
 
 int bk_dispatch_count(const int32_t* dest, const uint8_t* valid, int num_workers, int n,
-                      int num_parts, int32_t* slot, int32_t* counts, int32_t* block_counts,
+                      int num_parts, int32_t* slot, int32_t* counts, int64_t* scratch,
                       void* stream) {
+  const int tile = kTileOf[kDispatchCount];
+  if (n > INT32_MAX - tile) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int num_blocks = (n + kBlock - 1) / kBlock;
-  const dim3 grid(num_blocks, num_workers);
-  if (num_blocks > 0) {
-    dest_count_kernel<<<grid, kThreads, num_parts * sizeof(int32_t), st>>>(
-        dest, valid, n, num_parts, num_blocks, block_counts);
-    if (cudaError_t e = cudaGetLastError()) return e;
-  }
-  lane_scan_kernel<<<num_workers * num_parts, kThreads, 0, st>>>(block_counts, counts,
-                                                                 num_blocks);
-  if (cudaError_t e = cudaGetLastError()) return e;
-  if (num_blocks > 0) {
-    dest_rank_kernel<<<grid, kThreads, kWarps * num_parts * sizeof(int32_t), st>>>(
-        dest, valid, n, num_parts, num_blocks, block_counts, slot);
-    if (cudaError_t e = cudaGetLastError()) return e;
-  }
-  return 0;
+  if (cudaError_t e = zero_for_launch(scratch, tile, num_workers, n, num_parts, counts, st))
+    return e;
+  const RankScratch r = rank_scratch(scratch, tile, num_workers, n, num_parts);
+  const int64_t total = static_cast<int64_t>(num_workers) * r.tiles;
+  if (total == 0) return 0;
+  const size_t smem = rank_shared_ints(tile, num_parts) * sizeof(int32_t);
+  static RankGrid grid;
+  int blocks = 0;
+  if (cudaError_t e = rank_grid(grid, dispatch_rank_kernel, smem, total, &blocks)) return e;
+  dispatch_rank_kernel<<<blocks, kThreads, smem, st>>>(dest, valid, num_workers, n, num_parts,
+                                                      slot, counts, r);
+  return cudaGetLastError();
 }
 
 int bk_sketch_update(const int32_t* keys, const uint8_t* valid, int num_workers, int n,

@@ -3,8 +3,7 @@
 // Replaces the TPU Pallas kernels
 //   src/repro/kernels/lookup_dispatch.py:136  lookup_dispatch  (pallas_call :179)
 //   src/repro/kernels/route_bucketize.py:155  route_bucketize  (pallas_call :199)
-// for W stacked workers in one launch sequence: the grid covers
-// (block of records, worker).
+// for W stacked workers.
 //
 // What they compute, per worker w and record i of n (worker-local index):
 //   part[w,i]  = heavy_parts[j] if keys[w,i] == heavy_keys[j] (first such j)
@@ -21,31 +20,37 @@
 //
 // What bounds them on an H100 (3.35 TB/s HBM3, published peak): device
 // memory bytes.  Per record they do one fmix32 or two, a binary search of a
-// 128-row heavy table and a host-table gather: a few tens of integer
-// operations against 9 bytes read and 8 written (plus 4*D+9 bytes per cell
-// of the send buffers), far below the card's operations-per-byte balance.
-// Bound = bytes / 3.35 TB/s, with bytes = W*n*(4 key + 1 valid + 4 part +
-// 4 slot) + W*L*4 counts + the tables, plus for route_bucketize W*n*4*D vals
-// + W*L*capacity*(1 + 4 + 4 + 4*D) for every send-buffer cell; PERF.md has
-// the measured time beside it with the card's power limit.
-// The design keeps every per-record intermediate out of device memory
-// except `part` (written once in pass 1, read once in pass 3):
-//   * the 16 KB host table sits in shared memory, read with a gather (the
-//     TPU kernel's one-hot matmul lookup is not needed);
-//   * the heavy table is binary-searched in device memory (it stays in L1/L2);
-//   * ranks are deterministic, never taken in atomic order: pass 1 counts
-//     (worker, block, lane) records, pass 2 scans the counts over blocks for
-//     each (worker, lane) and yields `counts`, pass 3 ranks records stably
-//     inside the block (warp __match_any_sync + per-warp running counts in
-//     shared memory + a prefix over the warps before) and scatters; the
-//     TPU kernel's triangular-matmul prefix is not needed;
-//   * int32 payloads are stored natively (no 16-bit f32 halves);
-//   * the fill pass writes only cells past each lane's count, so every
-//     buffer cell is written exactly once.
-// Speed beyond this simple correct shape is later work.  The hash, the
-// heavy-table search and the rank building blocks live in route_common.cuh.
+// 128-row heavy table, a host-table gather and a few ballots: a few tens of
+// integer operations against 9 bytes read and 8 written (plus 4*D+9 bytes
+// per cell of the send buffers), far below the card's operations-per-byte
+// balance.  Bound = bytes / 3.35 TB/s, with bytes = W*n*(4 key + 1 valid +
+// 4 part + 4 slot) + W*L*4 counts + the tables, plus for route_bucketize
+// W*n*4*D vals + W*L*capacity*(1 + 4 + 4 + 4*D) for every send-buffer cell
+// (chip_smoke.py's route_bytes); at the streaming path's shapes the cells
+// are 92% of those bytes and only 6% of them hold a record.
+// The design:
+//   * one kernel routes, ranks and (route_bucketize) scatters, reading
+//     keys, valid and vals once: the one-pass stable lane rank of
+//     lane_rank.cuh (ticketed tiles, a ballot multisplit in the warp, a
+//     decoupled look-back over the tiles of a worker);
+//   * the 16 KB host table sits in shared memory, loaded once per resident
+//     block (the block then takes tiles until none is left); the heavy
+//     table is binary-searched in device memory (it stays in L1/L2), a
+//     thread's 8 records in lock step so their loads overlap; the TPU
+//     kernel's one-hot matmul lookup and triangular-matmul prefix are not
+//     needed, and int32 payloads are stored natively;
+//   * route_bucketize first fills every cell of the four send buffers in
+//     one flat pass of 16-byte stores (no per-cell division, no count
+//     read), zeroing the rank scratch in the same launch, then the rank
+//     kernel scatters the live records over the fills: 2 launches, and the
+//     cells under the counts are written twice (6% more bytes at the
+//     streaming path's shapes).  The scatter takes a tile's records in
+//     lane order from shared memory, so neighbouring threads store
+//     neighbouring cells;
+//   * lookup_dispatch is one memset of the rank scratch and the rank kernel
+//     without the scatter.
 
-#include "route_common.cuh"
+#include "lane_rank.cuh"
 
 namespace {
 
@@ -58,148 +63,220 @@ struct RouteArgs {
   const int32_t* heavy_parts;  // [B]
   const int32_t* heavy_repl;   // [B] or null when num_partitions == 0
   int num_heavy;
+  int heavy_step;              // the largest power of two <= num_heavy (0 when none)
   const int32_t* host_to_part; // [H], H a power of two
   int num_hosts;
   uint32_t seed_mix;
   int num_lanes;
   int num_partitions;
-  int num_blocks;              // blocks of kBlock records per worker
   int32_t* part;               // [W, n]
   int32_t* slot;               // [W, n]
   int32_t* counts;             // [W, L]
-  int32_t* block_counts;       // [W, L, num_blocks] scratch
 };
 
 struct ScatterArgs {
   const float* vals;           // [W, n, D]
   int dim;
   int capacity;
-  int32_t key_fill;
   uint8_t* buf_valid;          // [W, L, capacity]
   int32_t* buf_keys;           // [W, L, capacity]
   float* buf_vals;             // [W, L, capacity, D]
   int32_t* buf_part;           // [W, L, capacity]
 };
 
-// The route stage both kernels share: key -> partition.
-__device__ __forceinline__ int route_part(const RouteArgs& a, int32_t key, int idx,
-                                          const int32_t* s_host) {
-  const uint32_t mixed = fmix32(static_cast<uint32_t>(key) ^ a.seed_mix);
-  int part = s_host[mixed & static_cast<uint32_t>(a.num_hosts - 1)];
-  const int j = heavy_find(a.heavy_keys, a.num_heavy, key);
-  if (j >= 0) {
-    part = __ldg(a.heavy_parts + j);
+// The route stage both kernels share, for a thread's kChunk records at
+// once (key -> partition): the heavy-table search runs for all of them in
+// lock step (a fixed number of halving steps), so their loads overlap.
+__device__ __forceinline__ void route_parts(const RouteArgs& a, const int32_t (&key)[kChunk],
+                                            const int (&idx)[kChunk], const int32_t* s_host,
+                                            int32_t (&part)[kChunk]) {
+  uint32_t mixed[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    mixed[j] = fmix32(static_cast<uint32_t>(key[j]) ^ a.seed_mix);
+    part[j] = s_host[mixed[j] & static_cast<uint32_t>(a.num_hosts - 1)];
+  }
+  const int B = a.num_heavy;
+  if (B <= 0) return;
+  int lo[kChunk];  // heavy rows below the key: the lower bound
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) lo[j] = 0;
+  for (int step = a.heavy_step; step > 0; step >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const int probe = lo[j] + step - 1;
+      if (probe < B && __ldg(a.heavy_keys + probe) < key[j]) lo[j] += step;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    const int h = lo[j] < B ? lo[j] : B - 1;
+    if (__ldg(a.heavy_keys + h) != key[j]) continue;
+    part[j] = __ldg(a.heavy_parts + h);
     if (a.num_partitions > 0) {
-      int d = __ldg(a.heavy_repl + j);
+      int d = __ldg(a.heavy_repl + h);
       d = d > 1 ? d : 1;
-      const uint32_t h = fmix32(static_cast<uint32_t>(idx) * kGolden ^ mixed);
-      const int offset = static_cast<int>(h & 0x7FFFFFFFu) % d;
-      part = (part + offset) % a.num_partitions;
+      const uint32_t hash = fmix32(static_cast<uint32_t>(idx[j]) * kGolden ^ mixed[j]);
+      const int offset = static_cast<int>(hash & 0x7FFFFFFFu) % d;
+      part[j] = (part[j] + offset) % a.num_partitions;
     }
   }
-  return part;
 }
 
-// Pass 1: route every record, store its part, count valid records per lane.
-__global__ void route_count_kernel(RouteArgs a) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_host = smem;
-  int32_t* s_count = smem + a.num_hosts;
-  const int b = blockIdx.x, w = blockIdx.y;
-  for (int i = threadIdx.x; i < a.num_hosts; i += kThreads) s_host[i] = a.host_to_part[i];
-  for (int l = threadIdx.x; l < a.num_lanes; l += kThreads) s_count[l] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(w) * a.n;
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    int l = -1;
-    if (i < a.n) {
-      const int p = route_part(a, a.keys[row + i], i, s_host);
-      a.part[row + i] = p;
-      if (a.valid[row + i]) l = p % a.num_lanes;
-    }
-    count_lane(l, s_count);
-  }
-  __syncthreads();
-  for (int l = threadIdx.x; l < a.num_lanes; l += kThreads)
-    a.block_counts[(static_cast<int64_t>(w) * a.num_lanes + l) * a.num_blocks + b] = s_count[l];
-}
-
-// Pass 3: stable in-block rank per lane, slot = block offset + rank; with
-// kScatter, records with slot < capacity land in the send buffers.
+// The records of rank_tiles for the route kernels: a record's part is
+// stored as soon as it is routed, and its lane is part % L when valid.
+// With kScatter, its key and part wait in shared memory; once the tile is
+// ranked, each counted record's place in lane order gets its place in the
+// tile (s_order) and its lane (s_olane), and the flush writes the tile's
+// records with slot < capacity lane run by lane run, neighbouring threads
+// on neighbouring cells, its values read there.
 template <bool kScatter>
-__global__ void rank_kernel(RouteArgs a, ScatterArgs s) {
-  extern __shared__ int32_t s_wcount[];  // [kWarps][L] running per-warp counts
-  const int b = blockIdx.x, w = blockIdx.y;
-  const int L = a.num_lanes;
-  for (int k = threadIdx.x; k < kWarps * L; k += kThreads) s_wcount[k] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(w) * a.n;
-  int lane_of[kPerThread];
-  int rank[kPerThread];
+struct RouteRecords {
+  static constexpr bool kStaged = kScatter;
+  RouteArgs a;
+  ScatterArgs s;
+  const int32_t* s_host;
+  int32_t* s_key;     // [tile] by place, with kScatter
+  int32_t* s_part;    // [tile] by place
+  uint16_t* s_order;  // [tile] place by lane order
+  uint16_t* s_olane;  // [tile] lane by lane order
+
+  __device__ __forceinline__ void load(int64_t row, int first, int n, int p0,
+                                       int (&lane_of)[kChunk]) {
+    int32_t key[kChunk], part[kChunk];
+    int idx[kChunk];
+    bool on[kChunk];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    lane_of[j] = i < a.n && a.valid[row + i] ? a.part[row + i] % L : -1;
+    for (int j = 0; j < kChunk; ++j) {
+      idx[j] = first + p0 + 32 * j;
+      const bool in = idx[j] < n;
+      key[j] = in ? a.keys[row + idx[j]] : 0;
+      on[j] = in && a.valid[row + idx[j]];
+    }
+    route_parts(a, key, idx, s_host, part);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      lane_of[j] = on[j] ? part[j] % a.num_lanes : -1;
+      if (idx[j] >= n) continue;
+      a.part[row + idx[j]] = part[j];
+      if (kScatter) {
+        s_key[p0 + 32 * j] = key[j];
+        s_part[p0 + 32 * j] = part[j];
+      }
+    }
   }
-  warp_lane_ranks(lane_of, rank, s_wcount, L);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = record_index(b, warp, lane, j);
-    if (i >= a.n) continue;
-    const int l = lane_of[j];
-    const int sl = l >= 0 ? lane_slot(a.block_counts, s_wcount, w, b, l, L, a.num_blocks,
-                                      rank[j]) : -1;
-    a.slot[row + i] = sl;
-    if (kScatter && l >= 0 && sl < s.capacity) {
-      const int64_t cell = (static_cast<int64_t>(w) * L + l) * s.capacity + sl;
+
+  __device__ __forceinline__ void prefetch(int64_t at, int count) {
+    prefetch_l2(a.keys + at, count * 4);
+    prefetch_l2(a.valid + at, count);
+    if (kScatter) prefetch_l2(s.vals + at * s.dim, static_cast<int64_t>(count) * 4 * s.dim);
+  }
+
+  __device__ __forceinline__ void emit(int, int64_t at, int p, int l, int sl, int place) {
+    a.slot[at] = sl;
+    if (kScatter && l >= 0) {
+      s_order[place] = static_cast<uint16_t>(p);
+      s_olane[place] = static_cast<uint16_t>(l);
+    }
+  }
+
+  __device__ __forceinline__ void flush(int w, int64_t row, int first, const int32_t* s_excl,
+                                        const int32_t* s_start, int count) {
+    for (int q = threadIdx.x; q < count; q += kThreads) {
+      const int l = s_olane[q];
+      const int sl = s_excl[l] + q - s_start[l];
+      if (sl >= s.capacity) continue;
+      const int p = s_order[q];
+      const int64_t cell = (static_cast<int64_t>(w) * a.num_lanes + l) * s.capacity + sl;
+      const int64_t at = row + first + p;
       s.buf_valid[cell] = 1;
-      s.buf_keys[cell] = a.keys[row + i];
-      s.buf_part[cell] = a.part[row + i];
-      for (int d = 0; d < s.dim; ++d)
-        s.buf_vals[cell * s.dim + d] = s.vals[(row + i) * s.dim + d];
+      s.buf_keys[cell] = s_key[p];
+      s.buf_part[cell] = s_part[p];
+      for (int d = 0; d < s.dim; ++d) s.buf_vals[cell * s.dim + d] = s.vals[at * s.dim + d];
     }
+  }
+};
+
+// Shared memory of the scatter's staging, in int32s: key and part by place,
+// then place and lane (uint16) by lane order.
+inline int64_t stage_ints(int tile) { return 3 * static_cast<int64_t>(tile); }
+
+template <bool kScatter>
+__global__ void __launch_bounds__(kThreads) route_rank_kernel(RouteArgs a, ScatterArgs s,
+                                                              RankScratch r) {
+  // host table [H], rank_shared_ints(tile, L), then with kScatter the staging
+  extern __shared__ int32_t smem[];
+  for (int i = threadIdx.x; i < a.num_hosts; i += kThreads) smem[i] = a.host_to_part[i];
+  // (the first tile's barrier orders these stores before any read)
+  int32_t* s_rank = smem + a.num_hosts;
+  int32_t* stage = s_rank + rank_shared_ints(r.tile, a.num_lanes);
+  uint16_t* order = reinterpret_cast<uint16_t*>(stage + 2 * r.tile);
+  RouteRecords<kScatter> rec{a, s, smem, stage, stage + r.tile, order, order + r.tile};
+  rank_tiles(rec, r, a.num_workers, a.n, a.counts, s_rank);
+}
+
+// ---- the fill ----------------------------------------------------------
+
+struct FillSegment {
+  void* ptr;         // 16-byte aligned
+  int64_t bytes;
+  uint32_t pattern;  // repeated every 4 bytes, little-endian
+};
+
+constexpr int kMaxSegments = 6;
+
+struct FillArgs {
+  FillSegment seg[kMaxSegments];
+  int count;
+};
+
+// Writes each segment's pattern over it: 16-byte stores, then the last
+// partial vector (under 16 bytes) one byte at a time.
+__global__ void __launch_bounds__(kThreads) fill_kernel(FillArgs f) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < kMaxSegments; ++g) {
+    if (g >= f.count) break;
+    const FillSegment seg = f.seg[g];
+    const uint4 v = make_uint4(seg.pattern, seg.pattern, seg.pattern, seg.pattern);
+    uint4* vec = static_cast<uint4*>(seg.ptr);
+    const int64_t nvec = seg.bytes >> 4;
+    for (int64_t c = gid; c < nvec; c += stride) vec[c] = v;
+    if (gid < (seg.bytes & 15))
+      static_cast<uint8_t*>(seg.ptr)[(nvec << 4) + gid] =
+          static_cast<uint8_t>(seg.pattern >> (8 * (gid & 3)));
   }
 }
 
-// Fill pass: every cell at or past its lane's count gets the fill values.
-__global__ void fill_kernel(const int32_t* counts, int64_t num_cells, ScatterArgs s) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       c < num_cells; c += stride) {
-    const int64_t wl = c / s.capacity;
-    if (c - wl * s.capacity >= counts[wl]) {
-      s.buf_valid[c] = 0;
-      s.buf_keys[c] = s.key_fill;
-      s.buf_part[c] = 0;
-      for (int d = 0; d < s.dim; ++d) s.buf_vals[c * s.dim + d] = 0.0f;
-    }
-  }
+void add_segment(FillArgs& f, void* ptr, int64_t bytes, uint32_t pattern) {
+  if (bytes > 0) f.seg[f.count++] = FillSegment{ptr, bytes, pattern};
 }
 
-int route_and_rank(const RouteArgs& a, const ScatterArgs* s, cudaStream_t stream) {
-  const dim3 grid(a.num_blocks, a.num_workers);
-  if (a.num_blocks > 0) {
-    const size_t smem1 = static_cast<size_t>(a.num_hosts + a.num_lanes) * sizeof(int32_t);
-    route_count_kernel<<<grid, kThreads, smem1, stream>>>(a);
-    if (cudaError_t e = cudaGetLastError()) return e;
+int launch_fill(const FillArgs& f, cudaStream_t stream) {
+  int64_t most = 16;
+  for (int g = 0; g < f.count; ++g) {
+    if (reinterpret_cast<uintptr_t>(f.seg[g].ptr) & 15) return cudaErrorMisalignedAddress;
+    most = f.seg[g].bytes > most ? f.seg[g].bytes : most;
   }
-  lane_scan_kernel<<<a.num_workers * a.num_lanes, kThreads, 0, stream>>>(
-      a.block_counts, a.counts, a.num_blocks);
-  if (cudaError_t e = cudaGetLastError()) return e;
-  if (a.num_blocks > 0) {
-    const size_t smem3 = static_cast<size_t>(kWarps) * a.num_lanes * sizeof(int32_t);
-    if (s != nullptr) {
-      rank_kernel<true><<<grid, kThreads, smem3, stream>>>(a, *s);
-    } else {
-      rank_kernel<false><<<grid, kThreads, smem3, stream>>>(a, ScatterArgs{});
-    }
-    if (cudaError_t e = cudaGetLastError()) return e;
-  }
-  return 0;
+  const int blocks = resident_blocks(fill_kernel, 0, (most / 16 + kThreads - 1) / kThreads);
+  fill_kernel<<<blocks, kThreads, 0, stream>>>(f);
+  return cudaGetLastError();
+}
+
+template <bool kScatter>
+int launch_route_rank(const RouteArgs& a, const ScatterArgs& s, const RankScratch& r,
+                      cudaStream_t stream) {
+  const int64_t total = static_cast<int64_t>(a.num_workers) * r.tiles;
+  if (total == 0) return 0;
+  const size_t smem = (a.num_hosts + rank_shared_ints(r.tile, a.num_lanes) +
+                       (kScatter ? stage_ints(r.tile) : 0)) * sizeof(int32_t);
+  if (smem > static_cast<size_t>(kMaxSharedBytes)) return cudaErrorInvalidValue;
+  static RankGrid grid;  // one per kernel (template instance)
+  int blocks = 0;
+  if (cudaError_t e = rank_grid(grid, route_rank_kernel<kScatter>, smem, total, &blocks)) return e;
+  route_rank_kernel<kScatter><<<blocks, kThreads, smem, stream>>>(a, s, r);
+  return cudaGetLastError();
 }
 
 RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_workers, int n,
@@ -207,7 +284,7 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
                           const int32_t* heavy_repl, int num_heavy,
                           const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
                           int num_lanes, int num_partitions, int32_t* part, int32_t* slot,
-                          int32_t* counts, int32_t* block_counts) {
+                          int32_t* counts) {
   RouteArgs a;
   a.keys = keys;
   a.valid = valid;
@@ -217,16 +294,16 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
   a.heavy_parts = heavy_parts;
   a.heavy_repl = heavy_repl;
   a.num_heavy = num_heavy;
+  a.heavy_step = num_heavy > 0 ? 1 : 0;
+  while (a.heavy_step > 0 && 2 * a.heavy_step <= num_heavy) a.heavy_step *= 2;
   a.host_to_part = host_to_part;
   a.num_hosts = num_hosts;
   a.seed_mix = seed_mix;
   a.num_lanes = num_lanes;
   a.num_partitions = num_partitions;
-  a.num_blocks = (n + kBlock - 1) / kBlock;
   a.part = part;
   a.slot = slot;
   a.counts = counts;
-  a.block_counts = block_counts;
   return a;
 }
 
@@ -234,8 +311,15 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
 
 extern "C" {
 
-// Records per block: the wrapper sizes block_counts as [W, L, ceil(n / this)].
-int rk_block_records() { return kBlock; }
+// Records per tile of the one-pass rank of a kernel (RankKernel: 0
+// lookup_dispatch, 1 route_bucketize, 2 dispatch_count).
+int rk_tile_records(int kernel) { return kTileOf[kernel]; }
+
+// 64-bit words of rank scratch a kernel's launch over [W, n] records and L
+// lanes takes.
+int64_t rk_scratch_words(int kernel, int num_workers, int n, int num_lanes) {
+  return scratch_words(kTileOf[kernel], num_workers, n, num_lanes);
+}
 
 const char* rk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -246,12 +330,18 @@ int rk_lookup_dispatch(const int32_t* keys, const uint8_t* valid, int num_worker
                        const int32_t* heavy_repl, int num_heavy,
                        const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
                        int num_lanes, int num_partitions, int32_t* part, int32_t* slot,
-                       int32_t* counts, int32_t* block_counts, void* stream) {
+                       int32_t* counts, int64_t* scratch, void* stream) {
+  const int tile = kTileOf[kLookupDispatch];
+  if (n > INT32_MAX - tile) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RouteArgs a = make_route_args(keys, valid, num_workers, n, heavy_keys, heavy_parts,
                                       heavy_repl, num_heavy, host_to_part, num_hosts,
                                       seed_mix, num_lanes, num_partitions, part, slot,
-                                      counts, block_counts);
-  return route_and_rank(a, nullptr, static_cast<cudaStream_t>(stream));
+                                      counts);
+  if (cudaError_t e = zero_for_launch(scratch, tile, num_workers, n, num_lanes, counts, st))
+    return e;
+  return launch_route_rank<false>(a, ScatterArgs{},
+                                  rank_scratch(scratch, tile, num_workers, n, num_lanes), st);
 }
 
 int rk_route_bucketize(const int32_t* keys, const uint8_t* valid, const float* vals, int dim,
@@ -259,32 +349,38 @@ int rk_route_bucketize(const int32_t* keys, const uint8_t* valid, const float* v
                        const int32_t* heavy_parts, const int32_t* heavy_repl, int num_heavy,
                        const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
                        int num_lanes, int num_partitions, int capacity, int32_t key_fill,
-                       int32_t* part, int32_t* slot, int32_t* counts, int32_t* block_counts,
+                       int32_t* part, int32_t* slot, int32_t* counts, int64_t* scratch,
                        uint8_t* buf_valid, int32_t* buf_keys, float* buf_vals,
                        int32_t* buf_part, void* stream) {
+  const int tile = kTileOf[kRouteBucketize];
+  if (n > INT32_MAX - tile) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RouteArgs a = make_route_args(keys, valid, num_workers, n, heavy_keys, heavy_parts,
                                       heavy_repl, num_heavy, host_to_part, num_hosts,
                                       seed_mix, num_lanes, num_partitions, part, slot,
-                                      counts, block_counts);
+                                      counts);
   ScatterArgs s;
   s.vals = vals;
   s.dim = dim;
   s.capacity = capacity;
-  s.key_fill = key_fill;
   s.buf_valid = buf_valid;
   s.buf_keys = buf_keys;
   s.buf_vals = buf_vals;
   s.buf_part = buf_part;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int e = route_and_rank(a, &s, st)) return e;
-  const int64_t num_cells = static_cast<int64_t>(num_workers) * num_lanes * capacity;
-  if (num_cells > 0) {
-    int64_t blocks = (num_cells + kThreads - 1) / kThreads;
-    if (blocks > 132 * 32) blocks = 132 * 32;
-    fill_kernel<<<static_cast<int>(blocks), kThreads, 0, st>>>(counts, num_cells, s);
-    if (cudaError_t e = cudaGetLastError()) return e;
-  }
-  return 0;
+  // launch 1: the fills, the rank scratch and the counts (written again by
+  // each worker's last tile; zero when there is none)
+  const int64_t cells = static_cast<int64_t>(num_workers) * num_lanes * capacity;
+  FillArgs f{};
+  add_segment(f, buf_valid, cells, 0u);
+  add_segment(f, buf_keys, cells * 4, static_cast<uint32_t>(key_fill));
+  add_segment(f, buf_part, cells * 4, 0u);
+  add_segment(f, buf_vals, cells * 4 * dim, 0u);  // 0.0f
+  add_segment(f, scratch, scratch_zero_bytes(tile, num_workers, n), 0u);
+  add_segment(f, counts, static_cast<int64_t>(num_workers) * num_lanes * 4, 0u);
+  if (int e = launch_fill(f, st)) return e;
+  // launch 2: route, rank, scatter
+  return launch_route_rank<true>(a, s, rank_scratch(scratch, tile, num_workers, n, num_lanes),
+                                 st);
 }
 
 }  // extern "C"

@@ -4,9 +4,10 @@ version.
 
 Replaces the TPU kernel ``src/repro/kernels/dispatch_count.py::
 dispatch_count``, which the exchange's bucketize derives slots with when
-none is handed in.  The kernel (``csrc/batch_kernels.cu``) runs the route
-kernels' three deterministic passes with the destination given and is
-bounded by device-memory bytes on an H100.
+none is handed in.  The kernel (``csrc/batch_kernels.cu``) is the route
+kernels' one-pass deterministic rank (``csrc/lane_rank.cuh``) with the
+destination given, one launch; it is bounded by device-memory bytes on an
+H100.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.dispatch_count_ref`); on a CUDA tensor it
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.lookup_dispatch import MAX_LANES as MAX_PARTS, route_scratch
+from repro_torch.kernels.lookup_dispatch import MAX_LANES as MAX_PARTS, rank_scratch
 from repro_torch.kernels.ref import dispatch_count_ref
 
 __all__ = ["MAX_PARTS", "dispatch_count", "dispatch_count_plain"]
@@ -56,7 +57,7 @@ def dispatch_count(dest, valid, *, num_parts):
     w, n = d2.shape
     slot = torch.empty_like(d2)
     counts = torch.empty((w, num_parts), dtype=torch.int32, device=dest.device)
-    scratch = route_scratch(d2, num_parts)
+    scratch = rank_scratch(d2, num_parts, "dispatch_count")
     code = build.library().bk_dispatch_count(
         d2.data_ptr(), valid.data_ptr(), w, n, num_parts, slot.data_ptr(),
         counts.data_ptr(), scratch.data_ptr(),

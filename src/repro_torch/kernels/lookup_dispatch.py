@@ -3,8 +3,9 @@ workers: the CUDA kernel's wrapper, beside its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/lookup_dispatch.py::
 lookup_dispatch``.  The kernel (``csrc/route_kernels.cu``) is bounded by
-device-memory bytes on an H100 and ranks records deterministically in three
-passes; the source's header says how.
+device-memory bytes on an H100 and ranks records deterministically in one
+pass (``csrc/lane_rank.cuh``: ticketed tiles and a decoupled look-back); the
+sources' headers say how.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.lookup_dispatch_ref`); on a CUDA tensor it
@@ -67,10 +68,17 @@ def check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part,
         _fail("too many records for one launch")
 
 
-def route_scratch(keys, num_lanes):
+# the kernels that rank, as the C side numbers them (csrc/lane_rank.cuh)
+RANK_KERNELS = {"lookup_dispatch": 0, "route_bucketize": 1, "dispatch_count": 2}
+
+
+def rank_scratch(keys, num_lanes, kernel):
+    """The one-pass rank's scratch for records ``[W, n]`` of ``kernel`` (a
+    ticket, and a flag and two rows of lane counts per tile); the launch
+    sequence zeroes what must start at zero."""
     w, n = keys.shape
-    blk = build.library().rk_block_records()
-    return torch.empty((w, num_lanes, -(-n // blk)), dtype=torch.int32, device=keys.device)
+    words = build.library().rk_scratch_words(RANK_KERNELS[kernel], w, n, num_lanes)
+    return torch.empty(words, dtype=torch.int64, device=keys.device)
 
 
 def lookup_dispatch(keys, valid, heavy_keys, heavy_parts, host_to_part,
@@ -95,7 +103,7 @@ def lookup_dispatch(keys, valid, heavy_keys, heavy_parts, host_to_part,
     part = torch.empty_like(keys)
     slot = torch.empty_like(keys)
     counts = torch.empty((w, num_lanes), dtype=torch.int32, device=keys.device)
-    scratch = route_scratch(keys, num_lanes)
+    scratch = rank_scratch(keys, num_lanes, "lookup_dispatch")
     repl = heavy_repl.data_ptr() if num_partitions > 0 else None
     code = lib.rk_lookup_dispatch(
         keys.data_ptr(), valid.data_ptr(), w, n,

@@ -6,7 +6,9 @@ route_bucketize``.  That kernel scattered by one-hot matmuls and carried
 int32 channels as 16-bit f32 halves for the wrapper to recombine; the CUDA
 kernel (``csrc/route_kernels.cu``) stores int32 natively and writes the
 fills itself, so its outputs are the send buffers as the exchange plane
-consumes them.  It is bounded by device-memory bytes on an H100.
+consumes them: one launch fills every cell with 16-byte stores, a second
+routes, ranks (one pass, ``csrc/lane_rank.cuh``) and scatters.  It is
+bounded by device-memory bytes on an H100.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.route_bucketize_ref`); on a CUDA tensor it
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import build
-from repro_torch.kernels.lookup_dispatch import check_route_inputs, route_scratch
+from repro_torch.kernels.lookup_dispatch import check_route_inputs, rank_scratch
 from repro_torch.kernels.ref import route_bucketize_ref
 
 __all__ = ["route_bucketize", "route_bucketize_plain"]
@@ -67,7 +69,7 @@ def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
     part = torch.empty_like(keys)
     slot = torch.empty_like(keys)
     counts = torch.empty((w, num_lanes), dtype=torch.int32, device=dev)
-    scratch = route_scratch(keys, num_lanes)
+    scratch = rank_scratch(keys, num_lanes, "route_bucketize")
     shape = (w, num_lanes, capacity)
     buf_valid = torch.empty(shape, dtype=torch.bool, device=dev)
     buf_keys = torch.empty(shape, dtype=torch.int32, device=dev)

@@ -10,6 +10,8 @@ tolerances, ``tests/test_flash_kernel.py``), and within 2e-2 wherever
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,10 +22,11 @@ from repro_torch.core.replay import BatchJob
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.core.drm import DRConfig
 from repro_torch.data.generators import drifting_zipf, zipf_keys
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+from repro_torch.kernels.lookup_dispatch import (RANK_KERNELS, lookup_dispatch,
+                                                 lookup_dispatch_plain)
 from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
 from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
 from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
@@ -174,6 +177,149 @@ def test_batch_job_card_equals_cpu(cuda):
     assert torch.equal(card.assignments.cpu(), cpu.assignments)
     np.testing.assert_array_equal(card.assignments.cpu().numpy(),
                                   card.partitioner.lookup_np(keys))
+
+
+# records per tile of each kernel's one-pass lane rank (csrc/lane_rank.cuh, kTileOf)
+TILES = {"lookup_dispatch": 4096, "route_bucketize": 4096, "dispatch_count": 8192}
+TILE = TILES["route_bucketize"]  # lookup_dispatch's too
+DISPATCH_TILE = TILES["dispatch_count"]
+
+
+def _check_tiles():
+    lib = build.library()
+    assert {k: lib.rk_tile_records(i) for k, i in RANK_KERNELS.items()} == TILES
+
+
+@contextlib.contextmanager
+def _dirty_outputs():
+    """Inside, every tensor that ``torch.empty`` and ``torch.empty_like``
+    make starts as 0x5A bytes, so an output cell a kernel forgets to write
+    shows (the wrappers allocate their outputs and scratch with them)."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def dirty(t):
+        if t.numel():
+            t.view(-1).view(torch.uint8).fill_(0x5A)
+        return t
+
+    torch.empty = lambda *a, **k: dirty(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: dirty(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def _route_inputs(w, n, parts, invalid, seed):
+    """Zipf keys [w, n] with a seeded share `invalid` of sentinel records, a
+    KIP partitioner over `parts` partitions with its hottest key split 4
+    ways, and f32 values [w, n, 1]."""
+    stream = zipf_keys(max(w * n, 1000), num_keys=5000, exponent=1.2, seed=seed)
+    hist = Histogram.exact(stream).top(64)
+    p = kip_update(uniform_partitioner(parts, heavy_capacity=128), hist)
+    p = p.with_splits({int(hist.keys[0]): 4})
+    rng = np.random.default_rng(seed)
+    valid = rng.random((w, n)) >= invalid
+    keys = np.where(valid, stream[: w * n].reshape(w, n), SENT).astype(np.int32)
+    vals = rng.normal(size=(w, n, 1)).astype(np.float32)
+    return p, keys, valid, vals
+
+
+@pytest.mark.parametrize("w,n,lanes,cap,parts,invalid", [
+    (2, 1000, 8, 600, 32, 0.1),              # below one tile
+    (3, 3 * TILE + 1, 8, 4000, 32, 0.1),     # k tiles + 1 record
+    (2, 15 * TILE, 8, 20000, 32, 0.1),       # many tiles per worker
+    (35, 3000, 8, 500, 32, 0.1),             # 35 stacked rows
+    (2, 50_000, 1024, 64, 2048, 0.1),        # 1024 lanes
+    (3, 5000, 5, 2001, 16, 0.1),             # 30,015 cells, none full: ragged 16-byte tails
+    (2, 3000, 8, 0, 32, 0.1),                # capacity 0
+    (2, 5000, 8, 700, 32, 1.0),              # every record invalid
+    (3, 0, 8, 100, 32, 0.1),                 # no records
+], ids=["below-one-tile", "k-tiles-plus-1", "many-tiles", "35-rows", "1024-lanes",
+        "ragged-capacity", "capacity-0", "all-invalid", "n-0"])
+def test_route_kernels_edge_cases(cuda, w, n, lanes, cap, parts, invalid):
+    """lookup_dispatch and route_bucketize equal their plain versions on the
+    one-pass rank's edges and the fill's, with every output and scratch
+    tensor handed out dirty."""
+    _check_tiles()
+    p, keys, valid, vals = _route_inputs(w, n, parts, invalid, seed=w * 7 + lanes)
+    k, v, x = (torch.as_tensor(a, device=cuda) for a in (keys, valid, vals))
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=parts, pad_empty=True)
+    kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=lanes, num_partitions=parts)
+    want = lookup_dispatch_plain(k, v, hk, hp, t.host_to_part, hr, **kw)
+    with _dirty_outputs():
+        got = lookup_dispatch(k, v, hk, hp, t.host_to_part, hr, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x_) for g, x_ in zip(got, want))
+    want = route_bucketize_plain(k, v, x, hk, hp, t.host_to_part, hr, capacity=cap,
+                                 key_fill=SENT, **kw)
+    with _dirty_outputs():
+        got = route_bucketize(k, v, x, hk, hp, t.host_to_part, hr, capacity=cap, key_fill=SENT,
+                              **kw)
+    torch.cuda.synchronize()
+    for g, x_ in zip(got, want):
+        assert torch.equal(g, x_)
+    assert int(want[2].sum()) == int(valid.sum())
+
+
+@pytest.mark.parametrize("w,n,num_parts,invalid", [
+    (2, 1000, 35, 0.2),                     # below one tile
+    (3, 3 * DISPATCH_TILE + 1, 35, 0.2),    # k tiles + 1 record
+    (1, 50 * DISPATCH_TILE, 35, 0.2),       # many tiles
+    (35, 3000, 35, 0.2),           # 35 stacked rows
+    (2, 50_000, 1024, 0.2),        # 1024 destinations
+    (2, 5000, 35, 1.0),            # every record invalid
+    (3, 0, 35, 0.2),               # no records
+], ids=["below-one-tile", "k-tiles-plus-1", "many-tiles", "35-rows", "1024-parts",
+        "all-invalid", "n-0"])
+def test_dispatch_count_edge_cases(cuda, w, n, num_parts, invalid):
+    rng = np.random.default_rng(n + num_parts)
+    dest = rng.integers(-2, num_parts + 2, (w, n)).astype(np.int32)
+    valid = rng.random((w, n)) >= invalid
+    d, v = torch.as_tensor(dest, device=cuda), torch.as_tensor(valid, device=cuda)
+    _check_tiles()
+    want = dispatch_count_plain(d, v, num_parts=num_parts)
+    with _dirty_outputs():
+        got = dispatch_count(d, v, num_parts=num_parts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def test_rank_kernels_are_deterministic_under_concurrent_load(cuda):
+    """The look-back's timing differs from launch to launch; the ranks must
+    not.  route_bucketize (8 workers of 32 tiles) and dispatch_count (one
+    worker of 245 tiles) on four streams at once beside a copy that keeps
+    the memory busy, eight rounds: every output equals, bit for bit, the
+    plain version's."""
+    p, keys, valid, vals = _route_inputs(8, 32 * TILE, 32, 0.1, seed=5)
+    k, v, x = (torch.as_tensor(a, device=cuda) for a in (keys, valid, vals))
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=32, pad_empty=True)
+    rb_args = (k, v, x, hk, hp, t.host_to_part, hr)
+    rb_kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=8, num_partitions=32,
+                 capacity=40_000, key_fill=SENT)
+    rng = np.random.default_rng(6)
+    d = torch.as_tensor(rng.integers(-1, 36, (1, 2_000_000)).astype(np.int32), device=cuda)
+    dv = torch.as_tensor(rng.random((1, 2_000_000)) < 0.9, device=cuda)
+    want = (route_bucketize_plain(*rb_args, **rb_kw), dispatch_count_plain(d, dv, num_parts=35))
+    torch.cuda.synchronize()
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    dst = torch.empty_like(src)
+    streams = [torch.cuda.Stream() for _ in range(5)]
+    outs = []
+    for _ in range(8):
+        with torch.cuda.stream(streams[4]):
+            for _ in range(4):
+                dst.copy_(src)
+        for st in streams[:4]:
+            with torch.cuda.stream(st):
+                outs.append((route_bucketize(*rb_args, **rb_kw),
+                             dispatch_count(d, dv, num_parts=35)))
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, w_ in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w_))
 
 
 @pytest.mark.parametrize("p_bf16", [False, True])
