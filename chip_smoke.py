@@ -28,9 +28,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Times: each kernel and its plain version (CUDA events around one call,
    median of 20 after 3 warm-ups) beside the kernel's byte bound, and the
    kernel's own device time (``torch.profiler``, its kernels and memsets by
-   name over 20 calls, an L2 flush between calls for route_bucketize),
-   split by device kernel; the median wall per batch and the device time
-   of one state merge.
+   name over 20 calls, an L2 flush between calls for route_bucketize; for
+   lookup_dispatch both without and with the flush), split by device
+   kernel; the median wall per batch and the device time of one state
+   merge.
 6. The batch path at the paper's size (Fig. 4, as
    ``benchmarks/bench_spark_like.py`` records it): 10,000,000-record Zipf
    jobs over 1,000,000 keys, 35 partitions, exponents 1.0 to 2.0, a 10%
@@ -44,14 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    its path count is 0).  ``partition_apply`` and ``dispatch_count`` must
    have been launched by that run.
 7. Each batch kernel against its plain version on the card (heavy tables
-   full, empty and hit by sentinel keys, 35 stacked rows; out-of-range and
-   invalid destinations, 1 to 1024 parts, n below one tile and 3 tiles +
-   1, every record invalid, no records, outputs handed out dirty; sketch
-   widths 1000 to 8192, depths 1 to 8, invalid records): every output
-   equal exactly.  Then dispatch_count at phase 6's shape on four streams
+   full, empty and hit by sentinel keys, 35 stacked rows, a key view 4
+   bytes past a 16-byte boundary; out-of-range and invalid destinations,
+   1 to 1024 parts, n below one tile and 3 tiles + 1, every record
+   invalid, no records, outputs handed out dirty; sketch widths 1000 to
+   8192, depths 1 to 8, invalid records): every output equal exactly.  Then dispatch_count at phase 6's shape on four streams
    at once beside a busy copy: every output bit-equal to an idle card's.
 8. Times of the batch kernels at phase 6's shapes (exponent 1.2), as in
-   phase 5 (an L2 flush between calls for dispatch_count's device time),
+   phase 5 (an L2 flush between calls for dispatch_count's device time;
+   partition_apply's both without and with the flush),
    and the median ``BatchJob.run`` wall per job, split into the host
    planning, the upload and the device passes.
 9. Serving at gemma-2b's full published width and depth (18 layers, bf16
@@ -67,13 +69,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. The flash kernel against its plain version on the card: gemma-2b's
     prefill shapes (G = 1, P = 8, hd = 256, Sq = Sk in 1, 100, 512, 2048)
     and hd 16, 64, 128, 192 with G > 1, P in 1, 2; causal, non-causal and
-    window 96; in both ``p_bf16`` modes.  float32 within 2e-5, bf16 within
-    2e-2 and, with ``p_bf16=False``, 8e-3; ``p_bf16=True`` rounds the
-    weights to bf16 in both versions, so 2e-2 for float32 inputs too.  And
-    float32 weights through the bf16 tensor cores keep float32 precision:
-    the bf16 outputs lie within half an ulp plus 2e-4 of the float32 plain
-    version on the same inputs, where the plain version with bf16 weights
-    (the control, which must fail that limit) does not.
+    window 96; in both ``p_bf16`` modes; and bf16 q rows at positions
+    120-169 over 170 k rows (causal; non-causal with window 40).  float32
+    within 2e-5, bf16 within 2e-2 and, with ``p_bf16=False``, 8e-3;
+    ``p_bf16=True`` rounds the weights to bf16 in both versions, so 2e-2
+    for float32 inputs too.  And float32 weights through the bf16 tensor
+    cores keep float32 precision: the bf16 outputs lie within half an ulp
+    plus 2e-4 of the float32 plain version on the same inputs, where the
+    plain version with bf16 weights (the control, which must fail that
+    limit) does not.
 11. The card against the CPU: gemma-2b at full width but depth 2 in
     float32 (TF32 off), both from the same CPU-initialised weights; four
     prompts of 128-256 tokens, 8 teacher-forced steps: logits within 1e-3,
@@ -300,12 +304,16 @@ def route_bytes(keys, vals, tables, num_lanes, capacity=None, split=False) -> in
     return nbytes
 
 
-def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase) -> list[dict]:
+def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase,
+                flushed=None) -> list[dict]:
     """The ``kernels`` line's entries: ``timing[name] = (ms, plain_ms,
     bytes, (device ms, by device kernel, device operations per call))``; no
     single PyTorch call computes any of these functions, so ``library_ms``
-    is null."""
+    is null.  ``flushed[name]``, where given, is the kernel's device time
+    with an L2 flush between calls, kept beside the unflushed one as
+    ``device_ms_flushed``."""
     rows = []
+    flushed = flushed or {}
     for name, (k_ms, p_ms, nbytes, (d_ms, split, ops)) in timing.items():
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
@@ -315,11 +323,16 @@ def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase) -> 
             "bytes": nbytes, "library_ms": None, "device_ms": d_ms,
             "device_split_ms": split, "device_ops_per_call": ops,
         })
+        cold = ""
+        if name in flushed:
+            rows[-1]["device_ms_flushed"] = flushed[name]
+            cold = (f"; with an L2 flush between calls {flushed[name]:.4f} ms "
+                    f"({100 * bound_ms / flushed[name]:.1f}%)")
         log(f"phase {phase}: {name}: {k_ms:.4f} ms by events around one call, device time "
             f"{d_ms:.4f} ms ({100 * bound_ms / d_ms:.1f}% of the bound {bound_ms:.4f} ms from "
             f"{nbytes} bytes; by device kernel "
             f"{', '.join(f'{k} {v:.4f}' for k, v in split.items())}; "
-            f"{ops:g} device operations a call), plain {p_ms:.4f} ms; launches in phase "
+            f"{ops:g} device operations a call{cold}), plain {p_ms:.4f} ms; launches in phase "
             f"{path_phase}: {launches[name]}")
     return rows
 
@@ -562,13 +575,17 @@ def main() -> int:
             own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
                             DEVICE_NAMES["lookup_dispatch"])),
     }
+    flushed = {"lookup_dispatch": own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
+                                                  DEVICE_NAMES["lookup_dispatch"],
+                                                  flush=flush)[0]}
     del flush
     assert timing["route_bucketize"][3][2] <= 2, timing["route_bucketize"][3]
     res = job._shuffle(part.tables(dev), keys, vals, valid)
     merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
                                           res.values, res.valid), warmup=1, reps=5)
     wall_ms = statistics.median(walls) * 1e3
-    kernels = kernel_rows(timing, SOURCE, launches, errs, equal, phase=5, path_phase=2)
+    kernels = kernel_rows(timing, SOURCE, launches, errs, equal, phase=5, path_phase=2,
+                          flushed=flushed)
     log(f"phase 5: median wall per batch {wall_ms:.1f} ms; state merge {merge_ms:.3f} ms "
         f"on the device; card {card}")
     del job, runs, res, batches, all_keys
@@ -690,7 +707,8 @@ def batch_phases(dev, sent) -> list[dict]:
 
     for label, p, k in [("KIP table", kip, dkeys), ("empty heavy table", uhp, dkeys),
                         ("10% sentinel keys", kip, dkeys.masked_fill(holes, sent)),
-                        ("35 stacked rows", kip, dkeys[:rows].view(BATCH_PARTS, -1))]:
+                        ("35 stacked rows", kip, dkeys[:rows].view(BATCH_PARTS, -1)),
+                        ("keys 4 bytes past 16", kip, dkeys[1:])]:
         hk, hp, _ = ops.pad_heavy_tables(p.tables(dev), num_partitions=0, pad_empty=False)
         args = (k, hk, hp, p.tables(dev).host_to_part)
         kw = dict(seed=p.seed, num_hosts=p.num_hosts)
@@ -758,8 +776,12 @@ def batch_phases(dev, sent) -> list[dict]:
             own_device_time(lambda: sketch_update(dkeys, ones, depth=4, width=2048),
                             DEVICE_NAMES["sketch_update"])),
     }
+    flushed = {"partition_apply": own_device_time(lambda: partition_apply(*pa_args, **pa_kw),
+                                                  DEVICE_NAMES["partition_apply"],
+                                                  flush=flush)[0]}
     del flush
-    kernels = kernel_rows(timing, BATCH_SOURCE, launches, errs, equal, phase=8, path_phase=6)
+    kernels = kernel_rows(timing, BATCH_SOURCE, launches, errs, equal, phase=8, path_phase=6,
+                          flushed=flushed)
 
     # one job's wall, split: host planning, upload, device passes (exponent 1.2)
     plan, upload, passes = [], [], []
@@ -982,6 +1004,20 @@ def serve_phases(dev, card) -> list[dict]:
                                                excess_over_bf16_rounding(got, ref))
                         excess["control"] = max(excess["control"],
                                                 excess_over_bf16_rounding(control, ref))
+    # bf16 (the wgmma kernel) off the diagonal: q rows at positions 120-169
+    # over 170 k rows, as a chunked prefill would call it
+    q = torch.randn((2, 3, 50, 64), generator=gen, device=dev).to(bf16)
+    k = torch.randn((2, 170, 64), generator=gen, device=dev).to(bf16)
+    v = torch.randn((2, 170, 64), generator=gen, device=dev).to(bf16)
+    for causal, window in ((True, 0), (False, 40)):
+        got = flash_attention(q, k, v, causal=causal, window=window, q_offset=120)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=120)
+        torch.cuda.synchronize()
+        assert got.dtype == bf16 and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        errs[bf16, False] = max(errs[bf16, False], err)
+        n_cases += 1
+        assert err <= tol[bf16, False], ("q_offset 120, Sk 170", causal, window, err)
     # float32 weights through the bf16 tensor cores (P_hi + P_lo) keep
     # float32-level precision: the check tells bf16 weights apart (control)
     assert errs[bf16, False] <= 8e-3, errs

@@ -117,7 +117,8 @@ def old_calls(lib, dev):
 def path_inputs(dev):
     """(args, kwargs) of each kernel at its path's shapes: phase 2's DR loop
     (its last batch, partitioner and final state) and phase 6's job at
-    exponent 1.2, as chip_smoke.py makes them."""
+    exponent 1.2 (its assignments; its keys and KIP tables for
+    partition_apply), as chip_smoke.py makes them."""
     from repro_torch.core.drm import DRConfig
     from repro_torch.core.hashing import KEY_SENTINEL
     from repro_torch.core.replay import BatchJob
@@ -140,8 +141,12 @@ def path_inputs(dev):
     lk, lp, _ = ops.pad_heavy_tables(part.tables(dev), num_partitions=0, pad_empty=False)
     state = job.state_keys.clone()
     ones = torch.ones(keys.shape + (1,), dtype=torch.float32, device=dev)
-    assign = BatchJob(35, dr=DRConfig(mode="batch", lam=4.0, eps=0.003), device=dev).run(
-        zipf_keys(10_000_000, num_keys=1_000_000, exponent=1.2, seed=12)).assignments[None]
+    batch_keys = zipf_keys(10_000_000, num_keys=1_000_000, exponent=1.2, seed=12)
+    batch = BatchJob(35, dr=DRConfig(mode="batch", lam=4.0, eps=0.003), device=dev).run(
+        batch_keys)
+    assign = batch.assignments[None]
+    kip = batch.partitioner
+    bk, bp, _ = ops.pad_heavy_tables(kip.tables(dev), num_partitions=0, pad_empty=False)
     return {
         "route_bucketize": ((keys, keys != sent, ones, hk, hp, h2p, hr),
                             dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w,
@@ -152,6 +157,9 @@ def path_inputs(dev):
                                  num_partitions=0)),
         "dispatch_count": ((assign, torch.ones_like(assign, dtype=torch.bool)),
                            dict(num_parts=35)),
+        "partition_apply": ((torch.as_tensor(batch_keys.astype(np.int32), device=dev), bk, bp,
+                             kip.tables(dev).host_to_part),
+                            dict(seed=kip.seed, num_hosts=kip.num_hosts)),
     }
 
 
@@ -179,7 +187,8 @@ def main() -> int:
     flush = cs.l2_flush(dev)
     card = cs.card_line()
     print(card, flush=True)
-    for name, (args, kw) in inputs.items():
+    for name in OLD_PASSES:
+        args, kw = inputs[name]
         calls = {"old": lambda: old[name](*args, **kw), "new": lambda: new[name](*args, **kw)}
         a, b = calls["old"](), calls["new"]()
         torch.cuda.synchronize()

@@ -1,20 +1,23 @@
-"""Do the rank kernels' checks catch a broken look-back or fill?  (Needs one
-CUDA card.)
+"""Do the route kernels' checks catch a broken look-back, fill or heavy-key
+probe?  (Needs one CUDA card.)
 
     python3 route_mutations.py
 
 Builds the port's kernels from copies of ``src/`` in a temporary directory,
 each with one deliberate fault in ``csrc/lane_rank.cuh`` (the one-pass
 rank that ``route_bucketize``, ``lookup_dispatch`` and ``dispatch_count``
-share) or ``csrc/route_kernels.cu`` (the fill), and reads what these
-checks read on it:
+share), ``csrc/route_kernels.cu`` (the fill) or ``csrc/route_common.cuh``
+(the heavy-key probe that ``route_bucketize``, ``lookup_dispatch`` and
+``partition_apply`` share), and reads what these checks read on it:
 
 * ``edges``: the GPU tests' edge cases (``test_route_kernels_edge_cases``,
-  ``test_dispatch_count_edge_cases`` in ``tests/test_torch_gpu.py``: below
-  one tile, k tiles + 1, many tiles, 35 rows, 1024 lanes, ragged
-  capacities, capacity 0, every record invalid, no records, each with
-  every tensor the wrapper allocates filled with 0x5A bytes first); the
-  cases that fail are named;
+  ``test_heavy_probe_edge_cases``, ``test_dispatch_count_edge_cases`` in
+  ``tests/test_torch_gpu.py``: below one tile, k tiles + 1, many tiles, 35
+  rows, 1024 lanes, ragged capacities, capacity 0, every record invalid,
+  no records; heavy tables of 0, 1, 128, 1024 and 1025 rows, 127 sentinel
+  rows, runs of equal keys, colliding probe slots, ragged and misaligned
+  keys; each with every tensor the wrapper allocates filled with 0x5A
+  bytes first); the cases that fail are named;
 * ``main``: ``route_bucketize`` at the streaming path's shapes (8 workers of
   524,288 keys, 8 lanes, 32 partitions, a split key, capacity 131,072) and
   ``dispatch_count`` at the batch path's (10,000,000 records, 35 parts),
@@ -27,10 +30,13 @@ checks read on it:
 The faults: (a) the look-back takes an earlier tile's aggregate as its
 inclusive prefix and stops; (b) the fill skips its last partial vector;
 (c) the release fence before a tile's flag is removed (the flag may be
-seen before the counts it stands for).  The unchanged kernels must pass
-every check, and (a) and (b) must each fail the check named beside them;
-(c) is a race whose window a run may never hit, so its readings are
-printed, not required.  Exits 0 when all of that holds.
+seen before the counts it stands for); (d) the probe table keeps the last
+row of each run of equal heavy keys instead of the first; (e) a probe
+stops at its key's home slot, taken or not, instead of walking on past
+other keys.  The unchanged kernels must pass every check, and (a), (b),
+(d) and (e) must each fail the check named beside them; (c) is a race
+whose window a run may never hit, so its readings are printed, not
+required.  Exits 0 when all of that holds.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 RANK = Path("src/repro_torch/kernels/csrc/lane_rank.cuh")
 ROUTE = Path("src/repro_torch/kernels/csrc/route_kernels.cu")
+COMMON = Path("src/repro_torch/kernels/csrc/route_common.cuh")
 SENT = 2**31 - 1
 
 
@@ -65,11 +72,19 @@ MUTATIONS = {
     "(c) no release fence before a flag": (RANK, lambda t: _replace(_replace(
         t, "  if (wrote) __threadfence();\n", ""),
         "st.release.gpu.global.s32", "st.relaxed.gpu.global.s32")),
+    "(d) probe keeps the last equal row": (COMMON, lambda t: _replace(
+        t, "first[r] = j < num_heavy && (j == 0 || heavy_keys[j - 1] != key[r]);",
+        "first[r] = j < num_heavy && (j + 1 == num_heavy || heavy_keys[j + 1] != key[r]);")),
+    "(e) probe stops at the home slot": (COMMON, lambda t: _replace(
+        t, "return slot.y < 0 || slot.x == key ? slot.y : kWalkOn;",
+        "return slot.x == key ? slot.y : -1;")),
 }
 # which probe must fail on each fault
 CAUGHT_BY = {"(a) look-back stops at an aggregate": "main",
              "(b) fill skips its last partial vector": "edges",
-             "(c) no release fence before a flag": None}
+             "(c) no release fence before a flag": None,
+             "(d) probe keeps the last equal row": "edges",
+             "(e) probe stops at the home slot": "edges"}
 
 
 def _inputs(dev):
@@ -209,7 +224,8 @@ def main() -> int:
                     good &= not passed
                 print(f"  {name}: {'pass' if passed else 'FAIL'}"
                       f"{' (must fail)' if caught else ''}", flush=True)
-    print("faults (a) and (b) caught, unchanged kernels pass" if good else "NOT as required")
+    print("faults (a), (b), (d) and (e) caught, unchanged kernels pass" if good
+          else "NOT as required")
     return 0 if good else 1
 
 

@@ -29,6 +29,8 @@ _LP = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     # kernel (0 lookup_dispatch, 1 route_bucketize, 2 dispatch_count) | W n L
     "rk_tile_records": ([_I], _I),
+    # B -> slots of the heavy-key probe table (0: the binary search)
+    "rk_probe_slots": ([_I], _I),
     "rk_scratch_words": ([_I, _I, _I, _I], _L),
     "rk_error_string": ([_I], ctypes.c_char_p),
     # keys valid W n | hk hp hr B | h2p H seed_mix | L N | part slot counts scratch | stream

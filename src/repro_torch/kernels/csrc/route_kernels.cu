@@ -19,8 +19,8 @@
 // record fills hold the fills (False, key_fill, 0, 0).
 //
 // What bounds them on an H100 (3.35 TB/s HBM3, published peak): device
-// memory bytes.  Per record they do one fmix32 or two, a binary search of a
-// 128-row heavy table, a host-table gather and a few ballots: a few tens of
+// memory bytes.  Per record they do one fmix32 or two, a probe of the
+// heavy-key table, a host-table gather and a few ballots: a few tens of
 // integer operations against 9 bytes read and 8 written (plus 4*D+9 bytes
 // per cell of the send buffers), far below the card's operations-per-byte
 // balance.  Bound = bytes / 3.35 TB/s, with bytes = W*n*(4 key + 1 valid +
@@ -33,12 +33,18 @@
 //     keys, valid and vals once: the one-pass stable lane rank of
 //     lane_rank.cuh (ticketed tiles, a ballot multisplit in the warp, a
 //     decoupled look-back over the tiles of a worker);
-//   * the 16 KB host table sits in shared memory, loaded once per resident
-//     block (the block then takes tiles until none is left); the heavy
-//     table is binary-searched in device memory (it stays in L1/L2), a
-//     thread's 8 records in lock step so their loads overlap; the TPU
-//     kernel's one-hot matmul lookup and triangular-matmul prefix are not
-//     needed, and int32 payloads are stored natively;
+//   * the heavy-key probe table (route_common.cuh: one or two shared loads
+//     a record, against the ceil(log2 B) + 1 dependent loads of a binary
+//     search in device memory) sits in shared memory, built once per
+//     resident block (the block then takes tiles until none is left); a
+//     heavy table too large for the probe is binary-searched in device
+//     memory.  The host table is read through the L1 cache (it stays
+//     there: 16 KB): at the migrate step's shape every tile runs at once,
+//     one a block, and a copy of it into each block's shared memory held
+//     up every block's start for longer than the cached reads cost.  A
+//     thread's 8 records are routed in lock step so their loads overlap;
+//     the TPU kernel's one-hot matmul lookup and triangular-matmul prefix
+//     are not needed, and int32 payloads are stored natively;
 //   * route_bucketize first fills every cell of the four send buffers in
 //     one flat pass of 16-byte stores (no per-cell division, no count
 //     read), zeroing the rank scratch in the same launch, then the rank
@@ -64,10 +70,12 @@ struct RouteArgs {
   const int32_t* heavy_repl;   // [B] or null when num_partitions == 0
   int num_heavy;
   int heavy_step;              // the largest power of two <= num_heavy (0 when none)
+  int probe_slots;             // probe_slots(num_heavy): 0 for the binary search
   const int32_t* host_to_part; // [H], H a power of two
   int num_hosts;
   uint32_t seed_mix;
   int num_lanes;
+  int lane_mask;               // num_lanes - 1 when a power of two, else -1
   int num_partitions;
   int32_t* part;               // [W, n]
   int32_t* slot;               // [W, n]
@@ -85,33 +93,23 @@ struct ScatterArgs {
 };
 
 // The route stage both kernels share, for a thread's kChunk records at
-// once (key -> partition): the heavy-table search runs for all of them in
-// lock step (a fixed number of halving steps), so their loads overlap.
-__device__ __forceinline__ void route_parts(const RouteArgs& a, const int32_t (&key)[kChunk],
-                                            const int (&idx)[kChunk], const int32_t* s_host,
-                                            int32_t (&part)[kChunk]) {
+// once (key -> partition): their heavy-row lookups run in lock step, so
+// their loads overlap.
+__device__ __forceinline__ void route_parts(const RouteArgs& a, const HeavyTable& heavy,
+                                            const int32_t (&key)[kChunk],
+                                            const int (&idx)[kChunk], int32_t (&part)[kChunk]) {
   uint32_t mixed[kChunk];
+  int row[kChunk];
 #pragma unroll
   for (int j = 0; j < kChunk; ++j) {
     mixed[j] = fmix32(static_cast<uint32_t>(key[j]) ^ a.seed_mix);
-    part[j] = s_host[mixed[j] & static_cast<uint32_t>(a.num_hosts - 1)];
+    part[j] = __ldg(a.host_to_part + (mixed[j] & static_cast<uint32_t>(a.num_hosts - 1)));
   }
-  const int B = a.num_heavy;
-  if (B <= 0) return;
-  int lo[kChunk];  // heavy rows below the key: the lower bound
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j) lo[j] = 0;
-  for (int step = a.heavy_step; step > 0; step >>= 1) {
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int probe = lo[j] + step - 1;
-      if (probe < B && __ldg(a.heavy_keys + probe) < key[j]) lo[j] += step;
-    }
-  }
+  heavy_rows(heavy, key, mixed, row);
 #pragma unroll
   for (int j = 0; j < kChunk; ++j) {
-    const int h = lo[j] < B ? lo[j] : B - 1;
-    if (__ldg(a.heavy_keys + h) != key[j]) continue;
+    const int h = row[j];
+    if (h < 0) continue;
     part[j] = __ldg(a.heavy_parts + h);
     if (a.num_partitions > 0) {
       int d = __ldg(a.heavy_repl + h);
@@ -135,7 +133,7 @@ struct RouteRecords {
   static constexpr bool kStaged = kScatter;
   RouteArgs a;
   ScatterArgs s;
-  const int32_t* s_host;
+  HeavyTable heavy;
   int32_t* s_key;     // [tile] by place, with kScatter
   int32_t* s_part;    // [tile] by place
   uint16_t* s_order;  // [tile] place by lane order
@@ -153,10 +151,13 @@ struct RouteRecords {
       key[j] = in ? a.keys[row + idx[j]] : 0;
       on[j] = in && a.valid[row + idx[j]];
     }
-    route_parts(a, key, idx, s_host, part);
+    route_parts(a, heavy, key, idx, part);
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      lane_of[j] = on[j] ? part[j] % a.num_lanes : -1;
+      // part % L: a mask when L is a power of two and the part not negative
+      const int lane = a.lane_mask >= 0 && part[j] >= 0 ? part[j] & a.lane_mask
+                                                        : part[j] % a.num_lanes;
+      lane_of[j] = on[j] ? lane : -1;
       if (idx[j] >= n) continue;
       a.part[row + idx[j]] = part[j];
       if (kScatter) {
@@ -204,14 +205,20 @@ inline int64_t stage_ints(int tile) { return 3 * static_cast<int64_t>(tile); }
 template <bool kScatter>
 __global__ void __launch_bounds__(kThreads) route_rank_kernel(RouteArgs a, ScatterArgs s,
                                                               RankScratch r) {
-  // host table [H], rank_shared_ints(tile, L), then with kScatter the staging
-  extern __shared__ int32_t smem[];
-  for (int i = threadIdx.x; i < a.num_hosts; i += kThreads) smem[i] = a.host_to_part[i];
-  // (the first tile's barrier orders these stores before any read)
-  int32_t* s_rank = smem + a.num_hosts;
+  // the probe slots, rank_shared_ints(tile, L), then with kScatter the
+  // staging
+  extern __shared__ int2 s_route[];
+  HeavyTable heavy{nullptr, 0u, a.heavy_keys, a.num_heavy, a.heavy_step};
+  if (a.probe_slots > 0) {
+    probe_build(s_route, a.probe_slots, a.heavy_keys, a.num_heavy, a.seed_mix);
+    heavy.probe = s_route;
+    heavy.mask = static_cast<uint32_t>(a.probe_slots - 1);
+  }
+  // (the first tile's barrier orders the probe table's stores before a probe)
+  int32_t* s_rank = reinterpret_cast<int32_t*>(s_route + a.probe_slots);
   int32_t* stage = s_rank + rank_shared_ints(r.tile, a.num_lanes);
   uint16_t* order = reinterpret_cast<uint16_t*>(stage + 2 * r.tile);
-  RouteRecords<kScatter> rec{a, s, smem, stage, stage + r.tile, order, order + r.tile};
+  RouteRecords<kScatter> rec{a, s, heavy, stage, stage + r.tile, order, order + r.tile};
   rank_tiles(rec, r, a.num_workers, a.n, a.counts, s_rank);
 }
 
@@ -269,7 +276,7 @@ int launch_route_rank(const RouteArgs& a, const ScatterArgs& s, const RankScratc
                       cudaStream_t stream) {
   const int64_t total = static_cast<int64_t>(a.num_workers) * r.tiles;
   if (total == 0) return 0;
-  const size_t smem = (a.num_hosts + rank_shared_ints(r.tile, a.num_lanes) +
+  const size_t smem = (2 * a.probe_slots + rank_shared_ints(r.tile, a.num_lanes) +
                        (kScatter ? stage_ints(r.tile) : 0)) * sizeof(int32_t);
   if (smem > static_cast<size_t>(kMaxSharedBytes)) return cudaErrorInvalidValue;
   static RankGrid grid;  // one per kernel (template instance)
@@ -294,12 +301,13 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
   a.heavy_parts = heavy_parts;
   a.heavy_repl = heavy_repl;
   a.num_heavy = num_heavy;
-  a.heavy_step = num_heavy > 0 ? 1 : 0;
-  while (a.heavy_step > 0 && 2 * a.heavy_step <= num_heavy) a.heavy_step *= 2;
+  a.heavy_step = search_step(num_heavy);
+  a.probe_slots = probe_slots(num_heavy);
   a.host_to_part = host_to_part;
   a.num_hosts = num_hosts;
   a.seed_mix = seed_mix;
   a.num_lanes = num_lanes;
+  a.lane_mask = num_lanes & (num_lanes - 1) ? -1 : num_lanes - 1;
   a.num_partitions = num_partitions;
   a.part = part;
   a.slot = slot;
@@ -314,6 +322,10 @@ extern "C" {
 // Records per tile of the one-pass rank of a kernel (RankKernel: 0
 // lookup_dispatch, 1 route_bucketize, 2 dispatch_count).
 int rk_tile_records(int kernel) { return kTileOf[kernel]; }
+
+// Slots of the heavy-key probe table the route kernels and partition_apply
+// build for B heavy rows (0: they binary-search the table instead).
+int rk_probe_slots(int num_heavy) { return probe_slots(num_heavy); }
 
 // 64-bit words of rank scratch a kernel's launch over [W, n] records and L
 // lanes takes.

@@ -3,9 +3,11 @@ workers: the CUDA kernel's wrapper, beside its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/lookup_dispatch.py::
 lookup_dispatch``.  The kernel (``csrc/route_kernels.cu``) is bounded by
-device-memory bytes on an H100 and ranks records deterministically in one
-pass (``csrc/lane_rank.cuh``: ticketed tiles and a decoupled look-back); the
-sources' headers say how.
+device-memory bytes on an H100, looks heavy keys up in a hashed probe
+table in shared memory (``csrc/route_common.cuh``; a binary search for
+tables too large for it) and ranks records deterministically in one pass
+(``csrc/lane_rank.cuh``: ticketed tiles and a decoupled look-back); the
+sources' headers say how.  ``heavy_keys`` must be sorted ascending.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.lookup_dispatch_ref`); on a CUDA tensor it

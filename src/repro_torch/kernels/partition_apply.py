@@ -3,9 +3,14 @@ the CUDA kernel's wrapper, beside its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/partition_apply.py::
 partition_apply`` — the batch replay's partition-assignment pass.  The
-kernel (``csrc/batch_kernels.cu``) keeps the host table and the heavy table
-in shared memory and is bounded by device-memory bytes on an H100.  Unlike
-the TPU kernel it takes an empty heavy table (``B = 0``).
+kernel (``csrc/batch_kernels.cu``) reads keys and writes parts 16 bytes a
+thread at a time, 16 records in flight, and keeps the host table and the
+heavy table in shared memory: a hashed probe table of the heavy keys, or
+the sorted keys for a binary search when the table has more rows than the
+probe takes (``build.library().rk_probe_slots(B)`` is 0).  It is bounded by
+device-memory bytes on an H100.  Unlike the TPU kernel it takes an empty
+heavy table (``B = 0``).  ``heavy_keys`` must be sorted ascending, as the
+partitioner keeps it: the first row equal to a key wins.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.partition_apply_ref`); on a CUDA tensor it

@@ -263,6 +263,109 @@ def test_route_kernels_edge_cases(cuda, w, n, lanes, cap, parts, invalid):
     assert int(want[2].sum()) == int(valid.sum())
 
 
+def _probe_case(kind, w, n, b, seed):
+    """(keys [w * n], sorted heavy keys [b], heavy parts, replicas, host
+    table, partitioner seed) for one edge of the heavy-key probe: `live`
+    Zipf keys, b distinct heavy keys among the hot ones; `sentinels` one
+    live key and b - 1 sentinel pad rows, a tenth of the keys the sentinel;
+    `runs` runs of equal heavy keys whose later rows carry other parts, and
+    pad rows whose parts differ after the first; `collide` heavy keys and
+    missing keys whose hashes share probe slots (found by searching seeded
+    keys), so walks pass other keys before a hit or an empty slot."""
+    from repro_torch.core.hashing import fmix32, seed_mix
+
+    rng = np.random.default_rng(seed)
+    pseed = seed % 5
+    stream = zipf_keys(max(w * n, 1), num_keys=5000, exponent=1.2, seed=seed)[: w * n]
+    uniq, counts = np.unique(stream, return_counts=True)
+    hot = uniq[np.argsort(-counts, kind="stable")][: max(b, 1)]  # the hottest keys first
+    if kind == "live":  # half of the rows hot keys, half other keys
+        first = hot[: (b + 1) // 2]
+        pool = np.setdiff1d(rng.integers(0, 6000, 4 * b + 8), first)
+        hk = np.sort(np.concatenate([first, rng.choice(pool, b - len(first), replace=False)]))
+        keys = stream
+    elif kind == "sentinels":
+        hk = np.concatenate([hot[:1], np.full(b - 1, SENT)])
+        keys = np.where(rng.random(w * n) < 0.1, SENT, stream)
+    elif kind == "runs":
+        live = hot[: b // 4]
+        hk = np.concatenate([np.repeat(live, 2), live[: b // 8], np.full(b, SENT)])
+        hk = np.sort(hk)[:b]
+        hk[-8:] = SENT
+        keys = np.where(rng.random(w * n) < 0.1, SENT, stream)
+    else:  # collide
+        slots = build.library().rk_probe_slots(b)
+        cand = rng.integers(0, 2**31 - 1, 400_000, dtype=np.int64).astype(np.int32)
+        home = fmix32(cand.astype(np.uint32) ^ np.uint32(seed_mix(pseed))) & (slots - 1)
+        top = np.bincount(home, minlength=slots).argmax()
+        same = cand[home == top][:12]          # 12 keys with one home slot
+        nxt = cand[home == (top + 1) % slots][:4]
+        table = np.unique(np.concatenate([same[:8], nxt[:3], hot[: b // 2]]))[:b]
+        hk = np.concatenate([table, np.full(b - len(table), SENT)])
+        keys = stream.copy()
+        pick = rng.integers(0, w * n, w * n // 5)
+        keys[pick] = np.concatenate([same, nxt])[rng.integers(0, 16, len(pick))]
+    hk = np.asarray(hk, dtype=np.int32)
+    assert np.all(np.diff(hk.astype(np.int64)) >= 0)
+    hp = rng.integers(0, 32, b).astype(np.int32)
+    hp[hk == SENT] = 0
+    if kind == "runs":  # later rows of a run, and pad rows after the first, differ
+        hp[1:][hk[1:] == hk[:-1]] = 31
+    hr = rng.integers(0, 5, b).astype(np.int32)
+    h2p = rng.integers(0, 32, 4096).astype(np.int32)
+    return np.asarray(keys, dtype=np.int32), hk, hp, hr, h2p, pseed
+
+
+@pytest.mark.parametrize("kind,w,n,b,offset", [
+    ("live", 2, 5000, 0, 0),            # no heavy table
+    ("live", 2, 5000, 1, 0),
+    ("live", 3, 5003, 128, 0),          # n not a multiple of 4
+    ("live", 2, 20_000, 1024, 0),       # the largest probed table
+    ("live", 2, 20_000, 1025, 0),       # the smallest searched one
+    ("sentinels", 2, 4001, 128, 0),     # 127 sentinel pad rows, keys equal to the sentinel
+    ("runs", 2, 4000, 128, 0),          # first equal row wins
+    ("collide", 2, 4000, 128, 0),       # shared probe slots
+    ("live", 1, 3, 128, 0),             # n < 4
+    ("live", 3, 1001, 128, 1),          # keys 4 bytes past a 16-byte boundary
+    ("live", 1, 4097, 256, 3),          # 12 bytes past, one worker
+], ids=["B0", "B1", "B128-ragged-n", "B1024-probe", "B1025-search", "127-sentinels",
+        "equal-runs", "colliding-slots", "n-below-4", "misaligned-W3", "misaligned-W1"])
+def test_heavy_probe_edge_cases(cuda, kind, w, n, b, offset):
+    """partition_apply, lookup_dispatch and route_bucketize (which share the
+    heavy-key probe) equal their plain versions on the probe's edges, with
+    every tensor the wrappers allocate handed out dirty."""
+    lib = build.library()
+    assert lib.rk_probe_slots(1024) == 4096 and lib.rk_probe_slots(1025) == 0
+    assert lib.rk_probe_slots(0) == 0 and lib.rk_probe_slots(1) == 4
+    keys, hk, hp, hr, h2p, pseed = _probe_case(kind, w, n, b, seed=w * n + b + offset)
+    buf = torch.as_tensor(np.concatenate([np.zeros(offset, np.int32), keys]), device=cuda)
+    k = buf[offset:].view(w, n) if w > 1 else buf[offset:]
+    assert k.is_contiguous() and (k.data_ptr() % 16 == 4 * offset)
+    t_hk, t_hp, t_hr, t_h2p = (torch.as_tensor(a, device=cuda) for a in (hk, hp, hr, h2p))
+    args = (k, t_hk, t_hp, t_h2p)
+    want = partition_apply_plain(*args, seed=pseed, num_hosts=4096)
+    with _dirty_outputs():
+        got = partition_apply(*args, seed=pseed, num_hosts=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    k2 = k.view(w, n)
+    rng = np.random.default_rng(n)
+    v = torch.as_tensor(rng.random((w, n)) < 0.9, device=cuda)
+    x = torch.as_tensor(rng.normal(size=(w, n, 1)).astype(np.float32), device=cuda)
+    kw = dict(seed=pseed, num_hosts=4096, num_lanes=8, num_partitions=32)
+    want = lookup_dispatch_plain(k2, v, t_hk, t_hp, t_h2p, t_hr, **kw)
+    with _dirty_outputs():
+        got = lookup_dispatch(k2, v, t_hk, t_hp, t_h2p, t_hr, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x_) for g, x_ in zip(got, want))
+    rb_kw = dict(kw, capacity=n // 4 + 1, key_fill=SENT)
+    want = route_bucketize_plain(k2, v, x, t_hk, t_hp, t_h2p, t_hr, **rb_kw)
+    with _dirty_outputs():
+        got = route_bucketize(k2, v, x, t_hk, t_hp, t_h2p, t_hr, **rb_kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x_) for g, x_ in zip(got, want))
+
+
 @pytest.mark.parametrize("w,n,num_parts,invalid", [
     (2, 1000, 35, 0.2),                     # below one tile
     (3, 3 * DISPATCH_TILE + 1, 35, 0.2),    # k tiles + 1 record
@@ -376,15 +479,20 @@ def test_flash_attention_on_the_models_strided_views(cuda, dtype, p_bf16):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_q_offset_and_unequal_lengths(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_q_offset_and_unequal_lengths(cuda, dtype):
+    """q rows at positions 120-169 over 170 k rows: float32 runs the scalar
+    kernel, bf16 the wgmma/TMA one; within 2e-5 and 2e-2."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((2, 3, 50, 64), generator=gen, device=cuda)
-    k = torch.randn((2, 170, 64), generator=gen, device=cuda)
-    v = torch.randn((2, 170, 64), generator=gen, device=cuda)
-    for causal, window in ((True, 0), (True, 40), (False, 0)):
+    q = torch.randn((2, 3, 50, 64), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, 170, 64), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, 170, 64), generator=gen, device=cuda).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for causal, window in ((True, 0), (True, 40), (False, 0), (False, 40)):
         got = flash_attention(q, k, v, causal=causal, window=window, q_offset=120)
         want = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=120)
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
