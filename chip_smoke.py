@@ -48,12 +48,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    full, empty and hit by sentinel keys, 35 stacked rows, a key view 4
    bytes past a 16-byte boundary; out-of-range and invalid destinations,
    1 to 1024 parts, n below one tile and 3 tiles + 1, every record
-   invalid, no records, outputs handed out dirty; sketch widths 1000 to
-   8192, depths 1 to 8, invalid records): every output equal exactly.  Then dispatch_count at phase 6's shape on four streams
-   at once beside a busy copy: every output bit-equal to an idle card's.
+   invalid, no records, outputs handed out dirty; sketch widths 1 to 8192
+   over depths 1 to 8 (rows split over a cluster at depth 8, width 8192),
+   invalid records, one key for every record, exponent 2.0, keys 4 bytes
+   past 16 with flags 1 byte past 4, n of 1, 15, 17 and 3 blocks' steps +
+   1, 35 stacked rows, nothing valid, no records, outputs handed out
+   dirty): every output equal exactly.  Then dispatch_count and
+   sketch_update (depth 4 x 2048 and 8 x 8192) at phase 6's shape on four
+   streams at once beside a busy copy: every output bit-equal to an idle
+   card's.
 8. Times of the batch kernels at phase 6's shapes (exponent 1.2), as in
    phase 5 (an L2 flush between calls for dispatch_count's device time;
-   partition_apply's both without and with the flush),
+   partition_apply's and sketch_update's both without and with the flush,
+   sketch_update's also flushed at width 8192, at exponent 2.0 and at
+   depth 8 x 8192; its bound the larger of its bytes and its integer
+   operations, each pipe's at its lanes an SM and the highest SM clock),
    and the median ``BatchJob.run`` wall per job, split into the host
    planning, the upload and the device passes.
 9. Serving at gemma-2b's full published width and depth (18 layers, bf16
@@ -114,8 +123,17 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at the 700 W limit)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; f32
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-SOURCE = "src/repro_torch/kernels/csrc/route_kernels.cu"
-BATCH_SOURCE = "src/repro_torch/kernels/csrc/batch_kernels.cu"
+SOURCES = {
+    "route_bucketize": "src/repro_torch/kernels/csrc/route_kernels.cu",
+    "lookup_dispatch": "src/repro_torch/kernels/csrc/route_kernels.cu",
+    "partition_apply": "src/repro_torch/kernels/csrc/batch_kernels.cu",
+    "dispatch_count": "src/repro_torch/kernels/csrc/batch_kernels.cu",
+    "sketch_update": "src/repro_torch/kernels/csrc/sketch_kernels.cu",
+}
+# H100, an SM each clock: 4 partitions x 16 lanes of the integer ALU pipe
+# (LOP3, SHF, LEA, IADD3, ISETP), 4 x 16 of the FMA pipe that also runs the
+# integer multiplies (IMAD, IMUL), and one warp instruction a partition
+PIPE_LANES_PER_SM = {"alu": 64, "fma": 64, "issue": 128}
 # records per tile of each kernel's one-pass lane rank (csrc/lane_rank.cuh, kTileOf)
 TILES = {"lookup_dispatch": 4096, "route_bucketize": 4096, "dispatch_count": 8192}
 # each kernel's own device work, by the profiler's names for it
@@ -124,7 +142,7 @@ DEVICE_NAMES = {
     "lookup_dispatch": ("route_rank_kernel", "Memset"),
     "partition_apply": ("partition_apply_kernel",),
     "dispatch_count": ("dispatch_rank_kernel", "Memset"),
-    "sketch_update": ("sketch_count_kernel", "to_float_kernel", "Memset"),
+    "sketch_update": ("sketch_rows_kernel", "Memset"),
 }
 REPLACES = {
     "route_bucketize": "src/repro/kernels/route_bucketize.py:155",
@@ -279,6 +297,37 @@ def excess_over_bf16_rounding(got, ref) -> float:
     return float(((got - ref).abs() - half_ulp).max())
 
 
+def sm_clocks_per_s() -> float:
+    """The card's SMs x the highest SM clock that nvidia-smi reads (Hz)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def ops_ms(ops: dict) -> float:
+    """The least time of integer operations ``{"alu": n, "fma": n}`` on the
+    card: the slowest of the ALU pipe, the FMA pipe and the issue of one
+    instruction a lane, each at its lanes an SM (``PIPE_LANES_PER_SM``)."""
+    alu, fma = ops["alu"], ops["fma"]
+    lanes = PIPE_LANES_PER_SM
+    clocks = max(alu / lanes["alu"], fma / lanes["fma"], (alu + fma) / lanes["issue"])
+    return clocks / sm_clocks_per_s() * 1e3
+
+
+def sketch_ops(n, n_valid, depth) -> dict:
+    """Integer operations of sketch_update over n records (n_valid valid)
+    into depth rows of a power-of-two width, by pipe: on the ALU pipe 1 a
+    record (the flag test), 2 a valid record (the hash's first step, a
+    shift and an xor) and 6 a valid record-row (the xor with the row's
+    seed, none for row 0; two shift-xors, the column's mask fused into the
+    last; the address, one LEA from the row's base); on the FMA pipe the
+    hash's two multiplies a valid record-row.  At depth 4: 26 ALU and 8 FMA
+    a valid record (``sketch_ab.py --sass`` holds the loop's SASS to it).
+    The shared atomic adds are not counted."""
+    return {"alu": n + n_valid * (2 + 6 * depth - 1), "fma": n_valid * 2 * depth}
+
+
 def max_abs_err(got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
@@ -304,36 +353,46 @@ def route_bytes(keys, vals, tables, num_lanes, capacity=None, split=False) -> in
     return nbytes
 
 
-def kernel_rows(timing, source, launches, errs, equal, *, phase, path_phase,
-                flushed=None) -> list[dict]:
+def kernel_rows(timing, launches, errs, equal, *, phase, path_phase, flushed=None,
+                int_ops=None) -> list[dict]:
     """The ``kernels`` line's entries: ``timing[name] = (ms, plain_ms,
     bytes, (device ms, by device kernel, device operations per call))``; no
     single PyTorch call computes any of these functions, so ``library_ms``
     is null.  ``flushed[name]``, where given, is the kernel's device time
     with an L2 flush between calls, kept beside the unflushed one as
-    ``device_ms_flushed``."""
+    ``device_ms_flushed``.  ``int_ops[name]``, where given, is the integer
+    operations the call does by pipe (``sketch_ops``): its bound is then
+    the larger of bytes over the memory rate and ``ops_ms`` of them
+    (``bound_by``); elsewhere the bound is the bytes'."""
     rows = []
-    flushed = flushed or {}
+    flushed, int_ops = flushed or {}, int_ops or {}
     for name, (k_ms, p_ms, nbytes, (d_ms, split, ops)) in timing.items():
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = ops_ms(int_ops[name]) if name in int_ops else 0.0
+        bound_ms = max(bytes_ms, op_ms)
         rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name], "equal": all(equal[name]),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if op_ms > bytes_ms else "bytes",
             "bytes": nbytes, "library_ms": None, "device_ms": d_ms,
             "device_split_ms": split, "device_ops_per_call": ops,
         })
+        if name in int_ops:
+            rows[-1].update(int_ops=int_ops[name], bound_bytes_ms=bytes_ms, bound_ops_ms=op_ms)
         cold = ""
         if name in flushed:
             rows[-1]["device_ms_flushed"] = flushed[name]
             cold = (f"; with an L2 flush between calls {flushed[name]:.4f} ms "
                     f"({100 * bound_ms / flushed[name]:.1f}%)")
         log(f"phase {phase}: {name}: {k_ms:.4f} ms by events around one call, device time "
-            f"{d_ms:.4f} ms ({100 * bound_ms / d_ms:.1f}% of the bound {bound_ms:.4f} ms from "
-            f"{nbytes} bytes; by device kernel "
+            f"{d_ms:.4f} ms ({100 * bound_ms / d_ms:.1f}% of the bound {bound_ms:.4f} ms by "
+            f"{rows[-1]['bound_by']}, {nbytes} bytes; by device kernel "
             f"{', '.join(f'{k} {v:.4f}' for k, v in split.items())}; "
             f"{ops:g} device operations a call{cold}), plain {p_ms:.4f} ms; launches in phase "
-            f"{path_phase}: {launches[name]}")
+            f"{path_phase}: {launches[name]}"
+            + (f"; bounds: bytes {bytes_ms:.4f} ms, integer operations {int_ops[name]} "
+               f"{op_ms:.4f} ms" if name in int_ops else ""))
     return rows
 
 
@@ -584,7 +643,7 @@ def main() -> int:
     merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
                                           res.values, res.valid), warmup=1, reps=5)
     wall_ms = statistics.median(walls) * 1e3
-    kernels = kernel_rows(timing, SOURCE, launches, errs, equal, phase=5, path_phase=2,
+    kernels = kernel_rows(timing, launches, errs, equal, phase=5, path_phase=2,
                           flushed=flushed)
     log(f"phase 5: median wall per batch {wall_ms:.1f} ms; state merge {merge_ms:.3f} ms "
         f"on the device; card {card}")
@@ -613,7 +672,7 @@ def batch_phases(dev, sent) -> list[dict]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
     from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
-    from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
+    from repro_torch.kernels.sketch_update import THREADS, sketch_update, sketch_update_plain
 
     names = ("partition_apply", "dispatch_count", "sketch_update")
     dr = DRConfig(mode="batch", lam=4.0, eps=0.003)
@@ -741,6 +800,29 @@ def batch_phases(dev, sent) -> list[dict]:
         assert float(got.max()) < 2**24
         hold("sketch_update", f"depth {depth}, width {width}, invalid {int((~v).sum())}",
              got, sketch_update_plain(dkeys, v, depth=depth, width=width))
+    # the sketch's edges: skew, views off 16 and 4 bytes, ragged n, stacked
+    # rows, nothing valid, nothing at all, rows split over a cluster
+    step = THREADS * 4  # records a block of the sketch takes a step
+    e2 = torch.as_tensor(jobs[2.0][0].astype(np.int32), device=dev)
+    for label, k, v, depth, width in [
+            ("one key for every record", torch.full_like(dkeys, 123_456_789), ones, 4, 2048),
+            ("exponent 2.0", e2, some, 4, 2048),
+            ("exponent 2.0, width 1000", e2, some, 4, 1000),
+            ("keys 4 bytes past 16, valid 1 byte past 4", dkeys[1:], some[1:], 4, 2048),
+            ("n = 1", dkeys[:1], some[:1], 4, 2048),
+            ("n = 15", dkeys[1:16], ones[1:16], 4, 2048),
+            ("n = 17, width 3", dkeys[:17], ones[:17], 3, 3),
+            ("3 steps of a block + 1", dkeys[: 3 * step + 1], some[: 3 * step + 1], 4, 2048),
+            ("35 stacked rows", dkeys[:rows].view(BATCH_PARTS, -1),
+             some[:rows].view(BATCH_PARTS, -1), 4, 2048),
+            ("every record invalid", dkeys, torch.zeros_like(some), 4, 2048),
+            ("no records", dkeys[:0], some[:0], 4, 2048),
+            ("rows split over 2 blocks, keys 4 bytes past 16", dkeys[1:], some[1:], 8, 8192)]:
+        with dirty_outputs():
+            got = sketch_update(k, v, depth=depth, width=width)
+        hold("sketch_update", f"{label}, depth {depth}, width {width}, dirty outputs", got,
+             sketch_update_plain(k, v, depth=depth, width=width))
+    del e2
     assert all(all(v) for v in equal.values()), equal
     want = dispatch_count(assign, ones, num_parts=BATCH_PARTS)
     differ, total = differ_under_load(
@@ -748,6 +830,14 @@ def batch_phases(dev, sent) -> list[dict]:
     assert differ == 0, (differ, total)
     log(f"phase 7: dispatch_count at phase 6's shape on 4 streams beside a busy copy: "
         f"{differ} of {total} outputs differ from an idle card's")
+    for depth, width in ((4, 2048), (8, 8192)):
+        want = (sketch_update(dkeys, ones, depth=depth, width=width),)
+        differ, total = differ_under_load(
+            dev, lambda: (sketch_update(dkeys, ones, depth=depth, width=width),), want)
+        assert differ == 0, (depth, width, differ, total)
+        log(f"phase 7: sketch_update depth {depth} width {width} at phase 6's shape on 4 "
+            f"streams beside a busy copy: {differ} of {total} outputs differ from an idle "
+            "card's")
     del want
 
     # ---- phase 8: times ------------------------------------------------
@@ -779,9 +869,22 @@ def batch_phases(dev, sent) -> list[dict]:
     flushed = {"partition_apply": own_device_time(lambda: partition_apply(*pa_args, **pa_kw),
                                                   DEVICE_NAMES["partition_apply"],
                                                   flush=flush)[0]}
-    del flush
-    kernels = kernel_rows(timing, BATCH_SOURCE, launches, errs, equal, phase=8, path_phase=6,
-                          flushed=flushed)
+
+    def sketch_cold(k, depth, width):
+        return own_device_time(lambda: sketch_update(k, ones, depth=depth, width=width),
+                               DEVICE_NAMES["sketch_update"], flush=flush)[0]
+
+    e2 = torch.as_tensor(jobs[2.0][0].astype(np.int32), device=dev)
+    flushed["sketch_update"] = sketch_cold(dkeys, 4, 2048)
+    sketch_more = {"device_ms_flushed_width_8192": sketch_cold(dkeys, 4, 8192),
+                   "device_ms_flushed_exponent_2": sketch_cold(e2, 4, 2048),
+                   "device_ms_flushed_depth_8_width_8192": sketch_cold(dkeys, 8, 8192)}
+    del flush, e2
+    kernels = kernel_rows(timing, launches, errs, equal, phase=8, path_phase=6,
+                          flushed=flushed, int_ops={"sketch_update": sketch_ops(n, n, 4)})
+    next(r for r in kernels if r["name"] == "sketch_update").update(sketch_more)
+    log("phase 8: sketch_update flushed device ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sketch_more.items()))
 
     # one job's wall, split: host planning, upload, device passes (exponent 1.2)
     plan, upload, passes = [], [], []

@@ -403,9 +403,9 @@ def split(lib, fn, flush, *, n=20) -> tuple[list[int], int]:
     return list(out[:N_PHASES]), int(out[N_PHASES])
 
 
-def timeline(lib, fn, flush) -> str:
+def timeline(lib, fn, flush, marks=MARKS) -> str:
     """Percentiles (0, 50, 90, 100) over the blocks of one flushed call on
-    the stamped ``lib`` of the times of each of MARKS that the copy
+    the stamped ``lib`` of the times of each of ``marks`` that the copy
     records, in us from the first block's start."""
     import numpy as np
 
@@ -418,12 +418,12 @@ def timeline(lib, fn, flush) -> str:
         torch.cuda.synchronize()
     out = (ctypes.c_ulonglong * (len(MARKS) * 8192))()
     assert lib.stamp_read_blocks(out) == 0
-    marks = np.frombuffer(out, dtype=np.uint64).reshape(len(MARKS), 8192).astype(np.float64)
-    seen = marks[0] > 0
-    t0 = marks[0][seen].min()
+    stamps = np.frombuffer(out, dtype=np.uint64).reshape(len(MARKS), 8192).astype(np.float64)
+    seen = stamps[0] > 0
+    t0 = stamps[0][seen].min()
     parts = []
-    for k, label in enumerate(MARKS):
-        at = marks[k][seen & (marks[k] > 0)]
+    for k, label in enumerate(marks):
+        at = stamps[k][seen & (stamps[k] > 0)]
         if at.size:
             q = np.percentile((at - t0) / 1e3, [0, 50, 90, 100])
             parts.append(f"{label} " + "/".join(f"{x:.2f}" for x in q))

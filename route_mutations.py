@@ -1,5 +1,5 @@
-"""Do the route kernels' checks catch a broken look-back, fill or heavy-key
-probe?  (Needs one CUDA card.)
+"""Do the route and sketch kernels' checks catch a broken look-back, fill,
+heavy-key probe, fastmod or cross-cluster sum?  (Needs one CUDA card.)
 
     python3 route_mutations.py
 
@@ -8,24 +8,29 @@ each with one deliberate fault in ``csrc/lane_rank.cuh`` (the one-pass
 rank that ``route_bucketize``, ``lookup_dispatch`` and ``dispatch_count``
 share), ``csrc/route_kernels.cu`` (the fill) or ``csrc/route_common.cuh``
 (the heavy-key probe that ``route_bucketize``, ``lookup_dispatch`` and
-``partition_apply`` share), and reads what these checks read on it:
+``partition_apply`` share), ``csrc/sketch_kernels.cu`` (the sketch's sum
+over clusters) or ``kernels/sketch_update.py`` (the sketch's fastmod
+constant), and reads what these checks read on it:
 
 * ``edges``: the GPU tests' edge cases (``test_route_kernels_edge_cases``,
-  ``test_heavy_probe_edge_cases``, ``test_dispatch_count_edge_cases`` in
-  ``tests/test_torch_gpu.py``: below one tile, k tiles + 1, many tiles, 35
-  rows, 1024 lanes, ragged capacities, capacity 0, every record invalid,
-  no records; heavy tables of 0, 1, 128, 1024 and 1025 rows, 127 sentinel
+  ``test_heavy_probe_edge_cases``, ``test_dispatch_count_edge_cases``,
+  ``test_sketch_update_edge_cases`` in ``tests/test_torch_gpu.py``: below
+  one tile, k tiles + 1, many tiles, 35 rows, 1024 lanes, ragged
+  capacities, capacity 0, every record invalid, no records; heavy tables of 0, 1, 128, 1024 and 1025 rows, 127 sentinel
   rows, runs of equal keys, colliding probe slots, ragged and misaligned
-  keys; each with every tensor the wrapper allocates filled with 0x5A
-  bytes first); the cases that fail are named;
+  keys; sketches at widths 1 to 40,961, skewed, misaligned, ragged,
+  stacked and split over a cluster; each with every tensor the wrapper
+  allocates filled with 0x5A bytes first); the cases that fail are named;
 * ``main``: ``route_bucketize`` at the streaming path's shapes (8 workers of
-  524,288 keys, 8 lanes, 32 partitions, a split key, capacity 131,072) and
-  ``dispatch_count`` at the batch path's (10,000,000 records, 35 parts),
-  each against its plain version, as ``chip_smoke.py`` phases 3 and 7 do;
+  524,288 keys, 8 lanes, 32 partitions, a split key, capacity 131,072),
+  ``dispatch_count`` at the batch path's (10,000,000 records, 35 parts) and
+  ``sketch_update`` at the batch path's (10,000,000 keys at exponent 1.2,
+  depth 4, width 2048), each against its plain version, as
+  ``chip_smoke.py`` phases 3 and 7 do;
 * ``load``: both kernels on four streams at once beside a busy copy, as
   ``test_rank_kernels_are_deterministic_under_concurrent_load`` runs them,
-  five times over; the outputs that differ from the plain version's are
-  counted.
+  five times over, and the sketch likewise; the outputs that differ from
+  the plain version's are counted.
 
 The faults: (a) the look-back takes an earlier tile's aggregate as its
 inclusive prefix and stops; (b) the fill skips its last partial vector;
@@ -33,9 +38,13 @@ inclusive prefix and stops; (b) the fill skips its last partial vector;
 seen before the counts it stands for); (d) the probe table keeps the last
 row of each run of equal heavy keys instead of the first; (e) a probe
 stops at its key's home slot, taken or not, instead of walking on past
-other keys.  The unchanged kernels must pass every check, and (a), (b),
-(d) and (e) must each fail the check named beside them; (c) is a race
-whose window a run may never hit, so its readings are printed, not
+other keys; (f) the sketch's fastmod constant is one less
+(``2**64 // width``); (g) the last cluster of an eighth skips the first
+cluster's partial in its sum; (h) the fences around the sketch's tickets
+are removed (a last cluster may sum partials before they land).  The
+unchanged kernels must pass every check, and (a), (b), (d), (e), (f) and
+(g) must each fail the check named beside them; (c) and (h) are races
+whose window a run may never hit, so their readings are printed, not
 required.  Exits 0 when all of that holds.
 """
 from __future__ import annotations
@@ -54,6 +63,8 @@ REPO = Path(__file__).resolve().parent
 RANK = Path("src/repro_torch/kernels/csrc/lane_rank.cuh")
 ROUTE = Path("src/repro_torch/kernels/csrc/route_kernels.cu")
 COMMON = Path("src/repro_torch/kernels/csrc/route_common.cuh")
+SKETCH = Path("src/repro_torch/kernels/csrc/sketch_kernels.cu")
+SKETCH_PY = Path("src/repro_torch/kernels/sketch_update.py")
 SENT = 2**31 - 1
 
 
@@ -78,18 +89,31 @@ MUTATIONS = {
     "(e) probe stops at the home slot": (COMMON, lambda t: _replace(
         t, "return slot.y < 0 || slot.x == key ? slot.y : kWalkOn;",
         "return slot.x == key ? slot.y : -1;")),
+    "(f) fastmod constant one less": (SKETCH_PY, lambda t: _replace(
+        t, "return (2**64 // width + 1) % 2**64", "return (2**64 // width) % 2**64")),
+    "(g) last cluster skips a partial": (SKETCH, lambda t: _replace(
+        t, "    for (int j = 0; j < a.clusters; ++j) {  // the loads in flight together\n",
+        "    for (int j = 1; j < a.clusters; ++j) {\n")),
+    "(h) no fences around the tickets": (SKETCH, lambda t: _replace(_replace(
+        t, "  __threadfence();  // the partial before the ticket (release)\n", ""),
+        "  __threadfence();  // the other clusters' partials after their tickets (acquire)\n",
+        "")),
 }
 # which probe must fail on each fault
 CAUGHT_BY = {"(a) look-back stops at an aggregate": "main",
              "(b) fill skips its last partial vector": "edges",
              "(c) no release fence before a flag": None,
              "(d) probe keeps the last equal row": "edges",
-             "(e) probe stops at the home slot": "edges"}
+             "(e) probe stops at the home slot": "edges",
+             "(f) fastmod constant one less": "edges",
+             "(g) last cluster skips a partial": "edges",
+             "(h) no fences around the tickets": None}
 
 
 def _inputs(dev):
-    """The streaming path's route_bucketize arguments and the batch path's
-    dispatch_count arguments, from seeded numpy draws."""
+    """The streaming path's route_bucketize arguments, the batch path's
+    dispatch_count arguments and its sketch's keys, from seeded numpy
+    draws."""
     from repro_torch.core.histogram import Histogram
     from repro_torch.core.partitioner import kip_update, uniform_partitioner
     from repro_torch.data.generators import zipf_keys
@@ -109,15 +133,21 @@ def _inputs(dev):
     rng = np.random.default_rng(6)
     dc = (torch.as_tensor(rng.integers(-1, 36, (1, 10_000_000)).astype(np.int32), device=dev),
           torch.as_tensor(rng.random((1, 10_000_000)) < 0.9, device=dev))
-    return rb, dc
+    sk = torch.as_tensor(zipf_keys(10_000_000, num_keys=1_000_000, exponent=1.2,
+                                   seed=12).astype(np.int32), device=dev)
+    return rb, dc, sk
 
 
 def _calls(dev):
     from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
     from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+    from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
 
-    (rb_args, rb_kw), (dest, valid) = _inputs(dev)
+    (rb_args, rb_kw), (dest, valid), sk = _inputs(dev)
+    ones = torch.ones_like(sk, dtype=torch.bool)
     return {
+        "sketch_update": (lambda: (sketch_update(sk, ones),),
+                          lambda: (sketch_update_plain(sk, ones),)),
         "route_bucketize": (lambda: route_bucketize(*rb_args, **rb_kw),
                             lambda: route_bucketize_plain(*rb_args, **rb_kw)),
         "dispatch_count": (lambda: dispatch_count(dest, valid, num_parts=35),
@@ -224,7 +254,7 @@ def main() -> int:
                     good &= not passed
                 print(f"  {name}: {'pass' if passed else 'FAIL'}"
                       f"{' (must fail)' if caught else ''}", flush=True)
-    print("faults (a), (b), (d) and (e) caught, unchanged kernels pass" if good
+    print("faults (a), (b), (d), (e), (f) and (g) caught, unchanged kernels pass" if good
           else "NOT as required")
     return 0 if good else 1
 

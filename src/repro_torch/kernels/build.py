@@ -44,8 +44,10 @@ _SIGNATURES = {
     "bk_partition_apply": ([_P, _L, _P, _P, _I, _P, _I, _U, _P, _P], _I),
     # dest valid W n N | slot counts scratch | stream
     "bk_dispatch_count": ([_P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
-    # keys valid W n depth width | acc out | stream
-    "bk_sketch_update": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+    # keys valid W n depth width | magic clusters split | scratch out | stream
+    "bk_sketch_update": ([_P, _P, _I, _I, _I, _I, ctypes.c_uint64, _I, _I, _P, _P, _P], _I),
+    # clusters of sketch blocks that fit on the card at once (< 0: -error)
+    "bk_sketch_clusters": ([], _I),
     # q k v o | B G P Sq Sk hd dtype p_bf16 | causal window q_offset scale |
     # q k v o strides | stream
     "fa_flash_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -29,7 +29,7 @@ from repro_torch.kernels.lookup_dispatch import (RANK_KERNELS, lookup_dispatch,
                                                  lookup_dispatch_plain)
 from repro_torch.kernels.partition_apply import partition_apply, partition_apply_plain
 from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
-from repro_torch.kernels.sketch_update import sketch_update, sketch_update_plain
+from repro_torch.kernels.sketch_update import THREADS, plan, sketch_update, sketch_update_plain
 
 pytestmark = pytest.mark.gpu
 SENT = 2**31 - 1
@@ -162,6 +162,90 @@ def test_sketch_update_equals_plain(cuda, w, depth, width):
     cms = CountMinSketch(depth, width)
     cms.update(keys[: k.shape[1]][v[0].cpu().numpy()])
     np.testing.assert_array_equal(got[0].cpu().numpy().astype(np.float64), cms.table)
+
+
+SKETCH_STEP = THREADS * 4  # records a block of the sketch kernel takes a step
+
+
+@pytest.mark.parametrize("w,n,depth,width,exponent,invalid,key_off,valid_off", [
+    (1, 200_000, 4, 2048, None, 0.0, 0, 0),          # one key for every record
+    (1, 300_000, 4, 2048, 2.0, 0.1, 0, 0),
+    (1, 300_000, 4, 1000, 2.0, 0.1, 0, 0),
+    (1, 100_001, 4, 2048, 1.2, 0.1, 1, 1),           # keys 4 bytes past 16, valid 1 byte past 4
+    (3, 20_003, 3, 1000, 1.2, 0.1, 3, 2),            # keys 12 bytes past 16, valid 2 past 4
+    (1, 1, 4, 2048, 1.2, 0.0, 0, 0),
+    (1, 15, 4, 2048, 1.2, 0.0, 1, 0),
+    (2, 17, 3, 3, 1.2, 0.0, 0, 0),                 # 9 cells: outputs not on 16 bytes
+    (1, 3 * SKETCH_STEP + 1, 4, 2048, 1.2, 0.1, 0, 0),
+    (35, 3000, 4, 2048, 1.2, 0.1, 0, 0),
+    (2, 5000, 4, 2048, 1.2, 1.0, 0, 0),             # every record invalid
+    (3, 0, 4, 2048, 1.2, 0.1, 0, 0),                # no records
+    (1, 500_000, 8, 8192, 1.2, 0.1, 0, 0),          # rows split over 2 blocks
+    (2, 50_000, 5, 20_000, 1.2, 0.1, 0, 0),         # split over 4, ragged row groups
+    (1, 40_000, 1, 1, 1.2, 0.1, 0, 0),
+    (1, 2**20 + 7, 2, 40_961, 1.1, 0.1, 0, 0),      # split, width not a power of two
+], ids=["one-key", "exponent-2", "exponent-2-width-1000", "misaligned-views",
+        "misaligned-W3", "n-1", "n-15", "n-17-width-3", "3-steps-plus-1", "35-rows",
+        "all-invalid", "n-0", "split-depth-8", "split-depth-5", "width-1", "split-width-40961"])
+def test_sketch_update_edge_cases(cuda, w, n, depth, width, exponent, invalid, key_off,
+                                  valid_off):
+    """sketch_update equals its plain version bit for bit on the edges of its
+    loads (views off 16 and 4 bytes, ragged tails, n below a vector),
+    skew, stacked rows, both paths (all rows in a block, rows split over a
+    cluster) and both columns (mask, fastmod), with every tensor the
+    wrapper allocates handed out dirty."""
+    rng = np.random.default_rng(n + depth + width)
+    if exponent is None:
+        keys = np.full(w * n, 123_456_789, np.int64)
+    else:
+        keys = zipf_keys(max(w * n, 1), num_keys=100_000, exponent=exponent, seed=n)[: w * n]
+    kb = torch.as_tensor(np.concatenate([np.zeros(key_off, np.int64), keys]).astype(np.int32),
+                         device=cuda)
+    vb = torch.as_tensor(np.concatenate([np.zeros(valid_off, bool),
+                                         rng.random(w * n) >= invalid]), device=cuda)
+    k, v = kb[key_off:].view(w, n), vb[valid_off:].view(w, n)
+    assert k.data_ptr() % 16 == 4 * key_off and v.data_ptr() % 4 == valid_off
+    if w == 1 and n > 1000:
+        k, v = k[0], v[0]
+    before = sketch_update.launches
+    want = sketch_update_plain(k, v, depth=depth, width=width)
+    with _dirty_outputs():
+        got = sketch_update(k, v, depth=depth, width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and sketch_update.launches == before + 1
+    assert float(want.sum()) == depth * float(v.sum())
+    p = plan(w, n, depth, width, resident_clusters=15)
+    assert p.path == ("shared" if depth * width * 4 <= 200 * 1024 else "split")
+
+
+def test_sketch_update_is_deterministic_under_concurrent_load(cuda):
+    """The clusters' tickets and partials under load: the batch path's shape
+    (depth 4, width 2048, 2,000,000 keys at exponent 1.2) and the split
+    path (depth 8, width 8192) on four streams at once beside a copy that
+    keeps the memory busy, eight rounds: every sketch equals, bit for bit,
+    an idle card's."""
+    keys = torch.as_tensor(zipf_keys(2_000_000, num_keys=1_000_000, exponent=1.2,
+                                     seed=3).astype(np.int32), device=cuda)
+    valid = torch.ones_like(keys, dtype=torch.bool)
+    shapes = [(4, 2048), (8, 8192)]
+    want = [sketch_update(keys, valid, depth=d, width=wd) for d, wd in shapes]
+    torch.cuda.synchronize()
+    for got, (d, wd) in zip(want, shapes):
+        assert torch.equal(got, sketch_update_plain(keys, valid, depth=d, width=wd))
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    dst = torch.empty_like(src)
+    streams = [torch.cuda.Stream() for _ in range(5)]
+    outs = []
+    for _ in range(8):
+        with torch.cuda.stream(streams[4]):
+            for _ in range(4):
+                dst.copy_(src)
+        for st in streams[:4]:
+            with torch.cuda.stream(st):
+                outs.append([sketch_update(keys, valid, depth=d, width=wd) for d, wd in shapes])
+    torch.cuda.synchronize()
+    for out in outs:
+        assert all(torch.equal(g, x) for g, x in zip(out, want))
 
 
 def test_batch_job_card_equals_cpu(cuda):

@@ -25,7 +25,7 @@ from repro_torch.kernels.ref import lookup_dispatch_ref, route_bucketize_ref
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_mutations.py", REPO / "route_mutations.py",
-    REPO / "rank_ab.py", REPO / "route_ab.py"]
+    REPO / "rank_ab.py", REPO / "route_ab.py", REPO / "sketch_ab.py"]
 SENT = 2**31 - 1
 
 
