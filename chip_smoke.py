@@ -11,9 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit and the CUDA toolkit version.
 2. The full-size DR loop: ``StreamingJob`` on 8 stacked workers, 32
    partitions, 8 x 262,144 state rows, over 8 drifting-Zipf batches of
-   4 Mi records; asserts zero overflow, at least one repartition that
-   lowers the mean imbalance, exact counts of 64 sampled keys, and that
-   both kernels were launched by that run.
+   4 Mi records, by each of its three drivers: serial, overlapped at depth
+   1 (through ``process_batch``) and at depth 2 (through ``run``).  Each
+   run asserts zero overflow, at least one repartition that lowers the mean
+   imbalance, exact counts of 64 sampled keys, and that both kernels were
+   launched by that run (counts set to 0 just before it); the three
+   trajectories must be equal (walls, ``state_rows`` and the drivers' flags
+   apart) and the final states equal.  Every batch there repartitions, so
+   the same three jobs then go on over the same batches with the policies
+   off (steady state: no action drains the pipeline): equal again, every
+   depth-2 batch after the first consumes a staged start, and the host-sync
+   audit stays at 0 at depth 2.  Then two more serial batches are traced
+   (one repartitioning, one not): each host step's wall by
+   ``time.perf_counter`` and its device time by ``torch.profiler``; and the
+   card's idle share over 4 steady-state depth-1 batches.
 3. Each kernel against its plain PyTorch version on the card, on inputs
    from phase 2 (split replicas on and off, invalid sentinel records, an
    empty heavy table, a capacity that overflows), and on the edges of the
@@ -21,17 +32,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    35 stacked rows, 1024 lanes, 3 x 5 x 200,001 cells (ragged tails, no
    lane full), capacity 0, every record invalid, no records, each with its
    outputs handed out dirty: every output must be equal exactly.
-   Then route_bucketize at phase 2's shapes on four streams at once beside
-   a busy copy: every output bit-equal to an idle card's.
+   And route_bucketize into a recycled send-buffer set (an earlier call's,
+   dirtied), as the overlapped driver's pool hands one out.  Then
+   route_bucketize at phase 2's shapes on four streams at once beside a
+   busy copy: every output bit-equal to an idle card's.
 4. The phase-2 configuration on a small stream, on the card and on the
-   CPU: identical per-batch metrics and final state.
+   CPU, by each of the three drivers: identical per-batch metrics (but the
+   walls and ``overlap_fraction``, a ratio of walls) and final state.
 5. Times: each kernel and its plain version (CUDA events around one call,
    median of 20 after 3 warm-ups) beside the kernel's byte bound, and the
    kernel's own device time (``torch.profiler``, its kernels and memsets by
    name over 20 calls, an L2 flush between calls for route_bucketize; for
    lookup_dispatch both without and with the flush), split by device
-   kernel; the median wall per batch and the device time of one state
-   merge.
+   kernel; the device time of one state merge; each driver's wall per
+   batch (the run and one drain, synchronized, over the batch count) and
+   median count-phase wall of steady-state batches, with phase 2's traces
+   and idle share.  The median count-phase wall of steady-state depth-1
+   batches must lie below the merge's device time: the overlap keeps the
+   merge out of the count sync.
 6. The batch path at the paper's size (Fig. 4, as
    ``benchmarks/bench_spark_like.py`` records it): 10,000,000-record Zipf
    jobs over 1,000,000 keys, 35 partitions, exponents 1.0 to 2.0, a 10%
@@ -152,6 +170,9 @@ REPLACES = {
     "sketch_update": "src/repro/kernels/sketch_update.py:50",
     "flash_attention": "src/repro/kernels/flash_attention.py:73",
 }
+# phase 2's three streaming drivers: DRConfig fields beside the job's own
+DRIVERS = {"serial": dict(overlap_exchange=False), "depth 1": {},
+           "depth 2": dict(pipeline_depth=2)}
 # phase 6: the paper's Fig. 4 batch jobs (benchmarks/bench_spark_like.py)
 BATCH_RECORDS = 10_000_000
 BATCH_KEYS = 1_000_000
@@ -396,6 +417,193 @@ def kernel_rows(timing, launches, errs, equal, *, phase, path_phase, flushed=Non
     return rows
 
 
+def phase_walls(job) -> dict:
+    """Sums of the count, ship and hidden walls (s) the job's telemetry
+    records from here on (the per-window sums reset at each safe point)."""
+    sums = {"count": 0.0, "ship": 0.0, "hidden": 0.0}
+    record = job.telemetry.record_exchange
+
+    def recording(stats):
+        for k in sums:
+            v = getattr(stats, f"{k}_wall_s")
+            if v is not None:
+                sums[k] += v
+        record(stats)
+
+    job.telemetry.record_exchange = recording
+    return sums
+
+
+def busy_ms(prof) -> float:
+    """The union of the card's kernels, copies and memsets in a profile (ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def drive(job, name, batches, kernels) -> dict:
+    """Run ``batches`` through ``job`` (depth 1 batch by batch through
+    ``process_batch``, the others through ``run``) with the kernels' launch
+    counts and the host-sync audit set to 0 just before; time the run and
+    one drain, synchronized, per batch (a synchronize after each batch
+    would fold the in-flight merge into every batch's wall).  Logs each
+    batch, the telemetry's phase walls and the count walls of steady-state
+    batches (no action at the batch or the one before); returns the
+    metrics, the wall per batch, the launches and the audit."""
+    from repro_torch import compat
+
+    walls = phase_walls(job)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    compat.reset_host_sync_count()
+    t = time.perf_counter()
+    if name.startswith("depth 1"):
+        ms = [job.process_batch(b) for b in batches]
+    else:
+        ms = job.run(batches)
+    job.state_keys  # the drain
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / len(batches) * 1e3
+    syncs = compat.host_sync_count()
+    launches = {k.__name__: k.launches for k in kernels}
+    for m in ms:
+        log(f"  {name} batch {m.batch}: imbalance {m.imbalance:.4f} worker "
+            f"{m.worker_imbalance:.4f} {m.action} rel_mig {m.relative_migration:.4f} "
+            f"overflow {m.overflow} state_rows {m.state_rows} shipped {m.shipped_rows} "
+            f"pipelined {m.pipelined} exchange wall {m.exchange_wall_s * 1e3:.2f} ms host "
+            f"wall {m.wall_time_s * 1e3:.2f} ms overlap_fraction {m.overlap_fraction:.4f}")
+    assert all(m.overlapped == (not name.startswith("serial")) for m in ms), name
+    steady = [m.exchange_wall_s * 1e3 for i, m in enumerate(ms)
+              if i and m.action == "noop" and ms[i - 1].action == "noop"]
+    shown = walls["hidden"] + walls["ship"]
+    log(f"phase 2: {name}: wall per batch {wall_ms:.2f} ms (run + one drain, synchronized, / "
+        f"{len(batches)}); host syncs outside safe points {syncs}; telemetry walls: count "
+        f"{walls['count'] * 1e3:.2f} ms, ship {walls['ship'] * 1e3:.2f} ms, hidden "
+        f"{walls['hidden'] * 1e3:.2f} ms, hidden / (hidden + ship) "
+        f"{walls['hidden'] / shown if shown else 0.0:.4f}; steady-state count walls (ms) "
+        f"{[round(x, 3) for x in steady]}")
+    return dict(job=job, ms=ms, wall_ms=wall_ms, launches=launches, syncs=syncs)
+
+
+def assert_same_drivers(runs) -> None:
+    """Serial, depth 1 and depth 2 (``runs[name]["ms"]`` / ``["job"]``): equal
+    metrics but for the walls, ``overlap_fraction`` (a ratio of walls) and,
+    against serial, ``state_rows`` (overlapped: as of the last drain) and
+    the drivers' own flags; equal final state."""
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    pairs = [("serial", "depth 1", skip | {"state_rows", "overlapped", "pipelined"}),
+             ("serial", "depth 2", skip | {"state_rows", "overlapped", "pipelined"}),
+             ("depth 1", "depth 2", skip | {"pipelined"})]
+    for x, y, other in pairs:
+        for a, b in zip(runs[x]["ms"], runs[y]["ms"], strict=True):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            diff = {k: (da[k], db[k]) for k in da if k not in other and da[k] != db[k]}
+            assert not diff, (x, y, a.batch, diff)
+        for t in ("state_keys", "state_vals"):
+            assert torch.equal(getattr(runs[x]["job"], t), getattr(runs[y]["job"], t)), (x, y, t)
+    log(f"phase 2: serial, depth 1 and depth 2: {len(runs['serial']['ms'])} batches, "
+        f"trajectories equal (walls, state_rows and the drivers' flags apart; depth 1 == "
+        f"depth 2 in state_rows too), final states equal")
+
+
+def trace_serial_batch(job, batch) -> dict:
+    """One serial batch with ``time.perf_counter`` marks around each host
+    step of ``process_batch`` and CUDA events around the work each step
+    enqueues (its device span: from the card reaching the step to the end
+    of the step's work), the outermost step only, so nothing counts twice;
+    then a second batch under ``torch.profiler`` (CUDA) for the card's busy
+    time and its largest kernels.  The steps: the upload, the shuffle step,
+    the merge, host fetches (the first waits for the batch's device work),
+    the telemetry record, the DR master's observe and evaluate, the
+    telemetry snapshot, the state-row count (a sync) and a migration."""
+    import repro_torch.core.streaming as streaming
+    from torch.profiler import ProfilerActivity, profile
+
+    host: dict[str, float] = {}
+    spans: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+    depth = [0]
+
+    def timed(name, fn):
+        def run(*a, **k):
+            depth[0] += 1
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                end.record()
+                if depth[0] == 0:
+                    host[name] = host.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+                    spans.append((name, start, end))
+
+        return run
+
+    patches = [(job, "_upload"), (job, "_shuffle"), (streaming, "merge_into"),
+               (streaming, "host_fetch"), (streaming, "shuffle_stats"), (job.drm, "observe"),
+               (job.telemetry, "snapshot"), (job, "_state_rows"), (job.drm, "evaluate"),
+               (job, "_migrate_state")]
+    # (object, name, what it held, whether it held it itself or by its class)
+    saved = [(obj, name, getattr(obj, name), name in vars(obj)) for obj, name in patches]
+    try:
+        for obj, name, fn, _ in saved:
+            setattr(obj, name, timed(name, fn))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = job.process_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for obj, name, fn, own in saved:
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+    device: dict[str, float] = {}
+    for name, start, end in spans:
+        device[name] = device.get(name, 0.0) + start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        job.process_batch(batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    kernels: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(((k, round(v, 3)) for k, v in kernels.items()), key=lambda kv: -kv[1])[:8])
+    return {"action": m.action, "host": {k: round(v, 3) for k, v in host.items()},
+            "wall_ms": wall_ms, "steps_ms": sum(host.values()), "prof_wall_ms": prof_wall_ms,
+            "busy_ms": busy_ms(prof), "device": {k: round(v, 3) for k, v in device.items()},
+            "kernels": top}
+
+
+def device_idle_share(job, batches) -> dict:
+    """The card's idle share over ``job.run(batches)`` and one drain under
+    ``torch.profiler`` (CUDA only): 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        job.run(batches)
+        job.state_keys
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy = busy_ms(prof)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle": 1.0 - busy / wall_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -428,48 +636,68 @@ def main() -> int:
     log(f"phase 1: built {built} in {build_s:.2f} s; card {card}; "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; {nvcc}")
 
-    # ---- phase 2: the full-size DR loop --------------------------------
-    dr = DRConfig(imbalance_trigger=1.2, migration_cost_weight=0.2)
+    # ---- phase 2: the full-size DR loop, three drivers -------------------
     job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
-                  capacity_factor=2.0, dr=dr)
+                  capacity_factor=2.0)
+    dr_kw = dict(imbalance_trigger=1.2, migration_cost_weight=0.2)
     t = time.perf_counter()
     batches = list(drifting_zipf(8, 4_194_304, num_keys=1_000_000, exponent=1.3,
                                  drift_every=3, drift_fraction=0.3, seed=0))
     log(f"phase 2: generated 8 x 4,194,304 keys in {time.perf_counter() - t:.1f} s")
-    job = StreamingJob(device="cuda", **job_kw)
-    route_bucketize.launches = 0
-    lookup_dispatch.launches = 0
-    walls = []
-    for b in batches:
-        t = time.perf_counter()
-        m = job.process_batch(b)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        log(f"  batch {m.batch}: imbalance {m.imbalance:.4f} worker {m.worker_imbalance:.4f} "
-            f"{m.action} rel_mig {m.relative_migration:.4f} overflow {m.overflow} "
-            f"state_rows {m.state_rows} shipped {m.shipped_rows} wall {walls[-1]:.3f} s")
-    launches = {"route_bucketize": route_bucketize.launches,
-                "lookup_dispatch": lookup_dispatch.launches}
-    ms = job.metrics
-    assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
-    reps = [i for i, m in enumerate(ms) if m.repartitioned]
-    assert reps, "no repartition was taken"
-    before = np.mean([m.imbalance for m in ms[: reps[0] + 1]])
-    after = np.mean([m.imbalance for m in ms[reps[0] + 1:]])
-    assert after < before, (before, after)
     all_keys = torch.as_tensor(np.concatenate(batches), device=dev)
     uniq, counts = torch.unique(all_keys, return_counts=True)
     assert int(counts.max()) < 2**24
     rng = np.random.default_rng(0)
     pick = np.concatenate([[int(torch.argmax(counts))],
                            rng.choice(len(uniq), 63, replace=False)])
-    for i in pick:
-        key, want = int(uniq[i]), float(counts[i])
-        got = job.state_count(key)
-        assert got == want, (key, got, want)
-    assert all(v > 0 for v in launches.values()), launches
-    log(f"phase 2: repartitions at batches {reps}; mean imbalance {before:.4f} -> "
-        f"{after:.4f}; 64 exact counts; launches {launches}")
+    # warm-up, untimed: the caching allocators' device blocks and pinned
+    # blocks, so that no timed run pays for them first
+    for extra in DRIVERS.values():
+        StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw).run(batches[:2])
+    runs, steady = {}, {}
+    for name, extra in DRIVERS.items():
+        job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw)
+        r = runs[name] = drive(job, name, batches, (route_bucketize, lookup_dispatch))
+        ms = r["ms"]
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        reps = [i for i, m in enumerate(ms) if m.repartitioned]
+        assert reps, "no repartition was taken"
+        before = np.mean([m.imbalance for m in ms[: reps[0] + 1]])
+        after = np.mean([m.imbalance for m in ms[reps[0] + 1:]])
+        assert after < before, (before, after)
+        for i in pick:
+            key, want = int(uniq[i]), float(counts[i])
+            got = job.state_count(key)
+            assert got == want, (name, key, got, want)
+        assert all(v > 0 for v in r["launches"].values()), (name, r["launches"])
+        log(f"phase 2: {name}: repartitions at batches {reps}; mean imbalance {before:.4f} -> "
+            f"{after:.4f}; 64 exact counts; launches {r['launches']}")
+    assert_same_drivers(runs)
+    # steady state: the same jobs go on over the same batches with the
+    # policies off, so no action drains the pipeline (every batch above
+    # repartitions: the heaviest key alone outweighs a partition's share)
+    for name, r in runs.items():
+        r["job"].dr_enabled = False
+        steady[name] = drive(r["job"], name + " steady", batches,
+                             (route_bucketize, lookup_dispatch))
+        assert all(m.action == "noop" and m.overflow == 0 for m in steady[name]["ms"])
+    assert_same_drivers(steady)
+    assert all(m.pipelined for m in steady["depth 2"]["ms"][1:])
+    assert steady["depth 2"]["syncs"] == 0, steady["depth 2"]["syncs"]
+    launches = runs["depth 1"]["launches"]
+    job = runs["serial"]["job"]
+    # serial batches traced: host steps by perf_counter, then their device
+    # time by the profiler, each on a batch of its own; one that takes the
+    # repartition phase 2 takes at every batch, one with the policies off
+    job.dr_enabled = True
+    traces = [trace_serial_batch(job, batches[-1])]
+    job.dr_enabled = False
+    traces.append(trace_serial_batch(job, batches[-1]))
+    idle = device_idle_share(runs["depth 1"]["job"], batches[:4])
+    for rs in (runs, steady):
+        for name in ("depth 1", "depth 2"):
+            del rs[name]["job"]
+    torch.cuda.empty_cache()
 
     # ---- phase 3: each kernel against its plain version ----------------
     part = job.drm.partitioner
@@ -575,6 +803,26 @@ def main() -> int:
                 f"{f' cap={c}' if extra else ''} invalid={int((~v).sum())} dirty outputs "
                 f"equal={ok}")
     del none, rows35
+    # into a recycled set, as the overlapped driver's pool hands one out: an
+    # earlier call's send buffers, dirtied; the holed keys leave cells empty
+    hk, hp, hr = padded(part, n_part=32, pad_empty=True)
+    h2p = part.tables(dev).host_to_part
+    kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, capacity=cap,
+              key_fill=sent, num_partitions=32)
+    out = route_bucketize(keys, valid, vals, hk, hp, h2p, hr, **kw)[3:]
+    for b in out:
+        b.view(-1).view(torch.uint8).fill_(0x5A)
+    args = (keys_holed, valid_holed, vals, hk, hp, h2p, hr)
+    want = route_bucketize_plain(*args, **kw)
+    got = route_bucketize(*args, **kw, out=out)
+    torch.cuda.synchronize()
+    ok = (all(g is o for g, o in zip(got[3:], out))
+          and all(torch.equal(g, x_) for g, x_ in zip(got, want)))
+    errs["route_bucketize"] = max(errs["route_bucketize"], max_abs_err(got, want))
+    equal["route_bucketize"].append(ok)
+    log(f"phase 3: route_bucketize [recycled dirty out= set, invalid sentinel records] "
+        f"W={w} n={keys.shape[1]} cap={cap} equal={ok}")
+    del out, got, want
     assert all(all(v) for v in equal.values()), equal
 
     # the look-back's timing differs under load; the ranks must not
@@ -595,20 +843,29 @@ def main() -> int:
     # ---- phase 4: card against CPU -------------------------------------
     small = list(drifting_zipf(6, 65_536, num_keys=50_000, exponent=1.3,
                                drift_every=2, seed=1))
-    runs = {}
-    for device in ("cuda", "cpu"):
-        j = StreamingJob(device=device, **job_kw)
-        j.run(small)
-        runs[device] = j
-    skip = {"wall_time_s", "exchange_wall_s"}
-    for a, b in zip(runs["cuda"].metrics, runs["cpu"].metrics):
-        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
-        diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
-        assert not diff, (a.batch, diff)
-    for name in ("state_keys", "state_vals"):
-        assert torch.equal(getattr(runs["cuda"], name).cpu(), getattr(runs["cpu"], name)), name
-    log(f"phase 4: card and CPU trajectories identical over {len(small)} batches "
-        f"(repartitions {sum(m.repartitioned for m in runs['cpu'].metrics)}), state equal")
+    for driver, extra in DRIVERS.items():
+        pair = {}
+        for device in ("cuda", "cpu"):
+            j = StreamingJob(device=device, dr=DRConfig(**dr_kw, **extra), **job_kw)
+            if driver == "depth 1":
+                for b in small:
+                    j.process_batch(b)
+            else:
+                j.run(small)
+            pair[device] = j
+        # overlap_fraction is a ratio of host walls
+        skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+        for a, b in zip(pair["cuda"].metrics, pair["cpu"].metrics):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
+            assert not diff, (driver, a.batch, diff)
+        for name in ("state_keys", "state_vals"):
+            assert torch.equal(getattr(pair["cuda"], name).cpu(),
+                               getattr(pair["cpu"], name)), (driver, name)
+        log(f"phase 4: {driver}: card and CPU trajectories identical over {len(small)} "
+            f"batches (repartitions {sum(m.repartitioned for m in pair['cpu'].metrics)}, "
+            f"pipelined {sum(m.pipelined for m in pair['cpu'].metrics)}), state equal")
+        del pair
 
     # ---- phase 5: times --------------------------------------------------
     hk, hp, hr = padded(part, n_part=32, pad_empty=True)
@@ -642,11 +899,35 @@ def main() -> int:
     res = job._shuffle(part.tables(dev), keys, vals, valid)
     merge_ms = cuda_ms(lambda: merge_into(job.state_keys, job.state_vals, res.keys,
                                           res.values, res.valid), warmup=1, reps=5)
-    wall_ms = statistics.median(walls) * 1e3
-    kernels = kernel_rows(timing, launches, errs, equal, phase=5, path_phase=2,
+    kernels = kernel_rows(timing, launches, errs, equal, phase=5, path_phase="2 (depth 1)",
                           flushed=flushed)
-    log(f"phase 5: median wall per batch {wall_ms:.1f} ms; state merge {merge_ms:.3f} ms "
-        f"on the device; card {card}")
+    log(f"phase 5: state merge {merge_ms:.3f} ms on the device (events around one call, "
+        f"median of 5); card {card}")
+    for label, rs in (("phase 2", runs), ("policies off", steady)):
+        for name, r in rs.items():
+            ex = statistics.median(m.exchange_wall_s * 1e3 for m in r["ms"][1:])
+            log(f"phase 5: {label}, {name}: wall per batch {r['wall_ms']:.2f} ms; median "
+                f"exchange wall (count phase when overlapped) of the batches after the first "
+                f"{ex:.2f} ms; card {card}")
+    for tr in traces:
+        log(f"phase 5: traced serial batch ({tr['action']}), host steps by perf_counter "
+            f"(ms): {tr['host']}; wall {tr['wall_ms']:.2f} ms, in the steps "
+            f"{tr['steps_ms']:.2f} ms, other host {tr['wall_ms'] - tr['steps_ms']:.2f} ms; "
+            f"device span by step (CUDA events, ms) {tr['device']}; the profiled batch: wall "
+            f"{tr['prof_wall_ms']:.2f} ms, device busy {tr['busy_ms']:.2f} ms; by device "
+            f"kernel, largest first: {tr['kernels']}; card {card}")
+    log(f"phase 5: depth 1, policies off, 4 batches and a drain under the profiler: wall "
+        f"{idle['wall_ms']:.2f} ms, device busy {idle['busy_ms']:.2f} ms, idle "
+        f"{100 * idle['idle']:.1f}%; card {card}")
+    # phase 2 repartitions at every batch, each one the same work: its
+    # batches after the first are its steady state.  Their count walls must
+    # leave the in-flight merge out.  (With the policies off the card is
+    # the bound: the count wall is the rest of the previous merge plus the
+    # start phase, logged above.)
+    d1 = [m.exchange_wall_s * 1e3 for m in runs["depth 1"]["ms"][1:]]
+    log(f"phase 5: depth 1, phase 2's batches after the first: median count-phase wall "
+        f"{statistics.median(d1):.2f} ms against the merge's {merge_ms:.2f} ms")
+    assert statistics.median(d1) < merge_ms, (d1, merge_ms)
     del job, runs, res, batches, all_keys
     torch.cuda.empty_cache()
 

@@ -11,6 +11,15 @@ its device->host conversions through :func:`host_fetch`, which counts
 fetches of tensors that live off the CPU made outside a
 ``with safe_point():`` region.
 
+On the card a fetch waits for everything queued on the stream, so the
+overlapped driver never fetches a start phase's outputs directly: it
+copies them into pinned host memory without blocking
+(:func:`copy_to_host`), queues the ship and merge behind the copies, and
+waits on the copies' event alone (:func:`host_wait`, counted like a fetch
+when it blocks outside a safe point).  :func:`to_device` is the matching
+upload: pinned and non-blocking on the card, so it never waits for the
+stream either.
+
 :func:`overlap_enabled` reads the reference's ``REPRO_DISABLE_OVERLAP``
 switch; the serving scheduler reports it at each checkpoint.
 """
@@ -23,11 +32,15 @@ import numpy as np
 import torch
 
 __all__ = [
+    "copy_to_host",
     "host_fetch",
     "host_sync_count",
+    "host_wait",
     "overlap_enabled",
+    "reset_host_sync_count",
     "resolve_device",
     "safe_point",
+    "to_device",
 ]
 
 _sync_state = {"count": 0, "depth": 0}
@@ -48,6 +61,11 @@ def resolve_device(device) -> torch.device:
 def host_sync_count() -> int:
     """Device->host fetches observed *outside* safe-point regions."""
     return _sync_state["count"]
+
+
+def reset_host_sync_count() -> None:
+    """Zero the counter (call it before a measured segment)."""
+    _sync_state["count"] = 0
 
 
 @contextlib.contextmanager
@@ -78,3 +96,50 @@ def overlap_enabled() -> bool:
     (``0``/``false``/unset leave the overlap on), as the reference's."""
     disabled = os.environ.get("REPRO_DISABLE_OVERLAP", "")
     return disabled.lower() in ("", "0", "false")
+
+
+def copy_to_host(tensors):
+    """``(host copies, event)`` of a tuple of tensors, without blocking.
+
+    Tensors on the card are copied into pinned host tensors with
+    ``non_blocking=True`` on the current stream, and an event is recorded
+    after the copies: read the copies only after :func:`host_wait` on it.
+    CPU tensors come back as they are, with no event.  A named tuple keeps
+    its type."""
+    if not any(isinstance(t, torch.Tensor) and t.device.type != "cpu" for t in tensors):
+        return tensors, None
+    out = []
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            t = h
+        out.append(t)
+    event = torch.cuda.Event()
+    event.record()
+    out = type(tensors)(*out) if hasattr(tensors, "_fields") else type(tensors)(out)
+    return out, event
+
+
+def host_wait(event) -> None:
+    """Block until ``event`` (from :func:`copy_to_host` or an upload) has
+    completed; ``None`` returns at once.  A wait that has to block outside
+    a :func:`safe_point` region counts as a host sync, as a fetch does."""
+    if event is None:
+        return
+    if not event.query():
+        if _sync_state["depth"] == 0:
+            _sync_state["count"] += 1
+        event.synchronize()
+
+
+def to_device(array, device, dtype=None) -> torch.Tensor:
+    """``array`` (numpy or a CPU tensor) as a tensor on ``device``.  On the
+    card the upload goes through pinned memory with ``non_blocking=True``:
+    a pageable upload would wait for the whole stream.  The pinned block is
+    the caching host allocator's, which keeps it until the copy is done."""
+    t = torch.as_tensor(array, dtype=dtype)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    return t.contiguous().pin_memory().to(device, non_blocking=True)

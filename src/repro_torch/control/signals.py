@@ -10,10 +10,11 @@ work (no extra measurement passes — the DRW principle); a ``snapshot`` at a
 safe point turns the window into a ``Signals`` record and opens the next
 window.
 
-Only the fields the ported consumers record are ported: the serial
-streaming path's, and the serving scheduler's replica queue depths,
-count-phase wall and per-backend wall EWMA.  The ship/hidden walls,
-split-key, per-distance-class and fault vectors arrive with their features
+Only the fields the ported consumers record are ported: the streaming
+drivers' (serial and overlapped: the count, ship and hidden walls behind
+``overlap_fraction``), and the serving scheduler's replica queue depths,
+count-phase wall and per-backend wall EWMA.  The split-key,
+per-distance-class and fault vectors arrive with their features
 (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
@@ -51,11 +52,20 @@ class Signals:
                                            # buffers; None when the window
                                            # recorded no exchange
     exchange_wall_s: float = 0.0           # wall time inside the exchange path
-    exchange_count_wall_s: float = 0.0     # wall blocking on the count phase
+    exchange_count_wall_s: float = 0.0     # wall blocking on the start phase
+                                           # (route + bucketize + count)
+    exchange_ship_wall_s: float = 0.0      # wall blocking on the finish phase
+                                           # (row ship) — only drains block, so
+                                           # an overlapped window shows the
+                                           # un-hidden remainder
+    exchange_hidden_wall_s: float = 0.0    # host wall that ran while a finish
+                                           # was in flight (what the overlap hid)
     backend_wall_ewma: dict | None = None  # backend name -> EWMA of exchange
                                            # wall (long-lived, not windowed)
     lane_overflow: np.ndarray | None = None  # int64[L] capacity drops per lane
     queue_depths: np.ndarray | None = None # serving replica queue depths
+    degenerate_walls: int = 0              # NaN/negative wall samples clamped
+                                           # to zero this window
     state_rows: int = 0                    # live keyed-state rows (migration scale)
     at_safe_point: bool = True             # decisions may act only when True
     consumer: str = ""                     # which runtime emitted this
@@ -81,6 +91,16 @@ class Signals:
         return float(w.max() / max(w.mean(), 1e-12))
 
     @property
+    def overlap_fraction(self) -> float:
+        """Share of the exchange's ship wall the split-phase pipeline hid
+        behind host work this window: ``hidden / (hidden + ship)``; 0.0 when
+        no phase walls were recorded (a serial window)."""
+        total = self.exchange_hidden_wall_s + self.exchange_ship_wall_s
+        if total <= 0.0:
+            return 0.0
+        return self.exchange_hidden_wall_s / total
+
+    @property
     def throughput(self) -> float:
         """Records/s over the window; 0.0 when the window is unmeasured."""
         if self.records <= 0 or self.window_wall_s <= 0:
@@ -104,6 +124,9 @@ class Telemetry:
         # per-backend exchange wall EWMA: long-lived evidence, not reset
         # with the window
         self.wall_ewma: dict[str, float] = {}
+        # lifetime count of degenerate (NaN / negative) wall samples clamped
+        # to zero; the per-window count rides Signals.degenerate_walls
+        self.degenerate_walls_total = 0
         self._reset()
 
     def _reset(self) -> None:
@@ -115,6 +138,9 @@ class Telemetry:
         self._exchange_occupied_rows: int | None = None
         self._exchange_wall_s = 0.0
         self._count_wall_s = 0.0
+        self._ship_wall_s = 0.0
+        self._hidden_wall_s = 0.0
+        self._degenerate_walls = 0
         self._lane_overflow: np.ndarray | None = None
         self._queues: np.ndarray | None = None
         # exchanges recorded this window whose count fields may still live
@@ -145,16 +171,30 @@ class Telemetry:
         fetch happens at the next :meth:`snapshot` (the safe point).  The
         wall fields are host floats and fold at once: ``count_wall_s`` into
         the window, and ``wall_s`` (when positive) into the per-backend EWMA
-        of ``stats.backend``."""
+        of ``stats.backend``; the phase walls (``count_wall_s``,
+        ``ship_wall_s``, ``hidden_wall_s``) into their window sums.  A NaN
+        or negative wall is clamped to zero and counted."""
         self._touch()
-        wall = float(stats.wall_s)
+        wall = self._clean_wall(stats.wall_s)
         self._exchange_wall_s += wall
         if stats.count_wall_s is not None:
-            self._count_wall_s += float(stats.count_wall_s)
+            self._count_wall_s += self._clean_wall(stats.count_wall_s)
+        if stats.ship_wall_s is not None:
+            self._ship_wall_s += self._clean_wall(stats.ship_wall_s)
+        if stats.hidden_wall_s is not None:
+            self._hidden_wall_s += self._clean_wall(stats.hidden_wall_s)
         if stats.backend is not None and wall > 0.0:
             prev = self.wall_ewma.get(stats.backend)
             self.wall_ewma[stats.backend] = wall if prev is None else 0.7 * prev + 0.3 * wall
         self._pending_stats.append(stats)
+
+    def _clean_wall(self, wall) -> float:
+        w = float(wall)
+        if not np.isfinite(w) or w < 0.0:
+            self._degenerate_walls += 1
+            self.degenerate_walls_total += 1
+            return 0.0
+        return w
 
     def _flush_pending(self) -> None:
         """Fold the queued exchange records' count fields — the one place
@@ -214,9 +254,12 @@ class Telemetry:
             exchange_occupied_rows=self._exchange_occupied_rows,
             exchange_wall_s=self._exchange_wall_s,
             exchange_count_wall_s=self._count_wall_s,
+            exchange_ship_wall_s=self._ship_wall_s,
+            exchange_hidden_wall_s=self._hidden_wall_s,
             backend_wall_ewma=dict(self.wall_ewma) if self.wall_ewma else None,
             lane_overflow=self._lane_overflow,
             queue_depths=self._queues,
+            degenerate_walls=self._degenerate_walls,
             state_rows=int(state_rows),
             at_safe_point=at_safe_point,
             consumer=self.consumer,

@@ -205,7 +205,6 @@ UNPORTED = (
     ("health_enabled", lambda v: bool(v), "queue 1 item 7 (failure domains)"),
     ("split_least_load", lambda v: bool(v), "queue 1 item 2 (two-choice pick)"),
     ("snapshot_interval", lambda v: v > 0, "queue 1 item 7 (zero-loss recovery)"),
-    ("pipeline_depth", lambda v: v == 2, "queue 1 item 7 (depth-2 staging)"),
 )
 
 _HEALTH_KEYS = ("health_num_lanes", "quarantined_lane", "quarantined_tick",

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.compat import to_device
 from repro_torch.core.hashing import DEFAULT_NUM_HOSTS, KEY_SENTINEL, hash_to_host
 from repro_torch.core.histogram import Histogram
 
@@ -70,7 +71,8 @@ class Partitioner:
         return int((self.heavy_keys != KEY_SENTINEL).sum())
 
     def tables(self, device) -> PartitionerTables:
-        """The device tables on ``device`` (no default: the caller names it)."""
+        """The device tables on ``device`` (no default: the caller names it),
+        uploaded without waiting for the card's stream (``compat.to_device``)."""
         live = self.heavy_keys != KEY_SENTINEL
         if self.heavy_repl is None:
             repl = live.astype(np.int32)
@@ -79,7 +81,7 @@ class Partitioner:
             # clamps to 1: a sentinel record hitting a pad row takes choice 0
             repl = np.where(live, np.maximum(self.heavy_repl, 1), 0).astype(np.int32)
         return PartitionerTables(*(
-            torch.as_tensor(np.ascontiguousarray(t, np.int32), device=device)
+            to_device(np.ascontiguousarray(t, np.int32), device)
             for t in (self.heavy_keys, self.heavy_parts, self.host_to_part, repl)))
 
     # -- lookups ----------------------------------------------------------

@@ -13,10 +13,18 @@ device, built on the exchange plane (:mod:`repro_torch.exchange`):
 
 State migration (:func:`make_migrate_step`) is the same exchange with lanes
 sized by the planner (``migration_capacity``), routed by the
-``lookup_dispatch`` kernel at worker granularity.  Both are the fused
-serial steps of ``repro.core.shuffle``; the split ``start`` / ``finish``
-halves and the send-buffer pool of the overlapped driver are not ported
-yet.  Partitions may outnumber workers; ``worker = partition % W``.
+``lookup_dispatch`` kernel at worker granularity.  Partitions may outnumber
+workers; ``worker = partition % W``.
+
+Both steps are split-phase, as ``repro.core.shuffle``'s: the fused call is
+``finish(start(...))`` on fresh buffers, and ``.start`` / ``.finish`` are
+attached for the overlapped driver.  ``start`` runs route + bucketize +
+the transport's control phase and returns every control-plane output
+(loads, histograms, overflow, shipped rows) beside the pending exchange;
+``finish`` ships the rows.  The split halves keep a two-set ping-pong pool
+of send buffers: a set drained at ``finish`` becomes the next ``start``'s
+buffers (written in place), so at pipeline depth 2 one set is in flight
+while the other is filled; values equal the fresh path's.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.compat import host_fetch
 from repro_torch.core.hashing import KEY_SENTINEL
 from repro_torch.core.histogram import local_topk_histogram
 from repro_torch.core.partitioner import PartitionerTables
@@ -32,6 +41,7 @@ from repro_torch.exchange import (
     ExchangeSpec,
     ExchangeStats,
     Payload,
+    PendingExchange,
     make_exchange,
     route_bucketize,
     route_dispatch,
@@ -40,7 +50,9 @@ from repro_torch.exchange.spec import DISTANCE_CLASSES
 
 __all__ = [
     "MigrateResult",
+    "MigrateStart",
     "ShuffleResult",
+    "ShuffleStart",
     "make_migrate_step",
     "make_shuffle_step",
     "migrate_stats",
@@ -64,6 +76,19 @@ class ShuffleResult(NamedTuple):
     shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
 
 
+class ShuffleStart(NamedTuple):
+    """Control-plane outputs of the shuffle's start phase: everything a
+    decision needs, available before (and without) the row ship."""
+
+    loads: torch.Tensor          # int64[N]
+    hist_keys: torch.Tensor      # int32[W, K]
+    hist_counts: torch.Tensor    # int32[W, K]
+    overflow: torch.Tensor       # int64[]
+    lane_overflow: torch.Tensor  # int32[W]
+    shipped_rows: torch.Tensor   # int64[]
+    shipped_rows_by_class: torch.Tensor  # int64[C]
+
+
 class MigrateResult(NamedTuple):
     kept_keys: torch.Tensor   # int32[W, S] rows staying put (moved rows -> sentinel)
     kept_vals: torch.Tensor   # f32[W, S, D]
@@ -79,31 +104,94 @@ class MigrateResult(NamedTuple):
     shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
 
 
+class MigrateStart(NamedTuple):
+    """The migrate start phase: the kept state and every control output;
+    the moving rows stay in the pending exchange."""
+
+    kept_keys: torch.Tensor
+    kept_vals: torch.Tensor
+    kept_valid: torch.Tensor
+    moved: torch.Tensor
+    total: torch.Tensor
+    overflow: torch.Tensor
+    lane_overflow: torch.Tensor
+    shipped_rows: torch.Tensor
+    shipped_rows_by_class: torch.Tensor
+
+
+def _recycling(finish_rows):
+    """``(start_buffers, finish)`` for a step whose ``finish_rows(pending)``
+    ships a pending exchange: the two-set ping-pong pool of send buffers.
+    ``start_buffers(like)`` pops a drained set (``None``: allocate fresh)
+    unless its payload rows differ from ``like``'s (``[W, n, ...]``) in
+    width, dtype or device; ``finish`` returns a drained set to the pool
+    (at most two: at most two exchanges are in flight, at depth 2) once the
+    rows have moved into new receive tensors."""
+    recycled: list = []
+
+    def start_buffers(like):
+        bufs = recycled.pop() if recycled else None
+        if bufs is not None:
+            b = bufs[1][1]
+            if (b.shape[3:] != like.shape[2:] or b.dtype != like.dtype
+                    or b.device != like.device):
+                return None  # payload width changed: the set cannot be reused
+        return bufs
+
+    def finish(pending: PendingExchange):
+        res, out = finish_rows(pending)
+        sent = pending.buffers
+        if len(recycled) < 2 and res.valid is not sent.valid:
+            recycled.append((sent.valid, sent.payloads))
+        return out
+
+    return start_buffers, finish
+
+
 def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
                       hist_k: int = 64, num_hosts: int, seed: int = 0,
                       backend=None):
-    """Build the shuffle step for a fixed worker count and lane capacity:
-    ``step(tables, keys[W, n], vals[W, n, D], valid[W, n]) -> ShuffleResult``.
-    """
+    """Build the shuffle step for a fixed worker count and lane capacity.
+
+    ``step(tables, keys[W, n], vals[W, n, D], valid[W, n]) -> ShuffleResult``
+    is the fused call; ``step.start(...) -> (pending, ShuffleStart)`` and
+    ``step.finish(pending) -> (keys, values, valid, part)`` are its halves
+    (see the module docstring for the buffer pool)."""
     ex = make_exchange(ExchangeSpec(num_lanes=num_workers, capacity=capacity,
                                     axis="data"), backend)
 
-    def step(tables: PartitionerTables, keys, vals, valid) -> ShuffleResult:
+    def _start(tables: PartitionerTables, keys, vals, valid, bufs):
         part, buffers = route_bucketize(
             ex, tables, keys, valid, vals, num_hosts=num_hosts, seed=seed,
-            num_partitions=num_partitions)
+            num_partitions=num_partitions, buffers=bufs)
+        pending = ex.start_from(buffers)
+        started = pending.buffers
         dest = torch.where(valid, part, 0).to(torch.int64)
         hk, hc, _ = local_topk_histogram(keys, valid, hist_k)
         loads = torch.zeros(num_partitions, dtype=torch.int64, device=keys.device)
         loads.index_add_(0, dest.reshape(-1), valid.reshape(-1).to(torch.int64))
-        res = ex.all_to_all(buffers)
-        rva, (rk, rv, rp) = res.unpack()
-        send = buffers.send
-        return ShuffleResult(
-            rk, rv, rva, rp, loads, hk, hc, send.overflow.sum(),
-            send.lane_overflow.sum(dim=0), res.shipped_rows.sum(),
+        send = started.send
+        return pending, ShuffleStart(
+            loads, hk, hc, send.overflow.sum(), send.lane_overflow.sum(dim=0),
+            started.shipped_rows.sum(),
             torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=keys.device))
 
+    def _finish(pending: PendingExchange):
+        res = ex.finish(pending)
+        rva, (rk, rv, rp) = res.unpack()
+        return res, (rk, rv, rva, rp)
+
+    def step(tables: PartitionerTables, keys, vals, valid) -> ShuffleResult:
+        pending, s = _start(tables, keys, vals, valid, None)
+        return ShuffleResult(*_finish(pending)[1], *s)
+
+    start_buffers, finish = _recycling(_finish)
+
+    def start(tables: PartitionerTables, keys, vals, valid):
+        return _start(tables, keys, vals, valid, start_buffers(vals))
+
+    step.start = start
+    step.finish = finish
     step.exchange = ex
     return step
 
@@ -113,7 +201,10 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
                       spec: ExchangeSpec | None = None, backend=None):
     """Operator-state migration for a partitioner swap:
     ``migrate(new_tables, state_keys[W, S], state_vals[W, S, D]) ->
-    MigrateResult``.
+    MigrateResult``, with the halves ``migrate.start(...) -> (pending,
+    MigrateStart)`` and ``migrate.finish(pending) -> (keys, vals, valid)``
+    attached (the overlapped driver leaves the ship in flight across the
+    safe point).
 
     Each worker re-evaluates the new partitioner on its stored keys (home
     routing: ``num_partitions`` stays 0 so split partials converge) and
@@ -125,7 +216,7 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
         spec = ExchangeSpec(num_lanes=num_workers, capacity=cap, axis="data")
     ex = make_exchange(spec, backend)
 
-    def migrate(new_tables: PartitionerTables, state_keys, state_vals) -> MigrateResult:
+    def _start(new_tables: PartitionerTables, state_keys, state_vals, bufs):
         dev = state_keys.device
         me = torch.arange(num_workers, device=dev, dtype=torch.int32)[:, None]
         valid = state_keys != _SENT
@@ -136,20 +227,37 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
         moving = valid & (dest != me)
         counts = counts.clone()
         counts.diagonal().zero_()
-        buffers = ex.bucketize(
+        pending = ex.start(
             torch.where(moving, dest, me), moving,
             [Payload(torch.where(moving, state_keys, _SENT), _SENT),
              Payload(state_vals, 0)],
-            slot=slot, counts=counts)
-        res = ex.all_to_all(buffers)
-        rva, (rk, rv) = res.unpack()
-        send = buffers.send
-        return MigrateResult(
+            slot=slot, counts=counts, buffers=bufs)
+        started = pending.buffers
+        send = started.send
+        return pending, MigrateStart(
             torch.where(moving, _SENT, state_keys), state_vals, valid & ~moving,
-            rk, rv, rva, moving.sum(), valid.sum(), send.overflow.sum(),
-            send.lane_overflow.sum(dim=0), res.shipped_rows.sum(),
+            moving.sum(), valid.sum(), send.overflow.sum(),
+            send.lane_overflow.sum(dim=0), started.shipped_rows.sum(),
             torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=dev))
 
+    def _finish(pending: PendingExchange):
+        res = ex.finish(pending)
+        rva, (rk, rv) = res.unpack()
+        return res, (rk, rv, rva)
+
+    def migrate(new_tables: PartitionerTables, state_keys, state_vals) -> MigrateResult:
+        pending, s = _start(new_tables, state_keys, state_vals, None)
+        rk, rv, rva = _finish(pending)[1]
+        return MigrateResult(s.kept_keys, s.kept_vals, s.kept_valid, rk, rv, rva,
+                             *s[3:])
+
+    start_buffers, finish = _recycling(_finish)
+
+    def start(new_tables: PartitionerTables, state_keys, state_vals):
+        return _start(new_tables, state_keys, state_vals, start_buffers(state_vals))
+
+    migrate.start = start
+    migrate.finish = finish
     migrate.exchange = ex
     return migrate
 
@@ -159,20 +267,29 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
 # ---------------------------------------------------------------------------
 
 
-def shuffle_stats(res: ShuffleResult, spec: ExchangeSpec, num_workers: int, *,
-                  wall_s: float = 0.0) -> ExchangeStats:
+def shuffle_stats(res: "ShuffleResult | ShuffleStart", spec: ExchangeSpec,
+                  num_workers: int, *, wall_s: float = 0.0,
+                  count_wall_s: float | None = None,
+                  backend: str | None = None) -> ExchangeStats:
     """:class:`ExchangeStats` for one shuffle step: rows per worker (the
     global counters divided by ``num_workers``), ``padded`` the spec's
-    per-worker provision.  Reads device counters, so call it at a safe
+    per-worker provision.  ``ShuffleResult`` and ``ShuffleStart`` share
+    every field read here, so the serial and overlapped drivers build the
+    same record.  Reads through :func:`~repro_torch.compat.host_fetch`: the
+    overlapped driver hands in host copies of the start phase, so nothing
+    here waits for the card; device counters must be read at a safe
     point."""
-    shipped = int(res.shipped_rows) // num_workers
-    occupied = max(int(res.loads.sum()) - int(res.overflow), 0) // num_workers
+    shipped = int(host_fetch(res.shipped_rows)) // num_workers
+    occupied = max(int(host_fetch(res.loads).sum()) - int(host_fetch(res.overflow)),
+                   0) // num_workers
     return ExchangeStats(
         rows=shipped,
         wall_s=wall_s,
         padded_rows=spec.rows,
         occupied_rows=occupied,
-        lane_overflow=res.lane_overflow.cpu().numpy(),
+        lane_overflow=host_fetch(res.lane_overflow),
+        count_wall_s=count_wall_s,
+        backend=backend,
     )
 
 

@@ -11,24 +11,62 @@ state, then gives the DR master a safe point: telemetry snapshots into a
 ``Repartition`` migrates the keyed state through the same exchange before
 the next batch.
 
-A port of ``repro.core.streaming.StreamingJob``'s serial driver.  The W
+A port of ``repro.core.streaming.StreamingJob``'s three drivers.  The W
 workers are stacked on one device (``num_workers``, default 1 — what the
-reference's default mesh gives on one device).  ``overlap_exchange`` is
-accepted and runs serially: the reference's overlapped driver is
-bit-identical to its serial one by construction.  Elastic resize, hot-key
-splitting, backend switching, lane health, depth-2 staging and zero-loss
-recovery are not ported yet and raise ``NotImplementedError``.
+reference's default mesh gives on one device).
+
+* **Serial** (``DRConfig(overlap_exchange=False)``, or
+  ``REPRO_DISABLE_OVERLAP=1``): the fused shuffle step, the merge, then the
+  decision section.
+* **Overlapped, depth 1** (the default): the shuffle is split-phase
+  (:mod:`repro_torch.core.shuffle`) and every control-plane input comes out
+  of the start phase.  The driver enqueues batch N's start, copies its
+  control outputs into pinned host memory without blocking
+  (``compat.copy_to_host``), enqueues batch N-1's row ship and state merge
+  behind them, and waits only on the copies' event: the card executes its
+  stream in order, so the wait covers the start phase and not the ship,
+  and the host's decision section runs while the card merges.  State
+  materializes only at drains: before any taken action, at ``snapshot``,
+  ``state_count`` and direct reads of ``state_keys`` / ``state_vals``.  A
+  repartition's own ship and merge likewise stay in flight across the safe
+  point.  ``state_rows`` is the count as of the last drain (reading it live
+  would wait for the merge), as in the reference.
+* **Depth 2** (``DRConfig(pipeline_depth=2)``, overlap active): ``run``
+  gives the driver one batch of lookahead, and right after batch N's count
+  sync the driver uploads batch N+1 and enqueues its start behind the
+  in-flight ship, so two stages live on the stream.  The staged start
+  routes with today's partitioner; a taken action drains both stages and
+  discards it, and the batch is routed afresh under the new partitioner.
+
+The trajectories (actions, state, overflow, shipped rows) of the three
+drivers are equal by construction; walls and the phase-wall telemetry
+(``overlap_fraction``) differ.  Batches reach the card through two pinned
+staging sets, one per pipeline stage, with ``non_blocking=True`` (a
+pageable upload would wait for the stream), and the partitioner's tables
+are uploaded once per partitioner.  Everything runs on one stream, so the
+recycled send buffers and the state need no cross-stream events.
+
+Elastic resize, hot-key splitting, backend switching, lane health and
+zero-loss recovery are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
-from repro_torch.compat import host_fetch, resolve_device, safe_point
+from repro_torch.compat import (
+    copy_to_host,
+    host_fetch,
+    host_wait,
+    overlap_enabled,
+    resolve_device,
+    safe_point,
+)
 from repro_torch.control import NoOp, Repartition, Telemetry
 from repro_torch.core.drm import DRConfig, DRMaster
 from repro_torch.core.hashing import DEFAULT_NUM_HOSTS, KEY_SENTINEL
@@ -59,7 +97,7 @@ class BatchMetrics:
     repartitioned: bool
     relative_migration: float
     overflow: int               # shuffle + migration rows dropped for capacity
-    state_rows: int
+    state_rows: int             # overlapped: as of the last drain
     wall_time_s: float
     reason: str
     migration_rows: int = 0     # rows of all-to-all buffer a repartition exchanged
@@ -71,12 +109,64 @@ class BatchMetrics:
     padded_rows: int = 0        # rows the specs provisioned (per worker)
     backend: str = "dense"      # exchange backend the batch ran on
     exchange_wall_s: float = 0.0  # wall blocking on the shuffle exchange path
-    overlapped: bool = False    # always False: the port runs the serial driver
-    pipelined: bool = False     # always False: depth-2 staging is not ported
-    overlap_fraction: float = 0.0
+                                  # (overlapped: the count phase only)
+    overlapped: bool = False    # the batch ran the split-phase pipeline
+    pipelined: bool = False     # the batch consumed a depth-2 staged start
+    overlap_fraction: float = 0.0  # hidden / (hidden + ship) wall this window
+                                # (lags one batch); 0.0 when serial
     split_keys: int = 0         # hot keys replicated after this safe point
     shipped_rows_by_class: tuple = (0, 0, 0)  # zeros: flat exchange
     lanes: int = 0              # live workers after this batch
+
+
+class _Staging:
+    """The host side of the batches' uploads.
+
+    On the card: two pinned staging sets, one per pipeline stage.  A batch's
+    arrays are copied into a set on the host (cast and padded on the way),
+    then uploaded with ``non_blocking=True``; an event recorded after the
+    copies guards the set, which is refilled only once that event has
+    completed.  So an upload never waits for the stream, and the caller may
+    overwrite its numpy array as soon as the call returns.  On the CPU each
+    upload gets fresh arrays (the tensors handed out alias them)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._sets: list[dict] = [{}, {}]
+        self._events = [None, None]
+        self._turn = 0
+
+    def upload(self, parts, rows: int) -> list[torch.Tensor]:
+        """A tensor of ``rows`` rows on the device for each ``(array, fill,
+        dtype)`` of ``parts``: the array's rows, then ``fill``."""
+        pinned = self.device.type != "cpu"
+        i = self._turn
+        self._turn ^= 1
+        if pinned:
+            host_wait(self._events[i])  # the set's previous copies are done
+        out = []
+        for j, (a, fill, dtype) in enumerate(parts):
+            a = np.asarray(a)
+            shape = (rows,) + tuple(a.shape[1:])
+            if pinned:
+                numel = math.prod(shape)
+                buf = self._sets[i].get(j)
+                if buf is None or buf.numel() < numel or buf.dtype != dtype:
+                    buf = self._sets[i][j] = torch.empty(numel, dtype=dtype, pin_memory=True)
+                buf = buf[:numel].view(shape)
+            else:
+                buf = torch.empty(shape, dtype=dtype)
+            host = buf.numpy()
+            host[: len(a)] = a
+            host[len(a):] = fill
+            if pinned:
+                buf = torch.empty(shape, dtype=dtype, device=self.device).copy_(
+                    buf, non_blocking=True)
+            out.append(buf)
+        if pinned:
+            self._events[i] = torch.cuda.Event()
+            self._events[i].record()
+        return out
 
 
 class StreamingJob:
@@ -134,9 +224,112 @@ class StreamingJob:
         self._shuffle_sig = None    # (capacity, num_partitions) the step was built for
         self._shuffle_spec: ExchangeSpec | None = None
         self._migrate_steps: dict[int, object] = {}  # lane capacity -> step
+        self._staging = _Staging(self.device)
+        self._tables_of = None      # the partitioner whose device tables are held
+        self._device_tables = None
+        # split-phase overlap: the previous batch's in-flight finish + merge
+        # (a callable that enqueues it), the host wall start of the section
+        # a pending ship is hiding behind, and the state-row count as of the
+        # last drain (reading it live would wait for the in-flight merge)
+        self._inflight = None
+        self._hidden_since: float | None = None
+        self._last_state_rows = 0
+        # depth 2: ``run`` parks the lookahead batch here, ``process_batch``
+        # stages its start behind the current ship, and a taken action
+        # discards the staged start so the batch is routed afresh
+        self._next_batch: np.ndarray | None = None
+        # (source array, partitioner, step, pending, host ShuffleStart, event)
+        self._staged: tuple | None = None
         self.state_keys, self.state_vals = empty_state(
             state_capacity, payload_dim, num_workers=self.num_workers, device=self.device)
         self.metrics: list[BatchMetrics] = []
+
+    # -- keyed state access (drains any in-flight exchange first) ----------
+    @property
+    def state_keys(self) -> torch.Tensor:
+        self._drain_inflight()
+        return self._sk
+
+    @state_keys.setter
+    def state_keys(self, v):
+        self._sk = v
+
+    @property
+    def state_vals(self) -> torch.Tensor:
+        self._drain_inflight()
+        return self._sv
+
+    @state_vals.setter
+    def state_vals(self, v):
+        self._sv = v
+
+    def _overlap_active(self) -> bool:
+        return self.drm.config.overlap_exchange and overlap_enabled()
+
+    def _depth2_active(self) -> bool:
+        # the environment's switch wins over the configured depth: serial
+        # means serial
+        return self._overlap_active() and self.drm.config.pipeline_depth >= 2
+
+    def _discard_staged(self) -> None:
+        """Drop the staged lookahead start: its device work completes in the
+        background and its outputs are never read.  The send-buffer set it
+        took is lost to the pool (the next start allocates fresh)."""
+        self._staged = None
+
+    def _take_staged(self, raw_keys, has_values: bool):
+        """``(pending, host ShuffleStart, event)`` of the staged start if it
+        still routes ``raw_keys`` correctly, else ``None`` (the caller routes
+        afresh).  Valid only for this very array (``run`` hands the same
+        object back), no caller-supplied values (staging uses the all-ones
+        payload), and the very partitioner and step the staged route used:
+        a taken action swaps the partitioner, a rebuild swaps the step."""
+        st, self._staged = self._staged, None
+        if st is None:
+            return None
+        src, part, step, pending, res, ready = st
+        if (not has_values and src is raw_keys
+                and part is self.drm.partitioner and step is self._shuffle):
+            return pending, res, ready
+        return None
+
+    def _stage_next(self, raw: np.ndarray) -> None:
+        """Upload the lookahead batch and enqueue its route + bucketize +
+        count phase behind the current in-flight ship (depth 2), with its
+        control outputs copied to the host behind it.  Routes with today's
+        partitioner (see :meth:`_take_staged`).  Skipped when the lookahead's
+        lane capacity differs from the live step's: the rebuild must not
+        race the batch still using it (that boundary runs at depth 1)."""
+        w = self.num_workers
+        total = -(-len(raw) // w) * w
+        cap = int(np.ceil(self.capacity_factor * total / w / 8.0) * 8)
+        if (cap, self.num_partitions) != self._shuffle_sig:
+            return
+        shuffle = self._shuffle
+        pending, start = shuffle.start(self._tables(), *self._upload(raw, None))
+        res, ready = copy_to_host(start)
+        self._staged = (raw, self.drm.partitioner, shuffle, pending, res, ready)
+
+    def _consume_inflight(self) -> None:
+        """Enqueue the pending finish + merge (no wait)."""
+        fin, self._inflight = self._inflight, None
+        if fin is not None:
+            fin()
+
+    def _drain_inflight(self) -> None:
+        """Complete the in-flight finish + merge, blocking, and record the
+        un-hidden ship wall (and whatever host wall it did hide)."""
+        if self._inflight is None:
+            return
+        t = time.perf_counter()
+        hidden = None if self._hidden_since is None else t - self._hidden_since
+        self._hidden_since = None
+        self._consume_inflight()
+        with safe_point():  # a drain is a safe point: the wait is sanctioned
+            rows = int(host_fetch(state_size(self._sk).sum()))  # waits for the merge
+        self.telemetry.record_exchange(ExchangeStats(
+            rows=0, ship_wall_s=time.perf_counter() - t, hidden_wall_s=hidden))
+        self._last_state_rows = rows
 
     # ------------------------------------------------------------------
     def _build(self, n: int):
@@ -172,45 +365,97 @@ class StreamingJob:
                 backend=self.exchange_backend)
         return self._migrate_steps[cap], cap
 
-    def _tensor(self, a: np.ndarray, dtype) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype).reshape(self.num_workers, -1,
-                                                       *a.shape[1:]).to(self.device)
+    def _tables(self):
+        """The current partitioner's device tables, uploaded once per
+        partitioner (the DR master replaces, never edits, its partitioner)."""
+        part = self.drm.partitioner
+        if self._tables_of is not part:
+            self._tables_of, self._device_tables = part, part.tables(self.device)
+        return self._device_tables
+
+    def _upload(self, keys: np.ndarray, values: np.ndarray | None):
+        """``(keys int32[W, n], vals f32[W, n, ...], valid bool[W, n])`` on
+        the device: the batch padded with sentinel keys to a multiple of
+        ``num_workers``, worker ``i`` taking the ``i``-th contiguous chunk,
+        as ``shard_map`` splits it in the reference.  Without ``values`` the
+        payload is all ones, made on the device."""
+        w = self.num_workers
+        local_n = -(-len(keys) // w)
+        parts = [(keys, _SENT, torch.int32)]
+        if values is not None:
+            parts.append((values, 0.0, torch.float32))
+        up = self._staging.upload(parts, local_n * w)
+        k = up[0].view(w, local_n)
+        if values is None:
+            v = torch.ones((w, local_n, self.payload_dim), dtype=torch.float32,
+                           device=self.device)
+        else:
+            v = up[1].view((w, local_n) + tuple(values.shape[1:]))
+        return k, v, k != _SENT
 
     # ------------------------------------------------------------------
     def process_batch(self, keys: np.ndarray, values: np.ndarray | None = None) -> BatchMetrics:
-        """Run one micro-batch through shuffle + stateful reduce + DR.
-
-        The batch is padded with sentinel keys to a multiple of
-        ``num_workers`` and worker ``i`` takes the ``i``-th contiguous
-        chunk, as ``shard_map`` splits it in the reference."""
+        """Run one micro-batch through shuffle + stateful reduce + DR."""
         t0 = time.perf_counter()
-        n = len(keys)
+        raw_keys = keys
         w = self.num_workers
-        local_n = int(np.ceil(n / w))
-        pad = local_n * w - n
-        keys = np.concatenate([keys, np.full(pad, _SENT, np.int64)]).astype(np.int32)
-        if values is None:
-            values = np.ones((len(keys), self.payload_dim), np.float32)
-        else:
-            values = np.concatenate(
-                [values, np.zeros((pad,) + values.shape[1:], np.float32)])
-        valid = keys != _SENT
-        self._build(local_n * w)
+        self._build(-(-len(keys) // w) * w)
         batch_backend = self.exchange_backend.name
+        overlap = self._overlap_active()
+        staged = self._take_staged(raw_keys, values is not None) if overlap else None
+        pipelined = staged is not None
+        # the batch's host preparation (cast, pad, copy into pinned staging)
+        # stays outside the exchange wall, as the reference's numpy
+        # preparation does; the upload itself is enqueued without waiting
+        batch = None if pipelined else self._upload(keys, values)
 
         t_ex = time.perf_counter()
-        res = self._shuffle(
-            self.drm.partitioner.tables(self.device), self._tensor(keys, torch.int32),
-            self._tensor(values, torch.float32), self._tensor(valid, torch.bool))
-        # stateful reduce: fold received records into per-worker state
-        self.state_keys, self.state_vals, _ = merge_into(
-            self.state_keys, self.state_vals, res.keys, res.values, res.valid)
-        with safe_point():
-            loads = host_fetch(res.loads)  # forces the batch's device work
-        exchange_wall = time.perf_counter() - t_ex
+        if overlap:
+            # enqueue this batch's start (unless depth 2 staged it last
+            # batch) and the copies of its control outputs, then the
+            # previous batch's ship + merge behind them, and wait only for
+            # the copies: the stream runs in order, so the wait covers the
+            # start phase, and the merge runs under the decision section
+            shuffle = self._shuffle
+            if pipelined:
+                pending, res, ready = staged
+            else:
+                pending, start = shuffle.start(self._tables(), *batch)
+                res, ready = copy_to_host(start)
+            self._consume_inflight()
+
+            def _fin_shuffle(fin=shuffle.finish, pending=pending):
+                rk, rv, rva, _rp = fin(pending)
+                self._sk, self._sv, _ = merge_into(self._sk, self._sv, rk, rv, rva)
+
+            self._inflight = _fin_shuffle
+            with safe_point():
+                host_wait(ready)  # the start phase and its copies only
+                loads = host_fetch(res.loads)
+            exchange_wall = time.perf_counter() - t_ex
+            count_wall = exchange_wall
+        else:
+            self._discard_staged()  # overlap turned off mid-stream: route afresh
+            self._drain_inflight()
+            res = self._shuffle(self._tables(), *batch)
+            # stateful reduce: fold received records into per-worker state
+            self._sk, self._sv, _ = merge_into(self._sk, self._sv, res.keys, res.values,
+                                               res.valid)
+            with safe_point():
+                loads = host_fetch(res.loads)  # waits for the batch's device work
+            exchange_wall = time.perf_counter() - t_ex
+            count_wall = None
+        # depth 2: upload the lookahead batch and enqueue its start now,
+        # behind this batch's in-flight ship
+        if self._next_batch is not None and self._depth2_active():
+            self._stage_next(self._next_batch)
+        # the decision section below reads only the start phase's outputs
+        # (host copies when overlapped)
+        self._hidden_since = time.perf_counter() if overlap else None
 
         with safe_point():
-            stats = shuffle_stats(res, self._shuffle_spec, w, wall_s=exchange_wall)
+            stats = shuffle_stats(res, self._shuffle_spec, w, wall_s=exchange_wall,
+                                  count_wall_s=count_wall, backend=batch_backend)
             shuffle_shipped = int(stats.rows)
             overflow_i = int(host_fetch(res.overflow))
             self.telemetry.record_exchange(stats)
@@ -220,11 +465,20 @@ class StreamingJob:
                              total_records=float(loads.sum()))
         at_checkpoint = (len(self.metrics) + 1) % self.checkpoint_interval == 0
         signals = self.telemetry.snapshot(
-            loads=loads, num_workers=w, state_rows=self._state_rows(),
+            loads=loads, num_workers=w,
+            # overlapped: the count as of the last drain (the migration
+            # planner reads the real keys after the pre-action drain)
+            state_rows=self._last_state_rows if overlap else self._state_rows(),
             at_safe_point=at_checkpoint)
         action = self.drm.evaluate(signals, policies_enabled=self.dr_enabled)
 
-        # execute the action (state only moves here, at the safe point)
+        # execute the action (state only moves here, at the safe point).  A
+        # taken action first drains the in-flight ship + merge (a migration
+        # must see this batch merged) and discards the staged start (its
+        # route used the partitioner this action replaces)
+        if action.taken:
+            self._drain_inflight()
+            self._discard_staged()
         rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved = (
             0.0, 0, 0, 0, 0, 0)
         if isinstance(action, Repartition):
@@ -248,8 +502,9 @@ class StreamingJob:
             repartitioned=action.taken and action.moves_state,
             relative_migration=rel_mig,
             overflow=overflow_i + mig_overflow,
-            state_rows=(signals.state_rows if isinstance(action, NoOp)
-                        else self._state_rows()),
+            state_rows=(self._last_state_rows if overlap else
+                        (signals.state_rows if isinstance(action, NoOp)
+                         else self._state_rows())),
             wall_time_s=time.perf_counter() - t0,
             reason=action.reason,
             migration_rows=mig_rows,
@@ -260,44 +515,75 @@ class StreamingJob:
             padded_rows=self._shuffle_spec.rows + mig_rows,
             backend=batch_backend,
             exchange_wall_s=exchange_wall,
-            overlap_fraction=0.0,  # serial: nothing hidden
+            overlapped=overlap,
+            pipelined=pipelined,
+            overlap_fraction=signals.overlap_fraction,
             split_keys=len(self.drm.split_keys),
             shipped_rows_by_class=(0,) * DISTANCE_CLASSES,
             lanes=self.num_workers,
         )
+        # the host wall since the count sync ran under this batch's (or the
+        # migration's) in-flight ship: the latency the overlap hid.  Recorded
+        # at batch end, so it lands in the next telemetry window.
+        if self._inflight is not None and self._hidden_since is not None:
+            self.telemetry.record_exchange(ExchangeStats(
+                rows=0, hidden_wall_s=time.perf_counter() - self._hidden_since))
+        self._hidden_since = None
         self.metrics.append(m)
         return m
 
     def _state_rows(self) -> int:
-        """Live keyed-state rows across all workers."""
+        """Live keyed-state rows across all workers (drains first)."""
         with safe_point():
-            return int(host_fetch(state_size(self.state_keys)).sum())
+            self._last_state_rows = int(host_fetch(state_size(self.state_keys).sum()))
+        return self._last_state_rows
 
     def _migrate_state(self, old_part: Partitioner):
         """Ship keyed state to where ``self.drm.partitioner`` now maps it.
 
         Plans on the host (``plan_migration`` over the live keys), sizes the
         exchange lanes from the plan, and folds the received rows back into
-        the kept state.  Returns ``(relative_migration, overflow,
-        buffer_rows, planned_lane_rows, shipped_rows per worker,
-        moved_rows)``."""
+        the kept state.  Overlapped, only the start phase is waited for: the
+        ship and merge stay in flight across the safe point.  Returns
+        ``(relative_migration, overflow, buffer_rows, planned_lane_rows,
+        shipped_rows per worker, moved_rows)``."""
         with safe_point():
             sk = host_fetch(self.state_keys).reshape(-1)
         live = sk[sk != _SENT].astype(np.int64)
         plan = plan_migration(old_part, self.drm.partitioner, live)
         plan_rows = migration_capacity(plan, num_workers=self.num_workers)
         migrate, lane_cap = self._migrate_step(plan_rows)
-        out = migrate(self.drm.partitioner.tables(self.device),
-                      self.state_keys, self.state_vals)
-        kept_keys = torch.where(out.kept_valid, out.kept_keys, _SENT)
-        self.state_keys, self.state_vals, _ = merge_into(
-            kept_keys, out.kept_vals, out.recv_keys, out.recv_vals, out.recv_valid)
+        tables = self._tables()
+        if self._overlap_active():
+            pending, st = migrate.start(tables, self._sk, self._sv)
+            (moved, total, mig_ov, lane_ov, mig_shipped), ready = copy_to_host(
+                (st.moved, st.total, st.overflow, st.lane_overflow, st.shipped_rows))
+            # interim state = the kept rows; the pending merge adds the
+            # received ones (readers drain first, so never see the interim)
+            self._sk = torch.where(st.kept_valid, st.kept_keys, _SENT)
+            self._sv = st.kept_vals
+            self._hidden_since = time.perf_counter()
+
+            def _fin_migrate(fin=migrate.finish, pending=pending):
+                rk, rv, rva = fin(pending)
+                self._sk, self._sv, _ = merge_into(self._sk, self._sv, rk, rv, rva)
+
+            self._inflight = _fin_migrate
+        else:
+            out = migrate(tables, self._sk, self._sv)
+            kept_keys = torch.where(out.kept_valid, out.kept_keys, _SENT)
+            self._sk, self._sv, _ = merge_into(
+                kept_keys, out.kept_vals, out.recv_keys, out.recv_vals, out.recv_valid)
+            moved, total, mig_ov, lane_ov, mig_shipped = (
+                out.moved, out.total, out.overflow, out.lane_overflow, out.shipped_rows)
+            ready = None
         with safe_point():
-            moved_i = int(host_fetch(out.moved))
-            total_i = int(host_fetch(out.total))
-            mig_shipped_i = int(host_fetch(out.shipped_rows))
-            mig_ov_i = int(host_fetch(out.overflow))
-            lane_ov = host_fetch(out.lane_overflow)
+            host_wait(ready)
+            moved_i = int(host_fetch(moved))
+            total_i = int(host_fetch(total))
+            mig_shipped_i = int(host_fetch(mig_shipped))
+            mig_ov_i = int(host_fetch(mig_ov))
+            lane_ov = host_fetch(lane_ov)
         rel_mig = float(moved_i) / max(float(total_i), 1e-9)
         mig_rows = self.num_workers * lane_cap  # rows received per worker
         self.telemetry.record_exchange(ExchangeStats(rows=0, lane_overflow=lane_ov))
@@ -306,7 +592,18 @@ class StreamingJob:
 
     # ------------------------------------------------------------------
     def run(self, batches: Iterable[np.ndarray]) -> list[BatchMetrics]:
-        return [self.process_batch(b) for b in batches]
+        """Process ``batches`` in order.  At depth 2 batch N+1 is parked
+        where ``process_batch`` stages its start behind batch N's ship; the
+        check runs per batch, so turning overlap off mid-stream falls back
+        to depth 1 instead of staging work nobody claims."""
+        out: list[BatchMetrics] = []
+        seq = list(batches)
+        for i, b in enumerate(seq):
+            self._next_batch = (seq[i + 1] if self._depth2_active() and i + 1 < len(seq)
+                                else None)
+            out.append(self.process_batch(b))
+        self._next_batch = None
+        return out
 
     def resize(self, num_partitions: int) -> None:
         raise NotImplementedError(
@@ -319,7 +616,8 @@ class StreamingJob:
 
     # -- state inspection ----------------------------------------------
     def state_count(self, key: int) -> float:
-        """Total aggregated value for one key across all workers (test hook)."""
+        """Total aggregated value for one key across all workers (test hook;
+        drains the in-flight merge)."""
         with safe_point():
             hit = self.state_keys == int(key)
             return float(host_fetch(self.state_vals[hit].sum()))
@@ -327,7 +625,8 @@ class StreamingJob:
     # -- checkpoint / restore --------------------------------------------
     def snapshot(self) -> dict:
         """State tables plus the DRM snapshot under ``drm_`` — the keys of the
-        reference's ``StreamingJob.snapshot`` (flat, same worker count)."""
+        reference's ``StreamingJob.snapshot`` (flat, same worker count).
+        Drains the in-flight merge first."""
         with safe_point():
             return {
                 "state_keys": host_fetch(self.state_keys),
@@ -338,19 +637,23 @@ class StreamingJob:
     def restore(self, snap: dict) -> None:
         """Resume from a snapshot of the same worker count (either package's).
         The snapshot's transport and partition count win over the ones this
-        job was built with."""
+        job was built with.  The in-flight finish belongs to the replaced
+        state and the staged start to the replaced partitioner: both go."""
         drm_snap = {k[4:]: v for k, v in snap.items() if k.startswith("drm_")}
         snap_keys = np.asarray(snap["state_keys"])
         if snap_keys.shape[0] != self.num_workers:
             raise NotImplementedError(
                 f"restoring a {snap_keys.shape[0]}-worker snapshot onto "
                 f"{self.num_workers} workers is not ported yet (ROADMAP.md, queue 1 item 7)")
+        self._inflight = None
+        self._hidden_since = None
+        self._staged = None
         self.drm = DRMaster.restore(drm_snap, self.drm.config)
         self.state_keys = torch.tensor(snap_keys, dtype=torch.int32, device=self.device)
         self.state_vals = torch.tensor(np.asarray(snap["state_vals"]), dtype=torch.float32,
                                        device=self.device)
         self.state_capacity = int(snap_keys.shape[1])
-        self.payload_dim = int(self.state_vals.shape[2])
+        self.payload_dim = int(self._sv.shape[2])
         self.exchange_backend = self.drm.exchange_backend
         n = self.drm.partitioner.num_partitions
         if n < self.num_workers:
@@ -359,3 +662,4 @@ class StreamingJob:
         self._shuffle = None
         self._shuffle_sig = None
         self._migrate_steps.clear()
+        self._state_rows()  # refresh the drain-time row count

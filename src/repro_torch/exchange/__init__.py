@@ -14,6 +14,7 @@ from repro_torch.exchange.plane import (
     ExchangeSpec,
     ExchangeStats,
     Payload,
+    PendingExchange,
     SendInfo,
     make_exchange,
     route_bucketize,
@@ -29,6 +30,7 @@ __all__ = [
     "ExchangeStats",
     "LocalBackend",
     "Payload",
+    "PendingExchange",
     "SendInfo",
     "make_exchange",
     "resolve_backend",

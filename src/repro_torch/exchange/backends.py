@@ -1,13 +1,17 @@
 """Exchange backends: the *how* of a routed exchange, for stacked workers.
 
 An :class:`ExchangeBackend` implements the plane's verbs — ``bucketize`` /
-``all_to_all`` / ``cost`` — against one
+``a2a_start`` / ``a2a_finish`` / ``all_to_all`` / ``cost`` — against one
 :class:`~repro_torch.exchange.spec.ExchangeSpec`.  The port's first
 transport keeps all W workers on one device as ``[W, ...]`` tensors, so the
 dense all-to-all is the lane/worker transpose ``[W_src, L, cap] ->
 [L, W_src, cap]``: row ``j`` of worker ``i``'s buffer lands at position
 ``i`` of worker ``j``, exactly the tiled all-to-all of
-``repro.exchange.backends.DenseBackend``.
+``repro.exchange.backends.DenseBackend``.  The collective is split-phase:
+``a2a_start`` runs the control phase (for the dense transport it only
+stamps the statically known traffic), ``a2a_finish`` ships the rows into
+new receive tensors, so the send set is free to be recycled, and
+``all_to_all == a2a_finish(a2a_start(...))``.
 
 * :class:`DenseBackend` — the capacity-padded all-to-all: every lane ships
   ``capacity`` rows.
@@ -42,7 +46,11 @@ class ExchangeBackend(Protocol):
     name: str
 
     def bucketize(self, spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
-                  slot=None, counts=None) -> ExchangeResult: ...
+                  slot=None, counts=None, buffers=None) -> ExchangeResult: ...
+
+    def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
+
+    def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
 
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
 
@@ -51,7 +59,7 @@ class ExchangeBackend(Protocol):
 
 
 def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
-               slot=None, counts=None) -> ExchangeResult:
+               slot=None, counts=None, buffers=None) -> ExchangeResult:
     """Scatter records into ``[W, L, capacity]`` buffers; count overflow.
 
     ``slot`` and ``counts`` may be precomputed (the route kernels emit
@@ -59,6 +67,11 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
     (``ops.dispatch_slots``; its plain version on the CPU).  A valid record
     is lost either to a full lane or to a lane outside ``[0, num_lanes)`` —
     both are counted, never silently dropped.
+
+    ``buffers`` is the reuse seam of the overlapped driver: a recycled
+    ``(valid_buf, payload_bufs)`` set of this call's shapes and dtypes,
+    refilled and written in place (:func:`~repro_torch.kernels.ref.
+    scatter_rows`) with the values of fresh buffers.
     """
     lane = torch.where(valid, lane, torch.zeros_like(lane)).to(torch.int32)
     if slot is None:
@@ -81,12 +94,24 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
     worker = torch.arange(w, device=lane.device, dtype=torch.int64)[:, None]
     cell = torch.where(ok, (worker * spec.num_lanes + lane) * spec.capacity + slot,
                        num_cells)
-    buf_valid = scatter_rows(cell, num_cells, ok, False, shape)
-    bufs = tuple(scatter_rows(cell, num_cells, p.data, p.fill, shape) for p in payloads)
+    if buffers is None:
+        buffers = (None, (None,) * len(payloads))
+    elif len(buffers[1]) != len(payloads):
+        raise ValueError(f"bucketize: {len(buffers[1])} recycled payload buffers "
+                         f"for {len(payloads)} payloads")
+    buf_valid = scatter_rows(cell, num_cells, ok, False, shape, out=buffers[0])
+    bufs = tuple(scatter_rows(cell, num_cells, p.data, p.fill, shape, out=b)
+                 for p, b in zip(payloads, buffers[1]))
     return ExchangeResult(
         buf_valid, bufs, SendInfo(lane, slot, ok, overflow, lane_overflow),
         shipped_rows=torch.zeros(w, dtype=torch.int64, device=lane.device),
     )
+
+
+def _transposed(b: torch.Tensor) -> torch.Tensor:
+    """``b`` with its first two axes swapped, in a new contiguous tensor
+    (never a view of ``b``, even when ``W = 1`` makes the swap free)."""
+    return b.transpose(0, 1).clone(memory_format=torch.contiguous_format)
 
 
 class DenseBackend:
@@ -94,11 +119,26 @@ class DenseBackend:
 
     name = "dense"
 
-    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None):
-        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts)
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None,
+                  buffers=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts,
+                          buffers=buffers)
 
-    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
-        """Row ``j`` of worker ``i`` -> position ``i`` of worker ``j``."""
+    @staticmethod
+    def _shipped(spec: ExchangeSpec, buffers: ExchangeResult) -> torch.Tensor:
+        w = buffers.valid.shape[0]
+        return torch.full((w,), spec.rows, dtype=torch.int64, device=buffers.valid.device)
+
+    def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """No count phase to run: only stamp the statically known traffic
+        (the whole pad), so control-plane reads never wait for the ship."""
+        if spec.axis is None:
+            return buffers
+        return buffers._replace(shipped_rows=self._shipped(spec, buffers))
+
+    def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """Row ``j`` of worker ``i`` -> position ``i`` of worker ``j``, into
+        new receive tensors."""
         if spec.axis is None:
             return buffers
         w = buffers.valid.shape[0]
@@ -106,11 +146,13 @@ class DenseBackend:
             raise ValueError(f"stacked all-to-all needs one lane per worker: "
                              f"{w} workers, {spec.num_lanes} lanes")
         return buffers._replace(
-            valid=buffers.valid.transpose(0, 1).contiguous(),
-            payloads=tuple(b.transpose(0, 1).contiguous() for b in buffers.payloads),
-            shipped_rows=torch.full((w,), spec.rows, dtype=torch.int64,
-                                    device=buffers.valid.device),
+            valid=_transposed(buffers.valid),
+            payloads=tuple(_transposed(b) for b in buffers.payloads),
+            shipped_rows=self._shipped(spec, buffers),
         )
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        return self.a2a_finish(spec, self.a2a_start(spec, buffers))
 
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:
@@ -126,14 +168,22 @@ class LocalBackend:
 
     name = "local"
 
-    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None):
-        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts)
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None,
+                  buffers=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts,
+                          buffers=buffers)
 
-    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+    def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         if spec.axis is not None:
             raise ValueError(f"LocalBackend cannot cross worker axis {spec.axis!r}; "
                              "use the dense backend")
         return buffers
+
+    def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        return self.a2a_start(spec, buffers)
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        return self.a2a_finish(spec, self.a2a_start(spec, buffers))
 
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:

@@ -9,13 +9,17 @@ shuffle``).  The routing hot path always goes through the route kernels'
 wrappers (:mod:`repro_torch.kernels.ops`): the CUDA kernels on the card,
 their plain PyTorch versions on the CPU.
 
-The reference's split ``start`` / ``finish`` halves (the overlapped
-driver's seam) are not ported yet; the fused call is what the serial
-driver runs.
+The exchange is split-phase, as the reference's: :meth:`Exchange.start`
+bucketizes and runs the transport's control phase, so every control-plane
+output (the ``send`` accounting, ``shipped_rows``) is final on the
+returned :class:`PendingExchange`, and :meth:`Exchange.finish` ships the
+rows; ``finish(start(...))`` equals the fused call.  The overlapped
+streaming driver holds a pending exchange in flight across a batch
+boundary.  ``buffers=`` recycles a drained send-buffer set.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -37,11 +41,24 @@ __all__ = [
     "ExchangeSpec",
     "ExchangeStats",
     "Payload",
+    "PendingExchange",
     "SendInfo",
     "make_exchange",
     "route_bucketize",
     "route_dispatch",
 ]
+
+
+class PendingExchange(NamedTuple):
+    """An exchange whose control phase ran but whose rows have not shipped.
+
+    ``buffers`` is the bucketized :class:`ExchangeResult` with every
+    control-plane field stamped by the backend's ``a2a_start``
+    (``shipped_rows`` and the ``send`` accounting are final); ``valid`` /
+    ``payloads`` still hold the *send*-side buffers until
+    :meth:`Exchange.finish` moves them."""
+
+    buffers: ExchangeResult
 
 
 def route_dispatch(tables: PartitionerTables, keys, valid, *, num_hosts: int,
@@ -57,17 +74,20 @@ def route_dispatch(tables: PartitionerTables, keys, valid, *, num_hosts: int,
 
 def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid, vals,
                     *, num_hosts: int, seed: int, key_fill: int = int(KEY_SENTINEL),
-                    num_partitions: int = 0):
+                    num_partitions: int = 0, buffers: tuple | None = None):
     """Fused route -> bucketize for the shuffle's ``(keys, vals, part)``
     payload triple (the ``route_bucketize`` kernel).
 
     Returns ``(part[W, n], buffers)`` — the per-record partition ids plus a
-    bucketized :class:`ExchangeResult` ready for the collective."""
+    bucketized :class:`ExchangeResult` ready for the collective.
+    ``buffers`` is a recycled ``(valid_buf, (keys_buf, vals_buf,
+    part_buf))`` set the kernel writes in place (its ``out=``)."""
     spec = exchange.spec
+    out = None if buffers is None else (buffers[0], *buffers[1])
     part, slot, counts, buf_valid, bk, bv, bp = ops.route_bucketize(
         keys, valid, tables, vals, num_hosts=num_hosts, seed=seed,
         num_lanes=spec.num_lanes, capacity=spec.capacity, key_fill=key_fill,
-        num_partitions=num_partitions)
+        num_partitions=num_partitions, out=out)
     lane = torch.where(valid, part % spec.num_lanes, 0).to(torch.int32)
     ok = valid & (slot >= 0) & (slot < spec.capacity)
     # lanes are `part % L`, always in range: the capacity drops per lane
@@ -90,10 +110,27 @@ class Exchange:
         self.backend = resolve_backend(backend, spec)
 
     def bucketize(self, lane, valid, payloads: Sequence[Payload], slot=None,
-                  counts=None) -> ExchangeResult:
-        """Build the lane-major ``[W, L, capacity]`` send buffers."""
+                  counts=None, buffers=None) -> ExchangeResult:
+        """Build the lane-major ``[W, L, capacity]`` send buffers, into a
+        recycled ``(valid_buf, payload_bufs)`` set when ``buffers`` is
+        given (values equal to fresh buffers)."""
         return self.backend.bucketize(self.spec, lane, valid, payloads,
-                                      slot=slot, counts=counts)
+                                      slot=slot, counts=counts, buffers=buffers)
+
+    def start(self, lane, valid, payloads: Sequence[Payload], slot=None,
+              counts=None, buffers=None) -> PendingExchange:
+        """Bucketize and run the transport's control phase; rows stay put."""
+        return self.start_from(self.bucketize(lane, valid, payloads, slot=slot,
+                                              counts=counts, buffers=buffers))
+
+    def start_from(self, buffers: ExchangeResult) -> PendingExchange:
+        """Start the collective from already bucketized buffers (the fused
+        route path hands these in directly)."""
+        return PendingExchange(self.backend.a2a_start(self.spec, buffers))
+
+    def finish(self, pending: PendingExchange) -> ExchangeResult:
+        """Ship the payload rows of a started exchange."""
+        return self.backend.a2a_finish(self.spec, pending.buffers)
 
     def all_to_all(self, buffers: ExchangeResult) -> ExchangeResult:
         return self.backend.all_to_all(self.spec, buffers)

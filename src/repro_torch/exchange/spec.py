@@ -47,12 +47,16 @@ class ExchangeStats:
     * ``occupied_rows`` — rows live in the shipped lanes; ``None`` = ``rows``.
     * ``lane_overflow`` — per-lane capacity drops or ``None``.
     * ``wall_s`` — host wall time of the exchange path.
-    * ``count_wall_s`` — wall blocking on the count phase; ``None`` when
-      not split (the serving scheduler books 0.0 under overlap).
+    * ``count_wall_s`` / ``ship_wall_s`` / ``hidden_wall_s`` — the
+      split-phase wall breakdown: blocking on the start (count) phase,
+      blocking on the row ship at a drain, and host wall that ran while a
+      ship was in flight (the latency the overlap hid); ``None`` when not
+      measured (the serving scheduler books a count wall of 0.0 under
+      overlap).
     * ``backend`` — transport name the measurements belong to.
 
-    The ship/hidden walls, split-key and per-distance-class fields of the
-    reference record arrive with their features.
+    The split-key and per-distance-class fields of the reference record
+    arrive with their features.
     """
 
     rows: int
@@ -61,6 +65,8 @@ class ExchangeStats:
     occupied_rows: int | None = None
     lane_overflow: np.ndarray | None = None
     count_wall_s: float | None = None
+    ship_wall_s: float | None = None
+    hidden_wall_s: float | None = None
     backend: str | None = None
 
 

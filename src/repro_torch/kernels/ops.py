@@ -67,16 +67,18 @@ def route_slots(keys, valid, tables, *, num_hosts: int, seed: int = 0,
 
 def route_bucketize(keys, valid, tables, vals, *, num_hosts: int, seed: int = 0,
                     num_lanes: int, capacity: int, key_fill: int,
-                    num_partitions: int = 0):
+                    num_partitions: int = 0, out=None):
     """Fused route + slot + bucketize: ``(part, slot, counts, buf_valid,
-    buf_keys, buf_vals, buf_part)`` with ``[W, L, capacity]`` buffers."""
+    buf_keys, buf_vals, buf_part)`` with ``[W, L, capacity]`` buffers,
+    written into ``out = (buf_valid, buf_keys, buf_vals, buf_part)`` when
+    given (a recycled set)."""
     hk, hp, hr = pad_heavy_tables(tables, num_partitions=num_partitions, pad_empty=True)
     return _route_bucketize_kernel(
         keys.to(torch.int32).contiguous(), valid.contiguous(),
         vals.to(torch.float32).contiguous(), hk, hp,
         tables.host_to_part.contiguous(), hr, seed=seed, num_hosts=num_hosts,
         num_lanes=num_lanes, capacity=capacity, key_fill=key_fill,
-        num_partitions=num_partitions)
+        num_partitions=num_partitions, out=out)
 
 
 def apply_partitioner(keys, tables, *, num_hosts: int, seed: int = 0):

@@ -37,16 +37,42 @@ def _stacked(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
 
 
 def scatter_rows(cell: torch.Tensor, num_cells: int, data: torch.Tensor, fill,
-                 shape: tuple) -> torch.Tensor:
+                 shape: tuple, out: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter ``data[W, n, ...]`` to flat cell ids ``cell[W, n]`` of a buffer
     ``shape + data.shape[2:]`` prefilled with ``fill``.  Rows whose cell is
-    ``num_cells`` land in one trailing spare cell that is cut off, so they
-    drop out without a data-dependent mask."""
+    ``num_cells`` drop out without a data-dependent mask (which would wait
+    for the card): in a fresh buffer they land in one trailing spare cell
+    that is cut off.
+
+    ``out`` is a recycled buffer of exactly ``shape + data.shape[2:]``
+    (contiguous), refilled and written in place; it has no spare cell, so
+    the dropped rows write cell 0 instead, each carrying the value cell 0
+    ends with (its own record's, else ``fill``): every write to it agrees,
+    and the values equal the fresh path's."""
     trailing = tuple(data.shape[2:])
-    buf = torch.full((num_cells + 1,) + trailing, fill, dtype=data.dtype,
-                     device=data.device)
-    buf[cell.reshape(-1)] = data.reshape((-1,) + trailing)
-    return buf[:num_cells].view(tuple(shape) + trailing)
+    rows = data.reshape((-1,) + trailing)
+    cell = cell.reshape(-1)
+    if out is None:
+        buf = torch.full((num_cells + 1,) + trailing, fill, dtype=data.dtype,
+                         device=data.device)
+        buf[cell] = rows
+        return buf[:num_cells].view(tuple(shape) + trailing)
+    if (tuple(out.shape) != tuple(shape) + trailing or out.dtype != data.dtype
+            or out.device != data.device or not out.is_contiguous()):
+        raise ValueError(f"scatter_rows: out must be contiguous {data.dtype}"
+                         f"{list(shape) + list(trailing)} on {data.device}, got "
+                         f"{out.dtype}{list(out.shape)} on {out.device}")
+    flat = out.view((num_cells,) + trailing)
+    flat.fill_(fill)
+    if cell.numel() == 0 or num_cells == 0:
+        return out
+    kept = cell < num_cells
+    first = (cell == 0) & kept
+    own = rows.index_select(0, first.to(torch.int32).argmax().view(1))[0]
+    at0 = torch.where(first.any(), own, torch.full_like(own, fill))
+    drop = ~kept if not trailing else (~kept).view((-1,) + (1,) * len(trailing))
+    flat[torch.where(kept, cell, 0)] = torch.where(drop, at0, rows)
+    return out
 
 
 def _heavy_index(keys: torch.Tensor, heavy_keys: torch.Tensor):
@@ -147,12 +173,14 @@ def lookup_dispatch_ref(keys, valid, heavy_keys, heavy_parts, host_to_part, *,
 
 def route_bucketize_ref(keys, valid, vals, heavy_keys, heavy_parts, host_to_part, *,
                         seed=0, num_hosts=4096, num_lanes, capacity, key_fill,
-                        heavy_repl=None, num_partitions=0, part_loads=None):
+                        heavy_repl=None, num_partitions=0, part_loads=None, out=None):
     """Route + slot + scatter into ``[W, L, capacity]`` send buffers.
 
     Returns ``(part, slot, counts, buf_valid, buf_keys, buf_vals, buf_part)``;
     records whose slot is at or past ``capacity`` drop out, and cells no
-    record fills hold ``key_fill`` / 0 / 0 / False."""
+    record fills hold ``key_fill`` / 0 / 0 / False.  ``out`` is a recycled
+    ``(buf_valid, buf_keys, buf_vals, buf_part)`` set written in place (see
+    :func:`scatter_rows`); the values equal a fresh set's."""
     part, slot, counts = lookup_dispatch_ref(
         keys, valid, heavy_keys, heavy_parts, host_to_part,
         seed=seed, num_hosts=num_hosts, num_lanes=num_lanes,
@@ -170,10 +198,14 @@ def route_bucketize_ref(keys, valid, vals, heavy_keys, heavy_parts, host_to_part
     lane = (p % num_lanes).to(torch.int64)
     worker = torch.arange(w, device=k.device, dtype=torch.int64)[:, None]
     cell = torch.where(ok, (worker * num_lanes + lane) * capacity + s, cells)
-    buf_valid = scatter_rows(cell, cells, ok, False, shape)
-    buf_keys = scatter_rows(cell, cells, k, int(key_fill), shape)
-    buf_part = scatter_rows(cell, cells, torch.where(v, p, 0), 0, shape)
-    buf_vals = scatter_rows(cell, cells, x, 0.0, shape)
+    if out is None:
+        out = (None,) * 4
+    elif one:
+        out = tuple(b.unsqueeze(0) for b in out)
+    buf_valid = scatter_rows(cell, cells, ok, False, shape, out=out[0])
+    buf_keys = scatter_rows(cell, cells, k, int(key_fill), shape, out=out[1])
+    buf_vals = scatter_rows(cell, cells, x, 0.0, shape, out=out[2])
+    buf_part = scatter_rows(cell, cells, torch.where(v, p, 0), 0, shape, out=out[3])
     if one:
         buf_valid, buf_keys, buf_vals, buf_part = (
             buf_valid[0], buf_keys[0], buf_vals[0], buf_part[0])

@@ -13,7 +13,10 @@ bounded by device-memory bytes on an H100.
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.route_bucketize_ref`); on a CUDA tensor it
 launches the kernel or raises.  ``route_bucketize.launches`` counts the
-launches.
+launches.  ``out=`` hands both a recycled set of the four send buffers to
+write in place (the overlapped driver's ping-pong pool): the kernel's fill
+writes every cell, so a set holding an earlier batch's rows comes back
+equal to a fresh one.
 """
 from __future__ import annotations
 
@@ -29,30 +32,50 @@ __all__ = ["route_bucketize", "route_bucketize_plain"]
 
 def route_bucketize_plain(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
                           heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                          capacity, key_fill, num_partitions=0):
+                          capacity, key_fill, num_partitions=0, out=None):
     """The plain PyTorch version of :func:`route_bucketize` (any device)."""
     return route_bucketize_ref(
         keys, valid, vals, heavy_keys, heavy_parts, host_to_part, seed=seed,
         num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
         key_fill=key_fill, heavy_repl=heavy_repl if num_partitions > 0 else None,
-        num_partitions=num_partitions)
+        num_partitions=num_partitions, out=out)
+
+
+def _check_out(out, w, num_lanes, capacity, dim, dev):
+    """Raise ``ValueError`` unless ``out`` is a set the kernel can fill."""
+    shape = (w, num_lanes, capacity)
+    want = [(torch.bool, shape), (torch.int32, shape), (torch.float32, shape + (dim,)),
+            (torch.int32, shape)]
+    if len(out) != 4:
+        raise ValueError(f"route kernel out: 4 buffers (valid, keys, vals, part), "
+                         f"got {len(out)}")
+    for name, t, (dtype, shp) in zip(("buf_valid", "buf_keys", "buf_vals", "buf_part"),
+                                     out, want):
+        if (t.dtype != dtype or tuple(t.shape) != shp or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(
+                f"route kernel out: {name} must be a contiguous, 16-byte aligned "
+                f"{dtype}{list(shp)} on {dev}, got {t.dtype}{list(t.shape)} on {t.device}")
 
 
 def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
                     heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                    capacity, key_fill, num_partitions=0):
+                    capacity, key_fill, num_partitions=0, out=None):
     """Returns ``(part[W, n], slot[W, n], counts[W, L], buf_valid[W, L, cap]
     bool, buf_keys[W, L, cap] int32, buf_vals[W, L, cap, D] f32,
     buf_part[W, L, cap] int32)`` for keys ``int32[W, n]`` and vals
     ``f32[W, n, D]`` of W stacked workers.
 
     Records whose slot is at or past ``capacity`` drop out (the counts keep
-    them); empty cells hold ``key_fill`` / 0 / 0 / False."""
+    them); empty cells hold ``key_fill`` / 0 / 0 / False.  ``out``, when
+    given, is the ``(buf_valid, buf_keys, buf_vals, buf_part)`` set to write
+    (checked: shape, dtype, device, contiguity; ``ValueError`` otherwise)
+    and is returned in place of fresh buffers."""
     if keys.device.type == "cpu":
         return route_bucketize_plain(
             keys, valid, vals, heavy_keys, heavy_parts, host_to_part, heavy_repl,
             seed=seed, num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
-            key_fill=key_fill, num_partitions=num_partitions)
+            key_fill=key_fill, num_partitions=num_partitions, out=out)
     check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
                        num_hosts=num_hosts, num_lanes=num_lanes,
                        num_partitions=num_partitions)
@@ -70,11 +93,15 @@ def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
     slot = torch.empty_like(keys)
     counts = torch.empty((w, num_lanes), dtype=torch.int32, device=dev)
     scratch = rank_scratch(keys, num_lanes, "route_bucketize")
-    shape = (w, num_lanes, capacity)
-    buf_valid = torch.empty(shape, dtype=torch.bool, device=dev)
-    buf_keys = torch.empty(shape, dtype=torch.int32, device=dev)
-    buf_vals = torch.empty(shape + (dim,), dtype=torch.float32, device=dev)
-    buf_part = torch.empty(shape, dtype=torch.int32, device=dev)
+    if out is None:
+        shape = (w, num_lanes, capacity)
+        out = (torch.empty(shape, dtype=torch.bool, device=dev),
+               torch.empty(shape, dtype=torch.int32, device=dev),
+               torch.empty(shape + (dim,), dtype=torch.float32, device=dev),
+               torch.empty(shape, dtype=torch.int32, device=dev))
+    else:
+        _check_out(out, w, num_lanes, capacity, dim, dev)
+    buf_valid, buf_keys, buf_vals, buf_part = out
     repl = heavy_repl.data_ptr() if num_partitions > 0 else None
     code = lib.rk_route_bucketize(
         keys.data_ptr(), valid.data_ptr(), vals.data_ptr(), dim, w, n,

@@ -262,7 +262,6 @@ def test_drconfig_validation_matches_reference(bad):
 @pytest.mark.parametrize("flag", [
     dict(elastic=True), dict(split_keys_enabled=True), dict(auto_backend=True),
     dict(health_enabled=True), dict(split_least_load=True), dict(snapshot_interval=2),
-    dict(pipeline_depth=2),
 ])
 def test_unported_features_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

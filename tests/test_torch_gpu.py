@@ -11,11 +11,13 @@ tolerances, ``tests/test_flash_kernel.py``), and within 2e-2 wherever
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import compat
 from repro_torch.core.histogram import CountMinSketch, Histogram
 from repro_torch.core.partitioner import kip_update, uniform_partitioner
 from repro_torch.core.replay import BatchJob
@@ -709,3 +711,123 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the overlapped streaming drivers on the card
+# ---------------------------------------------------------------------------
+
+_WALLS = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+
+
+def _stream_job(device, depth=1, overlap=True, trigger=1.1):
+    return StreamingJob(device=device, num_workers=4, num_partitions=16, state_capacity=8192,
+                        dr=DRConfig(imbalance_trigger=trigger, migration_cost_weight=0.2,
+                                    overlap_exchange=overlap, pipeline_depth=depth))
+
+
+def _fields(m, skip):
+    return {k: v for k, v in dataclasses.asdict(m).items() if k not in skip}
+
+
+def test_overlapped_drivers_equal_serial_on_the_card(cuda):
+    """Depth 1 (``process_batch``) and depth 2 (``run``) against the serial
+    driver on the card, and each against the same driver on the CPU: equal
+    trajectories (walls, ``state_rows`` and the driver's flags apart
+    between drivers) and equal state."""
+    batches = list(drifting_zipf(6, 16384, num_keys=5000, exponent=1.3, drift_every=2, seed=2))
+    runs, jobs = {}, {}
+    for name, depth, overlap in (("serial", 1, False), ("d1", 1, True), ("d2", 2, True)):
+        for device in (cuda, "cpu"):
+            job = _stream_job(device, depth, overlap)
+            if name == "d1":
+                ms = [job.process_batch(b) for b in batches]
+            else:
+                ms = job.run(batches)
+            runs[name, str(device)], jobs[name, str(device)] = ms, job
+    skip = _WALLS | {"state_rows", "overlapped", "pipelined"}
+    for name in ("serial", "d1", "d2"):
+        for a, b in zip(runs[name, "cuda"], runs[name, "cpu"]):
+            assert _fields(a, _WALLS) == _fields(b, _WALLS)
+        for a, b in zip(runs["serial", "cuda"], runs[name, "cuda"]):
+            assert _fields(a, skip) == _fields(b, skip)
+        for t in ("state_keys", "state_vals"):
+            assert torch.equal(getattr(jobs[name, "cuda"], t).cpu(),
+                               getattr(jobs["serial", "cpu"], t))
+    assert sum(m.repartitioned for m in runs["d2", "cuda"]) >= 2
+    assert any(m.pipelined for m in runs["d2", "cuda"])
+
+
+def test_route_bucketize_into_a_recycled_dirty_set(cuda):
+    """``out=`` a set full of junk (as a recycled set is): every output equal
+    to the plain version's, written into the given tensors; a set the kernel
+    cannot fill raises."""
+    p, keys, valid, vals = _case(4, 20000, 16, (4,), False, 5)
+    k, v, x = (torch.as_tensor(a, device=cuda) for a in (keys, valid, vals))
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=16, pad_empty=True)
+    for cap in (8000, 700):  # 700 overflows: dropped rows must land nowhere
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=4, capacity=cap,
+                  key_fill=SENT, num_partitions=16)
+        args = (k, v, x, hk, hp, t.host_to_part, hr)
+        want = route_bucketize_plain(*args, **kw)
+        out = tuple(torch.empty_like(b).view(-1).view(torch.uint8).fill_(0x5A)
+                    .view(b.dtype).view(b.shape) for b in want[3:])
+        got = route_bucketize(*args, **kw, out=out)
+        torch.cuda.synchronize()
+        assert all(g is o for g, o in zip(got[3:], out))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (cap == 700) == bool((want[2] > cap).any())
+    bad = [out[0][:, :, :-1], out[1].to(torch.int64), out[2].cpu(),
+           out[3].transpose(0, 1).contiguous().transpose(0, 1)]
+    for i, b in enumerate(bad):
+        wrong = list(out)
+        wrong[i] = b
+        with pytest.raises(ValueError, match="route kernel out"):
+            route_bucketize(*args, **kw, out=tuple(wrong))
+
+
+def test_depth2_steady_state_is_sync_free_on_the_card(cuda):
+    """Over steady-state depth-2 batches (no action taken) the audit counts
+    no blocking fetch or wait outside a safe point, and PyTorch's own sync
+    check (``set_sync_debug_mode("error")``, which flags blocking copies,
+    ``.item()`` and stream synchronizations but not event waits) flags no
+    call: the driver's only waits are the start phase's copy events, inside
+    its safe points."""
+    batches = list(drifting_zipf(8, 65536, num_keys=20000, exponent=1.3, drift_every=100,
+                                 seed=4))
+    job = _stream_job(cuda, depth=2, trigger=1e9)
+    job.run(batches[:2])  # fills the buffer pool and the staging sets
+    compat.reset_host_sync_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms = job.run(batches[2:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert compat.host_sync_count() == 0
+    assert all(m.action == "noop" for m in ms)
+    assert all(m.pipelined for m in ms[1:])
+    ref = _stream_job("cpu", overlap=False, trigger=1e9)
+    ref.run(batches)
+    assert torch.equal(job.state_keys.cpu(), ref.state_keys)
+    assert torch.equal(job.state_vals.cpu(), ref.state_vals)
+
+
+def test_staged_upload_survives_its_source_being_overwritten(cuda):
+    """``_stage_next`` copies the batch into pinned staging before it
+    returns: overwriting the numpy array right after still routes the
+    original keys (an upload straight from the array would race the copy
+    engine)."""
+    batches = list(drifting_zipf(3, 65536, num_keys=20000, exponent=1.3, seed=6))
+    job = _stream_job(cuda, depth=2, trigger=1e9)
+    job.process_batch(batches[0])
+    src = batches[1].copy()
+    job._stage_next(src)
+    src[:] = batches[2]
+    m = job.process_batch(src)
+    assert m.pipelined
+    ref = _stream_job("cpu", overlap=False, trigger=1e9)
+    ref.run(batches[:2])
+    assert torch.equal(job.state_keys.cpu(), ref.state_keys)
+    assert torch.equal(job.state_vals.cpu(), ref.state_vals)

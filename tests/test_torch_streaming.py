@@ -8,9 +8,9 @@ The reference job's merge step (``StreamingJob._merge``, a
 first batch.  The tests therefore replace that attribute on the reference
 *instance* with the same ``jit(vmap(merge_into))`` applied to host copies of
 its five arguments — ``merge_into``'s own semantics, with no file of the
-reference changed.  The reference runs its serial driver
-(``overlap_exchange=False``): its overlapped driver is bit-identical in
-actions and state but reports ``state_rows`` as of the last drain.
+reference changed.  Both packages run their serial drivers
+(``overlap_exchange=False``); ``tests/test_torch_overlap.py`` holds the
+overlapped drivers to each other.
 """
 import dataclasses
 import json
@@ -33,11 +33,11 @@ from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.data.generators import drifting_zipf
 
-CFG = dict(imbalance_trigger=1.1, migration_cost_weight=0.2)
+CFG = dict(imbalance_trigger=1.1, migration_cost_weight=0.2, overlap_exchange=False)
 JOB = dict(num_partitions=8, state_capacity=16_384)
 STREAM = dict(num_keys=2000, exponent=1.3, drift_every=2, seed=0)
-# host walls differ run to run; the overlap flags describe the driver
-UNCOMPARED = {"wall_time_s", "exchange_wall_s", "overlapped", "pipelined"}
+# host walls differ run to run
+UNCOMPARED = {"wall_time_s", "exchange_wall_s"}
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -50,7 +50,7 @@ def _with_host_merge(job):
 def _reference_job(**kw):
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("data",))
     return _with_host_merge(JStreamingJob(
-        mesh=mesh, dr=JDRConfig(overlap_exchange=False, **CFG), **JOB, **kw))
+        mesh=mesh, dr=JDRConfig(**CFG), **JOB, **kw))
 
 
 def _port_job(**kw):
