@@ -121,6 +121,36 @@ Phases, in order; any failure raises and the script exits non-zero:
     phase 9's median prefill wall per request, decode wall per token and
     tokens per second.
 
+13. Hot-key splitting at phase 2's size: the phase-2 job with
+    ``split_keys_enabled=True`` over ``hotspot_flip(12, 4_194_304,
+    num_keys=1_000_000, exponent=1.3, flip_at=6)``, by each of the three
+    drivers.  Asserts a ``Split`` before batch 6 and an ``Unsplit`` after
+    it (its migration's lanes hold the whole state table), zero overflow,
+    exact counts of 64 sampled keys and of every key ever split, equal
+    trajectories and states, both kernels launched by each run; and, on
+    the depth-1 run, in each batch with a split installed: the telemetry's
+    replica rows equal ``split_replica_rows``, the loads the card counted
+    equal the home rows plus those replica rows, and each split key's rows
+    lie on its d partitions.  route_bucketize with the live split table and
+    lookup_dispatch on the unsplit's inputs against their plain versions;
+    the walls per batch, the repartition count, every migration (the
+    serial driver's synchronized) and lookup_dispatch's time on the
+    unsplit's inputs.  The same configuration over 16,384-record batches
+    on the card and on the CPU by each driver: identical.
+14. Elastic resize at phase 2's size: 8 workers from 16 partitions,
+    ``DRConfig(elastic=True, min_partitions=16, max_partitions=32,
+    grow_trigger=4.0, shrink_trigger=2.5, resize_patience=2, ...)`` over
+    ``sawtooth_skew(12, 4_194_304, num_keys=1_000_000, exponent=1.8,
+    period=4)``, batches 0-9 with ``resize(24)`` requested after batch 7,
+    by each driver: the grow 16 -> 32 at batch 1, the shrink 32 -> 16 at
+    batch 5 and the requested 16 -> 24 at batch 8, each migration routed
+    by lookup_dispatch; zero overflow, exact counts, equal drivers; each
+    resize batch's wall and migration rows.  Then the snapshot after batch
+    9 restored onto 4 workers x 524,288 rows on the card and batches 10-11
+    run there: zero overflow, counts exact over all 12 batches.  The same
+    configuration over 16,384-record batches on the card and on the CPU
+    by each driver: identical.
+
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
 """
@@ -138,6 +168,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+SENT = 2**31 - 1  # repro_torch.core.hashing.KEY_SENTINEL: a padded or empty key
+F32_EXACT = 2**24  # float32 state counts are exact below this
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (at the 700 W limit)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; f32
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -446,12 +478,14 @@ def busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def drive(job, name, batches, kernels) -> dict:
+def drive(job, name, batches, kernels, *, phase=2, after=None) -> dict:
     """Run ``batches`` through ``job`` (depth 1 batch by batch through
     ``process_batch``, the others through ``run``) with the kernels' launch
     counts and the host-sync audit set to 0 just before; time the run and
     one drain, synchronized, per batch (a synchronize after each batch
-    would fold the in-flight merge into every batch's wall).  Logs each
+    would fold the in-flight merge into every batch's wall).  ``after``,
+    where given, is ``(i, fn)``: ``fn(job)`` runs between batch ``i`` and
+    the next (``run`` is then called on each side of it).  Logs each
     batch, the telemetry's phase walls and the count walls of steady-state
     batches (no action at the batch or the one before); returns the
     metrics, the wall per batch, the launches and the audit."""
@@ -463,10 +497,7 @@ def drive(job, name, batches, kernels) -> dict:
         k.launches = 0
     compat.reset_host_sync_count()
     t = time.perf_counter()
-    if name.startswith("depth 1"):
-        ms = [job.process_batch(b) for b in batches]
-    else:
-        ms = job.run(batches)
+    ms = feed(job, name, batches, after)
     job.state_keys  # the drain
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) / len(batches) * 1e3
@@ -474,24 +505,26 @@ def drive(job, name, batches, kernels) -> dict:
     launches = {k.__name__: k.launches for k in kernels}
     for m in ms:
         log(f"  {name} batch {m.batch}: imbalance {m.imbalance:.4f} worker "
-            f"{m.worker_imbalance:.4f} {m.action} rel_mig {m.relative_migration:.4f} "
-            f"overflow {m.overflow} state_rows {m.state_rows} shipped {m.shipped_rows} "
-            f"pipelined {m.pipelined} exchange wall {m.exchange_wall_s * 1e3:.2f} ms host "
-            f"wall {m.wall_time_s * 1e3:.2f} ms overlap_fraction {m.overlap_fraction:.4f}")
+            f"{m.worker_imbalance:.4f} {m.action} ({m.reason}) partitions {m.num_partitions} "
+            f"split keys {m.split_keys} rel_mig {m.relative_migration:.4f} "
+            f"migration rows {m.migration_rows} overflow {m.overflow} state_rows "
+            f"{m.state_rows} shipped {m.shipped_rows} pipelined {m.pipelined} exchange wall "
+            f"{m.exchange_wall_s * 1e3:.2f} ms host wall {m.wall_time_s * 1e3:.2f} ms "
+            f"overlap_fraction {m.overlap_fraction:.4f}")
     assert all(m.overlapped == (not name.startswith("serial")) for m in ms), name
     steady = [m.exchange_wall_s * 1e3 for i, m in enumerate(ms)
               if i and m.action == "noop" and ms[i - 1].action == "noop"]
     shown = walls["hidden"] + walls["ship"]
-    log(f"phase 2: {name}: wall per batch {wall_ms:.2f} ms (run + one drain, synchronized, / "
-        f"{len(batches)}); host syncs outside safe points {syncs}; telemetry walls: count "
-        f"{walls['count'] * 1e3:.2f} ms, ship {walls['ship'] * 1e3:.2f} ms, hidden "
+    log(f"phase {phase}: {name}: wall per batch {wall_ms:.2f} ms (run + one drain, "
+        f"synchronized, / {len(batches)}); host syncs outside safe points {syncs}; telemetry "
+        f"walls: count {walls['count'] * 1e3:.2f} ms, ship {walls['ship'] * 1e3:.2f} ms, hidden "
         f"{walls['hidden'] * 1e3:.2f} ms, hidden / (hidden + ship) "
         f"{walls['hidden'] / shown if shown else 0.0:.4f}; steady-state count walls (ms) "
         f"{[round(x, 3) for x in steady]}")
     return dict(job=job, ms=ms, wall_ms=wall_ms, launches=launches, syncs=syncs)
 
 
-def assert_same_drivers(runs) -> None:
+def assert_same_drivers(runs, phase=2) -> None:
     """Serial, depth 1 and depth 2 (``runs[name]["ms"]`` / ``["job"]``): equal
     metrics but for the walls, ``overlap_fraction`` (a ratio of walls) and,
     against serial, ``state_rows`` (overlapped: as of the last drain) and
@@ -507,7 +540,7 @@ def assert_same_drivers(runs) -> None:
             assert not diff, (x, y, a.batch, diff)
         for t in ("state_keys", "state_vals"):
             assert torch.equal(getattr(runs[x]["job"], t), getattr(runs[y]["job"], t)), (x, y, t)
-    log(f"phase 2: serial, depth 1 and depth 2: {len(runs['serial']['ms'])} batches, "
+    log(f"phase {phase}: serial, depth 1 and depth 2: {len(runs['serial']['ms'])} batches, "
         f"trajectories equal (walls, state_rows and the drivers' flags apart; depth 1 == "
         f"depth 2 in state_rows too), final states equal")
 
@@ -843,29 +876,8 @@ def main() -> int:
     # ---- phase 4: card against CPU -------------------------------------
     small = list(drifting_zipf(6, 65_536, num_keys=50_000, exponent=1.3,
                                drift_every=2, seed=1))
-    for driver, extra in DRIVERS.items():
-        pair = {}
-        for device in ("cuda", "cpu"):
-            j = StreamingJob(device=device, dr=DRConfig(**dr_kw, **extra), **job_kw)
-            if driver == "depth 1":
-                for b in small:
-                    j.process_batch(b)
-            else:
-                j.run(small)
-            pair[device] = j
-        # overlap_fraction is a ratio of host walls
-        skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
-        for a, b in zip(pair["cuda"].metrics, pair["cpu"].metrics):
-            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
-            diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
-            assert not diff, (driver, a.batch, diff)
-        for name in ("state_keys", "state_vals"):
-            assert torch.equal(getattr(pair["cuda"], name).cpu(),
-                               getattr(pair["cpu"], name)), (driver, name)
-        log(f"phase 4: {driver}: card and CPU trajectories identical over {len(small)} "
-            f"batches (repartitions {sum(m.repartitioned for m in pair['cpu'].metrics)}, "
-            f"pipelined {sum(m.pipelined for m in pair['cpu'].metrics)}), state equal")
-        del pair
+    card_equals_cpu(lambda device, driver: StreamingJob(
+        device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 4)
 
     # ---- phase 5: times --------------------------------------------------
     hk, hp, hr = padded(part, n_part=32, pad_empty=True)
@@ -934,12 +946,344 @@ def main() -> int:
     kernels += batch_phases(dev, sent)
     torch.cuda.empty_cache()
     kernels += serve_phases(dev, card)
+    torch.cuda.empty_cache()
+    split_phase(dev, card)
+    elastic_phase(dev, card)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def capture_signals(job) -> list:
+    """``(partitioner, loads, exchange_replica_rows)`` of each safe point the
+    job's telemetry snapshots from here on: the partitioner that routed the
+    batch, the loads the card counted, the replica rows the host twin
+    recorded."""
+    seen = []
+    snapshot = job.telemetry.snapshot
+
+    def recording(*a, **k):
+        sig = snapshot(*a, **k)
+        seen.append((job.drm.partitioner, sig.loads, sig.exchange_replica_rows))
+        return sig
+
+    job.telemetry.snapshot = recording
+    return seen
+
+
+def record_migrations(job, *, sync: bool) -> list:
+    """One record a migration from here on: the batch, whether its lanes had
+    the whole state table (an unsplit), its buffer and planned rows, the
+    lookup_dispatch launches it made and, with ``sync``, its wall with the
+    card synchronized before and after (state fetch, plan, route, ship and
+    merge); the unsplit's inputs ride along for timing lookup_dispatch."""
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+
+    out = []
+    migrate = job._migrate_state
+
+    def recording(old, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        launched = lookup_dispatch.launches
+        inputs = (job.drm.partitioner, job.state_keys.clone()) if kw.get("full_lanes") else None
+        res = migrate(old, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        out.append(dict(batch=len(job.metrics), full_lanes=bool(kw.get("full_lanes")),
+                        ms=(time.perf_counter() - t) * 1e3 if sync else None,
+                        rows=res[2], plan_rows=res[3],
+                        launches=lookup_dispatch.launches - launched, inputs=inputs))
+        return res
+
+    job._migrate_state = recording
+    return out
+
+
+def feed(job, name, batches, after=None) -> list:
+    """``job``'s metrics over ``batches``: depth 1 batch by batch through
+    ``process_batch``, the other drivers through ``run``; ``after`` as in
+    ``drive``."""
+    segments = [batches] if after is None else [batches[: after[0] + 1],
+                                                batches[after[0] + 1:]]
+    ms = []
+    for i, seg in enumerate(segments):
+        if i:
+            after[1](job)
+        if name.startswith("depth 1"):
+            ms += [job.process_batch(b) for b in seg]
+        else:
+            ms += job.run(seg)
+    return ms
+
+
+def card_equals_cpu(make, batches, phase, after=None) -> None:
+    """``make(device, driver)``'s job over ``batches`` on the card and on the
+    CPU, by each of the three drivers: identical per-batch metrics (but the
+    walls and ``overlap_fraction``, a ratio of walls) and final state."""
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    for driver in DRIVERS:
+        pair = {device: make(device, driver) for device in ("cuda", "cpu")}
+        runs = {device: feed(job, driver, batches, after) for device, job in pair.items()}
+        for a, b in zip(runs["cuda"], runs["cpu"], strict=True):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
+            assert not diff, (phase, driver, a.batch, diff)
+        for t in ("state_keys", "state_vals"):
+            assert torch.equal(getattr(pair["cuda"], t).cpu(), getattr(pair["cpu"], t)), (
+                phase, driver, t)
+        actions = [m.action for m in runs["cpu"]]
+        log(f"phase {phase}: {driver}: card and CPU trajectories identical over {len(batches)} "
+            f"batches of {len(batches[0]):,} records (actions "
+            f"{ {a: actions.count(a) for a in sorted(set(actions))} }, pipelined "
+            f"{sum(m.pipelined for m in runs['cpu'])}), state equal")
+
+
+def sample_keys(batches, dev, n=64):
+    """``(keys, counts)`` of the stream's heaviest key and ``n - 1`` others
+    drawn with a seeded generator, counted on the card."""
+    uniq, counts = torch.unique(torch.as_tensor(np.concatenate(batches), device=dev),
+                                return_counts=True)
+    pick = np.concatenate([[int(torch.argmax(counts))],
+                           np.random.default_rng(0).choice(len(uniq), n - 1, replace=False)])
+    return [(int(uniq[i]), float(counts[i])) for i in pick]
+
+
+def count_of(batches, key) -> float:
+    return float(sum(int((b == key).sum()) for b in batches))
+
+
+def split_phase(dev, card) -> None:
+    """Phase 13: hot-key splitting at phase 2's size."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.partitioner import split_replica_rows
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import hotspot_flip
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+    from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+
+    kernels = (route_bucketize, lookup_dispatch)
+    job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
+                  capacity_factor=2.0)
+    dr_kw = dict(imbalance_trigger=1.2, migration_cost_weight=0.2, split_keys_enabled=True)
+    stream = dict(num_keys=1_000_000, exponent=1.3, flip_at=6, seed=0)
+    t = time.perf_counter()
+    batches = list(hotspot_flip(12, 4_194_304, **stream))
+    log(f"phase 13: generated 12 x 4,194,304 keys (hot set flips at batch 6) in "
+        f"{time.perf_counter() - t:.1f} s")
+    sampled = sample_keys(batches, dev)
+    runs, migrations = {}, {}
+    for name, extra in DRIVERS.items():
+        job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw)
+        seen = capture_signals(job)
+        migrations[name] = record_migrations(job, sync=name == "serial")
+        r = runs[name] = drive(job, name, batches, kernels, phase=13)
+        ms = r["ms"]
+        actions = [m.action for m in ms]
+        assert any(a == "split" for a in actions[:6]), actions
+        assert any(a == "unsplit" for a in actions[6:]), actions
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        ever_split = sorted({h["split"][1] for h in job.drm.history if "split" in h})
+        for key, want in sampled + [(k, count_of(batches, k)) for k in ever_split]:
+            got = job.state_count(key)
+            assert got == want, (name, key, got, want)
+        assert all(v > 0 for v in r["launches"].values()), (name, r["launches"])
+        unsplits = [mg for mg in migrations[name] if mg["full_lanes"]]
+        assert unsplits and all(mg["rows"] == 8 * job.state_capacity for mg in unsplits)
+        assert all(m.migration_rows == 8 * job.state_capacity
+                   for m in ms if m.action == "unsplit")
+        log(f"phase 13: {name}: splits at batches "
+            f"{[i for i, a in enumerate(actions) if a == 'split']}, unsplits at "
+            f"{[i for i, a in enumerate(actions) if a == 'unsplit']}, repartitions at "
+            f"{[i for i, a in enumerate(actions) if a == 'repartition']} "
+            f"({actions.count('repartition')} of {len(ms)}; phase 2: 8 of 8); keys split "
+            f"{ever_split}; exact counts of {len(sampled)} sampled keys and every key ever "
+            f"split; launches {r['launches']}")
+        if name == "depth 1":
+            # the card's route against the host twin, batch by batch: the
+            # loads the card counted are the home rows of the unsplit keys
+            # plus the split keys' replica rows, and each split key's rows
+            # land on exactly its d partitions
+            checked = spread_keys = 0
+            twin_ms = []
+            for i, (part, loads, replica_rows) in enumerate(seen):
+                smap = part.split_map()
+                if not smap:
+                    assert replica_rows is None, i
+                    continue
+                keys = batches[i].astype(np.int32)
+                t = time.perf_counter()
+                want = split_replica_rows(part, keys, 8, keys != SENT)  # as the driver calls it
+                twin_ms.append((time.perf_counter() - t) * 1e3)
+                assert np.array_equal(replica_rows, want), i
+                home = part.lookup_np(keys)
+                plain = ~np.isin(keys, np.asarray(list(smap), np.int32))
+                n = part.num_partitions
+                assert np.array_equal(
+                    loads, np.bincount(home[plain], minlength=n) + want), i
+                for key, d in smap.items():
+                    rows = split_replica_rows(part, keys, 8, keys == key)
+                    at = int(part.lookup_np(np.asarray([key], np.int32))[0])
+                    spread = {(at + r) % n for r in range(d)}
+                    assert set(np.flatnonzero(rows)) <= spread, (i, key, d, rows)
+                    if rows.sum() >= 100 * d:  # a key gone cold may miss a replica
+                        assert np.count_nonzero(rows) == d, (i, key, d, rows)
+                        spread_keys += 1
+                checked += 1
+            assert checked and spread_keys, (checked, spread_keys)
+            log(f"phase 13: depth 1: in each of the {checked} batches with splits installed "
+                f"the telemetry's replica rows equal split_replica_rows, the card's loads equal "
+                f"the home rows plus the replica rows, and each split key's rows lie on its d "
+                f"partitions ({spread_keys} batch-keys with at least 100 rows a replica on all "
+                f"d of them); the host twin over a batch: median {statistics.median(twin_ms):.2f} "
+                f"ms, {min(twin_ms):.2f}-{max(twin_ms):.2f} ms")
+    assert_same_drivers(runs, phase=13)
+    job = runs["serial"]["job"]
+    part = job.drm.partitioner
+    # the live split table at a batch's shape: kernel against plain version
+    hk, hp, hr = ops.pad_heavy_tables(part.tables(dev), num_partitions=32, pad_empty=True)
+    w = job.num_workers
+    keys = torch.as_tensor(batches[-1].astype(np.int32), device=dev).reshape(w, -1)
+    valid = keys != SENT
+    vals = torch.ones(keys.shape + (1,), dtype=torch.float32, device=dev)
+    args = (keys, valid, vals, hk, hp, part.tables(dev).host_to_part, hr)
+    kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w,
+              capacity=job._shuffle_spec.capacity, key_fill=SENT, num_partitions=32)
+    got, want = route_bucketize(*args, **kw), route_bucketize_plain(*args, **kw)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    del got, want
+    log(f"phase 13: route_bucketize with the live split table {part.split_map()} at W={w} "
+        f"n={keys.shape[1]}: equal to its plain version")
+    unsplit = [mg for mg in migrations["serial"] if mg["full_lanes"]][0]
+    upart, ukeys = unsplit["inputs"]
+    lk, lp, _ = ops.pad_heavy_tables(upart.tables(dev), num_partitions=0, pad_empty=False)
+    ld_args = (ukeys, ukeys != SENT, lk, lp, upart.tables(dev).host_to_part, None)
+    ld_kw = dict(seed=upart.seed, num_hosts=upart.num_hosts, num_lanes=w, num_partitions=0)
+    got, want = lookup_dispatch(*ld_args, **ld_kw), lookup_dispatch_plain(*ld_args, **ld_kw)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    ld_ms = cuda_ms(lambda: lookup_dispatch(*ld_args, **ld_kw))
+    ld_dev = own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
+                             DEVICE_NAMES["lookup_dispatch"])[0]
+    for name in DRIVERS:
+        mgs = migrations[name]
+        log(f"phase 13: {name}: migrations (batch, full lanes, buffer rows, planned rows, "
+            f"lookup_dispatch launches"
+            f"{', ms synchronized' if name == 'serial' else ''}): "
+            f"{[(mg['batch'], mg['full_lanes'], mg['rows'], mg['plan_rows'], mg['launches']) + ((round(mg['ms'], 2),) if mg['ms'] is not None else ()) for mg in mgs]}")
+    log(f"phase 13: the unsplit migration at batch {unsplit['batch']} (serial): lane capacity "
+        f"{unsplit['rows'] // w:,} rows ({unsplit['rows']:,} buffer rows a worker), wall "
+        f"{unsplit['ms']:.2f} ms synchronized; lookup_dispatch on its inputs (W={w}, "
+        f"n={ukeys.shape[1]:,}) equal to its plain version, {ld_ms:.4f} ms by events around "
+        f"one call, device time {ld_dev:.4f} ms; card {card}")
+    for name, r in runs.items():
+        log(f"phase 13: {name}: wall per batch {r['wall_ms']:.2f} ms over {len(batches)} "
+            f"batches; card {card}")
+    del runs, migrations, job, upart, ukeys, ld_args, got, want
+    torch.cuda.empty_cache()
+
+    small = list(hotspot_flip(12, 16_384, **stream))
+    card_equals_cpu(lambda device, driver: StreamingJob(
+        device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 13)
+
+
+def elastic_phase(dev, card) -> None:
+    """Phase 14: elastic grow and shrink at phase 2's size, then a restore
+    across worker counts."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import sawtooth_skew
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+    from repro_torch.kernels.route_bucketize import route_bucketize
+
+    kernels = (route_bucketize, lookup_dispatch)
+    job_kw = dict(num_workers=8, num_partitions=16, state_capacity=262_144,
+                  capacity_factor=2.0)
+    # examples/streaming_wordcount.py's elastic knobs, partition bounds for 8
+    # workers; triggers 4.0 / 2.5 (the example's 1.6 / 1.3 never shrink here:
+    # the grow leaves the heavy keys' 16 partitions without hash hosts, so
+    # the flat batches read an imbalance of 2.0)
+    dr_kw = dict(elastic=True, min_partitions=16, max_partitions=32, grow_trigger=4.0,
+                 shrink_trigger=2.5, resize_patience=2, imbalance_trigger=1.2,
+                 migration_cost_weight=0.1)
+    stream = dict(num_keys=1_000_000, exponent=1.8, period=4, seed=0)
+    after = (7, lambda job: job.resize(24))  # applied at batch 8's safe point
+    t = time.perf_counter()
+    batches = list(sawtooth_skew(12, 4_194_304, **stream))
+    log(f"phase 14: generated 12 x 4,194,304 keys (hard Zipf 0-3 and 8-11, flat 4-7) in "
+        f"{time.perf_counter() - t:.1f} s")
+    first = batches[:10]
+    sampled = sample_keys(first, dev)
+    runs, migrations = {}, {}
+    for name, extra in DRIVERS.items():
+        job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw)
+        migrations[name] = record_migrations(job, sync=name == "serial")
+        r = runs[name] = drive(job, name, first, kernels, phase=14, after=after)
+        ms = r["ms"]
+        resized = [(m.batch, m.reason) for m in ms if m.resized]
+        assert resized == [(1, "resize 16->32"), (5, "resize 32->16"), (8, "resize 16->24")], (
+            name, resized)
+        assert [m.num_partitions for m in ms] == [16] + [32] * 4 + [16] * 3 + [24] * 2, name
+        mgs = {mg["batch"]: mg for mg in migrations[name]}
+        assert all(mgs[b]["launches"] >= 1 for b, _ in resized), (name, migrations[name])
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        for key, want in sampled:
+            got = job.state_count(key)
+            assert got == want, (name, key, got, want)
+        assert all(v > 0 for v in r["launches"].values()), (name, r["launches"])
+        log(f"phase 14: {name}: resizes {resized}; exact counts of {len(sampled)} sampled "
+            f"keys; launches {r['launches']}")
+        for b, reason in resized:
+            m, mg = ms[b], mgs[b]
+            log(f"phase 14: {name}: batch {b} ({reason}): host wall {m.wall_time_s * 1e3:.2f} "
+                f"ms, migration rows {m.migration_rows:,} (planned {m.migration_plan_rows:,}, "
+                f"relative migration {m.relative_migration:.4f}), lookup_dispatch launches "
+                f"{mg['launches']}"
+                + (f", migration wall {mg['ms']:.2f} ms synchronized" if mg["ms"] else "")
+                + f"; card {card}")
+    assert_same_drivers(runs, phase=14)
+    for name, r in runs.items():
+        log(f"phase 14: {name}: wall per batch {r['wall_ms']:.2f} ms over {len(first)} batches; "
+            f"card {card}")
+    # the 8-worker job's state after batch 9, at 24 partitions, onto 4
+    # workers (about 1M live keys do not fit 4 x 262,144 rows)
+    snap = runs["depth 1"]["job"].snapshot()
+    del runs, migrations
+    torch.cuda.empty_cache()
+    live = int((np.asarray(snap["state_keys"]) != SENT).sum())
+    t = time.perf_counter()
+    job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw), num_workers=4, num_partitions=16,
+                       state_capacity=524_288, capacity_factor=2.0)
+    job.restore(snap)
+    restore_ms = (time.perf_counter() - t) * 1e3
+    assert job.num_partitions == 24 and job._last_state_rows == live, (job.num_partitions, live)
+    ms = [job.process_batch(b) for b in batches[10:]]
+    assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+    # a float32 count is exact up to 2**24; past it adding a record's 1.0
+    # no longer changes it (the state's payload is float32, as in the
+    # reference), so keys fed more often are logged, not compared
+    sampled = sample_keys(batches, dev)
+    beyond = [(key, want, job.state_count(key)) for key, want in sampled if want >= F32_EXACT]
+    for key, want in sampled:
+        if want < F32_EXACT:
+            got = job.state_count(key)
+            assert got == want, ("restored", key, got, want)
+    log(f"phase 14: restored the 8-worker snapshot ({live:,} live keys, 24 partitions) onto 4 "
+        f"workers x 524,288 rows in {restore_ms:.1f} ms, then batches 10-11 "
+        f"({[(m.action, m.num_partitions) for m in ms]}): zero overflow, exact counts over all "
+        f"12 batches of the {len(sampled) - len(beyond)} sampled keys fed fewer than 2**24 "
+        f"times; past float32's exact range (key, records, state): {beyond}")
+    del job, snap
+    torch.cuda.empty_cache()
+
+    small = list(sawtooth_skew(12, 16_384, **stream))[:10]
+    card_equals_cpu(lambda device, driver: StreamingJob(
+        device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 14,
+        after=after)
 
 
 def batch_phases(dev, sent) -> list[dict]:

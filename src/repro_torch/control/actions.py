@@ -1,6 +1,6 @@
 """Typed actions the policy stack returns to its drivers (all of the
-reference's action classes; the streaming slice executes ``NoOp`` and
-``Repartition``).
+reference's action classes; the streaming driver executes ``NoOp``,
+``Repartition``, ``Resize``, ``Split`` and ``Unsplit``).
 
 A policy never mutates the runtime: it returns an :class:`Action` and the
 driver (``StreamingJob``, ``DRScheduler``, the MoE train loop) executes it

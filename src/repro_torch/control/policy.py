@@ -6,10 +6,22 @@
   sizing rule on the candidate plan
   (:func:`repro_torch.core.migration.exchange_lane_cost`).  A port of
   ``repro.control.policy.RepartitionPolicy``, bit for bit.
-* :class:`ResizePolicy`, :class:`SplitPolicy`, :class:`BackendPolicy` —
-  only their disabled branches are ported: with their ``DRConfig`` flag
-  off (the default) each returns its ``NoOp`` reason, exactly as the
-  reference does; the enabled policies are not ported yet.
+* :class:`ResizePolicy` — the same trigger one level up: sustained
+  imbalance grows the topology; sustained balance (or, inside the trigger
+  dead zone, per-worker throughput below the capacity target) shrinks it.
+  Patience streaks, a :class:`CooldownGuard` and the
+  ``shrink_trigger < grow_trigger`` dead zone give it hysteresis.
+* :class:`SplitPolicy` — Partial-Key-Grouping as a control action: when the
+  hottest key alone exceeds ``split_trigger`` fair budgets, no repartition
+  can help, so the key is replicated over ``d`` consecutive partitions,
+  priced like every other action (the relief ``share * (1 - 1/d)`` must pay
+  for the replica -> home backhaul plan's lane cost).  A key cooled below
+  ``unsplit_trigger`` collapses first, through a home-routed migration.
+* :class:`BackendPolicy` — only its disabled branch is ported: with
+  ``auto_backend`` off (the default) it returns its ``NoOp`` reason, as the
+  reference does.
+
+Each is a port of its ``repro.control.policy`` namesake, bit for bit.
 
 Policies are stateless evaluators over a *host* (``DRMaster``) that
 carries the durable decision state (sketch, streaks, last-action ticks).
@@ -20,9 +32,9 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.control.actions import Action, NoOp, Repartition
+from repro_torch.control.actions import Action, NoOp, Repartition, Resize, Split, Unsplit
 from repro_torch.control.signals import Signals
-from repro_torch.core.migration import exchange_lane_cost, plan_migration
+from repro_torch.core.migration import MigrationPlan, exchange_lane_cost, plan_migration
 from repro_torch.core.partitioner import expected_loads, heavy_capacity_for, kip_update
 
 __all__ = [
@@ -114,28 +126,148 @@ class RepartitionPolicy:
         )
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
-
-
 class ResizePolicy:
-    """Elastic grow/shrink; only the disabled branch is ported."""
+    """Elastic grow/shrink on sustained imbalance or idle throughput (see
+    the module docstring).  The streaks live on the host (``grow_streak``,
+    ``shrink_streak``), so snapshots carry them."""
 
     def evaluate(self, host, signals: Signals) -> Action:
-        if not host.config.elastic:
+        cfg = host.config
+        if not cfg.elastic:
             return NoOp("elastic-disabled")
-        raise _not_ported("the elastic ResizePolicy", 6)
+        n = host.partitioner.num_partitions
+        imb = signals.imbalance
+        floor = max(cfg.min_partitions, signals.num_workers)
+        # throughput below the capacity target: the stream is idle even if
+        # balanced, and over-partitioning is pure overhead
+        low_throughput = (
+            cfg.target_throughput > 0.0
+            and signals.throughput > 0.0
+            and signals.per_worker_throughput < cfg.target_throughput
+        )
+        guard = CooldownGuard(cfg.resize_cooldown)
+        if imb >= cfg.grow_trigger and n < cfg.max_partitions:
+            host.grow_streak += 1
+            host.shrink_streak = 0
+            if host.grow_streak >= cfg.resize_patience:
+                if not guard.ready(host.batches_seen, host.last_resize):
+                    return NoOp("resize-cooldown", imb, imb)
+                host.grow_streak = 0
+                target = min(n * cfg.resize_factor, cfg.max_partitions)
+                return Resize(reason=f"resize {n}->{target}", target=target)
+            return NoOp(f"grow-patience {host.grow_streak}/{cfg.resize_patience}",
+                        imb, imb)
+        elif ((imb <= cfg.shrink_trigger
+               or (low_throughput and imb < cfg.grow_trigger)) and n > floor):
+            # the low-throughput shrink covers the trigger dead zone only: a
+            # hot-spotted stream at max_partitions is never shrunk for idling
+            host.shrink_streak += 1
+            host.grow_streak = 0
+            if host.shrink_streak >= cfg.resize_patience:
+                if not guard.ready(host.batches_seen, host.last_resize):
+                    return NoOp("resize-cooldown", imb, imb)
+                host.shrink_streak = 0
+                target = max(n // cfg.resize_factor, floor)
+                return Resize(reason=f"resize {n}->{target}", target=target)
+            return NoOp(f"shrink-patience {host.shrink_streak}/{cfg.resize_patience}",
+                        imb, imb)
+        else:
+            host.grow_streak = host.shrink_streak = 0
+        if imb >= cfg.grow_trigger:
+            return NoOp("at-max", imb, imb)
+        if imb <= cfg.shrink_trigger or low_throughput:
+            return NoOp("at-floor", imb, imb)
+        return NoOp("dead-zone", imb, imb)
 
 
 class SplitPolicy:
-    """Hot-key splitting; only the disabled branch is ported."""
+    """Hot-key splitting and un-splitting over the DR master's sketch (see
+    the module docstring).  The streak, the cooldown stamp and the installed
+    replica map live on the host (``split_streak``, ``last_split``,
+    ``split_keys``), so snapshots carry them.  The policy only decides: the
+    host stamps the replica table on a taken :class:`Split`, and the driver
+    runs a taken :class:`Unsplit` as a home-routed state migration whose
+    merge sums the scattered partials."""
 
     def evaluate(self, host, signals: Signals) -> Action:
+        cfg = host.config
         imb = signals.imbalance
-        if not host.config.split_keys_enabled:
+        if not cfg.split_keys_enabled:
             return NoOp("split-disabled", imb, imb)
-        raise _not_ported("the hot-key SplitPolicy", 6)
+        n = host.partitioner.num_partitions
+        hist = host.sketch.histogram(top_b=int(cfg.lam * n))
+        if len(hist) == 0:
+            return NoOp("split-no-histogram", imb, imb)
+        splits = host.split_keys
+        guard = CooldownGuard(cfg.split_cooldown)
+        # a key's load in fair-budget units: freq * N is 1.0 when the key
+        # fills exactly one partition's even share
+        share = {int(k): float(f) * n for k, f in zip(hist.keys, hist.freqs)}
+
+        # unsplit first: a cooled key collapses (merging its partials)
+        # before any new split may fire
+        for k in sorted(splits):
+            if share.get(k, 0.0) < cfg.unsplit_trigger:
+                host.split_streak += 1
+                if host.split_streak < cfg.split_patience:
+                    return NoOp(
+                        f"split-patience {host.split_streak}/{cfg.split_patience}",
+                        imb, imb)
+                if not guard.ready(host.batches_seen, host.last_split):
+                    return NoOp("split-cooldown", imb, imb)
+                return Unsplit(
+                    reason=(f"unsplit key {k} (share {share.get(k, 0.0):.2f} < "
+                            f"{cfg.unsplit_trigger})"),
+                    key=k, prev=host.partitioner)
+
+        # split: the hottest key not yet split whose load alone exceeds one
+        # worker's budget (moving such a key cannot balance it)
+        top_key, top_share = None, 0.0
+        for k, f in zip(hist.keys, hist.freqs):
+            if int(k) not in splits:
+                top_key, top_share = int(k), float(f) * n
+                break
+        if top_key is None or top_share <= cfg.split_trigger or n < 2:
+            host.split_streak = 0
+            return NoOp(f"split-dead-zone {top_share:.2f}", imb, imb)
+        host.split_streak += 1
+        if host.split_streak < cfg.split_patience:
+            return NoOp(f"split-patience {host.split_streak}/{cfg.split_patience}",
+                        imb, imb)
+        if not guard.ready(host.batches_seen, host.last_split):
+            return NoOp("split-cooldown", imb, imb)
+        # enough replicas to bring the per-replica share under budget
+        d = int(min(max(2, int(np.ceil(top_share))), cfg.split_max_replicas, n))
+        home = int(host.partitioner.lookup_np(np.asarray([top_key], np.int32))[0])
+        # the relief must pay for the merge backhaul the split commits to:
+        # each replica ships its partial home, f/d mass replica -> home,
+        # priced by the transport's sizing rule like a repartition plan
+        f = top_share / n
+        transfer = np.zeros((n, n))
+        repls = (home + np.arange(1, d)) % n
+        np.add.at(transfer, (repls, np.full(d - 1, home)), f / d)
+        plan = MigrationPlan(
+            keys=np.full(d - 1, top_key, np.int64),
+            src=repls.astype(np.int32),
+            dst=np.full(d - 1, home, np.int32),
+            weights=np.full(d - 1, f / d),
+            transfer=transfer,
+            relative_migration=0.0,
+            num_src=n, num_dst=n,
+        )
+        est = exchange_lane_cost(plan, num_workers=signals.num_workers,
+                                 backend=getattr(host, "exchange_backend", None),
+                                 topology=getattr(host, "exchange_topology", None))
+        relief = top_share * (1.0 - 1.0 / d)
+        cost = cfg.migration_cost_weight * est
+        if relief <= cost:
+            return NoOp(f"split relief {relief:.3f} <= cost {cost:.3f}", imb, imb, est)
+        return Split(
+            reason=(f"split key {top_key} x{d} (share {top_share:.2f} > "
+                    f"{cfg.split_trigger})"),
+            key=top_key, replicas=d, home=home,
+            top_share=top_share, est_relief=relief, est_migration=est,
+        )
 
 
 class BackendPolicy:
@@ -146,4 +278,5 @@ class BackendPolicy:
         imb = signals.imbalance
         if not host.config.auto_backend:
             return NoOp("auto-backend-disabled", imb, imb)
-        raise _not_ported("the BackendPolicy", 6)
+        raise NotImplementedError(
+            "the BackendPolicy is not ported yet (ROADMAP.md, queue 1 item 6)")

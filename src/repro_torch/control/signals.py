@@ -13,9 +13,9 @@ window.
 Only the fields the ported consumers record are ported: the streaming
 drivers' (serial and overlapped: the count, ship and hidden walls behind
 ``overlap_fraction``), and the serving scheduler's replica queue depths,
-count-phase wall and per-backend wall EWMA.  The split-key,
-per-distance-class and fault vectors arrive with their features
-(ROADMAP.md, queue 1).
+count-phase wall and per-backend wall EWMA, and the rows split hot keys
+landed on each partition.  The per-distance-class and fault vectors arrive
+with their features (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -63,6 +63,9 @@ class Signals:
     backend_wall_ewma: dict | None = None  # backend name -> EWMA of exchange
                                            # wall (long-lived, not windowed)
     lane_overflow: np.ndarray | None = None  # int64[L] capacity drops per lane
+    exchange_replica_rows: np.ndarray | None = None  # int64[N] rows landed per
+                                           # partition from *split* hot keys
+                                           # this window (None: nothing split)
     queue_depths: np.ndarray | None = None # serving replica queue depths
     degenerate_walls: int = 0              # NaN/negative wall samples clamped
                                            # to zero this window
@@ -89,6 +92,12 @@ class Signals:
         if w.size == 0 or not w.sum():
             return 1.0
         return float(w.max() / max(w.mean(), 1e-12))
+
+    @property
+    def per_worker_throughput(self) -> float:
+        """Records/s each worker sustained, against the capacity target
+        (``DRConfig.target_throughput``)."""
+        return self.throughput / max(self.num_workers, 1)
 
     @property
     def overlap_fraction(self) -> float:
@@ -142,6 +151,7 @@ class Telemetry:
         self._hidden_wall_s = 0.0
         self._degenerate_walls = 0
         self._lane_overflow: np.ndarray | None = None
+        self._replica_rows: np.ndarray | None = None
         self._queues: np.ndarray | None = None
         # exchanges recorded this window whose count fields may still live
         # on device — folded (one host fetch each) at the next snapshot, so
@@ -196,6 +206,20 @@ class Telemetry:
             return 0.0
         return w
 
+    @staticmethod
+    def _fold_vector(acc: np.ndarray | None, v) -> np.ndarray:
+        """Accumulate a per-lane or per-partition vector over the window; a
+        width change mid-window (a resize) folds both onto the wider one."""
+        v = np.asarray(host_fetch(v), np.int64)
+        if acc is None:
+            return v.copy()
+        if len(v) == len(acc):
+            return acc + v
+        out = np.zeros(max(len(v), len(acc)), np.int64)
+        out[: len(acc)] += acc
+        out[: len(v)] += v
+        return out
+
     def _flush_pending(self) -> None:
         """Fold the queued exchange records' count fields — the one place
         device telemetry becomes host ints, inside a safe-point region."""
@@ -216,9 +240,11 @@ class Telemetry:
                     else self._exchange_occupied_rows + add
                 )
                 if stats.lane_overflow is not None:
-                    v = np.asarray(host_fetch(stats.lane_overflow), np.int64)
-                    self._lane_overflow = (v.copy() if self._lane_overflow is None
-                                           else self._lane_overflow + v)
+                    self._lane_overflow = self._fold_vector(self._lane_overflow,
+                                                            stats.lane_overflow)
+                if stats.replica_rows is not None:
+                    self._replica_rows = self._fold_vector(self._replica_rows,
+                                                           stats.replica_rows)
         self._pending_stats.clear()
 
     def record_overflow(self, shuffle: int = 0, migration: int = 0) -> None:
@@ -258,6 +284,7 @@ class Telemetry:
             exchange_hidden_wall_s=self._hidden_wall_s,
             backend_wall_ewma=dict(self.wall_ewma) if self.wall_ewma else None,
             lane_overflow=self._lane_overflow,
+            exchange_replica_rows=self._replica_rows,
             queue_depths=self._queues,
             degenerate_walls=self._degenerate_walls,
             state_rows=int(state_rows),

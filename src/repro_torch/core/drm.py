@@ -5,16 +5,18 @@ Lives in the driver process.  Per safe point it
 1. merges the DRW local histograms into the global counter sketch,
 2. runs the policy stack over the window's
    :class:`~repro_torch.control.Signals` (``evaluate``) in the reference's
-   precedence — health, resize, split, repartition, backend — and
+   precedence — an explicit resize request, then health, resize, split,
+   repartition, backend — and
 3. records every decision, declined ones included, in the
-   :class:`~repro_torch.control.DecisionLog`, handing taken actions back to
-   the driver to execute at the safe point.
+   :class:`~repro_torch.control.DecisionLog`, installing a taken
+   repartition, split or unsplit and handing every taken action back to the
+   driver to execute at the safe point (a resize re-plans through
+   :meth:`DRMaster.replan_resize`).
 
-A port of ``repro.core.drm`` for the default-config path: every
-``DRConfig`` field and its validation are copied; the features the slice
-does not run yet (:data:`UNPORTED`) raise ``NotImplementedError`` at
-construction.  Snapshots carry the reference's keys, so they round-trip
-between the packages.
+A port of ``repro.core.drm``: every ``DRConfig`` field and its validation
+are copied; the features the port does not run yet (:data:`UNPORTED`)
+raise ``NotImplementedError`` at construction.  Snapshots carry the
+reference's keys, so they round-trip between the packages.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.control.actions import Action, NoOp, Repartition
+from repro_torch.control.actions import Action, NoOp, Repartition, Resize, Split, Unsplit
 from repro_torch.control.health import HealthPolicy
 from repro_torch.control.log import DecisionLog
 from repro_torch.control.policy import (
@@ -33,7 +35,7 @@ from repro_torch.control.policy import (
 )
 from repro_torch.control.signals import Signals
 from repro_torch.core.histogram import CounterSketch
-from repro_torch.core.partitioner import Partitioner
+from repro_torch.core.partitioner import Partitioner, heavy_capacity_for, resize_partitioner
 from repro_torch.exchange.backends import resolve_backend
 
 __all__ = ["DRConfig", "DRDecision", "DRMaster", "UNPORTED"]
@@ -65,9 +67,8 @@ class DRConfig:
       two hashed replica candidates (not ported yet).
 
     Every field and its validation are the reference's; the port's
-    :class:`DRMaster` runs the default-config path and raises
-    ``NotImplementedError`` for the features it does not run yet (see
-    :data:`UNPORTED`).
+    :class:`DRMaster` raises ``NotImplementedError`` for the features it
+    does not run yet (see :data:`UNPORTED`).
     """
 
     lam: float = 2.0                 # histogram scale factor: B = lam * N
@@ -199,8 +200,6 @@ class DRDecision:
 
 # (DRConfig field, test that it asks for an unported feature, ROADMAP item)
 UNPORTED = (
-    ("elastic", lambda v: bool(v), "queue 1 item 6 (ResizePolicy)"),
-    ("split_keys_enabled", lambda v: bool(v), "queue 1 item 6 (SplitPolicy)"),
     ("auto_backend", lambda v: bool(v), "queue 1 item 6 (BackendPolicy)"),
     ("health_enabled", lambda v: bool(v), "queue 1 item 7 (failure domains)"),
     ("split_least_load", lambda v: bool(v), "queue 1 item 2 (two-choice pick)"),
@@ -239,11 +238,16 @@ class DRMaster:
         self.last_resize = -(10**9)
         self.last_backend_switch = -(10**9)
         self.history: list[dict] = []
-        # policy state the disabled policies would carry, kept so snapshots
-        # hold the reference's keys and values
+        # elastic resize: consecutive safe points the grow / shrink
+        # condition has held
         self.grow_streak = 0
         self.shrink_streak = 0
+        # the disabled backend policy's streak, kept so snapshots hold the
+        # reference's keys and values
         self.backend_streak = 0
+        # hot-key splitting: the installed replica map (key -> d), stamped
+        # onto every partitioner this master installs, the split policy's
+        # patience streak and its cooldown stamp
         self.split_keys: dict[int, int] = dict(initial.split_map())
         self.split_streak = 0
         self.last_split = -(10**9)
@@ -273,36 +277,43 @@ class DRMaster:
     # -- the one safe-point entry -------------------------------------------
     def evaluate(self, signals: Signals, *, requested_resize: int | None = None,
                  policies_enabled: bool = True) -> Action:
-        """Run the policy stack over one safe point's signals (the
-        reference's precedence; with the default config health, resize,
-        split and backend decline as disabled and the repartition policy
-        decides).  Every safe-point outcome lands in :attr:`decisions`."""
+        """Run the policy stack over one safe point's signals, in the
+        reference's precedence: an explicit resize request wins, then the
+        health, resize, split, repartition and backend policies.  A taken
+        repartition, split or unsplit is installed here; a taken resize is
+        returned for the driver to execute (:meth:`replan_resize`), and so
+        is an unsplit's merging migration.  Every safe-point outcome lands
+        in :attr:`decisions`."""
         n = self.partitioner.num_partitions
         detail: dict = {}
         if not signals.at_safe_point:
             return NoOp("not-checkpoint-tick", signals.imbalance)
         if requested_resize is not None and int(requested_resize) != n:
-            raise NotImplementedError(
-                "elastic resize is not ported yet (ROADMAP.md, queue 1 item 6)")
-        if not policies_enabled:
+            action = Resize(reason=f"resize {n}->{int(requested_resize)}",
+                            target=int(requested_resize), requested=True)
+        elif not policies_enabled:
             action = NoOp("dr-disabled", signals.imbalance)
         else:
             action = self.health_policy.evaluate(self, signals)
             if action.reason != "health-disabled":
                 detail["health_declined"] = action.reason
             action = self.resize_policy.evaluate(self, signals)
-            if action.reason != "elastic-disabled":
-                detail["resize_declined"] = action.reason
-            action = self.split_policy.evaluate(self, signals)
-            if action.reason != "split-disabled":
-                detail["split_declined"] = action.reason
-            action = self.repartition_policy.evaluate(self, signals)
-            if isinstance(action, Repartition):
-                self._install(action)
-            else:
-                switch = self.backend_policy.evaluate(self, signals)
-                if switch.reason != "auto-backend-disabled":
-                    detail["backend_declined"] = switch.reason
+            if isinstance(action, NoOp):
+                if action.reason != "elastic-disabled":
+                    detail["resize_declined"] = action.reason
+                action = self.split_policy.evaluate(self, signals)
+            if isinstance(action, (Split, Unsplit)):
+                self._install_split(action)
+            elif isinstance(action, NoOp):
+                if action.reason != "split-disabled":
+                    detail["split_declined"] = action.reason
+                action = self.repartition_policy.evaluate(self, signals)
+                if isinstance(action, Repartition):
+                    self._install(action)
+                elif isinstance(action, NoOp):
+                    switch = self.backend_policy.evaluate(self, signals)
+                    if switch.reason != "auto-backend-disabled":
+                        detail["backend_declined"] = switch.reason
         self.decisions.record(action, tick=self.batches_seen,
                               imbalance=signals.imbalance, detail=detail)
         return action
@@ -316,6 +327,74 @@ class DRMaster:
         d = DRDecision(True, action.partitioner, action.planned_imbalance,
                        action.measured_imbalance, action.est_migration, "repartition")
         self.history.append(dataclasses.asdict(d) | {"batch": self.batches_seen})
+
+    def _install_split(self, action: Split | Unsplit) -> None:
+        """Install a taken split or unsplit at the safe point (DR master
+        bookkeeping): it counts as this safe point's decision and re-stamps
+        the replica table.  A :class:`Split` moves no state (routing fans
+        out from the next batch); an :class:`Unsplit` drops the key here and
+        the driver runs the home-routed migration off ``action.prev`` that
+        merges the partials, so it stamps ``last_repartition`` too."""
+        self.batches_seen += 1
+        if isinstance(action, Split):
+            self.split_keys[int(action.key)] = int(action.replicas)
+        else:
+            self.split_keys.pop(int(action.key), None)
+            self.last_repartition = self.batches_seen
+        self.partitioner = self.partitioner.with_splits(self.split_keys)
+        self.last_split = self.batches_seen
+        self.split_streak = 0
+        self.history.append({
+            "batch": self.batches_seen,
+            "split": (action.kind, int(action.key), int(getattr(action, "replicas", 1))),
+            "reason": action.reason,
+        })
+
+    def decide_resize(self, loads: np.ndarray, *, num_workers: int = 1) -> int | None:
+        """Run only the elastic resize policy: the new partition count, or
+        ``None`` to keep the topology.  No decision is logged (the
+        reference's pre-control-plane wrapper; :meth:`evaluate` is the
+        safe-point API)."""
+        signals = Signals(loads=np.asarray(loads, np.float64), num_workers=num_workers)
+        action = self.resize_policy.evaluate(self, signals)
+        return action.target if isinstance(action, Resize) else None
+
+    def replan_resize(self, num_partitions: int) -> Partitioner:
+        """Re-plan the partitioner across sizes and install it at a safe
+        point.  The sketch is re-warmed first (its ``lam * n`` heavy budget
+        changes meaning across the resize), the heavy table is sized for the
+        new topology, installed splits survive with each fan-out clamped to
+        the new count (a shrink may fold one to 1, dropping the key), and
+        the swap is recorded by :meth:`note_resize`."""
+        cfg = self.config
+        n = int(num_partitions)
+        self.sketch.rescale()
+        hist = self.sketch.histogram(top_b=int(np.ceil(cfg.lam * n)))
+        new = resize_partitioner(self.partitioner, n, hist, eps=cfg.eps,
+                                 heavy_capacity=heavy_capacity_for(cfg.lam, n),
+                                 tight=cfg.tight)
+        if self.split_keys:
+            new = new.with_splits(self.split_keys)
+            self.split_keys = dict(new.split_map())
+        self.note_resize(new)
+        return new
+
+    def note_resize(self, new: Partitioner) -> None:
+        """Install a resized partitioner at a safe point (bookkeeping): it
+        counts as this safe point's decision (``batches_seen`` and
+        ``last_repartition`` advance, so the safe-point spacing applies),
+        and ``last_resize`` is stamped for the cooldown guard."""
+        old_n = self.partitioner.num_partitions
+        self.batches_seen += 1
+        self.partitioner = new
+        self.last_repartition = self.batches_seen
+        self.last_resize = self.batches_seen
+        self.grow_streak = self.shrink_streak = 0
+        self.history.append({
+            "batch": self.batches_seen,
+            "resize": (old_n, new.num_partitions),
+            "reason": f"resize {old_n}->{new.num_partitions}",
+        })
 
     # -- checkpoint integration ----------------------------------------------
     def snapshot(self) -> dict:

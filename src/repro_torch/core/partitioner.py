@@ -10,9 +10,10 @@ tensors (:meth:`Partitioner.tables`):
 * ``heavy_repl``  int32[B]  replica count per heavy key (1 = no split; pad
   rows carry 0 so the route clamps them to a no-op choice)
 
-``kip_update`` implements Algorithm 1 (KIPUPDATE) from the paper.  All of
-this is the host numpy of ``repro.core.partitioner``, bit-identical;
-``resize_partitioner`` and ``split_replica_rows`` are not ported yet.
+``kip_update`` implements Algorithm 1 (KIPUPDATE) from the paper and
+``resize_partitioner`` re-plans across partition counts with it;
+``split_replica_rows`` is the host twin of the route kernels' replica pick.
+All of this is the host numpy of ``repro.core.partitioner``, bit-identical.
 """
 from __future__ import annotations
 
@@ -23,7 +24,14 @@ import numpy as np
 import torch
 
 from repro_torch.compat import to_device
-from repro_torch.core.hashing import DEFAULT_NUM_HOSTS, KEY_SENTINEL, hash_to_host
+from repro_torch.core.hashing import (
+    DEFAULT_NUM_HOSTS,
+    GOLDEN,
+    KEY_SENTINEL,
+    fmix32,
+    hash_to_host,
+    seed_mix,
+)
 from repro_torch.core.histogram import Histogram
 
 __all__ = [
@@ -34,6 +42,8 @@ __all__ = [
     "heavy_capacity_for",
     "kip_update",
     "load_imbalance",
+    "resize_partitioner",
+    "split_replica_rows",
     "uniform_partitioner",
 ]
 
@@ -303,6 +313,32 @@ def kip_update(
     return Partitioner(n, hk, hp, host_to_part.astype(np.int32), seed)
 
 
+def resize_partitioner(
+    prev: Partitioner,
+    num_partitions: int,
+    hist: Histogram | None = None,
+    *,
+    eps: float = 0.01,
+    heavy_capacity: int | None = None,
+    tight: bool = True,
+) -> Partitioner:
+    """Elastic grow/shrink: re-plan ``prev`` for a different partition count.
+
+    This is :func:`kip_update` with ``num_partitions != prev.num_partitions``
+    (a shrink folds removed partitions, ``p % n``; a grow relies on the host
+    re-binning, waterfilled under ``tight``, to populate the new ones), plus
+    a resize before any histogram exists: an empty histogram still re-bins
+    hosts, so every partition receives hash traffic right after the resize.
+    """
+    n = int(num_partitions)
+    if n < 1:
+        raise ValueError(f"num_partitions must be >= 1, got {n}")
+    if hist is None:
+        hist = Histogram(np.zeros(0, np.int64), np.zeros(0), 0.0)
+    return kip_update(prev, hist, num_partitions=n, eps=eps,
+                      heavy_capacity=heavy_capacity, tight=tight)
+
+
 def heavy_capacity_for(lam: float, num_partitions: int, *, floor: int = 0) -> int:
     """Heavy-table width for tracking ``lam`` keys per partition, rounded up
     to the route kernels' tile width (``HEAVY_TILE``).
@@ -312,6 +348,44 @@ def heavy_capacity_for(lam: float, num_partitions: int, *, floor: int = 0) -> in
     (e.g. the current table width, to keep table shapes stable)."""
     want = max(int(np.ceil(lam * num_partitions)), int(floor), 1)
     return int(-(-want // HEAVY_TILE) * HEAVY_TILE)
+
+
+def split_replica_rows(
+    partitioner: Partitioner,
+    keys: np.ndarray,
+    num_workers: int = 1,
+    valid: np.ndarray | None = None,
+) -> np.ndarray:
+    """Host twin of the route kernels' replica pick: the rows each partition
+    receives from *split* keys this batch (``int64[num_partitions]``).
+
+    Worker ``i`` owns the contiguous chunk ``keys[i*local:(i+1)*local]`` and
+    a record's replica hash uses its *local* index in that chunk, as on the
+    device: replica ``(fmix32(idx * golden ^ mixed) & 0x7FFFFFFF) % d`` past
+    the key's home."""
+    n = partitioner.num_partitions
+    out = np.zeros(n, np.int64)
+    smap = partitioner.split_map()
+    if not smap:
+        return out
+    keys = np.asarray(keys, np.int32).reshape(num_workers, -1)
+    if valid is not None:
+        valid = np.asarray(valid, bool).reshape(keys.shape)
+    seed = np.uint32(seed_mix(partitioner.seed))
+    for k, d in smap.items():
+        m = keys == np.int32(k)
+        if valid is not None:
+            m &= valid
+        idx = (np.flatnonzero(m) % keys.shape[1]).astype(np.uint32)  # local indices
+        if not len(idx):
+            continue
+        # the key's own mix is one constant: hash only the key's records
+        mixed = fmix32(np.asarray([k], np.uint32) ^ seed)
+        h = fmix32(idx * np.uint32(GOLDEN) ^ mixed)
+        choice31 = (h & np.uint32(0x7FFFFFFF)).astype(np.int32)
+        home = int(partitioner.lookup_np(np.asarray([k], np.int32))[0])
+        out += np.bincount((home + choice31 % np.int32(d)) % n, minlength=n)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -270,12 +270,16 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
 def shuffle_stats(res: "ShuffleResult | ShuffleStart", spec: ExchangeSpec,
                   num_workers: int, *, wall_s: float = 0.0,
                   count_wall_s: float | None = None,
-                  backend: str | None = None) -> ExchangeStats:
+                  backend: str | None = None,
+                  replica_rows: np.ndarray | None = None) -> ExchangeStats:
     """:class:`ExchangeStats` for one shuffle step: rows per worker (the
     global counters divided by ``num_workers``), ``padded`` the spec's
     per-worker provision.  ``ShuffleResult`` and ``ShuffleStart`` share
     every field read here, so the serial and overlapped drivers build the
-    same record.  Reads through :func:`~repro_torch.compat.host_fetch`: the
+    same record.  ``replica_rows`` (the host twin
+    :func:`~repro_torch.core.partitioner.split_replica_rows`, while splits
+    are installed) rides the record as it is.  Reads through
+    :func:`~repro_torch.compat.host_fetch`: the
     overlapped driver hands in host copies of the start phase, so nothing
     here waits for the card; device counters must be read at a safe
     point."""
@@ -290,6 +294,7 @@ def shuffle_stats(res: "ShuffleResult | ShuffleStart", spec: ExchangeSpec,
         lane_overflow=host_fetch(res.lane_overflow),
         count_wall_s=count_wall_s,
         backend=backend,
+        replica_rows=replica_rows,
     )
 
 

@@ -7,9 +7,14 @@ The job graph is the paper's canonical stateful pipeline::
 Per micro-batch the runtime runs the shuffle step (which also emits the
 DRW histograms and global loads), folds the received records into the keyed
 state, then gives the DR master a safe point: telemetry snapshots into a
-``Signals`` record, ``DRMaster.evaluate`` runs the policy stack, and a taken
-``Repartition`` migrates the keyed state through the same exchange before
-the next batch.
+``Signals`` record, ``DRMaster.evaluate`` runs the policy stack, and the
+driver executes the taken action before the next batch: a ``Repartition``
+migrates the keyed state through the same exchange; a ``Resize`` re-plans
+the partitioner across sizes (``DRMaster.replan_resize``), migrates through
+lanes the cross-size plan sizes and rebuilds the shuffle step; a ``Split``
+needs nothing (the DR master stamped the replica table and the next
+batch's route fans the key out); an ``Unsplit`` runs a home-routed
+migration off the still-split partitioner whose merge sums the partials.
 
 A port of ``repro.core.streaming.StreamingJob``'s three drivers.  The W
 workers are stacked on one device (``num_workers``, default 1 — what the
@@ -46,8 +51,16 @@ pageable upload would wait for the stream), and the partitioner's tables
 are uploaded once per partitioner.  Everything runs on one stream, so the
 recycled send buffers and the state need no cross-stream events.
 
-Elastic resize, hot-key splitting, backend switching, lane health and
-zero-loss recovery are not ported yet and raise ``NotImplementedError``.
+**Elastic resize** is requested by ``resize(n)`` or, with
+``DRConfig(elastic=True)``, by the resize policy, and fires only at a
+checkpoint safe point.  While a split is installed, and for an unsplit,
+migration lanes get the whole state table: the split's partial aggregates
+live off their key's home, where the home-diff plan cannot see them, and
+lanes sized by that plan would drop them.  A snapshot restores onto
+another worker count by re-folding its rows on the host (``_adopt_state``).
+
+Backend switching, lane health and zero-loss recovery are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,11 +80,16 @@ from repro_torch.compat import (
     resolve_device,
     safe_point,
 )
-from repro_torch.control import NoOp, Repartition, Telemetry
+from repro_torch.control import NoOp, Repartition, Resize, Split, Telemetry, Unsplit
 from repro_torch.core.drm import DRConfig, DRMaster
 from repro_torch.core.hashing import DEFAULT_NUM_HOSTS, KEY_SENTINEL
 from repro_torch.core.migration import migration_capacity, plan_migration
-from repro_torch.core.partitioner import Partitioner, heavy_capacity_for, uniform_partitioner
+from repro_torch.core.partitioner import (
+    Partitioner,
+    heavy_capacity_for,
+    split_replica_rows,
+    uniform_partitioner,
+)
 from repro_torch.core.shuffle import (
     make_migrate_step,
     make_shuffle_step,
@@ -101,8 +119,8 @@ class BatchMetrics:
     wall_time_s: float
     reason: str
     migration_rows: int = 0     # rows of all-to-all buffer a repartition exchanged
-    resized: bool = False       # always False: elastic resize is not ported yet
-    num_partitions: int = 0     # topology after this batch
+    resized: bool = False       # an elastic resize fired at this safe point
+    num_partitions: int = 0     # topology after this batch (post-resize)
     migration_plan_rows: int = 0  # migration_capacity() of the plan (pre-pow2)
     action: str = "noop"        # control-plane action kind this safe point took
     shipped_rows: int = 0       # rows the backend moved this batch (per worker)
@@ -224,6 +242,7 @@ class StreamingJob:
         self._shuffle_sig = None    # (capacity, num_partitions) the step was built for
         self._shuffle_spec: ExchangeSpec | None = None
         self._migrate_steps: dict[int, object] = {}  # lane capacity -> step
+        self._pending_resize: int | None = None  # applied at the next checkpoint
         self._staging = _Staging(self.device)
         self._tables_of = None      # the partitioner whose device tables are held
         self._device_tables = None
@@ -455,7 +474,8 @@ class StreamingJob:
 
         with safe_point():
             stats = shuffle_stats(res, self._shuffle_spec, w, wall_s=exchange_wall,
-                                  count_wall_s=count_wall, backend=batch_backend)
+                                  count_wall_s=count_wall, backend=batch_backend,
+                                  replica_rows=self._replica_rows(raw_keys))
             shuffle_shipped = int(stats.rows)
             overflow_i = int(host_fetch(res.overflow))
             self.telemetry.record_exchange(stats)
@@ -464,13 +484,17 @@ class StreamingJob:
             self.drm.observe(host_fetch(res.hist_keys), host_fetch(res.hist_counts),
                              total_records=float(loads.sum()))
         at_checkpoint = (len(self.metrics) + 1) % self.checkpoint_interval == 0
+        requested = None
+        if at_checkpoint and self._pending_resize is not None:
+            requested, self._pending_resize = self._pending_resize, None
         signals = self.telemetry.snapshot(
             loads=loads, num_workers=w,
             # overlapped: the count as of the last drain (the migration
             # planner reads the real keys after the pre-action drain)
             state_rows=self._last_state_rows if overlap else self._state_rows(),
             at_safe_point=at_checkpoint)
-        action = self.drm.evaluate(signals, policies_enabled=self.dr_enabled)
+        action = self.drm.evaluate(signals, requested_resize=requested,
+                                   policies_enabled=self.dr_enabled)
 
         # execute the action (state only moves here, at the safe point).  A
         # taken action first drains the in-flight ship + merge (a migration
@@ -479,15 +503,22 @@ class StreamingJob:
         if action.taken:
             self._drain_inflight()
             self._discard_staged()
-        rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved = (
-            0.0, 0, 0, 0, 0, 0)
-        if isinstance(action, Repartition):
-            (rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped,
-             mig_moved) = self._migrate_state(action.prev)
-        elif not isinstance(action, NoOp):
+        migration = (0.0, 0, 0, 0, 0, 0)
+        if isinstance(action, Resize):
+            migration = self._apply_resize(action.target)
+        elif isinstance(action, Repartition):
+            migration = self._migrate_state(action.prev)
+        elif isinstance(action, Unsplit):
+            # the DR master already dropped the key from the replica table: a
+            # home-routed migration off the still-split partitioner pulls
+            # every replica's partial home, where the merge sums them
+            migration = self._migrate_state(action.prev, full_lanes=True)
+        elif not isinstance(action, (NoOp, Split)):
+            # a Split needs nothing here: the next batch's route fans out
             raise NotImplementedError(
                 f"executing a {action.kind} action is not ported yet "
                 "(ROADMAP.md, queue 1 item 7)")
+        rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved = migration
         if mig_rows:
             self.telemetry.record_exchange(migrate_stats(
                 shipped_rows=mig_shipped * w,  # helper re-divides per worker
@@ -508,6 +539,7 @@ class StreamingJob:
             wall_time_s=time.perf_counter() - t0,
             reason=action.reason,
             migration_rows=mig_rows,
+            resized=isinstance(action, Resize),
             num_partitions=self.num_partitions,
             migration_plan_rows=plan_rows,
             action=action.kind,
@@ -532,26 +564,45 @@ class StreamingJob:
         self.metrics.append(m)
         return m
 
+    def _replica_rows(self, keys: np.ndarray) -> np.ndarray | None:
+        """Rows the split keys of ``keys`` land on each partition (the host
+        twin of the route's replica pick over the batch as the workers hold
+        it: sentinel-padded to a multiple of ``num_workers``); ``None`` while
+        nothing is split."""
+        if not self.drm.split_keys:
+            return None
+        w = self.num_workers
+        padded = np.full(-(-len(keys) // w) * w, _SENT, np.int32)
+        padded[: len(keys)] = keys
+        return split_replica_rows(self.drm.partitioner, padded, w, padded != _SENT)
+
     def _state_rows(self) -> int:
         """Live keyed-state rows across all workers (drains first)."""
         with safe_point():
             self._last_state_rows = int(host_fetch(state_size(self.state_keys).sum()))
         return self._last_state_rows
 
-    def _migrate_state(self, old_part: Partitioner):
+    def _migrate_state(self, old_part: Partitioner, *, full_lanes: bool = False):
         """Ship keyed state to where ``self.drm.partitioner`` now maps it.
 
-        Plans on the host (``plan_migration`` over the live keys), sizes the
-        exchange lanes from the plan, and folds the received rows back into
-        the kept state.  Overlapped, only the start phase is waited for: the
-        ship and merge stay in flight across the safe point.  Returns
-        ``(relative_migration, overflow, buffer_rows, planned_lane_rows,
-        shipped_rows per worker, moved_rows)``."""
+        Plans on the host (``plan_migration`` over the live keys, across
+        sizes too), sizes the exchange lanes from the plan, and folds the
+        received rows back into the kept state.  ``full_lanes``, and any
+        installed split, give every lane the whole state table: a split's
+        partials live off home, where the home-diff plan cannot see them,
+        yet the home-routed step ships each of them home.  Overlapped, only
+        the start phase is waited for: the ship and merge stay in flight
+        across the safe point.  Returns ``(relative_migration, overflow,
+        buffer_rows, planned_lane_rows, shipped_rows per worker,
+        moved_rows)``."""
         with safe_point():
             sk = host_fetch(self.state_keys).reshape(-1)
         live = sk[sk != _SENT].astype(np.int64)
         plan = plan_migration(old_part, self.drm.partitioner, live)
-        plan_rows = migration_capacity(plan, num_workers=self.num_workers)
+        if full_lanes or self.drm.split_keys:
+            plan_rows = self.state_capacity
+        else:
+            plan_rows = migration_capacity(plan, num_workers=self.num_workers)
         migrate, lane_cap = self._migrate_step(plan_rows)
         tables = self._tables()
         if self._overlap_active():
@@ -606,8 +657,28 @@ class StreamingJob:
         return out
 
     def resize(self, num_partitions: int) -> None:
-        raise NotImplementedError(
-            "elastic resize is not ported yet (ROADMAP.md, queue 1 item 6)")
+        """Request an elastic grow or shrink to ``num_partitions``, applied
+        at the next checkpoint safe point (state moves only there); works
+        with ``dr_enabled=False`` too."""
+        n = int(num_partitions)
+        if n < self.num_workers:
+            raise ValueError(
+                f"cannot resize to {n} partitions: the job has {self.num_workers} workers")
+        self._pending_resize = n
+
+    def _apply_resize(self, n: int):
+        """Execute a resize at a safe point: re-plan across sizes, migrate
+        the state through lanes the cross-size plan sizes, and drop the
+        shuffle step, whose loads vector follows the partition count (its
+        send buffers, ``[W, W, cap]``, do not: the migrate steps, keyed by
+        lane capacity, stay)."""
+        old = self.drm.partitioner
+        self.drm.replan_resize(n)
+        stats = self._migrate_state(old)
+        self.num_partitions = n
+        self._shuffle = None
+        self._shuffle_sig = None
+        return stats
 
     def _recover_from_loss(self, loss) -> str:
         raise NotImplementedError(
@@ -634,25 +705,57 @@ class StreamingJob:
                 **{f"drm_{k}": v for k, v in self.drm.snapshot().items()},
             }
 
+    def _adopt_state(self, sk: np.ndarray, sv: np.ndarray) -> None:
+        """Lay host state tables out on this job's worker count, on the host
+        at a safe point: duplicate keys merge (split partials from different
+        workers meet here, and the reduce is a sum), every key goes to its
+        home partition's worker, and each worker keeps at most
+        ``state_capacity`` rows; the rest count as migration overflow."""
+        w, cap = self.num_workers, self.state_capacity
+        keys = np.asarray(sk).reshape(-1)
+        vals = np.asarray(sv).reshape(-1, np.asarray(sv).shape[-1])
+        live = keys != _SENT
+        keys, vals = keys[live], vals[live]
+        uniq, inv = np.unique(keys, return_inverse=True)
+        acc = np.zeros((len(uniq),) + vals.shape[1:], vals.dtype)
+        np.add.at(acc, inv, vals)
+        dest = self.drm.partitioner.lookup_np(uniq.astype(np.int32)) % w
+        new_k = np.full((w, cap), _SENT, np.int32)
+        new_v = np.zeros((w, cap) + vals.shape[1:], np.float32)
+        overflow = 0
+        for worker in range(w):
+            rows = np.nonzero(dest == worker)[0]
+            if len(rows) > cap:
+                overflow += len(rows) - cap
+                rows = rows[:cap]
+            new_k[worker, : len(rows)] = uniq[rows]
+            new_v[worker, : len(rows)] = acc[rows]
+        self.state_keys = torch.from_numpy(new_k).to(self.device)
+        self.state_vals = torch.from_numpy(new_v).to(self.device)
+        if overflow:
+            self.telemetry.record_overflow(migration=overflow)
+
     def restore(self, snap: dict) -> None:
-        """Resume from a snapshot of the same worker count (either package's).
-        The snapshot's transport and partition count win over the ones this
-        job was built with.  The in-flight finish belongs to the replaced
-        state and the staged start to the replaced partitioner: both go."""
+        """Resume from a snapshot of either package.  The snapshot's
+        transport and partition count win over the ones this job was built
+        with.  A snapshot of another worker count is re-folded onto this
+        job's workers and state capacity (:meth:`_adopt_state`).  The
+        in-flight finish belongs to the replaced state and the staged start
+        to the replaced partitioner: both go, as does a pending resize."""
         drm_snap = {k[4:]: v for k, v in snap.items() if k.startswith("drm_")}
         snap_keys = np.asarray(snap["state_keys"])
-        if snap_keys.shape[0] != self.num_workers:
-            raise NotImplementedError(
-                f"restoring a {snap_keys.shape[0]}-worker snapshot onto "
-                f"{self.num_workers} workers is not ported yet (ROADMAP.md, queue 1 item 7)")
         self._inflight = None
         self._hidden_since = None
         self._staged = None
+        self._pending_resize = None
         self.drm = DRMaster.restore(drm_snap, self.drm.config)
-        self.state_keys = torch.tensor(snap_keys, dtype=torch.int32, device=self.device)
-        self.state_vals = torch.tensor(np.asarray(snap["state_vals"]), dtype=torch.float32,
-                                       device=self.device)
-        self.state_capacity = int(snap_keys.shape[1])
+        if snap_keys.shape[0] != self.num_workers:
+            self._adopt_state(snap_keys, np.asarray(snap["state_vals"]))
+        else:
+            self.state_keys = torch.tensor(snap_keys, dtype=torch.int32, device=self.device)
+            self.state_vals = torch.tensor(np.asarray(snap["state_vals"]),
+                                           dtype=torch.float32, device=self.device)
+            self.state_capacity = int(snap_keys.shape[1])
         self.payload_dim = int(self._sv.shape[2])
         self.exchange_backend = self.drm.exchange_backend
         n = self.drm.partitioner.num_partitions

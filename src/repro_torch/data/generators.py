@@ -3,8 +3,12 @@
 * ``zipf_keys``     — the ZIPF dataset: parametrized Zipfian key streams.
 * ``drifting_zipf`` — LFM-like stream: Zipfian with the identity of the
   heavy keys re-drawn over time (concept drift).
+* ``hotspot_flip``  — nonstationary: the whole heavy set goes cold at one
+  batch boundary and a disjoint set goes hot.
+* ``sawtooth_skew`` — nonstationary: hard-Zipf and near-uniform batches
+  alternate every ``period`` batches (the elastic triggers' stress load).
 
-Both draw from ``numpy.random.default_rng(seed)`` exactly as
+All draw from ``numpy.random.default_rng(seed)`` exactly as
 ``repro.data.generators`` does, so the same seed yields the same keys in
 both packages.
 """
@@ -12,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["zipf_keys", "drifting_zipf"]
+__all__ = ["zipf_keys", "drifting_zipf", "hotspot_flip", "sawtooth_skew"]
 
 
 def _zipf_probs(num_keys: int, exponent: float) -> np.ndarray:
@@ -56,5 +60,47 @@ def drifting_zipf(
             k = max(1, int(drift_fraction * num_keys))
             swap = rng.choice(num_keys, size=k, replace=False)
             ids[swap] = rng.choice(2**30, size=k, replace=False)
+        ranks = rng.choice(num_keys, size=batch_size, p=probs)
+        yield ids[ranks].copy()
+
+
+def hotspot_flip(
+    num_batches: int,
+    batch_size: int,
+    num_keys: int = 10_000,
+    exponent: float = 1.5,
+    flip_at: int | None = None,
+    seed: int = 0,
+):
+    """Yield Zipf batches whose rank -> key-identity mapping is re-drawn
+    once, at batch ``flip_at`` (default: the midpoint): every heavy key goes
+    cold at one boundary while a disjoint set goes hot."""
+    flip_at = num_batches // 2 if flip_at is None else flip_at
+    rng = np.random.default_rng(seed)
+    probs = _zipf_probs(num_keys, exponent)
+    ids = rng.choice(2**30, size=num_keys, replace=False).astype(np.int64)
+    for b in range(num_batches):
+        if b == flip_at:
+            ids = rng.choice(2**30, size=num_keys, replace=False).astype(np.int64)
+        ranks = rng.choice(num_keys, size=batch_size, p=probs)
+        yield ids[ranks].copy()
+
+
+def sawtooth_skew(
+    num_batches: int,
+    batch_size: int,
+    num_keys: int = 10_000,
+    exponent: float = 1.8,
+    period: int = 2,
+    seed: int = 0,
+):
+    """Yield ``period`` hard-Zipf batches, then ``period`` near-uniform ones,
+    and so on; the key identities stay fixed (the load is what changes)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(2**30, size=num_keys, replace=False).astype(np.int64)
+    hot = _zipf_probs(num_keys, exponent)
+    flat = np.full(num_keys, 1.0 / num_keys)
+    for b in range(num_batches):
+        probs = hot if (b // period) % 2 == 0 else flat
         ranks = rng.choice(num_keys, size=batch_size, p=probs)
         yield ids[ranks].copy()

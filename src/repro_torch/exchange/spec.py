@@ -54,9 +54,11 @@ class ExchangeStats:
       measured (the serving scheduler books a count wall of 0.0 under
       overlap).
     * ``backend`` — transport name the measurements belong to.
+    * ``replica_rows`` — rows landed per partition from *split* hot keys, or
+      ``None`` when no key is split.
 
-    The split-key and per-distance-class fields of the reference record
-    arrive with their features.
+    The per-distance-class field of the reference record arrives with its
+    feature.
     """
 
     rows: int
@@ -68,6 +70,7 @@ class ExchangeStats:
     ship_wall_s: float | None = None
     hidden_wall_s: float | None = None
     backend: str | None = None
+    replica_rows: np.ndarray | None = None
 
 
 @dataclasses.dataclass(frozen=True)

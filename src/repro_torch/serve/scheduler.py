@@ -11,8 +11,8 @@ session (cache) migration costed against the expected balance gain.
 Replicas are modelled objects (queue depths); ``ServeEngine`` is the
 per-replica execution unit.  ``checkpoint`` feeds the window's telemetry
 (queue depths, routed records) into ``DRMaster.evaluate`` and executes the
-action, always returning the reference's schema.  Elastic ``resize`` is
-not ported: ``DRMaster.replan_resize`` waits (ROADMAP.md, queue 1 item 6).
+action — replica scale-out or scale-in (``Resize``) or session re-routing
+(``Repartition``) — always returning the reference's schema.
 """
 from __future__ import annotations
 
@@ -135,13 +135,34 @@ class DRScheduler:
 
     # -- elastic scale-out / scale-in -------------------------------------
     def resize(self, num_replicas: int) -> int:
-        """Grow or shrink the replica set: not ported yet."""
-        raise NotImplementedError(
-            "DRScheduler.resize needs DRMaster.replan_resize, which is not ported yet "
-            "(ROADMAP.md, queue 1 item 6)")
+        """Grow or shrink the replica set, the streaming resize one level up:
+        the session keyspace is re-planned across sizes
+        (``DRMaster.replan_resize``) and the sessions whose replica changed
+        move their KV cache.  Returns the number of sessions moved.  With
+        ``DRConfig(elastic=True)``, ``checkpoint`` calls it on sustained
+        queue imbalance."""
+        n = int(num_replicas)
+        if n < 1:
+            raise ValueError(f"need at least one replica, got {n}")
+        if n == len(self.replicas):
+            return 0
+        new = self.drm.replan_resize(n)
+        if n > len(self.replicas):
+            self.replicas += [ReplicaState(i) for i in range(len(self.replicas), n)]
+        moved = self._reroute_sessions(new)
+        if n < len(self.replicas):
+            # scale-in: the dying replicas handed their sessions off; their
+            # queued work drains onto the replica they fold into
+            for rep in self.replicas[n:]:
+                self.replicas[rep.rid % n].queued_tokens += rep.queued_tokens
+            self.replicas = self.replicas[:n]
+        self.migrations += moved
+        return moved
 
     def _reroute_sessions(self, new) -> int:
-        """Move sessions (and their KV-cache cost) to where ``new`` maps them."""
+        """Move sessions (and their KV-cache cost) to where ``new`` maps them;
+        a dying replica (``rid >= new.num_partitions``) never keeps one, so
+        a scale-in drains it completely."""
         moved = 0
         for rep in self.replicas:
             stay = set()

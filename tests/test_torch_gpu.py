@@ -831,3 +831,130 @@ def test_staged_upload_survives_its_source_being_overwritten(cuda):
     ref.run(batches[:2])
     assert torch.equal(job.state_keys.cpu(), ref.state_keys)
     assert torch.equal(job.state_vals.cpu(), ref.state_vals)
+
+
+# ---------------------------------------------------------------------------
+# hot-key splitting and elastic resize on the card
+# ---------------------------------------------------------------------------
+
+def _flip_batch():
+    """One batch of the full-size split stream (4 Mi records, 8 workers)."""
+    from repro_torch.data.generators import hotspot_flip
+    return next(hotspot_flip(1, 4_194_304, num_keys=1_000_000, exponent=1.3, seed=0))
+
+
+@pytest.mark.parametrize("parts,fanouts", [(32, (8, 4, 3, 2)), (16, (2, 8)), (24, (3, 5)),
+                                           (32, ())])
+def test_route_kernels_at_the_split_and_resize_shapes(cuda, parts, fanouts):
+    """route_bucketize and lookup_dispatch against their plain versions at
+    the split and resize phases' shapes: 8 workers x 524,288 records, lanes
+    of 1,048,576 rows, a live split table at fan-outs 2-8 and N = 16, 24, 32."""
+    stream = _flip_batch()
+    hist = Histogram.exact(stream).top(64)
+    p = kip_update(uniform_partitioner(parts, heavy_capacity=128), hist)
+    p = p.with_splits({int(hist.keys[i]): d for i, d in enumerate(fanouts)})
+    assert p.split_map() == {int(hist.keys[i]): d for i, d in enumerate(fanouts)}
+    k = torch.as_tensor(stream.astype(np.int32), device=cuda).reshape(8, -1)
+    v = k != SENT
+    x = torch.ones(k.shape + (1,), dtype=torch.float32, device=cuda)
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=parts, pad_empty=True)
+    kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=8, num_partitions=parts)
+    got = route_bucketize(k, v, x, hk, hp, t.host_to_part, hr, capacity=1_048_576,
+                          key_fill=SENT, **kw)
+    want = route_bucketize_plain(k, v, x, hk, hp, t.host_to_part, hr, capacity=1_048_576,
+                                 key_fill=SENT, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    del got, want
+    got = lookup_dispatch(k, v, hk, hp, t.host_to_part, hr, **kw)
+    want = lookup_dispatch_plain(k, v, hk, hp, t.host_to_part, hr, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_full_lane_unsplit_migrate_equals_cpu(cuda):
+    """The unsplit's migration at a lane capacity of 262,144 rows: a key's
+    partials on its 8 replica workers go home, routed by lookup_dispatch;
+    every output equal to the CPU's, and the partials sum at home."""
+    from repro_torch.core.shuffle import make_migrate_step
+    from repro_torch.core.state import merge_into
+    from repro_torch.exchange import ExchangeSpec
+
+    w, cap = 8, 262_144
+    rng = np.random.default_rng(0)
+    keys = np.unique(rng.integers(0, 2**30, 8 * 200_000))[: 8 * 190_000].astype(np.int32)
+    hot = int(keys[0])
+    old = uniform_partitioner(32, heavy_capacity=128).with_splits({hot: 8})
+    new = old.with_splits({})
+    sk = np.full((w, cap), SENT, np.int32)
+    sv = np.zeros((w, cap, 1), np.float32)
+    rest = keys[1:]
+    dest = old.lookup_np(rest) % w
+    for i in range(w):  # each worker: its home keys, and one partial of the hot key
+        mine = rest[dest == i]
+        sk[i, : len(mine)] = mine
+        sv[i, : len(mine), 0] = 1.0
+        sk[i, len(mine)] = hot
+        sv[i, len(mine), 0] = float(i + 1)
+    outs = {}
+    for label, dev in (("card", cuda), ("cpu", "cpu")):
+        step = make_migrate_step(num_workers=w, state_capacity=cap, num_hosts=new.num_hosts,
+                                 seed=new.seed,
+                                 spec=ExchangeSpec(num_lanes=w, capacity=cap, axis="data"))
+        before = lookup_dispatch.launches
+        out = step(new.tables(dev), torch.as_tensor(sk, device=dev),
+                   torch.as_tensor(sv, device=dev))
+        if label == "card":
+            assert lookup_dispatch.launches == before + 1
+        kept = torch.where(out.kept_valid, out.kept_keys, SENT)
+        merged = merge_into(kept, out.kept_vals, out.recv_keys, out.recv_vals, out.recv_valid)
+        outs[label] = [t.cpu() for t in (*out, *merged)]
+    for g, c in zip(outs["card"], outs["cpu"], strict=True):
+        assert torch.equal(g, c)
+    mk, mv = outs["cpu"][-3], outs["cpu"][-2]
+    home = int(new.lookup_np(np.asarray([hot], np.int32))[0]) % w
+    hit = mk == hot
+    assert int(hit.sum()) == 1 and bool(hit[home].any())
+    assert float(mv[hit].sum()) == sum(range(1, w + 1))
+    assert int(outs["cpu"][8]) == 0 and int(outs["cpu"][-1].sum()) == 0  # no overflow
+
+
+def _small_job(device, driver, parts, **kw):
+    extra = {"serial": dict(overlap_exchange=False), "d1": {}, "d2": dict(pipeline_depth=2)}
+    return StreamingJob(device=device, num_workers=8, num_partitions=parts, state_capacity=16_384,
+                        dr=DRConfig(imbalance_trigger=1.2, **extra[driver], **kw))
+
+
+@pytest.mark.parametrize("driver", ["serial", "d1", "d2"])
+def test_split_and_resize_jobs_card_equal_cpu(cuda, driver):
+    """A small split stream (Splits and an Unsplit) and a small elastic one
+    (a grow, a shrink, a requested resize and a second grow) on the card and
+    on the CPU, by each driver: equal trajectories and state."""
+    from repro_torch.data.generators import hotspot_flip, sawtooth_skew
+
+    flips = list(hotspot_flip(10, 16_384, num_keys=5000, exponent=1.3, flip_at=4, seed=0))
+    saws = list(sawtooth_skew(9, 16_384, num_keys=5000, exponent=1.8, period=3, seed=0))
+    split = dict(migration_cost_weight=0.2, split_keys_enabled=True, sketch_decay=0.5)
+    elastic = dict(migration_cost_weight=0.1, elastic=True, min_partitions=8,
+                   max_partitions=16, grow_trigger=4.0, shrink_trigger=2.5)
+    for batches, parts, kw, want in ((flips, 32, split, {"split", "unsplit"}),
+                                     (saws, 8, elastic, {"resize"})):
+        jobs = {}
+        for label, device in (("card", cuda), ("cpu", "cpu")):
+            job = jobs[label] = _small_job(device, driver, parts, **kw)
+            for seg in (batches[:6], batches[6:]):
+                if driver == "d1":
+                    for b in seg:
+                        job.process_batch(b)
+                else:
+                    job.run(seg)
+                if "elastic" in kw and not job._pending_resize:
+                    job.resize(12)  # after batch 5: applied at batch 6's safe point
+        card, cpu = jobs["card"], jobs["cpu"]
+        for a, b in zip(card.metrics, cpu.metrics, strict=True):
+            assert _fields(a, _WALLS) == _fields(b, _WALLS)
+        assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
+        assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
+        kinds = {m.action for m in cpu.metrics}
+        assert want <= kinds, kinds

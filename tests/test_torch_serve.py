@@ -192,10 +192,17 @@ def test_scheduler_overlap_switch_matches_reference(monkeypatch, disable):
 
 
 def test_scheduler_resize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="replan_resize"):
-        TScheduler(4).resize(6)
-    with pytest.raises(NotImplementedError, match="elastic"):
-        TScheduler(4, dr=DRConfig(elastic=True))
+    """``resize`` is ported (``tests/test_torch_elastic.py`` holds it to the
+    reference); what the scheduler still cannot run raises, citing its
+    ROADMAP item, and a resize to no replica is refused as in the
+    reference."""
+    with pytest.raises(ValueError):
+        TScheduler(4).resize(0)
+    with pytest.raises(ValueError):
+        JScheduler(4).resize(0)
+    assert TScheduler(4).resize(4) == JScheduler(4).resize(4) == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TScheduler(4, dr=DRConfig(auto_backend=True))
 
 
 def test_telemetry_queue_depths_and_exchange_walls_match():

@@ -194,8 +194,8 @@ def test_carry_rejects_unported_snapshot_keys(key):
     lambda: _port_job(exchange_backend="ragged"),
     lambda: _port_job(exchange_backend="hierarchical"),
     lambda: _port_job(topology=object()),
-    lambda: StreamingJob(device="cpu", dr=DRConfig(elastic=True)),
-    lambda: _port_job().resize(16),
+    lambda: StreamingJob(device="cpu", dr=DRConfig(split_least_load=True)),
+    lambda: _port_job()._recover_from_loss(None),
 ])
 def test_unported_paths_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
