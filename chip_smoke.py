@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one-pass rank and the 16-byte fill: n below one tile and 3 tiles + 1,
    35 stacked rows, 1024 lanes, 3 x 5 x 200,001 cells (ragged tails, no
    lane full), capacity 0, every record invalid, no records, each with its
-   outputs handed out dirty: every output must be equal exactly.
+   outputs handed out dirty: every output must be equal exactly.  Both
+   route kernels also with a load vector (the two-choice least-load
+   replica pick): one of many equal entries (ties keep the first hash) and
+   one with a split key's replica at 1e9.
    And route_bucketize into a recycled send-buffer set (an earlier call's,
    dirtied), as the overlapped driver's pool hands one out.  Then
    route_bucketize at phase 2's shapes on four streams at once beside a
@@ -44,7 +47,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's own device time (``torch.profiler``, its kernels and memsets by
    name over 20 calls, an L2 flush between calls for route_bucketize; for
    lookup_dispatch both without and with the flush), split by device
-   kernel; the device time of one state merge; each driver's wall per
+   kernel; each route kernel with a split table without and with a load
+   vector, in turns (the ``kernels`` line's ``device_ms_with_loads``);
+   the device time of one state merge; each driver's wall per
    batch (the run and one drain, synchronized, over the batch count) and
    median count-phase wall of steady-state batches, with phase 2's traces
    and idle share.  The median count-phase wall of steady-state depth-1
@@ -150,6 +155,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     run there: zero overflow, counts exact over all 12 batches.  The same
     configuration over 16,384-record batches on the card and on the CPU
     by each driver: identical.
+
+15. The least-load pick, the BackendPolicy and the ragged transport at
+    phase 2's size.  (a) Phase 13's job and batches with
+    ``split_least_load=True``, by each driver: equal trajectories and
+    states, zero overflow, exact counts of the sampled and split keys fed
+    fewer than 2**24 times, no host twin; the max / mean of the loads on
+    each split key's replica partitions beside phase 13's hash pick; the
+    walls beside phase 13's; route_bucketize with the live split table and
+    load vector against its plain version, and its device time without and
+    with the vector in turns; card == CPU over 16,384-record batches.
+    (b) Phase 2's stream with ``DRConfig(auto_backend=True,
+    backend_patience=2, backend_cooldown=50, imbalance_trigger=1e9)``: one
+    switch to ragged, the padding fraction by safe point, equal drivers.
+    (c) Ragged-pinned jobs beside dense ones, policies off in turns (dense,
+    ragged, ragged, dense) and with phase 2's policies (ragged migrations):
+    shipped rows below the provision, trajectories and states equal the
+    dense jobs', and (b)'s final state equals the dense-pinned job's.
+    (d) Non-integer payloads (``payload_dim=2``) over 16,384-record
+    batches on the card and on the CPU: keys equal, each key's sum within
+    1e-6 of its sum of |values| (``scatter_add_`` adds in no fixed order on
+    the card), the largest difference printed.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -755,20 +781,29 @@ def main() -> int:
     holes = torch.rand(keys.shape, generator=gen, device=dev) < 0.1
     keys_holed = keys.masked_fill(holes, sent)
     valid_holed = keys_holed != sent
+    # the least-load pick's load vectors over the 32 partitions: many equal
+    # entries (ties keep the first hash), and the split key's home, where
+    # its first replica lies, at 1e9
+    tied = torch.arange(8, dtype=torch.float32, device=dev).repeat_interleave(4)
+    home = int(split.lookup_np(np.asarray([top], np.int32))[0])
+    hot_replica = torch.ones(32, dtype=torch.float32, device=dev)
+    hot_replica[home] = 1e9
     rb_cases = [
-        ("main path, splits on", part, 32, cap, True, keys, valid),
-        ("splits off", part, 0, cap, True, keys, valid),
-        ("split key x4", split, 32, cap, True, keys, valid),
-        ("invalid sentinel records", split, 32, cap, True, keys_holed, valid_holed),
-        ("empty heavy table, tile padded", empty, 32, cap, True, keys, valid),
-        ("empty heavy table, unpadded", empty, 0, cap, False, keys, valid),
-        ("capacity overflow", split, 32, 4096, True, keys, valid),
+        ("main path, splits on", part, 32, cap, True, keys, valid, None),
+        ("splits off", part, 0, cap, True, keys, valid, None),
+        ("split key x4", split, 32, cap, True, keys, valid, None),
+        ("invalid sentinel records", split, 32, cap, True, keys_holed, valid_holed, None),
+        ("empty heavy table, tile padded", empty, 32, cap, True, keys, valid, None),
+        ("empty heavy table, unpadded", empty, 0, cap, False, keys, valid, None),
+        ("capacity overflow", split, 32, 4096, True, keys, valid, None),
+        ("least-load pick, tied loads", split, 32, cap, True, keys_holed, valid_holed, tied),
+        ("least-load pick, a replica at 1e9", split, 32, cap, True, keys, valid, hot_replica),
     ]
-    for name, p, n_part, c, pad_empty, k, v in rb_cases:
+    for name, p, n_part, c, pad_empty, k, v, loads in rb_cases:
         hk, hp, hr = padded(p, n_part=n_part, pad_empty=pad_empty)
         args = (k, v, vals, hk, hp, p.tables(dev).host_to_part, hr)
         kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, capacity=c,
-                  key_fill=sent, num_partitions=n_part)
+                  key_fill=sent, num_partitions=n_part, part_loads=loads)
         got = route_bucketize(*args, **kw)
         want = route_bucketize_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -779,14 +814,17 @@ def main() -> int:
         log(f"phase 3: route_bucketize [{name}] B={hk.numel()} cap={c} "
             f"invalid={int((~v).sum())} dropped={dropped} equal={ok}")
     ld_cases = [
-        ("migrate path (final state)", part, 0, state_keys, state_valid),
-        ("split key x4", split, 32, state_keys, state_valid),
-        ("empty heavy table", empty, 0, keys, valid),
+        ("migrate path (final state)", part, 0, state_keys, state_valid, None),
+        ("split key x4", split, 32, state_keys, state_valid, None),
+        ("empty heavy table", empty, 0, keys, valid, None),
+        ("least-load pick, tied loads", split, 32, keys, valid, tied),
+        ("least-load pick, a replica at 1e9", split, 32, keys, valid, hot_replica),
     ]
-    for name, p, n_part, k, v in ld_cases:
+    for name, p, n_part, k, v, loads in ld_cases:
         hk, hp, hr = padded(p, n_part=n_part, pad_empty=False)
         args = (k, v, hk, hp, p.tables(dev).host_to_part, hr)
-        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, num_partitions=n_part)
+        kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, num_partitions=n_part,
+                  part_loads=loads)
         got = lookup_dispatch(*args, **kw)
         want = lookup_dispatch_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -906,6 +944,36 @@ def main() -> int:
     flushed = {"lookup_dispatch": own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
                                                   DEVICE_NAMES["lookup_dispatch"],
                                                   flush=flush)[0]}
+    # the least-load pick's cost: each route kernel with the split table
+    # (top key x4) at its row's shapes, without and with a load vector, in
+    # turns (without, with, with, without); route_bucketize flushed as in
+    # its row
+    loads32 = torch.rand(32, generator=gen, device=dev)
+    sk, sp, sr = padded(split, n_part=32, pad_empty=True)
+    sh = split.tables(dev).host_to_part
+    pick_args = {
+        "route_bucketize": ((keys, valid, vals, sk, sp, sh, sr), rb_kw, flush),
+        "lookup_dispatch": ((state_keys, state_valid, sk, sp, sh, sr),
+                            dict(ld_kw, num_partitions=32), None),
+    }
+    with_loads = {}
+    for name, (args, kw, fl) in pick_args.items():
+        fn = route_bucketize if name == "route_bucketize" else lookup_dispatch
+        pick_ms = {"without": [], "with": []}
+        for turn in ("without", "with", "with", "without"):
+            extra = {"part_loads": loads32} if turn == "with" else {}
+            pick_ms[turn].append(own_device_time(lambda: fn(*args, **kw, **extra),
+                                              DEVICE_NAMES[name], flush=fl)[0])
+        with_loads[name] = {
+            "ms_with_loads": cuda_ms(lambda: fn(*args, **kw, part_loads=loads32)),
+            "device_ms_with_loads": statistics.mean(pick_ms["with"]),
+            "device_ms_split_without_loads": statistics.mean(pick_ms["without"]),
+        }
+        log(f"phase 5: {name} with the split table, device time without a load vector "
+            f"{pick_ms['without']} ms, with one {pick_ms['with']} ms (in turns"
+            f"{', L2 flushed' if fl else ''}): "
+            f"{100 * (with_loads[name]['device_ms_with_loads'] / with_loads[name]['device_ms_split_without_loads'] - 1):+.2f}%; "
+            f"card {card}")
     del flush
     assert timing["route_bucketize"][3][2] <= 2, timing["route_bucketize"][3]
     res = job._shuffle(part.tables(dev), keys, vals, valid)
@@ -913,6 +981,8 @@ def main() -> int:
                                           res.values, res.valid), warmup=1, reps=5)
     kernels = kernel_rows(timing, launches, errs, equal, phase=5, path_phase="2 (depth 1)",
                           flushed=flushed)
+    for row in kernels:
+        row.update(with_loads[row["name"]])
     log(f"phase 5: state merge {merge_ms:.3f} ms on the device (events around one call, "
         f"median of 5); card {card}")
     for label, rs in (("phase 2", runs), ("policies off", steady)):
@@ -947,8 +1017,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += serve_phases(dev, card)
     torch.cuda.empty_cache()
-    split_phase(dev, card)
+    flips = split_phase(dev, card)
     elastic_phase(dev, card)
+    least_load_phase(dev, card, flips)
+    del flips
+    torch.cuda.empty_cache()
+    float_payload_phase(dev)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -958,16 +1032,18 @@ def main() -> int:
 
 
 def capture_signals(job) -> list:
-    """``(partitioner, loads, exchange_replica_rows)`` of each safe point the
-    job's telemetry snapshots from here on: the partitioner that routed the
-    batch, the loads the card counted, the replica rows the host twin
-    recorded."""
+    """``(partitioner, loads, exchange_replica_rows, padding fraction)`` of
+    each safe point the job's telemetry snapshots from here on: the
+    partitioner that routed the batch, the loads the card counted, the
+    replica rows the host twin recorded, the window's occupied / provisioned
+    exchange rows."""
     seen = []
     snapshot = job.telemetry.snapshot
 
     def recording(*a, **k):
         sig = snapshot(*a, **k)
-        seen.append((job.drm.partitioner, sig.loads, sig.exchange_replica_rows))
+        seen.append((job.drm.partitioner, sig.loads, sig.exchange_replica_rows,
+                     sig.exchange_padding_fraction))
         return sig
 
     job.telemetry.snapshot = recording
@@ -1057,8 +1133,30 @@ def count_of(batches, key) -> float:
     return float(sum(int((b == key).sum()) for b in batches))
 
 
-def split_phase(dev, card) -> None:
-    """Phase 13: hot-key splitting at phase 2's size."""
+def replica_spread(seen) -> list[float]:
+    """max / mean of the loads on each split key's d replica partitions, one
+    value a batch and split key, from ``capture_signals``'s records (the
+    partitioner that routed the batch, the loads the card counted)."""
+    out = []
+    for part, loads, *_ in seen:
+        n = part.num_partitions
+        for key, d in part.split_map().items():
+            home = int(part.lookup_np(np.asarray([key], np.int32))[0])
+            reps = np.asarray(loads, np.float64)[[(home + r) % n for r in range(d)]]
+            if reps.mean() > 0:
+                out.append(float(reps.max() / reps.mean()))
+    return out
+
+
+def spread_text(spread) -> str:
+    return (f"median {statistics.median(spread):.4f}, {min(spread):.4f}-{max(spread):.4f} "
+            f"over {len(spread)} batch-keys")
+
+
+def split_phase(dev, card) -> dict:
+    """Phase 13: hot-key splitting at phase 2's size.  Returns what phase 15
+    reuses: the batches, the depth-1 run's replica spread (the hash pick)
+    and the walls per batch."""
     from repro_torch.core.drm import DRConfig
     from repro_torch.core.partitioner import split_replica_rows
     from repro_torch.core.streaming import StreamingJob
@@ -1111,7 +1209,7 @@ def split_phase(dev, card) -> None:
             # land on exactly its d partitions
             checked = spread_keys = 0
             twin_ms = []
-            for i, (part, loads, replica_rows) in enumerate(seen):
+            for i, (part, loads, replica_rows, _) in enumerate(seen):
                 smap = part.split_map()
                 if not smap:
                     assert replica_rows is None, i
@@ -1136,6 +1234,7 @@ def split_phase(dev, card) -> None:
                         spread_keys += 1
                 checked += 1
             assert checked and spread_keys, (checked, spread_keys)
+            hash_spread = replica_spread(seen)
             log(f"phase 13: depth 1: in each of the {checked} batches with splits installed "
                 f"the telemetry's replica rows equal split_replica_rows, the card's loads equal "
                 f"the home rows plus the replica rows, and each split key's rows lie on its d "
@@ -1183,12 +1282,18 @@ def split_phase(dev, card) -> None:
     for name, r in runs.items():
         log(f"phase 13: {name}: wall per batch {r['wall_ms']:.2f} ms over {len(batches)} "
             f"batches; card {card}")
+    log(f"phase 13: depth 1: max / mean of the loads on each split key's replica "
+        f"partitions (the hash pick): {spread_text(hash_spread)}")
+    walls = {name: r["wall_ms"] for name, r in runs.items()}
+    imbalance = [m.imbalance for m in runs["depth 1"]["ms"]]
     del runs, migrations, job, upart, ukeys, ld_args, got, want
     torch.cuda.empty_cache()
 
     small = list(hotspot_flip(12, 16_384, **stream))
     card_equals_cpu(lambda device, driver: StreamingJob(
         device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 13)
+    return dict(batches=batches, spread=hash_spread, walls=walls, sampled=sampled,
+                imbalance=imbalance, stream=stream)
 
 
 def elastic_phase(dev, card) -> None:
@@ -1284,6 +1389,229 @@ def elastic_phase(dev, card) -> None:
     card_equals_cpu(lambda device, driver: StreamingJob(
         device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 14,
         after=after)
+
+
+def least_load_phase(dev, card, flips) -> None:
+    """Phase 15 (a)-(c): the least-load pick over phase 13's stream, the
+    BackendPolicy and the ragged transport over phase 2's, at phase 2's
+    size."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import drifting_zipf, hotspot_flip
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+    from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+
+    kernels = (route_bucketize, lookup_dispatch)
+    job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
+                  capacity_factor=2.0)
+
+    # ---- (a) the two-choice least-load pick, phase 13's job and stream ----
+    dr_kw = dict(imbalance_trigger=1.2, migration_cost_weight=0.2, split_keys_enabled=True,
+                 split_least_load=True)
+    batches = flips["batches"]
+    runs = {}
+    for name, extra in DRIVERS.items():
+        job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw)
+        seen = capture_signals(job)
+        r = runs[name] = drive(job, name, batches, kernels, phase=15)
+        ms = r["ms"]
+        actions = [m.action for m in ms]
+        assert "split" in actions, actions
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        # under the pick the driver never calls the host twin
+        assert all(rows is None for _, _, rows, _ in seen)
+        ever_split = sorted({h["split"][1] for h in job.drm.history if "split" in h})
+        keys = [(k, w) for k, w in flips["sampled"] + [(k, count_of(batches, k))
+                                                       for k in ever_split] if w < F32_EXACT]
+        for key, want in keys:
+            got = job.state_count(key)
+            assert got == want, (name, key, got, want)
+        assert all(v > 0 for v in r["launches"].values()), (name, r["launches"])
+        log(f"phase 15 (a): {name}: splits at "
+            f"{[i for i, a in enumerate(actions) if a == 'split']}, unsplits at "
+            f"{[i for i, a in enumerate(actions) if a == 'unsplit']}, repartitions at "
+            f"{[i for i, a in enumerate(actions) if a == 'repartition']}; keys split "
+            f"{ever_split}; exact counts of {len(keys)} sampled and split keys fed fewer than "
+            f"2**24 times; launches {r['launches']}")
+        if name == "depth 1":
+            spread = replica_spread(seen)
+            imbalance = [m.imbalance for m in ms]
+    assert_same_drivers(runs, phase=15)
+    log(f"phase 15 (a): depth 1: max / mean of the loads on each split key's replica "
+        f"partitions: least-load pick {spread_text(spread)}; phase 13's hash pick "
+        f"{spread_text(flips['spread'])}")
+    log(f"phase 15 (a): depth 1: imbalance per batch, least-load pick "
+        f"{[round(x, 4) for x in imbalance]}, hash pick "
+        f"{[round(x, 4) for x in flips['imbalance']]}")
+    for name, r in runs.items():
+        log(f"phase 15 (a): {name}: wall per batch {r['wall_ms']:.2f} ms (phase 13, the hash "
+            f"pick: {flips['walls'][name]:.2f} ms) over {len(batches)} batches; card {card}")
+    # the route at phase 2's shapes with the serial job's live split table and
+    # load vector: against its plain version, then without and with the
+    # vector in turns (L2 flushed between calls)
+    job = runs["serial"]["job"]
+    part, loads = job.drm.partitioner, job._part_loads
+    hk, hp, hr = ops.pad_heavy_tables(part.tables(dev), num_partitions=32, pad_empty=True)
+    keys = torch.as_tensor(batches[-1].astype(np.int32), device=dev).reshape(8, -1)
+    vals = torch.ones(keys.shape + (1,), dtype=torch.float32, device=dev)
+    args = (keys, keys != SENT, vals, hk, hp, part.tables(dev).host_to_part, hr)
+    kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=8,
+              capacity=job._shuffle_spec.capacity, key_fill=SENT, num_partitions=32)
+    got = route_bucketize(*args, **kw, part_loads=loads)
+    want = route_bucketize_plain(*args, **kw, part_loads=loads)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    del got, want
+    flush = l2_flush(dev)
+    times = {"without": [], "with": []}
+    for turn in ("without", "with", "with", "without"):
+        extra = {"part_loads": loads} if turn == "with" else {}
+        times[turn].append(own_device_time(lambda: route_bucketize(*args, **kw, **extra),
+                                           DEVICE_NAMES["route_bucketize"], flush=flush)[0])
+    del flush
+    log(f"phase 15 (a): route_bucketize with the live split table {part.split_map()} at W=8 "
+        f"n={keys.shape[1]:,}: equal to its plain version with the load vector; device time "
+        f"without the vector {times['without']} ms, with it {times['with']} ms (in turns, L2 "
+        f"flushed): {100 * (statistics.mean(times['with']) / statistics.mean(times['without']) - 1):+.2f}%; "
+        f"card {card}")
+    del runs, job, part, loads, args, keys, vals
+    torch.cuda.empty_cache()
+    small = list(hotspot_flip(12, 16_384, **flips["stream"]))
+    card_equals_cpu(lambda device, driver: StreamingJob(
+        device=device, dr=DRConfig(**dr_kw, **DRIVERS[driver]), **job_kw), small, 15)
+
+    # ---- (b) the BackendPolicy, phase 2's stream -------------------------
+    t = time.perf_counter()
+    batches = list(drifting_zipf(8, 4_194_304, num_keys=1_000_000, exponent=1.3,
+                                 drift_every=3, drift_fraction=0.3, seed=0))
+    log(f"phase 15 (b): generated phase 2's 8 x 4,194,304 keys in "
+        f"{time.perf_counter() - t:.1f} s")
+    sampled = sample_keys(batches, dev)
+    auto = dict(auto_backend=True, backend_patience=2, backend_cooldown=50,
+                imbalance_trigger=1e9)
+    runs = {}
+    for name, extra in DRIVERS.items():
+        job = StreamingJob(device="cuda", dr=DRConfig(**auto, **extra), **job_kw)
+        seen = capture_signals(job)
+        r = runs[name] = drive(job, name, batches, kernels, phase=15)
+        ms = r["ms"]
+        switches = [m.batch for m in ms if m.action == "switch_backend"]
+        assert len(switches) == 1, [m.action for m in ms]
+        sw = switches[0]
+        assert [m.backend for m in ms] == ["dense"] * (sw + 1) + ["ragged"] * (7 - sw)
+        assert all(m.action in ("noop", "switch_backend") and m.overflow == 0 for m in ms)
+        assert all(m.shipped_rows < m.padded_rows for m in ms[sw + 1:])
+        assert r["launches"]["route_bucketize"] == len(batches) or name == "depth 2"
+        log(f"phase 15 (b): {name}: the switch to ragged at batch {sw} "
+            f"({ms[sw].reason}); padding fraction by safe point "
+            f"{[round(f, 6) for *_, f in seen]}; shipped rows a worker by batch "
+            f"{[m.shipped_rows for m in ms]} against {ms[0].padded_rows:,} provisioned; "
+            f"launches {r['launches']}")
+    assert_same_drivers(runs, phase=15)
+    auto_state = (runs["depth 1"]["job"].state_keys, runs["depth 1"]["job"].state_vals)
+    for name, r in runs.items():
+        log(f"phase 15 (b): {name}: wall per batch {r['wall_ms']:.2f} ms; card {card}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # ---- (c) ragged-pinned jobs, and dense beside them in turns -----------
+    # policies off (the steady state), then phase 2's policies (a migration
+    # every batch, through the ragged transport too)
+    pinned = {}
+    for label, backend, kw in (("dense, policies off", "dense", dict(imbalance_trigger=1e9)),
+                               ("ragged, policies off", "ragged", dict(imbalance_trigger=1e9)),
+                               ("ragged, policies off", "ragged", dict(imbalance_trigger=1e9)),
+                               ("dense, policies off", "dense", dict(imbalance_trigger=1e9)),
+                               ("dense, phase 2's policies", "dense",
+                                dict(imbalance_trigger=1.2, migration_cost_weight=0.2)),
+                               ("ragged, phase 2's policies", "ragged",
+                                dict(imbalance_trigger=1.2, migration_cost_weight=0.2))):
+        job = StreamingJob(device="cuda", dr=DRConfig(**kw), exchange_backend=backend, **job_kw)
+        r = drive(job, "depth 1 " + label, batches, kernels, phase=15)
+        ms = r["ms"]
+        assert all(m.backend == backend and m.overflow == 0 for m in ms)
+        if backend == "ragged":
+            assert all(m.shipped_rows < m.padded_rows for m in ms), [
+                (m.shipped_rows, m.padded_rows) for m in ms]
+        for key, want in sampled:
+            assert job.state_count(key) == want, (label, key)
+        state = (job.state_keys, job.state_vals)
+        if label in pinned:
+            pinned[label]["walls"].append(r["wall_ms"])
+        else:
+            pinned[label] = dict(walls=[r["wall_ms"]], state=state, ms=ms)
+        del job, r
+    for a, b in (("dense, policies off", "ragged, policies off"),
+                 ("dense, phase 2's policies", "ragged, phase 2's policies")):
+        # a declined repartition's reason prices the plan by the transport's rule
+        skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction", "backend",
+                "shipped_rows", "reason"}
+        for x, y in zip(pinned[a]["ms"], pinned[b]["ms"], strict=True):
+            dx, dy = dataclasses.asdict(x), dataclasses.asdict(y)
+            diff = {k: (dx[k], dy[k]) for k in dx if k not in skip and dx[k] != dy[k]}
+            assert not diff, (a, b, x.batch, diff)
+        assert all(torch.equal(u, v) for u, v in zip(pinned[a]["state"], pinned[b]["state"]))
+    dense = pinned["dense, policies off"]["state"]
+    assert all(torch.equal(u, v) for u, v in zip(auto_state, dense))
+    mig = pinned["ragged, phase 2's policies"]["ms"]
+    log(f"phase 15 (c): the ragged jobs equal the dense jobs (trajectories but for the "
+        f"backend and the shipped rows, and state), and the auto-switched job's state equals "
+        f"the dense-pinned job's; with phase 2's policies the ragged job repartitions at "
+        f"{[m.batch for m in mig if m.repartitioned]}, shipped rows a worker "
+        f"{[m.shipped_rows for m in mig]} against {[m.padded_rows for m in mig]} provisioned")
+    for label, p in pinned.items():
+        log(f"phase 15 (c): depth 1, {label}: wall per batch "
+            f"{' / '.join(f'{w:.2f}' for w in p['walls'])} ms (in turns: dense, ragged, "
+            f"ragged, dense; then dense, ragged with the policies); card {card}")
+    del pinned, auto_state, dense, mig, batches
+    torch.cuda.empty_cache()
+
+
+def float_payload_phase(dev) -> None:
+    """Phase 15 (d): non-integer payloads through the merge, the card against
+    the CPU.  ``merge_into``'s ``scatter_add_`` adds in no fixed order on
+    the card, so each key's sum may differ from the CPU's in its last bits:
+    held to 1e-6 of the key's sum of |values| (float32 keeps about 6e-8)."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import drifting_zipf
+
+    batches = list(drifting_zipf(6, 16_384, num_keys=50_000, exponent=1.3, drift_every=2,
+                                 seed=1))
+    rng = np.random.default_rng(0)
+    values = [rng.normal(size=(len(b), 2)).astype(np.float32) for b in batches]
+    jobs = {}
+    for device in ("cuda", "cpu"):
+        job = jobs[device] = StreamingJob(
+            device=device, payload_dim=2, num_workers=8, num_partitions=32,
+            state_capacity=262_144,
+            dr=DRConfig(imbalance_trigger=1.2, migration_cost_weight=0.2))
+        for b, v in zip(batches, values):
+            job.process_batch(b, v)
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    for a, b in zip(jobs["cuda"].metrics, jobs["cpu"].metrics, strict=True):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert {k: v for k, v in da.items() if k not in skip} == {
+            k: v for k, v in db.items() if k not in skip}, a.batch
+    keys = jobs["cuda"].state_keys.cpu()
+    assert torch.equal(keys, jobs["cpu"].state_keys)
+    live = (keys != SENT).numpy()
+    card = jobs["cuda"].state_vals.cpu().numpy()[live].astype(np.float64)
+    cpu = jobs["cpu"].state_vals.numpy()[live].astype(np.float64)
+    # each key's sum of |values| over the fed batches, on the host
+    fed = np.concatenate(batches)
+    uniq, inv = np.unique(fed, return_inverse=True)
+    mass = np.zeros((len(uniq), 2))
+    np.add.at(mass, inv, np.abs(np.concatenate(values)).astype(np.float64))
+    at = np.searchsorted(uniq, keys.numpy()[live])
+    diff = np.abs(card - cpu)
+    assert (diff <= 1e-6 * mass[at]).all(), float((diff / np.maximum(mass[at], 1e-30)).max())
+    repartitions = sum(m.repartitioned for m in jobs["cpu"].metrics)
+    log(f"phase 15 (d): payload_dim=2 non-integer values, {len(batches)} batches of 16,384 "
+        f"records ({repartitions} repartitions), card against CPU: trajectories and keys "
+        f"equal; {int((diff > 0).any(axis=1).sum())} of {int(live.sum())} keys' sums differ, "
+        f"largest difference {diff.max():.3e}, largest against the key's sum of |values| "
+        f"{float((diff / np.maximum(mass[at], 1e-30)).max()):.3e} (held to 1e-6)")
 
 
 def batch_phases(dev, sent) -> list[dict]:

@@ -17,9 +17,13 @@
   priced like every other action (the relief ``share * (1 - 1/d)`` must pay
   for the replica -> home backhaul plan's lane cost).  A key cooled below
   ``unsplit_trigger`` collapses first, through a home-routed migration.
-* :class:`BackendPolicy` — only its disabled branch is ported: with
-  ``auto_backend`` off (the default) it returns its ``NoOp`` reason, as the
-  reference does.
+* :class:`BackendPolicy` — the transport as an actuator: when the measured
+  ``exchange_padding_fraction`` (occupied / provisioned rows) stays below
+  ``backend_ragged_below``, a dense job ships padding the ragged count-first
+  transport would skip, so it flips; a ragged job whose fraction stays
+  above ``backend_dense_above`` flips back.  The gap between the two is a
+  dead zone, and a patience streak, a :class:`CooldownGuard` and a guard on
+  the measured walls of both transports add hysteresis.
 
 Each is a port of its ``repro.control.policy`` namesake, bit for bit.
 
@@ -32,7 +36,15 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.control.actions import Action, NoOp, Repartition, Resize, Split, Unsplit
+from repro_torch.control.actions import (
+    Action,
+    NoOp,
+    Repartition,
+    Resize,
+    Split,
+    SwitchBackend,
+    Unsplit,
+)
 from repro_torch.control.signals import Signals
 from repro_torch.core.migration import MigrationPlan, exchange_lane_cost, plan_migration
 from repro_torch.core.partitioner import expected_loads, heavy_capacity_for, kip_update
@@ -271,12 +283,42 @@ class SplitPolicy:
 
 
 class BackendPolicy:
-    """Dense <-> ragged transport selection; only the disabled branch is
-    ported."""
+    """Dense <-> ragged transport selection over the measured lane occupancy
+    (see the module docstring).  The streak and the last switch live on the
+    host (``backend_streak``, ``last_backend_switch``), so snapshots carry
+    them; the host installs a taken switch by ``note_backend_switch``."""
 
     def evaluate(self, host, signals: Signals) -> Action:
+        cfg = host.config
         imb = signals.imbalance
-        if not host.config.auto_backend:
+        if not cfg.auto_backend:
             return NoOp("auto-backend-disabled", imb, imb)
-        raise NotImplementedError(
-            "the BackendPolicy is not ported yet (ROADMAP.md, queue 1 item 6)")
+        frac = signals.exchange_padding_fraction
+        if signals.exchange_padded_rows <= 0:
+            # no exchange ran this window: nothing measured, keep the streak
+            return NoOp("backend-no-exchange-window", imb, imb)
+        name = getattr(host.exchange_backend, "name", str(host.exchange_backend))
+        if name == "dense" and frac < cfg.backend_ragged_below:
+            target = "ragged"
+        elif name == "ragged" and frac > cfg.backend_dense_above:
+            target = "dense"
+        else:
+            host.backend_streak = 0
+            return NoOp(f"backend-dead-zone {frac:.2f}", imb, imb)
+        host.backend_streak += 1
+        if host.backend_streak < cfg.backend_patience:
+            return NoOp(f"backend-patience {host.backend_streak}/{cfg.backend_patience}",
+                        imb, imb)
+        if not CooldownGuard(cfg.backend_cooldown).ready(host.batches_seen,
+                                                         host.last_backend_switch):
+            return NoOp("backend-cooldown", imb, imb)
+        # measured-wall evidence: once both transports have a wall EWMA, do
+        # not switch onto one measured markedly slower than the current one
+        # (with no measurement of the target the guard is inert)
+        ewma = signals.backend_wall_ewma or {}
+        if target in ewma and name in ewma and ewma[target] > 1.5 * ewma[name]:
+            return NoOp(f"backend-wall-evidence {target} {ewma[target]*1e3:.1f}ms > "
+                        f"{name} {ewma[name]*1e3:.1f}ms", imb, imb)
+        return SwitchBackend(
+            reason=f"backend {name}->{target} (padding fraction {frac:.2f})",
+            backend=target, padding_fraction=frac)

@@ -116,6 +116,27 @@ class Signals:
             return 0.0
         return self.records / self.window_wall_s
 
+    @property
+    def exchange_padding_fraction(self) -> float:
+        """Occupied / provisioned rows over the window, whatever transport
+        moved them (0.0 when the window saw no exchange): the
+        ``BackendPolicy``'s signal.  Falls back to the shipped rows when no
+        occupancy was recorded; an explicit occupancy of zero is a real
+        measurement (all lanes empty), not a missing one."""
+        if self.exchange_padded_rows <= 0:
+            return 0.0
+        rows = (self.exchange_rows if self.exchange_occupied_rows is None
+                else self.exchange_occupied_rows)
+        return rows / self.exchange_padded_rows
+
+    @property
+    def hot_lane(self) -> int:
+        """Lane with the most capacity drops this window, or -1 when nothing
+        overflowed."""
+        if self.lane_overflow is None or not np.any(self.lane_overflow):
+            return -1
+        return int(np.argmax(self.lane_overflow))
+
 
 class Telemetry:
     """Windowed accumulator turning runtime counters into ``Signals``.

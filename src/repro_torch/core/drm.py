@@ -9,9 +9,9 @@ Lives in the driver process.  Per safe point it
    repartition, backend — and
 3. records every decision, declined ones included, in the
    :class:`~repro_torch.control.DecisionLog`, installing a taken
-   repartition, split or unsplit and handing every taken action back to the
-   driver to execute at the safe point (a resize re-plans through
-   :meth:`DRMaster.replan_resize`).
+   repartition, split, unsplit or backend switch and handing every taken
+   action back to the driver to execute at the safe point (a resize
+   re-plans through :meth:`DRMaster.replan_resize`).
 
 A port of ``repro.core.drm``: every ``DRConfig`` field and its validation
 are copied; the features the port does not run yet (:data:`UNPORTED`)
@@ -24,7 +24,15 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.control.actions import Action, NoOp, Repartition, Resize, Split, Unsplit
+from repro_torch.control.actions import (
+    Action,
+    NoOp,
+    Repartition,
+    Resize,
+    Split,
+    SwitchBackend,
+    Unsplit,
+)
 from repro_torch.control.health import HealthPolicy
 from repro_torch.control.log import DecisionLog
 from repro_torch.control.policy import (
@@ -64,7 +72,7 @@ class DRConfig:
       direct ``process_batch`` calls degrade gracefully to depth 1.
     * ``split_least_load`` — replica pick for split hot keys: off (default)
       every route uses the stateless fmix32 offset; on, the lower-loaded of
-      two hashed replica candidates (not ported yet).
+      two hashed replica candidates, by the previous batch's loads.
 
     Every field and its validation are the reference's; the port's
     :class:`DRMaster` raises ``NotImplementedError`` for the features it
@@ -200,9 +208,7 @@ class DRDecision:
 
 # (DRConfig field, test that it asks for an unported feature, ROADMAP item)
 UNPORTED = (
-    ("auto_backend", lambda v: bool(v), "queue 1 item 6 (BackendPolicy)"),
     ("health_enabled", lambda v: bool(v), "queue 1 item 7 (failure domains)"),
-    ("split_least_load", lambda v: bool(v), "queue 1 item 2 (two-choice pick)"),
     ("snapshot_interval", lambda v: v > 0, "queue 1 item 7 (zero-loss recovery)"),
 )
 
@@ -242,8 +248,8 @@ class DRMaster:
         # condition has held
         self.grow_streak = 0
         self.shrink_streak = 0
-        # the disabled backend policy's streak, kept so snapshots hold the
-        # reference's keys and values
+        # the backend policy's patience streak (its cooldown stamp is
+        # last_backend_switch)
         self.backend_streak = 0
         # hot-key splitting: the installed replica map (key -> d), stamped
         # onto every partitioner this master installs, the split policy's
@@ -279,11 +285,12 @@ class DRMaster:
                  policies_enabled: bool = True) -> Action:
         """Run the policy stack over one safe point's signals, in the
         reference's precedence: an explicit resize request wins, then the
-        health, resize, split, repartition and backend policies.  A taken
-        repartition, split or unsplit is installed here; a taken resize is
+        health, resize, split, repartition and backend policies (the last
+        only when nothing structural fired).  A taken repartition, split,
+        unsplit or backend switch is installed here; a taken resize is
         returned for the driver to execute (:meth:`replan_resize`), and so
-        is an unsplit's merging migration.  Every safe-point outcome lands
-        in :attr:`decisions`."""
+        are an unsplit's merging migration and a switch's step rebuild.
+        Every safe-point outcome lands in :attr:`decisions`."""
         n = self.partitioner.num_partitions
         detail: dict = {}
         if not signals.at_safe_point:
@@ -312,7 +319,10 @@ class DRMaster:
                     self._install(action)
                 elif isinstance(action, NoOp):
                     switch = self.backend_policy.evaluate(self, signals)
-                    if switch.reason != "auto-backend-disabled":
+                    if isinstance(switch, SwitchBackend):
+                        self.note_backend_switch(switch.backend)
+                        action = switch
+                    elif switch.reason != "auto-backend-disabled":
                         detail["backend_declined"] = switch.reason
         self.decisions.record(action, tick=self.batches_seen,
                               imbalance=signals.imbalance, detail=detail)
@@ -350,6 +360,27 @@ class DRMaster:
             "reason": action.reason,
         })
 
+    def _as_decision(self, action: Action) -> DRDecision:
+        if isinstance(action, Repartition):
+            return DRDecision(True, action.partitioner, action.planned_imbalance,
+                              action.measured_imbalance, action.est_migration,
+                              "repartition")
+        if not isinstance(action, NoOp):
+            raise TypeError(f"no DRDecision for a {action.kind} action")
+        return DRDecision(False, self.partitioner, action.planned_imbalance,
+                          action.measured_imbalance, action.est_migration, action.reason)
+
+    def decide(self, loads: np.ndarray, state_rows: float = 0.0) -> DRDecision:
+        """Run only the repartition policy on measured per-partition loads,
+        installing and logging its decision (the reference's deprecated
+        pre-control-plane wrapper; :meth:`evaluate` is the safe-point API)."""
+        signals = Signals(loads=np.asarray(loads, np.float64), state_rows=int(state_rows))
+        action = self.repartition_policy.evaluate(self, signals)
+        if isinstance(action, Repartition):
+            self._install(action)
+        self.decisions.record(action, tick=self.batches_seen, imbalance=signals.imbalance)
+        return self._as_decision(action)
+
     def decide_resize(self, loads: np.ndarray, *, num_workers: int = 1) -> int | None:
         """Run only the elastic resize policy: the new partition count, or
         ``None`` to keep the topology.  No decision is logged (the
@@ -378,6 +409,21 @@ class DRMaster:
             self.split_keys = dict(new.split_map())
         self.note_resize(new)
         return new
+
+    def note_backend_switch(self, backend) -> None:
+        """Install a taken backend switch (bookkeeping): the master's own
+        transport flips at once, so plan pricing (``exchange_lane_cost``)
+        follows the transport the job is about to run, and the cooldown
+        stamp starts; the driver rebuilds its steps (state never moves)."""
+        old = self.exchange_backend.name
+        self.exchange_backend = resolve_backend(backend)
+        self.last_backend_switch = self.batches_seen
+        self.backend_streak = 0
+        self.history.append({
+            "batch": self.batches_seen,
+            "backend": (old, self.exchange_backend.name),
+            "reason": f"backend {old}->{self.exchange_backend.name}",
+        })
 
     def note_resize(self, new: Partitioner) -> None:
         """Install a resized partitioner at a safe point (bookkeeping): it

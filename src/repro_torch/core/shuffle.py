@@ -6,8 +6,9 @@ device, built on the exchange plane (:mod:`repro_torch.exchange`):
 1. every worker routes its local keys with the fused
    route -> slot -> bucketize pass (the ``route_bucketize`` CUDA kernel on
    the card, its plain version on the CPU),
-2. the dense backend's all-to-all (the lane/worker transpose) moves the
-   ``[W, L, cap]`` send buffers and they are unpacked,
+2. the backend's all-to-all (the lane/worker transpose; the ragged
+   backend exchanges the lane counts first) moves the ``[W, L, cap]`` send
+   buffers and they are unpacked,
 3. the DRW hook emits each worker's top-k histogram and the global
    per-partition loads.
 
@@ -153,17 +154,21 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
                       backend=None):
     """Build the shuffle step for a fixed worker count and lane capacity.
 
-    ``step(tables, keys[W, n], vals[W, n, D], valid[W, n]) -> ShuffleResult``
-    is the fused call; ``step.start(...) -> (pending, ShuffleStart)`` and
-    ``step.finish(pending) -> (keys, values, valid, part)`` are its halves
-    (see the module docstring for the buffer pool)."""
+    ``step(tables, keys[W, n], vals[W, n, D], valid[W, n], part_loads=None)
+    -> ShuffleResult`` is the fused call; ``step.start(..., part_loads=None)
+    -> (pending, ShuffleStart)`` and ``step.finish(pending) -> (keys,
+    values, valid, part)`` are its halves (see the module docstring for the
+    buffer pool).  ``part_loads`` (float32 ``[num_partitions]``, the
+    previous batch's loads) turns the route kernel's split-key replica pick
+    into the two-choice least-load pick; ``None`` is the hash pick, as
+    equal loads are."""
     ex = make_exchange(ExchangeSpec(num_lanes=num_workers, capacity=capacity,
                                     axis="data"), backend)
 
-    def _start(tables: PartitionerTables, keys, vals, valid, bufs):
+    def _start(tables: PartitionerTables, keys, vals, valid, bufs, part_loads):
         part, buffers = route_bucketize(
             ex, tables, keys, valid, vals, num_hosts=num_hosts, seed=seed,
-            num_partitions=num_partitions, buffers=bufs)
+            num_partitions=num_partitions, buffers=bufs, part_loads=part_loads)
         pending = ex.start_from(buffers)
         started = pending.buffers
         dest = torch.where(valid, part, 0).to(torch.int64)
@@ -181,14 +186,14 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
         rva, (rk, rv, rp) = res.unpack()
         return res, (rk, rv, rva, rp)
 
-    def step(tables: PartitionerTables, keys, vals, valid) -> ShuffleResult:
-        pending, s = _start(tables, keys, vals, valid, None)
+    def step(tables: PartitionerTables, keys, vals, valid, part_loads=None) -> ShuffleResult:
+        pending, s = _start(tables, keys, vals, valid, None, part_loads)
         return ShuffleResult(*_finish(pending)[1], *s)
 
     start_buffers, finish = _recycling(_finish)
 
-    def start(tables: PartitionerTables, keys, vals, valid):
-        return _start(tables, keys, vals, valid, start_buffers(vals))
+    def start(tables: PartitionerTables, keys, vals, valid, part_loads=None):
+        return _start(tables, keys, vals, valid, start_buffers(vals), part_loads)
 
     step.start = start
     step.finish = finish

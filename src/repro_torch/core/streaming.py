@@ -14,7 +14,10 @@ the partitioner across sizes (``DRMaster.replan_resize``), migrates through
 lanes the cross-size plan sizes and rebuilds the shuffle step; a ``Split``
 needs nothing (the DR master stamped the replica table and the next
 batch's route fans the key out); an ``Unsplit`` runs a home-routed
-migration off the still-split partitioner whose merge sums the partials.
+migration off the still-split partitioner whose merge sums the partials;
+a ``SwitchBackend`` (the ``BackendPolicy``, ``DRConfig(auto_backend=
+True)``) drops the steps, which the next batch rebuilds on the new
+transport, and moves nothing.
 
 A port of ``repro.core.streaming.StreamingJob``'s three drivers.  The W
 workers are stacked on one device (``num_workers``, default 1 — what the
@@ -59,8 +62,15 @@ live off their key's home, where the home-diff plan cannot see them, and
 lanes sized by that plan would drop them.  A snapshot restores onto
 another worker count by re-folding its rows on the host (``_adopt_state``).
 
-Backend switching, lane health and zero-loss recovery are not ported yet
-and raise ``NotImplementedError``.
+**The least-load replica pick** (``DRConfig(split_least_load=True)``):
+after each batch's loads reach the host, the driver uploads them as
+float32 (without a wait), and the next route's kernel sends a split key's
+record to the less loaded of its two hashed replicas.  All three drivers
+route batch N+1 on batch N's loads; a resize or a restore drops the
+vector.
+
+Lane health and zero-loss recovery are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,8 +89,17 @@ from repro_torch.compat import (
     overlap_enabled,
     resolve_device,
     safe_point,
+    to_device,
 )
-from repro_torch.control import NoOp, Repartition, Resize, Split, Telemetry, Unsplit
+from repro_torch.control import (
+    NoOp,
+    Repartition,
+    Resize,
+    Split,
+    SwitchBackend,
+    Telemetry,
+    Unsplit,
+)
 from repro_torch.core.drm import DRConfig, DRMaster
 from repro_torch.core.hashing import DEFAULT_NUM_HOSTS, KEY_SENTINEL
 from repro_torch.core.migration import migration_capacity, plan_migration
@@ -259,6 +278,9 @@ class StreamingJob:
         self._next_batch: np.ndarray | None = None
         # (source array, partitioner, step, pending, host ShuffleStart, event)
         self._staged: tuple | None = None
+        # split_least_load: the previous batch's loads, float32 on the
+        # device, that the next route's replica pick reads (None: equal)
+        self._part_loads: torch.Tensor | None = None
         self.state_keys, self.state_vals = empty_state(
             state_capacity, payload_dim, num_workers=self.num_workers, device=self.device)
         self.metrics: list[BatchMetrics] = []
@@ -325,7 +347,8 @@ class StreamingJob:
         if (cap, self.num_partitions) != self._shuffle_sig:
             return
         shuffle = self._shuffle
-        pending, start = shuffle.start(self._tables(), *self._upload(raw, None))
+        pending, start = shuffle.start(self._tables(), *self._upload(raw, None),
+                                       self._part_loads)
         res, ready = copy_to_host(start)
         self._staged = (raw, self.drm.partitioner, shuffle, pending, res, ready)
 
@@ -439,7 +462,7 @@ class StreamingJob:
             if pipelined:
                 pending, res, ready = staged
             else:
-                pending, start = shuffle.start(self._tables(), *batch)
+                pending, start = shuffle.start(self._tables(), *batch, self._part_loads)
                 res, ready = copy_to_host(start)
             self._consume_inflight()
 
@@ -456,7 +479,7 @@ class StreamingJob:
         else:
             self._discard_staged()  # overlap turned off mid-stream: route afresh
             self._drain_inflight()
-            res = self._shuffle(self._tables(), *batch)
+            res = self._shuffle(self._tables(), *batch, self._part_loads)
             # stateful reduce: fold received records into per-worker state
             self._sk, self._sv, _ = merge_into(self._sk, self._sv, res.keys, res.values,
                                                res.valid)
@@ -464,6 +487,10 @@ class StreamingJob:
                 loads = host_fetch(res.loads)  # waits for the batch's device work
             exchange_wall = time.perf_counter() - t_ex
             count_wall = None
+        # the next route reads this batch's loads (all three drivers route
+        # batch N+1 on batch N's, set here before any lookahead stages)
+        if self.drm.config.split_least_load:
+            self._part_loads = to_device(np.asarray(loads, np.float32), self.device)
         # depth 2: upload the lookahead batch and enqueue its start now,
         # behind this batch's in-flight ship
         if self._next_batch is not None and self._depth2_active():
@@ -513,6 +540,9 @@ class StreamingJob:
             # home-routed migration off the still-split partitioner pulls
             # every replica's partial home, where the merge sums them
             migration = self._migrate_state(action.prev, full_lanes=True)
+        elif isinstance(action, SwitchBackend):
+            # the DR master installed the new transport; no state moves
+            self._apply_backend_switch()
         elif not isinstance(action, (NoOp, Split)):
             # a Split needs nothing here: the next batch's route fans out
             raise NotImplementedError(
@@ -568,8 +598,9 @@ class StreamingJob:
         """Rows the split keys of ``keys`` land on each partition (the host
         twin of the route's replica pick over the batch as the workers hold
         it: sentinel-padded to a multiple of ``num_workers``); ``None`` while
-        nothing is split."""
-        if not self.drm.split_keys:
+        nothing is split, and under the least-load pick, whose load vector
+        the twin does not see (as in the reference)."""
+        if not self.drm.split_keys or self.drm.config.split_least_load:
             return None
         w = self.num_workers
         padded = np.full(-(-len(keys) // w) * w, _SENT, np.int32)
@@ -678,7 +709,17 @@ class StreamingJob:
         self.num_partitions = n
         self._shuffle = None
         self._shuffle_sig = None
+        self._part_loads = None  # re-seeded at the new width
         return stats
+
+    def _apply_backend_switch(self) -> None:
+        """Adopt the DR master's newly installed transport at a safe point:
+        the shuffle and migrate steps were built for the old one, so both
+        go, and the next batch rebuilds them (as after a resize)."""
+        self.exchange_backend = self.drm.exchange_backend
+        self._shuffle = None
+        self._shuffle_sig = None
+        self._migrate_steps.clear()
 
     def _recover_from_loss(self, loss) -> str:
         raise NotImplementedError(
@@ -741,13 +782,15 @@ class StreamingJob:
         with.  A snapshot of another worker count is re-folded onto this
         job's workers and state capacity (:meth:`_adopt_state`).  The
         in-flight finish belongs to the replaced state and the staged start
-        to the replaced partitioner: both go, as does a pending resize."""
+        to the replaced partitioner: both go, as do a pending resize and the
+        least-load vector (measured before the restore)."""
         drm_snap = {k[4:]: v for k, v in snap.items() if k.startswith("drm_")}
         snap_keys = np.asarray(snap["state_keys"])
         self._inflight = None
         self._hidden_since = None
         self._staged = None
         self._pending_resize = None
+        self._part_loads = None
         self.drm = DRMaster.restore(drm_snap, self.drm.config)
         if snap_keys.shape[0] != self.num_workers:
             self._adopt_state(snap_keys, np.asarray(snap["state_vals"]))
@@ -757,7 +800,10 @@ class StreamingJob:
                                            dtype=torch.float32, device=self.device)
             self.state_capacity = int(snap_keys.shape[1])
         self.payload_dim = int(self._sv.shape[2])
-        self.exchange_backend = self.drm.exchange_backend
+        if "exchange_backend" in drm_snap:  # the snapshot's transport wins
+            self.exchange_backend = self.drm.exchange_backend
+        else:  # a snapshot older than the backends: this job's stands
+            self.drm.exchange_backend = self.exchange_backend
         n = self.drm.partitioner.num_partitions
         if n < self.num_workers:
             raise ValueError(f"snapshot has {n} partitions < {self.num_workers} workers")

@@ -6,6 +6,7 @@ from repro_torch.exchange.backends import (
     DenseBackend,
     ExchangeBackend,
     LocalBackend,
+    RaggedBackend,
     resolve_backend,
 )
 from repro_torch.exchange.plane import (
@@ -31,6 +32,7 @@ __all__ = [
     "LocalBackend",
     "Payload",
     "PendingExchange",
+    "RaggedBackend",
     "SendInfo",
     "make_exchange",
     "resolve_backend",

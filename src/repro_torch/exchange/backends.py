@@ -15,13 +15,21 @@ new receive tensors, so the send set is free to be recycled, and
 
 * :class:`DenseBackend` — the capacity-padded all-to-all: every lane ships
   ``capacity`` rows.
+* :class:`RaggedBackend` — the count-first two-phase exchange: the start
+  phase exchanges each lane's occupancy (``lane_counts`` -> its transpose
+  ``recv_counts``) and prices the traffic by real rows; the ship is the
+  same transpose, with the receive mask taken from the counts.  On stacked
+  workers that is the reference's masked fallback: bucketize packs each
+  lane from slot 0, so the rows past a peer's count already hold the
+  sender's fills, as the fallback ships them.  A native uneven-split
+  collective waits for the ``torch.distributed`` transport.
 * :class:`LocalBackend` — ``axis=None``: bucketize only, nothing ships.
 
-The ragged and hierarchical transports and the ``torch.distributed``
-transport are not ported yet.
+The hierarchical and ``torch.distributed`` transports are not ported yet.
 """
 from __future__ import annotations
 
+import math
 from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
@@ -35,6 +43,7 @@ __all__ = [
     "DenseBackend",
     "ExchangeBackend",
     "LocalBackend",
+    "RaggedBackend",
     "resolve_backend",
 ]
 
@@ -80,9 +89,12 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
     in_range = (lane >= 0) & (lane < spec.num_lanes)
     ok = valid & in_range & (slot >= 0) & (slot < spec.capacity)
     overflow = (valid & (~in_range | (slot >= spec.capacity))).sum(dim=1)
+    lane_counts = None
     if counts is not None:
         # slots run 0..count-1, so the excess over capacity is what dropped
+        # and the buffer occupancy is the clipped count
         lane_overflow = (counts - spec.capacity).clamp(min=0).to(torch.int32)
+        lane_counts = counts.clamp(max=spec.capacity).to(torch.int32)
     else:
         lane_overflow = torch.zeros((w, spec.num_lanes), dtype=torch.int32,
                                     device=lane.device)
@@ -105,7 +117,27 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
     return ExchangeResult(
         buf_valid, bufs, SendInfo(lane, slot, ok, overflow, lane_overflow),
         shipped_rows=torch.zeros(w, dtype=torch.int64, device=lane.device),
+        lane_counts=lane_counts,
     )
+
+
+def _row_bytes(payloads: tuple) -> int:
+    """Bytes one exchanged row carries across all ``[W, L, cap, ...]``
+    payload buffers (the trailing dims after ``cap``)."""
+    return max(1, sum(math.prod(b.shape[3:]) * b.element_size() for b in payloads))
+
+
+def _count_phase_rows(spec: ExchangeSpec, payloads: tuple) -> int:
+    """The count phase's traffic in row-equivalents: one int32 per lane,
+    normalized by the payload row width."""
+    return -(-4 * spec.num_lanes // _row_bytes(payloads))
+
+
+def _check_stacked(spec: ExchangeSpec, buffers: ExchangeResult) -> None:
+    w = buffers.valid.shape[0]
+    if w != spec.num_lanes:
+        raise ValueError(f"stacked all-to-all needs one lane per worker: "
+                         f"{w} workers, {spec.num_lanes} lanes")
 
 
 def _transposed(b: torch.Tensor) -> torch.Tensor:
@@ -141,10 +173,7 @@ class DenseBackend:
         new receive tensors."""
         if spec.axis is None:
             return buffers
-        w = buffers.valid.shape[0]
-        if w != spec.num_lanes:
-            raise ValueError(f"stacked all-to-all needs one lane per worker: "
-                             f"{w} workers, {spec.num_lanes} lanes")
+        _check_stacked(spec, buffers)
         return buffers._replace(
             valid=_transposed(buffers.valid),
             payloads=tuple(_transposed(b) for b in buffers.payloads),
@@ -163,6 +192,57 @@ class DenseBackend:
         return float(plan_rows.max()) * slack
 
 
+class RaggedBackend:
+    """Count-first two-phase transport: exchange the lane counts, then ship
+    the rows they cover (``shipped_rows`` counts those rows and the count
+    phase, not the pad)."""
+
+    name = "ragged"
+
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None,
+                  buffers=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts,
+                          buffers=buffers)
+
+    def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """Phase 1: every receiver learns how many rows each peer sends
+        (``recv_counts[w, j] = lane_counts[j, w]``); ``shipped_rows``,
+        ``lane_counts`` and ``recv_counts`` are final here."""
+        if spec.axis is None:
+            return buffers
+        counts = buffers.lane_counts
+        if counts is None:  # bucketize had no dispatch counts to reuse
+            counts = buffers.valid.sum(dim=2, dtype=torch.int32)
+        phase_rows = _count_phase_rows(spec, buffers.payloads)
+        return buffers._replace(
+            shipped_rows=counts.sum(dim=1, dtype=torch.int64) + phase_rows,
+            lane_counts=counts, recv_counts=_transposed(counts))
+
+    def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """Phase 2: the rows by the dense transpose, valid where the
+        started counts say (rows past a count hold the sender's fills)."""
+        if spec.axis is None:
+            return buffers
+        _check_stacked(spec, buffers)
+        recv = buffers.recv_counts
+        slots = torch.arange(spec.capacity, device=recv.device, dtype=torch.int32)
+        return buffers._replace(
+            valid=slots[None, None, :] < recv[:, :, None],
+            payloads=tuple(_transposed(b) for b in buffers.payloads))
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        return self.a2a_finish(spec, self.a2a_start(spec, buffers))
+
+    def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
+             slack: float = 1.25) -> float:
+        """Real rows: the per-lane average planned mass (empty lanes are
+        free), never more than the dense peak."""
+        plan_rows = np.asarray(plan_rows, np.float64)
+        if plan_rows.size == 0:
+            return 0.0
+        return float(plan_rows.sum()) / plan_rows.size * slack
+
+
 class LocalBackend:
     """``axis=None`` fast path: bucketize only, no collective, nothing ships."""
 
@@ -176,7 +256,7 @@ class LocalBackend:
     def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         if spec.axis is not None:
             raise ValueError(f"LocalBackend cannot cross worker axis {spec.axis!r}; "
-                             "use the dense backend")
+                             "use the dense or ragged backend")
         return buffers
 
     def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
@@ -190,8 +270,8 @@ class LocalBackend:
         return 0.0
 
 
-_BACKENDS = {"dense": DenseBackend, "local": LocalBackend}
-_NOT_PORTED = ("ragged", "hierarchical")
+_BACKENDS = {"dense": DenseBackend, "local": LocalBackend, "ragged": RaggedBackend}
+_NOT_PORTED = ("hierarchical",)
 
 
 def resolve_backend(backend, spec: ExchangeSpec | None = None) -> ExchangeBackend:

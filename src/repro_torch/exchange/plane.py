@@ -62,21 +62,27 @@ class PendingExchange(NamedTuple):
 
 
 def route_dispatch(tables: PartitionerTables, keys, valid, *, num_hosts: int,
-                   seed: int, num_lanes: int, num_partitions: int = 0):
+                   seed: int, num_lanes: int, num_partitions: int = 0,
+                   part_loads=None):
     """Fused key -> partition lookup + lane slot assignment (the
     ``lookup_dispatch`` kernel): ``(part[W, n], slot[W, n], counts[W, L])``.
 
     ``num_partitions > 0`` activates hot-key splitting; the migration path
-    leaves it 0 so every key routes to its home."""
+    leaves it 0 so every key routes to its home.  ``part_loads`` (float32
+    ``[num_partitions]``) switches the split-replica pick to the two-choice
+    least-load tie-break, in the kernel on the card."""
     return ops.route_slots(keys, valid, tables, num_hosts=num_hosts, seed=seed,
-                           num_lanes=num_lanes, num_partitions=num_partitions)
+                           num_lanes=num_lanes, num_partitions=num_partitions,
+                           part_loads=part_loads)
 
 
 def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid, vals,
                     *, num_hosts: int, seed: int, key_fill: int = int(KEY_SENTINEL),
-                    num_partitions: int = 0, buffers: tuple | None = None):
+                    num_partitions: int = 0, buffers: tuple | None = None,
+                    part_loads=None):
     """Fused route -> bucketize for the shuffle's ``(keys, vals, part)``
-    payload triple (the ``route_bucketize`` kernel).
+    payload triple (the ``route_bucketize`` kernel; ``part_loads`` as in
+    :func:`route_dispatch`).
 
     Returns ``(part[W, n], buffers)`` — the per-record partition ids plus a
     bucketized :class:`ExchangeResult` ready for the collective.
@@ -87,7 +93,7 @@ def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid
     part, slot, counts, buf_valid, bk, bv, bp = ops.route_bucketize(
         keys, valid, tables, vals, num_hosts=num_hosts, seed=seed,
         num_lanes=spec.num_lanes, capacity=spec.capacity, key_fill=key_fill,
-        num_partitions=num_partitions, out=out)
+        num_partitions=num_partitions, part_loads=part_loads, out=out)
     lane = torch.where(valid, part % spec.num_lanes, 0).to(torch.int32)
     ok = valid & (slot >= 0) & (slot < spec.capacity)
     # lanes are `part % L`, always in range: the capacity drops per lane
@@ -98,6 +104,7 @@ def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid
         buf_valid, (bk, bv, bp),
         SendInfo(lane, slot, ok, overflow, lane_overflow),
         shipped_rows=torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device),
+        lane_counts=counts.clamp(max=spec.capacity).to(torch.int32),
     )
     return part, buffers
 
@@ -143,5 +150,5 @@ class Exchange:
 
 def make_exchange(spec: ExchangeSpec, backend: str | ExchangeBackend | None = None) -> Exchange:
     """Build the exchange primitive for one static spec (``"dense"`` /
-    ``"local"``, an instance, or ``None`` to auto-select)."""
+    ``"ragged"`` / ``"local"``, an instance, or ``None`` to auto-select)."""
     return Exchange(spec, backend)

@@ -122,8 +122,14 @@ class ExchangeResult(NamedTuple):
     payloads: tuple          # each [W, L, capacity, ...], order of the inputs
     send: SendInfo
     # rows the transport moved per worker: the dense backend ships the
-    # whole padded buffer (L * capacity), a local exchange nothing
+    # whole padded buffer (L * capacity), the ragged backend its measured
+    # occupancy plus the count phase, a local exchange nothing
     shipped_rows: torch.Tensor = None  # int[W]
+    # the count bookkeeping: ``lane_counts[w, l]`` is the rows worker w
+    # sent on lane l (min(count, capacity)), ``recv_counts[w, j]`` the rows
+    # worker w received from peer j (the ragged transport's count phase)
+    lane_counts: torch.Tensor = None   # int32[W, L]
+    recv_counts: torch.Tensor = None   # int32[W, L]
 
     def unpack(self):
         """Flatten lane-major buffers to record-major ``[W, L*capacity, ...]``."""

@@ -33,13 +33,15 @@ _SIGNATURES = {
     "rk_probe_slots": ([_I], _I),
     "rk_scratch_words": ([_I, _I, _I, _I], _L),
     "rk_error_string": ([_I], ctypes.c_char_p),
-    # keys valid W n | hk hp hr B | h2p H seed_mix | L N | part slot counts scratch | stream
-    "rk_lookup_dispatch": ([_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _U, _I, _I,
+    # keys valid W n | hk hp hr B | h2p H seed_mix | L N part_loads |
+    # part slot counts scratch | stream
+    "rk_lookup_dispatch": ([_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _U, _I, _I, _P,
                             _P, _P, _P, _P, _P], _I),
-    # keys valid vals D W n | hk hp hr B | h2p H seed_mix | L N cap key_fill |
-    # part slot counts scratch | buf_valid buf_keys buf_vals buf_part | stream
+    # keys valid vals D W n | hk hp hr B | h2p H seed_mix | L N part_loads cap
+    # key_fill | part slot counts scratch | buf_valid buf_keys buf_vals buf_part |
+    # stream
     "rk_route_bucketize": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _U,
-                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+                            _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     # keys total | hk hp B | h2p H seed_mix | part | stream
     "bk_partition_apply": ([_P, _L, _P, _P, _I, _P, _I, _U, _P, _P], _I),
     # dest valid W n N | slot counts scratch | stream

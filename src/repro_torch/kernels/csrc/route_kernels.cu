@@ -9,8 +9,12 @@
 //   part[w,i]  = heavy_parts[j] if keys[w,i] == heavy_keys[j] (first such j)
 //              = host_to_part[fmix32(key ^ seed_mix) & (H-1)]   otherwise
 //                with num_partitions > 0, a heavy hit becomes
-//                (part + (fmix32(i*golden ^ mixed) & 0x7FFFFFFF) % max(repl,1))
-//                % num_partitions (split hot keys);
+//                (part + (h & 0x7FFFFFFF) % max(repl,1)) % num_partitions,
+//                h = fmix32(i*golden ^ mixed) (split hot keys); with part_loads
+//                (float32[num_partitions]) the offset becomes the two-choice
+//                least-load pick: offset2 from h2 = fmix32(h + 0x85EBCA6B),
+//                taken only when loads[(part + offset2) % N] is below
+//                loads[(part + offset) % N] (ties keep the first hash);
 //   slot[w,i]  = stable rank of record i among the valid records of worker w
 //                on lane part % L (-1 when invalid);
 //   counts[w,l] = valid records of worker w on lane l;
@@ -20,7 +24,9 @@
 //
 // What bounds them on an H100 (3.35 TB/s HBM3, published peak): device
 // memory bytes.  Per record they do one fmix32 or two, a probe of the
-// heavy-key table, a host-table gather and a few ballots: a few tens of
+// heavy-key table, a host-table gather and a few ballots (a hit on a
+// split key, d > 1, under the least-load pick one more fmix32 and two
+// reads of the N-float load vector, which stays in L1): a few tens of
 // integer operations against 9 bytes read and 8 written (plus 4*D+9 bytes
 // per cell of the send buffers), far below the card's operations-per-byte
 // balance.  Bound = bytes / 3.35 TB/s, with bytes = W*n*(4 key + 1 valid +
@@ -77,6 +83,7 @@ struct RouteArgs {
   int num_lanes;
   int lane_mask;               // num_lanes - 1 when a power of two, else -1
   int num_partitions;
+  const float* part_loads;     // [num_partitions] or null: the hash pick alone
   int32_t* part;               // [W, n]
   int32_t* slot;               // [W, n]
   int32_t* counts;             // [W, L]
@@ -115,7 +122,16 @@ __device__ __forceinline__ void route_parts(const RouteArgs& a, const HeavyTable
       int d = __ldg(a.heavy_repl + h);
       d = d > 1 ? d : 1;
       const uint32_t hash = fmix32(static_cast<uint32_t>(idx[j]) * kGolden ^ mixed[j]);
-      const int offset = static_cast<int>(hash & 0x7FFFFFFFu) % d;
+      int offset = static_cast<int>(hash & 0x7FFFFFFFu) % d;
+      // the two-choice least-load pick; a key on one replica (d = 1: every
+      // unsplit heavy key, and the sentinel rows invalid records hit) has
+      // offset2 = offset = 0, so it skips the second hash and the reads
+      if (a.part_loads != nullptr && d > 1) {
+        const int offset2 = static_cast<int>(fmix32(hash + 0x85EBCA6Bu) & 0x7FFFFFFFu) % d;
+        const float load1 = __ldg(a.part_loads + (part[j] + offset) % a.num_partitions);
+        const float load2 = __ldg(a.part_loads + (part[j] + offset2) % a.num_partitions);
+        if (load2 < load1) offset = offset2;
+      }
       part[j] = (part[j] + offset) % a.num_partitions;
     }
   }
@@ -290,8 +306,8 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
                           const int32_t* heavy_keys, const int32_t* heavy_parts,
                           const int32_t* heavy_repl, int num_heavy,
                           const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
-                          int num_lanes, int num_partitions, int32_t* part, int32_t* slot,
-                          int32_t* counts) {
+                          int num_lanes, int num_partitions, const float* part_loads,
+                          int32_t* part, int32_t* slot, int32_t* counts) {
   RouteArgs a;
   a.keys = keys;
   a.valid = valid;
@@ -309,6 +325,7 @@ RouteArgs make_route_args(const int32_t* keys, const uint8_t* valid, int num_wor
   a.num_lanes = num_lanes;
   a.lane_mask = num_lanes & (num_lanes - 1) ? -1 : num_lanes - 1;
   a.num_partitions = num_partitions;
+  a.part_loads = part_loads;
   a.part = part;
   a.slot = slot;
   a.counts = counts;
@@ -341,15 +358,16 @@ int rk_lookup_dispatch(const int32_t* keys, const uint8_t* valid, int num_worker
                        const int32_t* heavy_keys, const int32_t* heavy_parts,
                        const int32_t* heavy_repl, int num_heavy,
                        const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
-                       int num_lanes, int num_partitions, int32_t* part, int32_t* slot,
-                       int32_t* counts, int64_t* scratch, void* stream) {
+                       int num_lanes, int num_partitions, const float* part_loads,
+                       int32_t* part, int32_t* slot, int32_t* counts, int64_t* scratch,
+                       void* stream) {
   const int tile = kTileOf[kLookupDispatch];
   if (n > INT32_MAX - tile) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RouteArgs a = make_route_args(keys, valid, num_workers, n, heavy_keys, heavy_parts,
                                       heavy_repl, num_heavy, host_to_part, num_hosts,
-                                      seed_mix, num_lanes, num_partitions, part, slot,
-                                      counts);
+                                      seed_mix, num_lanes, num_partitions, part_loads,
+                                      part, slot, counts);
   if (cudaError_t e = zero_for_launch(scratch, tile, num_workers, n, num_lanes, counts, st))
     return e;
   return launch_route_rank<false>(a, ScatterArgs{},
@@ -360,7 +378,8 @@ int rk_route_bucketize(const int32_t* keys, const uint8_t* valid, const float* v
                        int num_workers, int n, const int32_t* heavy_keys,
                        const int32_t* heavy_parts, const int32_t* heavy_repl, int num_heavy,
                        const int32_t* host_to_part, int num_hosts, uint32_t seed_mix,
-                       int num_lanes, int num_partitions, int capacity, int32_t key_fill,
+                       int num_lanes, int num_partitions, const float* part_loads,
+                       int capacity, int32_t key_fill,
                        int32_t* part, int32_t* slot, int32_t* counts, int64_t* scratch,
                        uint8_t* buf_valid, int32_t* buf_keys, float* buf_vals,
                        int32_t* buf_part, void* stream) {
@@ -369,8 +388,8 @@ int rk_route_bucketize(const int32_t* keys, const uint8_t* valid, const float* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RouteArgs a = make_route_args(keys, valid, num_workers, n, heavy_keys, heavy_parts,
                                       heavy_repl, num_heavy, host_to_part, num_hosts,
-                                      seed_mix, num_lanes, num_partitions, part, slot,
-                                      counts);
+                                      seed_mix, num_lanes, num_partitions, part_loads,
+                                      part, slot, counts);
   ScatterArgs s;
   s.vals = vals;
   s.dim = dim;

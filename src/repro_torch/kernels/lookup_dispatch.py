@@ -8,6 +8,8 @@ table in shared memory (``csrc/route_common.cuh``; a binary search for
 tables too large for it) and ranks records deterministically in one pass
 (``csrc/lane_rank.cuh``: ticketed tiles and a decoupled look-back); the
 sources' headers say how.  ``heavy_keys`` must be sorted ascending.
+``part_loads`` (float32 ``[num_partitions]``) turns the split-key replica
+pick into the two-choice least-load pick, in the kernel itself.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.lookup_dispatch_ref`); on a CUDA tensor it
@@ -30,13 +32,14 @@ MAX_HOSTS = 8192
 
 def lookup_dispatch_plain(keys, valid, heavy_keys, heavy_parts, host_to_part,
                           heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                          num_partitions=0):
+                          num_partitions=0, part_loads=None):
     """The plain PyTorch version of :func:`lookup_dispatch` (any device)."""
+    split = num_partitions > 0
     return lookup_dispatch_ref(
         keys, valid, heavy_keys, heavy_parts, host_to_part, seed=seed,
         num_hosts=num_hosts, num_lanes=num_lanes,
-        heavy_repl=heavy_repl if num_partitions > 0 else None,
-        num_partitions=num_partitions)
+        heavy_repl=heavy_repl if split else None, num_partitions=num_partitions,
+        part_loads=part_loads if split else None)
 
 
 def _fail(msg: str):
@@ -44,14 +47,21 @@ def _fail(msg: str):
 
 
 def check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part,
-                       heavy_repl, *, num_hosts, num_lanes, num_partitions):
-    """Raise ``ValueError`` on anything the CUDA route kernels do not take."""
+                       heavy_repl, *, num_hosts, num_lanes, num_partitions,
+                       part_loads=None):
+    """Raise ``ValueError`` on anything the CUDA route kernels do not take.
+    ``part_loads`` is read only when ``num_partitions > 0``."""
     tables = [heavy_keys, heavy_parts, host_to_part]
+    loads = [part_loads] if num_partitions > 0 and part_loads is not None else []
     if num_partitions > 0:
         if heavy_repl is None:
             _fail("splitting (num_partitions > 0) needs the replica table")
         tables.append(heavy_repl)
-    build.require_cuda("route kernel", keys, valid, *tables)
+    build.require_cuda("route kernel", keys, valid, *tables, *loads)
+    for t in loads:
+        if t.dtype != torch.float32 or tuple(t.shape) != (num_partitions,):
+            _fail(f"part_loads must be float32[{num_partitions}], got "
+                  f"{t.dtype}{list(t.shape)}")
     if keys.dim() != 2 or keys.dtype != torch.int32:
         _fail(f"keys must be int32[W, n], got {keys.dtype}{list(keys.shape)}")
     if valid.dtype != torch.bool or valid.shape != keys.shape:
@@ -70,6 +80,14 @@ def check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part,
         _fail("too many records for one launch")
 
 
+def split_pointers(heavy_repl, part_loads, num_partitions):
+    """The replica table's and the load vector's pointers (``None``: null)
+    as the route kernels read them: only while splitting is on."""
+    if num_partitions <= 0:
+        return None, None
+    return heavy_repl.data_ptr(), None if part_loads is None else part_loads.data_ptr()
+
+
 # the kernels that rank, as the C side numbers them (csrc/lane_rank.cuh)
 RANK_KERNELS = {"lookup_dispatch": 0, "route_bucketize": 1, "dispatch_count": 2}
 
@@ -85,33 +103,34 @@ def rank_scratch(keys, num_lanes, kernel):
 
 def lookup_dispatch(keys, valid, heavy_keys, heavy_parts, host_to_part,
                     heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                    num_partitions=0):
+                    num_partitions=0, part_loads=None):
     """``(part int32[W, n], slot int32[W, n], counts int32[W, L])`` for keys
     ``int32[W, n]`` of W stacked workers.
 
     ``slot`` is each valid record's stable rank within lane ``part % L``
     (-1 when invalid).  ``num_partitions > 0`` turns on the split-key
-    replica pick from ``heavy_repl``."""
+    replica pick from ``heavy_repl``, and ``part_loads`` its two-choice
+    least-load tie-break."""
     if keys.device.type == "cpu":
         return lookup_dispatch_plain(
             keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
             seed=seed, num_hosts=num_hosts, num_lanes=num_lanes,
-            num_partitions=num_partitions)
+            num_partitions=num_partitions, part_loads=part_loads)
     check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
                        num_hosts=num_hosts, num_lanes=num_lanes,
-                       num_partitions=num_partitions)
+                       num_partitions=num_partitions, part_loads=part_loads)
     lib = build.library()
     w, n = keys.shape
     part = torch.empty_like(keys)
     slot = torch.empty_like(keys)
     counts = torch.empty((w, num_lanes), dtype=torch.int32, device=keys.device)
     scratch = rank_scratch(keys, num_lanes, "lookup_dispatch")
-    repl = heavy_repl.data_ptr() if num_partitions > 0 else None
+    repl, loads = split_pointers(heavy_repl, part_loads, num_partitions)
     code = lib.rk_lookup_dispatch(
         keys.data_ptr(), valid.data_ptr(), w, n,
         heavy_keys.data_ptr(), heavy_parts.data_ptr(), repl, heavy_keys.shape[0],
         host_to_part.data_ptr(), num_hosts, seed_mix(seed), num_lanes, num_partitions,
-        part.data_ptr(), slot.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+        loads, part.data_ptr(), slot.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(keys.device).cuda_stream)
     build.check(code, "lookup_dispatch")
     lookup_dispatch.launches += 1

@@ -55,30 +55,31 @@ def pad_heavy_tables(tables, *, num_partitions: int, pad_empty: bool):
 
 
 def route_slots(keys, valid, tables, *, num_hosts: int, seed: int = 0,
-                num_lanes: int, num_partitions: int = 0):
+                num_lanes: int, num_partitions: int = 0, part_loads=None):
     """Fused partition lookup + lane slot: ``(part, slot, counts)`` for keys
-    ``[W, n]`` (see :func:`repro_torch.kernels.lookup_dispatch`)."""
+    ``[W, n]`` (see :func:`repro_torch.kernels.lookup_dispatch`);
+    ``part_loads`` is the least-load replica pick's load vector."""
     hk, hp, hr = pad_heavy_tables(tables, num_partitions=num_partitions, pad_empty=False)
     return lookup_dispatch(
         keys.to(torch.int32).contiguous(), valid.contiguous(), hk, hp,
         tables.host_to_part.contiguous(), hr, seed=seed, num_hosts=num_hosts,
-        num_lanes=num_lanes, num_partitions=num_partitions)
+        num_lanes=num_lanes, num_partitions=num_partitions, part_loads=part_loads)
 
 
 def route_bucketize(keys, valid, tables, vals, *, num_hosts: int, seed: int = 0,
                     num_lanes: int, capacity: int, key_fill: int,
-                    num_partitions: int = 0, out=None):
+                    num_partitions: int = 0, part_loads=None, out=None):
     """Fused route + slot + bucketize: ``(part, slot, counts, buf_valid,
     buf_keys, buf_vals, buf_part)`` with ``[W, L, capacity]`` buffers,
     written into ``out = (buf_valid, buf_keys, buf_vals, buf_part)`` when
-    given (a recycled set)."""
+    given (a recycled set); ``part_loads`` as in :func:`route_slots`."""
     hk, hp, hr = pad_heavy_tables(tables, num_partitions=num_partitions, pad_empty=True)
     return _route_bucketize_kernel(
         keys.to(torch.int32).contiguous(), valid.contiguous(),
         vals.to(torch.float32).contiguous(), hk, hp,
         tables.host_to_part.contiguous(), hr, seed=seed, num_hosts=num_hosts,
         num_lanes=num_lanes, capacity=capacity, key_fill=key_fill,
-        num_partitions=num_partitions, out=out)
+        num_partitions=num_partitions, part_loads=part_loads, out=out)
 
 
 def apply_partitioner(keys, tables, *, num_hosts: int, seed: int = 0):

@@ -98,20 +98,30 @@ def partition_apply_ref(keys, heavy_keys, heavy_parts, host_to_part, *,
 def split_choice_ref(keys, heavy_keys, heavy_repl, *, seed=0, num_partitions=0,
                      home=None, part_loads=None):
     """Replica pick for split heavy keys: ``(hit, offset)`` with the offset
-    ``(fmix32(idx * golden ^ mixed) & 0x7FFFFFFF) % max(repl, 1)``.
+    ``(h & 0x7FFFFFFF) % max(repl, 1)``, ``h = fmix32(idx * golden ^ mixed)``.
 
-    The two-choice least-load pick (``part_loads``) is not ported yet."""
-    if part_loads is not None:
-        raise NotImplementedError(
-            "the two-choice least-load replica pick is not ported yet "
-            "(ROADMAP.md, queue 1 item 2)")
+    With ``home`` (each record's home partition) and ``part_loads`` (a
+    float32 ``[num_partitions]`` load vector) the pick is the two-choice
+    least-load tie-break: a second hash ``h2 = fmix32(h + 0x85EBCA6B)``
+    proposes ``offset2 = (h2 & 0x7FFFFFFF) % d``, and a record takes it
+    only when ``loads[(home + offset2) % N] < loads[(home + offset) % N]``
+    (ties keep the first hash, so equal loads route as the hash pick)."""
     keys, one = _stacked(keys.to(torch.int32))
     mixed = fmix32(keys.to(torch.int64) ^ seed_mix(seed))
     idx = torch.arange(keys.shape[1], device=keys.device, dtype=torch.int64)
     h = fmix32(mul32(idx, GOLDEN)[None, :] ^ mixed)
     bidx, hit = _heavy_index(keys, heavy_keys)
     d = heavy_repl[bidx].to(torch.int64).clamp(min=1)
-    offset = ((h & 0x7FFFFFFF) % d).to(torch.int32)
+    offset = (h & 0x7FFFFFFF) % d
+    if part_loads is not None and home is not None and num_partitions > 0:
+        h2 = fmix32((h + 0x85EBCA6B) & 0xFFFFFFFF)  # the sum wraps mod 2**32
+        offset2 = (h2 & 0x7FFFFFFF) % d
+        loads = part_loads.to(torch.float32)
+        base = _stacked(home)[0].to(torch.int64)
+        p1 = (base + offset) % num_partitions
+        p2 = (base + offset2) % num_partitions
+        offset = torch.where(loads[p2] < loads[p1], offset2, offset)
+    offset = offset.to(torch.int32)
     return (hit[0], offset[0]) if one else (hit, offset)
 
 

@@ -16,7 +16,9 @@ launches the kernel or raises.  ``route_bucketize.launches`` counts the
 launches.  ``out=`` hands both a recycled set of the four send buffers to
 write in place (the overlapped driver's ping-pong pool): the kernel's fill
 writes every cell, so a set holding an earlier batch's rows comes back
-equal to a fresh one.
+equal to a fresh one.  ``part_loads`` (float32 ``[num_partitions]``)
+turns the split-key replica pick into the two-choice least-load pick, in
+the kernel itself.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import build
-from repro_torch.kernels.lookup_dispatch import check_route_inputs, rank_scratch
+from repro_torch.kernels.lookup_dispatch import check_route_inputs, rank_scratch, split_pointers
 from repro_torch.kernels.ref import route_bucketize_ref
 
 __all__ = ["route_bucketize", "route_bucketize_plain"]
@@ -32,13 +34,16 @@ __all__ = ["route_bucketize", "route_bucketize_plain"]
 
 def route_bucketize_plain(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
                           heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                          capacity, key_fill, num_partitions=0, out=None):
+                          capacity, key_fill, num_partitions=0, part_loads=None,
+                          out=None):
     """The plain PyTorch version of :func:`route_bucketize` (any device)."""
+    split = num_partitions > 0
     return route_bucketize_ref(
         keys, valid, vals, heavy_keys, heavy_parts, host_to_part, seed=seed,
         num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
-        key_fill=key_fill, heavy_repl=heavy_repl if num_partitions > 0 else None,
-        num_partitions=num_partitions, out=out)
+        key_fill=key_fill, heavy_repl=heavy_repl if split else None,
+        num_partitions=num_partitions, part_loads=part_loads if split else None,
+        out=out)
 
 
 def _check_out(out, w, num_lanes, capacity, dim, dev):
@@ -60,7 +65,7 @@ def _check_out(out, w, num_lanes, capacity, dim, dev):
 
 def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
                     heavy_repl=None, *, seed=0, num_hosts=4096, num_lanes,
-                    capacity, key_fill, num_partitions=0, out=None):
+                    capacity, key_fill, num_partitions=0, part_loads=None, out=None):
     """Returns ``(part[W, n], slot[W, n], counts[W, L], buf_valid[W, L, cap]
     bool, buf_keys[W, L, cap] int32, buf_vals[W, L, cap, D] f32,
     buf_part[W, L, cap] int32)`` for keys ``int32[W, n]`` and vals
@@ -70,15 +75,17 @@ def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
     them); empty cells hold ``key_fill`` / 0 / 0 / False.  ``out``, when
     given, is the ``(buf_valid, buf_keys, buf_vals, buf_part)`` set to write
     (checked: shape, dtype, device, contiguity; ``ValueError`` otherwise)
-    and is returned in place of fresh buffers."""
+    and is returned in place of fresh buffers.  ``part_loads`` switches the
+    split-key replica pick to the two-choice least-load tie-break."""
     if keys.device.type == "cpu":
         return route_bucketize_plain(
             keys, valid, vals, heavy_keys, heavy_parts, host_to_part, heavy_repl,
             seed=seed, num_hosts=num_hosts, num_lanes=num_lanes, capacity=capacity,
-            key_fill=key_fill, num_partitions=num_partitions, out=out)
+            key_fill=key_fill, num_partitions=num_partitions, part_loads=part_loads,
+            out=out)
     check_route_inputs(keys, valid, heavy_keys, heavy_parts, host_to_part, heavy_repl,
                        num_hosts=num_hosts, num_lanes=num_lanes,
-                       num_partitions=num_partitions)
+                       num_partitions=num_partitions, part_loads=part_loads)
     w, n = keys.shape
     if (vals.dtype != torch.float32 or vals.dim() != 3 or vals.shape[:2] != keys.shape
             or vals.device != keys.device or not vals.is_contiguous()):
@@ -102,12 +109,12 @@ def route_bucketize(keys, valid, vals, heavy_keys, heavy_parts, host_to_part,
     else:
         _check_out(out, w, num_lanes, capacity, dim, dev)
     buf_valid, buf_keys, buf_vals, buf_part = out
-    repl = heavy_repl.data_ptr() if num_partitions > 0 else None
+    repl, loads = split_pointers(heavy_repl, part_loads, num_partitions)
     code = lib.rk_route_bucketize(
         keys.data_ptr(), valid.data_ptr(), vals.data_ptr(), dim, w, n,
         heavy_keys.data_ptr(), heavy_parts.data_ptr(), repl, heavy_keys.shape[0],
         host_to_part.data_ptr(), num_hosts, seed_mix(seed), num_lanes, num_partitions,
-        capacity, int(key_fill), part.data_ptr(), slot.data_ptr(), counts.data_ptr(),
+        loads, capacity, int(key_fill), part.data_ptr(), slot.data_ptr(), counts.data_ptr(),
         scratch.data_ptr(), buf_valid.data_ptr(), buf_keys.data_ptr(),
         buf_vals.data_ptr(), buf_part.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

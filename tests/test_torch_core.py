@@ -265,8 +265,10 @@ def test_drconfig_validation_matches_reference(bad):
 ])
 def test_unported_features_raise(flag):
     """The features still in ``UNPORTED`` raise, citing their ROADMAP item;
-    ``elastic`` and ``split_keys_enabled`` are ported and construct."""
-    if next(iter(flag)) in ("elastic", "split_keys_enabled"):
+    ``elastic``, ``split_keys_enabled``, ``auto_backend`` and
+    ``split_least_load`` are ported and construct."""
+    if next(iter(flag)) in ("elastic", "split_keys_enabled", "auto_backend",
+                            "split_least_load"):
         assert next(iter(flag)) not in {f for f, _, _ in UNPORTED}
         DRMaster(uniform_partitioner(4), DRConfig(**flag))
         return

@@ -958,3 +958,108 @@ def test_split_and_resize_jobs_card_equal_cpu(cuda, driver):
         assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
         kinds = {m.action for m in cpu.metrics}
         assert want <= kinds, kinds
+
+
+@pytest.mark.parametrize("loads", ["ties", "hot replica", "random", "equal"])
+@pytest.mark.parametrize("w,n,parts,fanouts", [(8, 65536, 32, (8, 4, 3)), (3, 5000, 8, (2, 8)),
+                                               (1, 1000, 16, (16,))])
+def test_route_kernels_with_loads_equal_plain(cuda, w, n, parts, fanouts, loads):
+    """The two-choice least-load pick in both route kernels against their
+    plain versions: a load vector with many ties, one hot replica at 1e9,
+    random loads and equal loads (which must route as no vector does); the
+    kernels read it themselves (one launch each, no other path)."""
+    p, keys, valid, vals = _case(w, n, parts, fanouts, False, n)
+    k, v, x = (torch.as_tensor(a, device=cuda) for a in (keys, valid, vals))
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=parts, pad_empty=True)
+    hot = int(p.lookup_np(np.asarray(list(p.split_map())[:1], np.int32))[0])
+    vec = {"ties": np.repeat(np.arange(parts // 4, dtype=np.float32), 4),
+           "hot replica": np.where(np.arange(parts) == hot, 1e9, 1.0),
+           "random": np.random.default_rng(n).random(parts),
+           "equal": np.full(parts, 3.0)}[loads]
+    pl = torch.as_tensor(np.asarray(vec, np.float32), device=cuda)
+    kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=w, num_partitions=parts,
+              part_loads=pl)
+    before = (lookup_dispatch.launches, route_bucketize.launches)
+    with _dirty_outputs():
+        got = lookup_dispatch(k, v, hk, hp, t.host_to_part, hr, **kw)
+    want = lookup_dispatch_plain(k, v, hk, hp, t.host_to_part, hr, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x_) for g, x_ in zip(got, want))
+    if loads == "equal":
+        hashed = lookup_dispatch(k, v, hk, hp, t.host_to_part, hr,
+                                 **{**kw, "part_loads": None})
+        assert all(torch.equal(g, x_) for g, x_ in zip(got, hashed))
+    with _dirty_outputs():
+        got = route_bucketize(k, v, x, hk, hp, t.host_to_part, hr, capacity=2 * n // w + 8,
+                              key_fill=SENT, **kw)
+    want = route_bucketize_plain(k, v, x, hk, hp, t.host_to_part, hr,
+                                 capacity=2 * n // w + 8, key_fill=SENT, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x_) for g, x_ in zip(got, want))
+    assert lookup_dispatch.launches - before[0] >= 1
+    assert route_bucketize.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("cap", [8, 300])
+def test_ragged_backend_on_cuda_tensors(cuda, cap):
+    """The ragged transport on the card: its rows, counts and shipped rows
+    equal the CPU's, and its rows equal the dense transport's (capacity 8
+    overflows every lane)."""
+    from repro_torch.exchange import ExchangeSpec, Payload, make_exchange
+
+    rng = np.random.default_rng(cap)
+    lane = rng.integers(0, 4, (4, 700)).astype(np.int32)
+    valid = rng.random((4, 700)) < 0.8
+    vals = rng.normal(size=(4, 700, 2)).astype(np.float32)
+    out = {}
+    for label, dev, be in (("ragged card", cuda, "ragged"), ("ragged cpu", "cpu", "ragged"),
+                           ("dense card", cuda, "dense")):
+        ex = make_exchange(ExchangeSpec(num_lanes=4, capacity=cap, axis="data"), be)
+        res = ex.finish(ex.start(torch.as_tensor(lane, device=dev),
+                                 torch.as_tensor(valid, device=dev),
+                                 [Payload(torch.as_tensor(vals, device=dev), -1.0)]))
+        va, (v,) = res.unpack()
+        out[label] = res, va.cpu(), v.cpu()
+    card, cpu, dense = out["ragged card"], out["ragged cpu"], out["dense card"]
+    assert torch.equal(card[1], cpu[1]) and torch.equal(card[2], cpu[2])
+    assert torch.equal(card[1], dense[1]) and torch.equal(card[2], dense[2])
+    for f in ("shipped_rows", "lane_counts", "recv_counts"):
+        assert torch.equal(getattr(card[0], f).cpu(), getattr(cpu[0], f)), f
+    assert torch.equal(card[0].send.overflow.cpu(), dense[0].send.overflow.cpu())
+
+
+@pytest.mark.parametrize("driver", ["serial", "d1", "d2"])
+def test_least_load_and_auto_backend_jobs_card_equal_cpu(cuda, driver):
+    """A small split stream under the least-load pick with the BackendPolicy
+    on (a switch to ragged mid-stream), and a ragged-pinned drifting stream,
+    on the card and on the CPU by each driver: equal trajectories and
+    state."""
+    from repro_torch.data.generators import hotspot_flip
+
+    flips = list(hotspot_flip(10, 16_384, num_keys=5000, exponent=1.3, flip_at=4, seed=0))
+    drift = list(drifting_zipf(6, 16_384, num_keys=5000, exponent=1.3, drift_every=2, seed=1))
+    pick = dict(migration_cost_weight=0.2, split_keys_enabled=True, sketch_decay=0.5,
+                split_least_load=True, auto_backend=True, backend_patience=2,
+                backend_cooldown=50)
+    for batches, kw, job_kw, want in ((flips, pick, {}, {"split", "switch_backend"}),
+                                      (drift, {}, {"exchange_backend": "ragged"},
+                                       {"repartition"})):
+        jobs = {}
+        for label, device in (("card", cuda), ("cpu", "cpu")):
+            job = jobs[label] = _small_job(device, driver, 32, **kw)
+            if job_kw:
+                job = jobs[label] = StreamingJob(
+                    device=device, num_workers=8, num_partitions=32, state_capacity=16_384,
+                    dr=job.drm.config, **job_kw)
+            if driver == "d1":
+                for b in batches:
+                    job.process_batch(b)
+            else:
+                job.run(batches)
+        card, cpu = jobs["card"], jobs["cpu"]
+        for a, b in zip(card.metrics, cpu.metrics, strict=True):
+            assert _fields(a, _WALLS) == _fields(b, _WALLS)
+        assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
+        assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
+        assert want <= {m.action for m in cpu.metrics}, [m.action for m in cpu.metrics]

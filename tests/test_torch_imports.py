@@ -109,6 +109,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                capacity=64, key_fill=SENT)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # the least-load pick (a load vector with a split table) too
+    hr = torch.ones(128, dtype=torch.int32)
+    loads = torch.arange(4, dtype=torch.float32)
+    got = ld_mod.lookup_dispatch(keys, valid, hk, hp, h2p, hr, num_lanes=4, num_partitions=4,
+                                 part_loads=loads)
+    for g, w in zip(got, lookup_dispatch_ref(keys, valid, hk, hp, h2p, num_lanes=4,
+                                             heavy_repl=hr, num_partitions=4,
+                                             part_loads=loads)):
+        assert torch.equal(g, w)
     assert (ld_mod.lookup_dispatch.launches, rb_mod.route_bucketize.launches) == before
 
 
@@ -147,6 +156,23 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         with pytest.raises(NoLibrary):
             rb_mod.route_bucketize(keys, valid, vals, hk, hp, h2p, num_lanes=4,
                                    capacity=64, key_fill=SENT)
+        # the least-load pick goes to the kernels as well
+        hr = torch.ones(128, dtype=torch.int32, device="cuda")
+        loads = torch.zeros(8, dtype=torch.float32, device="cuda")
+        with pytest.raises(NoLibrary):
+            ld_mod.lookup_dispatch(keys, valid, hk, hp, h2p, hr, num_lanes=4,
+                                   num_partitions=8, part_loads=loads)
+        with pytest.raises(NoLibrary):
+            rb_mod.route_bucketize(keys, valid, vals, hk, hp, h2p, hr, num_lanes=4,
+                                   capacity=64, key_fill=SENT, num_partitions=8,
+                                   part_loads=loads)
+        with pytest.raises(ValueError, match="part_loads"):
+            ld_mod.lookup_dispatch(keys, valid, hk, hp, h2p, hr, num_lanes=4,
+                                   num_partitions=4, part_loads=loads)
+        with pytest.raises(ValueError, match="part_loads"):
+            rb_mod.route_bucketize(keys, valid, vals, hk, hp, h2p, hr, num_lanes=4,
+                                   capacity=64, key_fill=SENT, num_partitions=8,
+                                   part_loads=loads.to(torch.float64))
         with pytest.raises(NoLibrary):
             pa_mod.partition_apply(keys, hk, hp, h2p)
         with pytest.raises(NoLibrary):

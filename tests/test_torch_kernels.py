@@ -125,11 +125,27 @@ def test_split_choice_matches_reference(repl):
     _eq(got, want, ("hit", "offset"))
 
 
-def test_split_choice_two_choice_pick_is_not_ported():
-    with pytest.raises(NotImplementedError, match="least-load"):
-        tref.split_choice_ref(_t(np.zeros(4, np.int32)), _t(np.zeros(1, np.int32)),
-                              _t(np.ones(1, np.int32)), num_partitions=4,
-                              part_loads=_t(np.zeros(4, np.float32)))
+@pytest.mark.parametrize("loads", ["equal", "ties", "random", "hot replica"])
+def test_split_choice_two_choice_pick_matches_reference(loads):
+    """The least-load pick: the same offsets as the reference's twin for a
+    load vector with equal entries (the hash pick), many ties, random loads
+    and one replica at 1e9."""
+    p, stream = _kip(16, splits=(8, 3, 2))
+    keys, _, _ = _batch(stream, 3000, 2)
+    t = p.tables()
+    home = jref.partition_apply_ref(jnp.asarray(keys), t.heavy_keys, t.heavy_parts,
+                                    t.host_to_part, seed=p.seed)
+    rng = np.random.default_rng(5)
+    vec = {"equal": np.ones(16), "ties": np.repeat(np.arange(4.0), 4),
+           "random": rng.random(16), "hot replica": np.where(np.arange(16) == 3, 1e9, 1.0)}
+    vec = vec[loads].astype(np.float32)
+    want = jref.split_choice_ref(jnp.asarray(keys), t.heavy_keys, t.heavy_repl, seed=p.seed,
+                                 num_partitions=16, home=home, part_loads=jnp.asarray(vec))
+    got = tref.split_choice_ref(_t(keys), *(_t(np.asarray(x)) for x in
+                                            (t.heavy_keys, t.heavy_repl)),
+                                seed=p.seed, num_partitions=16, home=_t(np.asarray(home)),
+                                part_loads=_t(vec))
+    _eq(got, want, ("hit", "offset"))
 
 
 @pytest.mark.parametrize("num_lanes,num_partitions,splits", [

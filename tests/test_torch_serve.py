@@ -201,8 +201,11 @@ def test_scheduler_resize_is_not_ported():
     with pytest.raises(ValueError):
         JScheduler(4).resize(0)
     assert TScheduler(4).resize(4) == JScheduler(4).resize(4) == 0
+    # the BackendPolicy is ported: the scheduler constructs with it
+    # (tests/test_torch_backends.py holds its checkpoints to the reference)
+    assert TScheduler(4, dr=DRConfig(auto_backend=True)).drm.config.auto_backend
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TScheduler(4, dr=DRConfig(auto_backend=True))
+        TScheduler(4, dr=DRConfig(health_enabled=True))
 
 
 def test_telemetry_queue_depths_and_exchange_walls_match():
