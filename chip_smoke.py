@@ -177,6 +177,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     1e-6 of its sum of |values| (``scatter_add_`` adds in no fixed order on
     the card), the largest difference printed.
 
+16. Failure domains at phase 2's size.  (a) Phase 2's three jobs and
+    batches, each on ``FaultyBackend("dense", FaultPlan())``: every metric
+    but the walls, and the final state, equal to phase 2's own run.  (b)
+    The reference's Fig. 6 at full size: ``DRConfig(imbalance_trigger=1e9,
+    snapshot_interval=3)`` with ``LaneFault(4, 5, "kill")`` over phase 2's
+    batches, by each driver: one recovery, an eviction of lane 5 onto 7
+    workers; sampled counts exact, the float64 sum of all counts equal to
+    the records fed, zero overflow, every key on its home worker
+    (``lookup_np(k) % 7``); the recovery's wall and the walls before and
+    after; card == CPU (trajectories, recoveries, lane ids, state) over
+    16,384-record batches.  Then the same loss under phase 2's policies at
+    depth 1: repartitions at 7 lanes, both route kernels launched after the
+    loss.  (d) On the evicted depth-1 job's tables, state and last batch,
+    route_bucketize and lookup_dispatch at 7 lanes (rows of 599,187 keys,
+    starting off 16 bytes) against their plain versions, outputs handed out
+    dirty, and their times.  (c) Lane health over 12 batches of the same
+    stream shape, ``health_straggler_ms=50, health_patience=2,
+    health_recover_after=3, snapshot_interval=3``: lane 2 straggles 80 ms a
+    tick for 4 ticks, lane 6 fails once a tick for 5 ticks: Quarantine,
+    Recover and Evict at the batches of the CPU run over 16,384-record
+    batches (card == CPU there too), exact counts, zero overflow, each
+    lane-change batch's wall.  (e) Fresh depth-1 jobs, policies off,
+    without and with ``snapshot_interval=3`` in turns: the walls per batch
+    and each snapshot's wall.
+
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
 """
@@ -717,6 +742,7 @@ def main() -> int:
     for name, extra in DRIVERS.items():
         job = StreamingJob(device="cuda", dr=DRConfig(**dr_kw, **extra), **job_kw)
         r = runs[name] = drive(job, name, batches, (route_bucketize, lookup_dispatch))
+        r["final"] = (job.state_keys.clone(), job.state_vals.clone())  # for phase 16 (a)
         ms = r["ms"]
         assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
         reps = [i for i, m in enumerate(ms) if m.repartitioned]
@@ -743,6 +769,9 @@ def main() -> int:
     assert_same_drivers(steady)
     assert all(m.pipelined for m in steady["depth 2"]["ms"][1:])
     assert steady["depth 2"]["syncs"] == 0, steady["depth 2"]["syncs"]
+    phase2 = {name: dict(ms=r["ms"], final=r.pop("final"), wall_ms=r["wall_ms"])
+              for name, r in runs.items()}
+    steady_walls = {name: r["wall_ms"] for name, r in steady.items()}
     launches = runs["depth 1"]["launches"]
     job = runs["serial"]["job"]
     # serial batches traced: host steps by perf_counter, then their device
@@ -1010,7 +1039,7 @@ def main() -> int:
     log(f"phase 5: depth 1, phase 2's batches after the first: median count-phase wall "
         f"{statistics.median(d1):.2f} ms against the merge's {merge_ms:.2f} ms")
     assert statistics.median(d1) < merge_ms, (d1, merge_ms)
-    del job, runs, res, batches, all_keys
+    del job, runs, res, all_keys
     torch.cuda.empty_cache()
 
     kernels += batch_phases(dev, sent)
@@ -1023,6 +1052,7 @@ def main() -> int:
     del flips
     torch.cuda.empty_cache()
     float_payload_phase(dev)
+    kernels += failure_phase(dev, card, batches, phase2, steady_walls)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1097,11 +1127,13 @@ def feed(job, name, batches, after=None) -> list:
     return ms
 
 
-def card_equals_cpu(make, batches, phase, after=None) -> None:
+def card_equals_cpu(make, batches, phase, after=None) -> dict:
     """``make(device, driver)``'s job over ``batches`` on the card and on the
     CPU, by each of the three drivers: identical per-batch metrics (but the
-    walls and ``overlap_fraction``, a ratio of walls) and final state."""
+    walls and ``overlap_fraction``, a ratio of walls), recoveries (but their
+    walls), lane ids and final state.  Returns each driver's CPU job."""
     skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    out = {}
     for driver in DRIVERS:
         pair = {device: make(device, driver) for device in ("cuda", "cpu")}
         runs = {device: feed(job, driver, batches, after) for device, job in pair.items()}
@@ -1109,6 +1141,9 @@ def card_equals_cpu(make, batches, phase, after=None) -> None:
             da, db = dataclasses.asdict(a), dataclasses.asdict(b)
             diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
             assert not diff, (phase, driver, a.batch, diff)
+        assert ([dataclasses.replace(r, wall_s=0.0) for r in pair["cuda"].recoveries]
+                == [dataclasses.replace(r, wall_s=0.0) for r in pair["cpu"].recoveries]), phase
+        assert pair["cuda"]._lane_ids == pair["cpu"]._lane_ids, phase
         for t in ("state_keys", "state_vals"):
             assert torch.equal(getattr(pair["cuda"], t).cpu(), getattr(pair["cpu"], t)), (
                 phase, driver, t)
@@ -1116,7 +1151,10 @@ def card_equals_cpu(make, batches, phase, after=None) -> None:
         log(f"phase {phase}: {driver}: card and CPU trajectories identical over {len(batches)} "
             f"batches of {len(batches[0]):,} records (actions "
             f"{ {a: actions.count(a) for a in sorted(set(actions))} }, pipelined "
-            f"{sum(m.pipelined for m in runs['cpu'])}), state equal")
+            f"{sum(m.pipelined for m in runs['cpu'])}, recoveries "
+            f"{len(pair['cpu'].recoveries)}), state equal")
+        out[driver] = pair["cpu"]
+    return out
 
 
 def sample_keys(batches, dev, n=64):
@@ -1612,6 +1650,262 @@ def float_payload_phase(dev) -> None:
         f"equal; {int((diff > 0).any(axis=1).sum())} of {int(live.sum())} keys' sums differ, "
         f"largest difference {diff.max():.3e}, largest against the key's sum of |values| "
         f"{float((diff / np.maximum(mass[at], 1e-30)).max()):.3e} (held to 1e-6)")
+
+
+def exact_after_loss(job, name, sampled, fed, phase) -> None:
+    """Zero loss after lane changes: every sampled key's count is its fed
+    count, the float64 sum of the live rows' counts is the records fed (a
+    migration leaves its moved rows' values in the sentinel row, as in the
+    reference), and each worker holds only keys whose home partition lies
+    on it (``lookup_np(k) % W``)."""
+    for key, want in sampled:
+        got = job.state_count(key)
+        assert got == want, (phase, name, key, got, want)
+    keys = job.state_keys.cpu().numpy()
+    total = float(job.state_vals.cpu().numpy()[keys != SENT].astype(np.float64).sum())
+    assert total == fed, (phase, name, total, fed)
+    part, w = job.drm.partitioner, job.num_workers
+    for worker in range(w):
+        live = keys[worker][keys[worker] != SENT]
+        homes = part.lookup_np(live.astype(np.int32)) % w
+        assert (homes == worker).all(), (phase, name, worker, int((homes != worker).sum()))
+
+
+def failure_phase(dev, card, batches, phase2, steady_walls) -> list[dict]:
+    """Phase 16: failure domains at phase 2's size.  Returns the ``kernels``
+    line's rows of the two route kernels at 7 lanes."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import drifting_zipf
+    from repro_torch.exchange import FaultPlan, FaultyBackend, LaneFault
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch, lookup_dispatch_plain
+    from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+
+    kernels = (route_bucketize, lookup_dispatch)
+    job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
+                  capacity_factor=2.0)
+    dr_kw = dict(imbalance_trigger=1.2, migration_cost_weight=0.2)
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    stream = dict(num_keys=1_000_000, exponent=1.3, drift_every=3, drift_fraction=0.3, seed=0)
+    fed = float(sum(len(b) for b in batches))
+    sampled = sample_keys(batches, dev)
+
+    def job_of(device, dr, plan, driver):
+        return StreamingJob(device=device, dr=DRConfig(**dr, **DRIVERS[driver]),
+                            exchange_backend=FaultyBackend("dense", plan), **job_kw)
+
+    # ---- (a) the seam, never firing: phase 2's jobs, equal -----------------
+    for name in DRIVERS:
+        job = job_of("cuda", dr_kw, FaultPlan(), name)
+        r = drive(job, name, batches, kernels, phase=16)
+        ref = phase2[name]
+        for a, b in zip(r["ms"], ref["ms"], strict=True):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            diff = {k: (da[k], db[k]) for k in da if k not in skip and da[k] != db[k]}
+            assert not diff, ("16 (a)", name, a.batch, diff)
+        assert torch.equal(job.state_keys, ref["final"][0])
+        assert torch.equal(job.state_vals, ref["final"][1])
+        seam = job.exchange_backend
+        assert (seam.transients, seam.retries, seam.kills, seam.injected_sleep_s) == (0, 0, 0, 0.0)
+        assert all(v > 0 for v in r["launches"].values()), (name, r["launches"])
+        log(f"phase 16 (a): {name}: FaultyBackend('dense', FaultPlan()) on phase 2's job and "
+            f"batches: every metric but the walls and the state equal to phase 2's run; wall "
+            f"per batch {r['wall_ms']:.2f} ms (phase 2: {ref['wall_ms']:.2f} ms); launches "
+            f"{r['launches']}; card {card}")
+        del job, r
+    torch.cuda.empty_cache()
+
+    # ---- (b) a hard loss, the reference's Fig. 6 at full size --------------
+    kill = FaultPlan(faults=(LaneFault(4, 5, "kill"),))
+    quiet = dict(imbalance_trigger=1e9, snapshot_interval=3)
+    evicted = None
+    for name in DRIVERS:
+        job = job_of("cuda", quiet, kill, name)
+        r = drive(job, name, batches, kernels, phase=16)
+        ms = r["ms"]
+        assert [(x.lane, x.kind, x.workers) for x in job.recoveries] == [(5, "evict", 7)], (
+            job.recoveries)
+        assert job.num_workers == 7 and job._lane_ids == [0, 1, 2, 3, 4, 6, 7]
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        assert all(m.action == "noop" for m in ms)
+        exact_after_loss(job, name, sampled, fed, "16 (b)")
+        rec = job.recoveries[0]
+        before = [round(m.wall_time_s * 1e3, 2) for m in job.metrics if m.lanes == 8]
+        after = [round(m.wall_time_s * 1e3, 2) for m in job.metrics if m.lanes == 7]
+        log(f"phase 16 (b): {name}: the kill of lane 5 at tick 4 evicted onto 7 workers: "
+            f"recovery wall {rec.wall_s * 1e3:.2f} ms (drain, restore of the batch-2 snapshot "
+            f"re-folded onto 7 workers, {rec.replayed} batch(es) replayed, the retry); "
+            f"{len(job.metrics)} batches processed for {len(batches)} fed (replays "
+            f"included); host wall per batch at 8 workers "
+            f"{before} ms, at 7 {after} ms; wall per batch {r['wall_ms']:.2f} ms (recovery "
+            f"included); 0 overflow; {len(sampled)} sampled counts exact, sum of all counts "
+            f"{fed:.0f} = records fed; every key on its home worker (lookup_np % 7); "
+            f"launches {r['launches']}; card {card}")
+        if name == "depth 1":
+            evicted = job
+        del job, r
+    cpu = card_equals_cpu(lambda device, driver: job_of(device, quiet, kill, driver),
+                          list(drifting_zipf(8, 16_384, **stream)), "16 (b)")
+    for name, job in cpu.items():
+        assert [(x.lane, x.kind, x.workers) for x in job.recoveries] == [(5, "evict", 7)], name
+
+    # the same loss under phase 2's policies: repartitions at 7 lanes after it
+    job = job_of("cuda", dict(dr_kw, snapshot_interval=3), kill, "depth 1")
+    at_loss = {}
+    recover = job._recover_from_loss
+
+    def recording(loss):
+        at_loss.update({k.__name__: k.launches for k in kernels})
+        return recover(loss)
+
+    job._recover_from_loss = recording
+    r = drive(job, "depth 1", batches, kernels, phase=16)
+    ms = r["ms"]
+    launches7 = {k: r["launches"][k] - at_loss[k] for k in at_loss}
+    assert job.num_workers == 7 and [x.kind for x in job.recoveries] == ["evict"]
+    assert all(m.overflow == 0 for m in ms)
+    assert launches7["lookup_dispatch"] > 0 and launches7["route_bucketize"] > 0, launches7
+    exact_after_loss(job, "depth 1, phase 2's policies", sampled, fed, "16 (b)")
+    log(f"phase 16 (b): depth 1 under phase 2's policies: the loss at tick 4 (batch 2: a "
+        f"migration takes a tick too) evicted onto 7 workers, recovery wall "
+        f"{job.recoveries[0].wall_s * 1e3:.2f} ms, {job.recoveries[0].replayed} replayed; "
+        f"repartitions at 7 lanes {sum(m.repartitioned and m.lanes == 7 for m in ms)}; "
+        f"launches after the loss {launches7} (all at 7 lanes); wall per batch "
+        f"{r['wall_ms']:.2f} ms; exact; card {card}")
+    del job, r, ms
+    torch.cuda.empty_cache()
+
+    # ---- (d) the route kernels at 7 lanes, on the evicted job's inputs -----
+    job = evicted
+    part, w = job.drm.partitioner, job.num_workers
+    keys, vals, valid = job._upload(batches[-1], None)
+    torch.cuda.synchronize()
+    assert keys.shape == (7, -(-len(batches[-1]) // 7)) and keys[1].data_ptr() % 16 != 0
+    cap = job._shuffle_spec.capacity
+    hk, hp, hr = ops.pad_heavy_tables(part.tables(dev), num_partitions=32, pad_empty=True)
+    h2p = part.tables(dev).host_to_part
+    rb_args = (keys, valid, vals, hk, hp, h2p, hr)
+    rb_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, capacity=cap,
+                 key_fill=SENT, num_partitions=32)
+    state_keys = job.state_keys.clone()
+    state_valid = state_keys != SENT
+    lk, lp, _ = ops.pad_heavy_tables(part.tables(dev), num_partitions=0, pad_empty=False)
+    ld_args = (state_keys, state_valid, lk, lp, h2p, None)
+    ld_kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=w, num_partitions=0)
+    errs, equal = {}, {}
+    for name, fn, plain, args, kw in (
+            ("route_bucketize", route_bucketize, route_bucketize_plain, rb_args, rb_kw),
+            ("lookup_dispatch", lookup_dispatch, lookup_dispatch_plain, ld_args, ld_kw)):
+        want = plain(*args, **kw)
+        with dirty_outputs():
+            got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        equal[name] = [all(torch.equal(g, x) for g, x in zip(got, want))]
+        errs[name] = max_abs_err(got, want)
+        log(f"phase 16 (d): {name} at 7 lanes (W=7, n={args[0].shape[1]:,}, rows starting "
+            f"off 16 bytes{f', cap={cap:,}' if 'capacity' in kw else ''}), outputs handed "
+            f"out dirty: equal to its plain version {equal[name][0]}")
+        del got, want
+    assert all(v[0] for v in equal.values()), equal
+    flush = l2_flush(dev)
+    timing = {
+        "route_bucketize": (
+            cuda_ms(lambda: route_bucketize(*rb_args, **rb_kw)),
+            cuda_ms(lambda: route_bucketize_plain(*rb_args, **rb_kw)),
+            route_bytes(keys, vals, (hk, hp, h2p), w, cap, split=True),
+            own_device_time(lambda: route_bucketize(*rb_args, **rb_kw),
+                            DEVICE_NAMES["route_bucketize"], flush=flush)),
+        "lookup_dispatch": (
+            cuda_ms(lambda: lookup_dispatch(*ld_args, **ld_kw)),
+            cuda_ms(lambda: lookup_dispatch_plain(*ld_args, **ld_kw)),
+            route_bytes(state_keys, None, (lk, lp, h2p), w),
+            own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
+                            DEVICE_NAMES["lookup_dispatch"])),
+    }
+    flushed = {"lookup_dispatch": own_device_time(lambda: lookup_dispatch(*ld_args, **ld_kw),
+                                                  DEVICE_NAMES["lookup_dispatch"],
+                                                  flush=flush)[0]}
+    del flush
+    rows = kernel_rows(timing, launches7, errs, equal, phase="16 (d)",
+                       path_phase="16 (b), depth 1 under phase 2's policies, after the loss",
+                       flushed=flushed)
+    for row in rows:
+        row["name"] += " at 7 lanes"
+        row["lanes"] = 7
+    del evicted, job, keys, vals, valid, state_keys, state_valid, rb_args, ld_args
+    torch.cuda.empty_cache()
+
+    # ---- (c) lane health: Quarantine, Recover, Evict -----------------------
+    t = time.perf_counter()
+    long = list(drifting_zipf(12, 4_194_304, **stream))
+    log(f"phase 16 (c): generated 12 x 4,194,304 keys in {time.perf_counter() - t:.1f} s")
+    health = dict(imbalance_trigger=1e9, health_enabled=True, health_straggler_ms=50.0,
+                  health_patience=2, health_recover_after=3, snapshot_interval=3)
+    # lane 2 straggles 80 ms a tick for ticks 0-3; lane 6 fails once a tick at
+    # ticks 6-10 (patience 2 over a threshold of 3 failed windows needs four
+    # in a row; depth 2's lookahead starts put its ticks a batch ahead)
+    plan = FaultPlan(faults=(LaneFault(0, 2, "latency", delay_s=0.08, span=4),)
+                     + tuple(LaneFault(t, 6, "transient") for t in range(6, 11)))
+    cpu = card_equals_cpu(lambda device, driver: job_of(device, health, plan, driver),
+                          list(drifting_zipf(12, 16_384, **stream)), "16 (c)")
+    want = {name: [(m.batch, m.action) for m in job.metrics
+                   if m.action in ("quarantine", "recover", "evict")]
+            for name, job in cpu.items()}
+    del cpu
+    sampled12 = sample_keys(long, dev)
+    fed12 = float(sum(len(b) for b in long))
+    for name in DRIVERS:
+        job = job_of("cuda", health, plan, name)
+        r = drive(job, name, long, kernels, phase=16)
+        ms = r["ms"]
+        lane_changes = [(m.batch, m.action) for m in ms
+                        if m.action in ("quarantine", "recover", "evict")]
+        assert [a for _, a in lane_changes] == ["quarantine", "recover", "evict"], lane_changes
+        assert lane_changes == want[name], (name, lane_changes, want[name])
+        assert not job.recoveries and job.num_workers == 7
+        assert all(m.overflow == 0 for m in ms), [m.overflow for m in ms]
+        exact_after_loss(job, name, sampled12, fed12, "16 (c)")
+        walls = {f"{a} at {b}": round(ms[b].wall_time_s * 1e3, 2) for b, a in lane_changes}
+        noop = statistics.median(m.wall_time_s * 1e3 for m in ms if m.action == "noop")
+        log(f"phase 16 (c): {name}: {lane_changes} (the CPU run over 16,384-record batches: "
+            f"the same batches), reasons {[ms[b].reason for b, _ in lane_changes]}; lanes "
+            f"{job._lane_ids}; host wall of each lane-change batch (the host re-fold of the "
+            f"state included) {walls} ms against a median noop batch's {noop:.2f} ms; wall "
+            f"per batch {r['wall_ms']:.2f} ms; injected sleep "
+            f"{job.exchange_backend.injected_sleep_s:.2f} s; 0 overflow, exact; card {card}")
+        del job, r, ms
+    del long
+    torch.cuda.empty_cache()
+
+    # ---- (e) the auto-snapshot's cost: depth 1, no fault, in turns ---------
+    walls = {"without": [], "with": []}
+    snap_ms = []
+    for turn in ("without", "with", "with", "without"):
+        kw = dict(imbalance_trigger=1e9) | ({"snapshot_interval": 3} if turn == "with" else {})
+        job = job_of("cuda", kw, FaultPlan(), "depth 1")
+        if turn == "with":
+            take = job.snapshot
+
+            def timed(take=take):
+                t = time.perf_counter()
+                out = take()
+                snap_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            job.snapshot = timed
+        r = drive(job, "depth 1", batches, kernels, phase=16)
+        assert all(m.action == "noop" and m.overflow == 0 for m in r["ms"])
+        walls[turn].append(round(r["wall_ms"], 2))
+        del job, r
+    log(f"phase 16 (e): depth 1, policies off, fresh jobs in turns: wall per batch without "
+        f"auto-snapshots {walls['without']} ms, with snapshot_interval=3 {walls['with']} ms "
+        f"({statistics.mean(walls['with']) - statistics.mean(walls['without']):+.2f} ms a "
+        f"batch); each snapshot (a drain and the state's copy to the host) "
+        f"{[round(x, 2) for x in snap_ms]} ms; phase 2's policies-off depth-1 wall "
+        f"{steady_walls['depth 1']:.2f} ms; card {card}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def batch_phases(dev, sent) -> list[dict]:

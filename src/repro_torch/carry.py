@@ -6,11 +6,12 @@ numpy dict ``repro.core.streaming.StreamingJob.snapshot()`` returns;
 arrays) into the port's per-layer parameters.
 
 The snapshot's keys are the reference's own (state tables, partitioner
-tables with ``heavy_repl``, split fields, sketch, tick counters, decision
-log), and the port's ``snapshot()`` writes the same keys, so a snapshot
-round-trips between the packages.  Keys of features the port does not run
-yet — ``topology_*``, lane health / quarantine, a backend other than
-``dense`` / ``local`` — raise ``NotImplementedError``.
+tables with ``heavy_repl``, split fields, sketch, tick counters, the lane
+health record and quarantine ledger, decision log), and the port's
+``snapshot()`` writes the same keys, so a snapshot round-trips between the
+packages.  Keys of features the port does not run yet — ``topology_*``, a
+backend other than ``dense`` / ``ragged`` / ``local`` — raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 

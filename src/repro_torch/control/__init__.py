@@ -13,7 +13,7 @@ from repro_torch.control.actions import (
     SwitchBackend,
     Unsplit,
 )
-from repro_torch.control.health import HealthPolicy
+from repro_torch.control.health import HealthPolicy, LaneHealth
 from repro_torch.control.log import Decision, DecisionLog
 from repro_torch.control.policy import (
     BackendPolicy,
@@ -32,6 +32,7 @@ __all__ = [
     "DecisionLog",
     "Evict",
     "HealthPolicy",
+    "LaneHealth",
     "NoOp",
     "Quarantine",
     "Recover",

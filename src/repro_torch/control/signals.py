@@ -13,9 +13,11 @@ window.
 Only the fields the ported consumers record are ported: the streaming
 drivers' (serial and overlapped: the count, ship and hidden walls behind
 ``overlap_fraction``), and the serving scheduler's replica queue depths,
-count-phase wall and per-backend wall EWMA, and the rows split hot keys
-landed on each partition.  The per-distance-class and fault vectors arrive
-with their features (ROADMAP.md, queue 1).
+count-phase wall and per-backend wall EWMA, the rows split hot keys
+landed on each partition, and the fault seam's per-lane evidence
+(``record_fault`` -> ``lane_straggle_s`` / ``lane_retries``, the lane-health
+layer's input).  The per-distance-class vector arrives with the topology
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -67,6 +69,11 @@ class Signals:
                                            # partition from *split* hot keys
                                            # this window (None: nothing split)
     queue_depths: np.ndarray | None = None # serving replica queue depths
+    lane_straggle_s: np.ndarray | None = None  # float64[L] injected/observed
+                                           # per-lane straggle seconds this
+                                           # window (None: no fault evidence)
+    lane_retries: np.ndarray | None = None # int64[L] exchange retries per lane
+                                           # this window (transient failures)
     degenerate_walls: int = 0              # NaN/negative wall samples clamped
                                            # to zero this window
     state_rows: int = 0                    # live keyed-state rows (migration scale)
@@ -174,6 +181,8 @@ class Telemetry:
         self._lane_overflow: np.ndarray | None = None
         self._replica_rows: np.ndarray | None = None
         self._queues: np.ndarray | None = None
+        self._lane_straggle: np.ndarray | None = None
+        self._lane_retries: np.ndarray | None = None
         # exchanges recorded this window whose count fields may still live
         # on device — folded (one host fetch each) at the next snapshot, so
         # recording never blocks between safe points
@@ -268,6 +277,28 @@ class Telemetry:
                                                            stats.replica_rows)
         self._pending_stats.clear()
 
+    def record_fault(self, lane: int, *, straggle_s: float = 0.0,
+                     retries: int = 0) -> None:
+        """Fold one lane's fault evidence for this window: injected or
+        observed straggle seconds and exchange retry counts.  The driver
+        drains its fault seam's report here; both vectors grow to the
+        largest lane seen, and the lane-health layer reads them off the
+        ``Signals`` snapshot."""
+        self._touch()
+        lane = int(lane)
+        width = lane + 1
+        if self._lane_straggle is None or len(self._lane_straggle) < width:
+            grown = np.zeros(width, np.float64)
+            if self._lane_straggle is not None:
+                grown[: len(self._lane_straggle)] = self._lane_straggle
+            self._lane_straggle = grown
+            grown_r = np.zeros(width, np.int64)
+            if self._lane_retries is not None:
+                grown_r[: len(self._lane_retries)] = self._lane_retries
+            self._lane_retries = grown_r
+        self._lane_straggle[lane] += max(float(straggle_s), 0.0)
+        self._lane_retries[lane] += max(int(retries), 0)
+
     def record_overflow(self, shuffle: int = 0, migration: int = 0) -> None:
         self._touch()
         self._shuffle_overflow += int(shuffle)
@@ -307,6 +338,8 @@ class Telemetry:
             lane_overflow=self._lane_overflow,
             exchange_replica_rows=self._replica_rows,
             queue_depths=self._queues,
+            lane_straggle_s=self._lane_straggle,
+            lane_retries=self._lane_retries,
             degenerate_walls=self._degenerate_walls,
             state_rows=int(state_rows),
             at_safe_point=at_safe_point,

@@ -14,9 +14,9 @@ Lives in the driver process.  Per safe point it
    re-plans through :meth:`DRMaster.replan_resize`).
 
 A port of ``repro.core.drm``: every ``DRConfig`` field and its validation
-are copied; the features the port does not run yet (:data:`UNPORTED`)
-raise ``NotImplementedError`` at construction.  Snapshots carry the
-reference's keys, so they round-trip between the packages.
+are copied, and so is the failure-domain state (the :class:`LaneHealth`
+record, the quarantine ledger, :meth:`DRMaster.note_lost`).  Snapshots
+carry the reference's keys, so they round-trip between the packages.
 """
 from __future__ import annotations
 
@@ -26,14 +26,17 @@ import numpy as np
 
 from repro_torch.control.actions import (
     Action,
+    Evict,
     NoOp,
+    Quarantine,
+    Recover,
     Repartition,
     Resize,
     Split,
     SwitchBackend,
     Unsplit,
 )
-from repro_torch.control.health import HealthPolicy
+from repro_torch.control.health import HealthPolicy, LaneHealth
 from repro_torch.control.log import DecisionLog
 from repro_torch.control.policy import (
     BackendPolicy,
@@ -46,7 +49,7 @@ from repro_torch.core.histogram import CounterSketch
 from repro_torch.core.partitioner import Partitioner, heavy_capacity_for, resize_partitioner
 from repro_torch.exchange.backends import resolve_backend
 
-__all__ = ["DRConfig", "DRDecision", "DRMaster", "UNPORTED"]
+__all__ = ["DRConfig", "DRDecision", "DRMaster"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +77,7 @@ class DRConfig:
       every route uses the stateless fmix32 offset; on, the lower-loaded of
       two hashed replica candidates, by the previous batch's loads.
 
-    Every field and its validation are the reference's; the port's
-    :class:`DRMaster` raises ``NotImplementedError`` for the features it
-    does not run yet (see :data:`UNPORTED`).
+    Every field and its validation are the reference's.
     """
 
     lam: float = 2.0                 # histogram scale factor: B = lam * N
@@ -206,29 +207,10 @@ class DRDecision:
     reason: str
 
 
-# (DRConfig field, test that it asks for an unported feature, ROADMAP item)
-UNPORTED = (
-    ("health_enabled", lambda v: bool(v), "queue 1 item 7 (failure domains)"),
-    ("snapshot_interval", lambda v: v > 0, "queue 1 item 7 (zero-loss recovery)"),
-)
-
-_HEALTH_KEYS = ("health_num_lanes", "quarantined_lane", "quarantined_tick",
-                "last_health_action")
-
-
-def _reject_unported(config: DRConfig) -> None:
-    for field, asks, item in UNPORTED:
-        value = getattr(config, field)
-        if asks(value):
-            raise NotImplementedError(
-                f"DRConfig.{field}={value!r} is not ported yet (ROADMAP.md, {item})")
-
-
 class DRMaster:
     def __init__(self, initial: Partitioner, config: DRConfig = DRConfig(),
                  *, consumer: str = "stream", exchange_backend=None,
                  exchange_topology=None):
-        _reject_unported(config)
         if exchange_topology is not None:
             raise NotImplementedError(
                 "ExchangeTopology is not ported yet (ROADMAP.md, queue 1 item 4)")
@@ -257,6 +239,12 @@ class DRMaster:
         self.split_keys: dict[int, int] = dict(initial.split_map())
         self.split_streak = 0
         self.last_split = -(10**9)
+        # failure domains: the health of each live lane (built lazily at the
+        # first safe point's worker count), the quarantine ledger — (lane
+        # label, tick quarantined), oldest first — and the health cooldown
+        self.lane_health: LaneHealth | None = None
+        self.quarantined: list[tuple[int, int]] = []
+        self.last_health_action = -(10**9)
         self.repartition_policy = RepartitionPolicy()
         self.resize_policy = ResizePolicy()
         self.backend_policy = BackendPolicy()
@@ -301,14 +289,15 @@ class DRMaster:
         elif not policies_enabled:
             action = NoOp("dr-disabled", signals.imbalance)
         else:
-            action = self.health_policy.evaluate(self, signals)
-            if action.reason != "health-disabled":
-                detail["health_declined"] = action.reason
-            action = self.resize_policy.evaluate(self, signals)
-            if isinstance(action, NoOp):
-                if action.reason != "elastic-disabled":
-                    detail["resize_declined"] = action.reason
-                action = self.split_policy.evaluate(self, signals)
+            # failure domains first: a sick lane invalidates every
+            # load-based signal the policies below key on
+            action = self._evaluate_health(signals, detail)
+            if action is None:
+                action = self.resize_policy.evaluate(self, signals)
+                if isinstance(action, NoOp):
+                    if action.reason != "elastic-disabled":
+                        detail["resize_declined"] = action.reason
+                    action = self.split_policy.evaluate(self, signals)
             if isinstance(action, (Split, Unsplit)):
                 self._install_split(action)
             elif isinstance(action, NoOp):
@@ -327,6 +316,65 @@ class DRMaster:
         self.decisions.record(action, tick=self.batches_seen,
                               imbalance=signals.imbalance, detail=detail)
         return action
+
+    def _evaluate_health(self, signals: Signals, detail: dict) -> Action | None:
+        """Run the failure-domain policy, first in the precedence.  Folds the
+        window's fault evidence into :class:`LaneHealth` (built lazily at the
+        live worker count, so a restore onto fewer workers starts the view
+        afresh) and returns a *taken* health action, bookkept, or ``None``
+        to fall through to the load policies."""
+        if self.config.health_enabled:
+            w = max(int(signals.num_workers), 1)
+            if self.lane_health is None or self.lane_health.num_lanes != w:
+                self.lane_health = LaneHealth(w, alpha=self.config.ewma_alpha)
+            self.lane_health.observe(signals)
+        action = self.health_policy.evaluate(self, signals)
+        if action.taken:
+            self._note_health(action)
+            return action
+        if action.reason != "health-disabled":
+            detail["health_declined"] = action.reason
+        return None
+
+    def _note_health(self, action: Action) -> None:
+        """Install a taken health action (bookkeeping): it counts as this
+        safe point's decision — ``batches_seen`` and ``last_repartition``
+        advance as for every state-moving install, and the health cooldown
+        starts; the driver removes or re-admits the lane and folds the
+        state."""
+        self.batches_seen += 1
+        self.last_health_action = self.batches_seen
+        self.last_repartition = self.batches_seen
+        lh = self.lane_health
+        if isinstance(action, Quarantine):
+            self.quarantined.append((int(action.lane), self.batches_seen))
+            if lh is not None and int(action.lane) < lh.num_lanes:
+                lh.drop_lane(int(action.lane))
+        elif isinstance(action, Evict):
+            if lh is not None and 0 <= int(action.lane) < lh.num_lanes:
+                lh.drop_lane(int(action.lane))
+        elif isinstance(action, Recover):
+            if self.quarantined:
+                self.quarantined.pop(0)
+            if lh is not None:
+                lh.add_lane()
+        self.history.append({
+            "batch": self.batches_seen,
+            "health": (action.kind, int(getattr(action, "lane", -1))),
+            "reason": action.reason,
+        })
+
+    def note_lost(self, lane: int, *, reason: str) -> None:
+        """Record a hard worker loss the recovery protocol found, as a
+        forced :class:`Evict` in the decision log.  ``lane`` is the lost
+        lane's *original* label (the live workers no longer include it), so
+        the health view, indexed by the lost layout, is dropped; the next
+        safe point rebuilds it at the surviving width."""
+        action = Evict(reason=reason, lane=int(lane))
+        self.lane_health = None
+        self._note_health(action)
+        self.decisions.record(action, tick=self.batches_seen, imbalance=1.0,
+                              detail={"forced": "worker-lost"})
 
     def _install(self, action: Repartition) -> None:
         """Swap in a taken repartition at the safe point (DRM bookkeeping)."""
@@ -444,7 +492,9 @@ class DRMaster:
 
     # -- checkpoint integration ----------------------------------------------
     def snapshot(self) -> dict:
-        """The reference's DRM snapshot keys (flat: no topology or health)."""
+        """The reference's DRM snapshot keys (flat: no topology).  The
+        failure-domain keys ride only while the health layer is live, so a
+        legacy snapshot stays byte-stable."""
         p = self.partitioner
         split_items = sorted(self.split_keys.items())
         return {
@@ -473,23 +523,24 @@ class DRMaster:
             "last_backend_switch": np.int64(self.last_backend_switch),
             "backend_streak": np.int64(self.backend_streak),
             "exchange_backend": np.str_(self.exchange_backend.name),
+            **(self.lane_health.snapshot() if self.lane_health is not None else {}),
+            **({
+                "quarantined_lane": np.asarray([l for l, _ in self.quarantined], np.int64),
+                "quarantined_tick": np.asarray([t for _, t in self.quarantined], np.int64),
+                "last_health_action": np.int64(self.last_health_action),
+            } if (self.quarantined or self.lane_health is not None) else {}),
             **self.decisions.to_arrays(),
         }
 
     @classmethod
     def restore(cls, snap: dict, config: DRConfig = DRConfig()) -> "DRMaster":
-        """Rebuild a master from a snapshot of either package.  Raises on keys
-        of features this port does not run yet (topology, lane health)."""
+        """Rebuild a master from a snapshot of either package.  Raises on the
+        topology keys (not ported yet)."""
         topo = sorted(k for k in snap if k.startswith("topology_"))
         if topo:
             raise NotImplementedError(
                 f"snapshot carries {topo}: ExchangeTopology is not ported yet "
                 "(ROADMAP.md, queue 1 item 4)")
-        health = sorted(k for k in snap if k in _HEALTH_KEYS or k.startswith("health_"))
-        if health:
-            raise NotImplementedError(
-                f"snapshot carries {health}: lane health is not ported yet "
-                "(ROADMAP.md, queue 1 item 7)")
         p = Partitioner(
             int(snap["num_partitions"]),
             np.asarray(snap["heavy_keys"]),
@@ -521,6 +572,15 @@ class DRMaster:
             ))
         drm.last_split = int(snap.get("last_split", -(10**9)))
         drm.split_streak = int(snap.get("split_streak", 0))
+        # failure-domain state (older snapshots predate the health layer)
+        if "health_num_lanes" in snap:
+            drm.lane_health = LaneHealth.restore(snap, alpha=config.ewma_alpha)
+        if "quarantined_lane" in snap:
+            drm.quarantined = list(zip(
+                np.asarray(snap["quarantined_lane"]).astype(int).tolist(),
+                np.asarray(snap["quarantined_tick"]).astype(int).tolist(),
+            ))
+        drm.last_health_action = int(snap.get("last_health_action", -(10**9)))
         if "decisions_tick" in snap:
             drm.decisions = DecisionLog.from_arrays(snap)
         return drm

@@ -26,6 +26,12 @@ the transport's control phase and returns every control-plane output
 of send buffers: a set drained at ``finish`` becomes the next ``start``'s
 buffers (written in place), so at pipeline depth 2 one set is in flight
 while the other is filled; values equal the fresh path's.
+
+Each host entry point (the fused ``step`` and ``migrate`` and both
+``start`` halves) first calls :func:`~repro_torch.exchange.maybe_inject`
+on the step's backend: an installed
+:class:`~repro_torch.exchange.FaultyBackend` fires its plan there, one tick
+per issued start, as at the reference's host boundary.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch.exchange import (
     Payload,
     PendingExchange,
     make_exchange,
+    maybe_inject,
     route_bucketize,
     route_dispatch,
 )
@@ -187,12 +194,14 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
         return res, (rk, rv, rva, rp)
 
     def step(tables: PartitionerTables, keys, vals, valid, part_loads=None) -> ShuffleResult:
+        maybe_inject(ex.backend, "shuffle")  # host boundary: faults fire here
         pending, s = _start(tables, keys, vals, valid, None, part_loads)
         return ShuffleResult(*_finish(pending)[1], *s)
 
     start_buffers, finish = _recycling(_finish)
 
     def start(tables: PartitionerTables, keys, vals, valid, part_loads=None):
+        maybe_inject(ex.backend, "shuffle")
         return _start(tables, keys, vals, valid, start_buffers(vals), part_loads)
 
     step.start = start
@@ -251,6 +260,7 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
         return res, (rk, rv, rva)
 
     def migrate(new_tables: PartitionerTables, state_keys, state_vals) -> MigrateResult:
+        maybe_inject(ex.backend, "migrate")  # host boundary: faults fire here
         pending, s = _start(new_tables, state_keys, state_vals, None)
         rk, rv, rva = _finish(pending)[1]
         return MigrateResult(s.kept_keys, s.kept_vals, s.kept_valid, rk, rv, rva,
@@ -259,6 +269,7 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
     start_buffers, finish = _recycling(_finish)
 
     def start(new_tables: PartitionerTables, state_keys, state_vals):
+        maybe_inject(ex.backend, "migrate")
         return _start(new_tables, state_keys, state_vals, start_buffers(state_vals))
 
     migrate.start = start

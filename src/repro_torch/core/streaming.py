@@ -17,7 +17,10 @@ batch's route fans the key out); an ``Unsplit`` runs a home-routed
 migration off the still-split partitioner whose merge sums the partials;
 a ``SwitchBackend`` (the ``BackendPolicy``, ``DRConfig(auto_backend=
 True)``) drops the steps, which the next batch rebuilds on the new
-transport, and moves nothing.
+transport, and moves nothing; a ``Quarantine`` or ``Evict`` (the
+``HealthPolicy``, ``DRConfig(health_enabled=True)``) removes one worker row
+and folds its state onto the survivors, and a ``Recover`` re-admits the
+oldest quarantined lane and spreads the state back.
 
 A port of ``repro.core.streaming.StreamingJob``'s three drivers.  The W
 workers are stacked on one device (``num_workers``, default 1 — what the
@@ -69,8 +72,20 @@ record to the less loaded of its two hashed replicas.  All three drivers
 route batch N+1 on batch N's loads; a resize or a restore drops the
 vector.
 
-Lane health and zero-loss recovery are not ported yet and raise
-``NotImplementedError``.
+**Failure domains.**  A :class:`~repro_torch.exchange.FaultyBackend`
+given as ``exchange_backend`` fires its plan at the steps' host entry
+points; the driver drains the seam's per-lane report into telemetry each
+batch (re-mapped from original lane ids to current rows), where the
+``HealthPolicy`` reads it.  A lane is a row of the ``[W, ...]`` stack, so
+a quarantined lane is parked as its label; removing or re-admitting one
+rebuilds the steps for the new worker count and re-folds the state on the
+host (``_adopt_state``).  With ``DRConfig(snapshot_interval=k)``,
+``process_batch`` is also the zero-loss recovery loop: it takes an
+auto-snapshot (lazily first, then every ``k`` batches and after each lane
+change), keeps the batches since in a replay buffer, and on a
+:class:`~repro_torch.exchange.WorkerLostError` drains the survivors,
+evicts the lost lane (a single worker restarts in place), restores the
+snapshot, replays the buffer and retries the batch.  No row is lost.
 """
 from __future__ import annotations
 
@@ -92,10 +107,12 @@ from repro_torch.compat import (
     to_device,
 )
 from repro_torch.control import (
+    Evict,
     NoOp,
+    Quarantine,
+    Recover,
     Repartition,
     Resize,
-    Split,
     SwitchBackend,
     Telemetry,
     Unsplit,
@@ -116,10 +133,16 @@ from repro_torch.core.shuffle import (
     shuffle_stats,
 )
 from repro_torch.core.state import empty_state, merge_into, state_size
-from repro_torch.exchange import ExchangeSpec, ExchangeStats, resolve_backend
+from repro_torch.exchange import (
+    ExchangeSpec,
+    ExchangeStats,
+    FaultyBackend,
+    WorkerLostError,
+    resolve_backend,
+)
 from repro_torch.exchange.spec import DISTANCE_CLASSES
 
-__all__ = ["BatchMetrics", "StreamingJob"]
+__all__ = ["BatchMetrics", "RecoveryStats", "StreamingJob"]
 
 _SENT = int(KEY_SENTINEL)
 
@@ -154,6 +177,21 @@ class BatchMetrics:
     split_keys: int = 0         # hot keys replicated after this safe point
     shipped_rows_by_class: tuple = (0, 0, 0)  # zeros: flat exchange
     lanes: int = 0              # live workers after this batch
+
+
+@dataclasses.dataclass
+class RecoveryStats:
+    """One zero-loss recovery: the lane lost, how the job survived it
+    (``evict``: shrunk onto the survivors; ``restart``: restored in place,
+    the single-worker fallback), how many gap batches the replay buffer
+    re-ran, the worker count after, and the recovery's wall (drain,
+    restore and replay, up to the lost batch's successful retry)."""
+
+    lane: int
+    kind: str                   # "evict" | "restart"
+    replayed: int
+    workers: int
+    wall_s: float = 0.0
 
 
 class _Staging:
@@ -281,6 +319,15 @@ class StreamingJob:
         # split_least_load: the previous batch's loads, float32 on the
         # device, that the next route's replica pick reads (None: equal)
         self._part_loads: torch.Tensor | None = None
+        # failure domains: current -> original lane map (plan lanes are
+        # original ids), the quarantined lanes' labels (oldest first), the
+        # auto-snapshot and bounded replay buffer
+        # (``DRConfig.snapshot_interval``), and the recovery record
+        self._lane_ids: list[int] = list(range(self.num_workers))
+        self._parked: list[int] = []
+        self._auto_snap: dict | None = None
+        self._replay: list[tuple[np.ndarray, np.ndarray | None]] = []
+        self.recoveries: list[RecoveryStats] = []
         self.state_keys, self.state_vals = empty_state(
             state_capacity, payload_dim, num_workers=self.num_workers, device=self.device)
         self.metrics: list[BatchMetrics] = []
@@ -437,7 +484,67 @@ class StreamingJob:
 
     # ------------------------------------------------------------------
     def process_batch(self, keys: np.ndarray, values: np.ndarray | None = None) -> BatchMetrics:
-        """Run one micro-batch through shuffle + stateful reduce + DR."""
+        """Run one micro-batch through shuffle + stateful reduce + DR.
+
+        With ``DRConfig.snapshot_interval > 0`` this is also the zero-loss
+        recovery loop: the first auto-snapshot is taken lazily, every
+        processed batch joins the replay buffer, and a
+        :class:`~repro_torch.exchange.WorkerLostError` from the fault seam
+        triggers recovery (:meth:`_recover_from_loss`), then the replay of
+        the gap batches and the retry of this one on the surviving workers.
+        At most ``num_workers + 1`` losses in a row are absorbed (a
+        completed batch resets the budget).  With ``snapshot_interval ==
+        0`` a loss propagates."""
+        cfg = self.drm.config
+        if cfg.snapshot_interval > 0 and self._auto_snap is None:
+            # the lazy first snapshot: the zero state is trivially consistent
+            self._auto_snap = self.snapshot()
+            self._replay = []
+        pending_rec: tuple[RecoveryStats, float] | None = None
+        replaying: list = []  # gap batches still to re-run before this one
+        budget = self.num_workers + 1
+        while True:
+            try:
+                while replaying:
+                    rk, rv = replaying[0]
+                    self._process_batch_inner(rk, rv)
+                    replaying.pop(0)
+                    # a completed batch is progress: the budget guards against
+                    # recovery that cannot advance, not against a stream that
+                    # keeps losing (distinct) workers
+                    budget = self.num_workers + 1
+                m = self._process_batch_inner(keys, values)
+                break
+            except WorkerLostError as loss:
+                budget -= 1
+                if budget <= 0 or cfg.snapshot_interval <= 0:
+                    raise
+                t_rec = time.perf_counter()
+                kind = self._recover_from_loss(loss)
+                replaying = list(self._replay)
+                rec = RecoveryStats(lane=loss.lane, kind=kind, replayed=len(replaying),
+                                    workers=self.num_workers)
+                self.recoveries.append(rec)
+                pending_rec = (rec, t_rec)
+        if pending_rec is not None:
+            rec, t_rec = pending_rec
+            rec.wall_s = time.perf_counter() - t_rec
+            rec.workers = self.num_workers
+        if cfg.snapshot_interval > 0:
+            if m.action in ("quarantine", "evict", "recover"):
+                # the workers changed under the snapshot: take it again, so a
+                # later restore lands on the live layout
+                self._auto_snap = self.snapshot()
+                self._replay = []
+            else:
+                self._replay.append((keys, values))
+                if len(self._replay) >= cfg.snapshot_interval:
+                    self._auto_snap = self.snapshot()
+                    self._replay = []
+        return m
+
+    def _process_batch_inner(self, keys: np.ndarray,
+                             values: np.ndarray | None = None) -> BatchMetrics:
         t0 = time.perf_counter()
         raw_keys = keys
         w = self.num_workers
@@ -508,6 +615,17 @@ class StreamingJob:
             self.telemetry.record_exchange(stats)
             self.telemetry.record_overflow(shuffle=overflow_i)
             self.telemetry.record_batch(float(loads.sum()))
+            # fault evidence: drain the seam's per-lane report (keyed by
+            # original lane id) into telemetry at the current rows; a plain
+            # transport has no report and a never-firing plan drains empty
+            drain = getattr(self.exchange_backend, "drain_report", None)
+            if drain is not None:
+                for orig, rec in drain().items():
+                    if orig in self._lane_ids:
+                        self.telemetry.record_fault(
+                            self._lane_ids.index(orig),
+                            straggle_s=rec.get("straggle_s", 0.0),
+                            retries=rec.get("retries", 0))
             self.drm.observe(host_fetch(res.hist_keys), host_fetch(res.hist_counts),
                              total_records=float(loads.sum()))
         at_checkpoint = (len(self.metrics) + 1) % self.checkpoint_interval == 0
@@ -543,11 +661,16 @@ class StreamingJob:
         elif isinstance(action, SwitchBackend):
             # the DR master installed the new transport; no state moves
             self._apply_backend_switch()
-        elif not isinstance(action, (NoOp, Split)):
-            # a Split needs nothing here: the next batch's route fans out
-            raise NotImplementedError(
-                f"executing a {action.kind} action is not ported yet "
-                "(ROADMAP.md, queue 1 item 7)")
+        elif isinstance(action, Quarantine):
+            # the circuit breaker opens: the sick lane leaves the stack, its
+            # label is parked for a Recover, and the survivors adopt its
+            # state (the modulo placement re-folds the partitions)
+            self._apply_lane_removal(action.lane, park=True)
+        elif isinstance(action, Evict):
+            self._apply_lane_removal(action.lane, park=False)
+        elif isinstance(action, Recover):
+            self._apply_recover()
+        # a Split needs nothing here: the next batch's route fans the key out
         rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved = migration
         if mig_rows:
             self.telemetry.record_exchange(migrate_stats(
@@ -712,19 +835,117 @@ class StreamingJob:
         self._part_loads = None  # re-seeded at the new width
         return stats
 
+    def _adopt_backend(self, backend) -> None:
+        """Run on ``backend`` from now on (the DR master's choice).  An armed
+        fault seam stays armed: the wrapper is re-pointed at the new
+        transport instead of being replaced."""
+        if isinstance(self.exchange_backend, FaultyBackend):
+            self.exchange_backend.inner = resolve_backend(backend)
+            self.drm.exchange_backend = self.exchange_backend
+        else:
+            self.exchange_backend = backend
+
     def _apply_backend_switch(self) -> None:
         """Adopt the DR master's newly installed transport at a safe point:
         the shuffle and migrate steps were built for the old one, so both
         go, and the next batch rebuilds them (as after a resize)."""
-        self.exchange_backend = self.drm.exchange_backend
+        self._adopt_backend(self.drm.exchange_backend)
         self._shuffle = None
         self._shuffle_sig = None
         self._migrate_steps.clear()
 
-    def _recover_from_loss(self, loss) -> str:
-        raise NotImplementedError(
-            "zero-loss recovery from a lost worker is not ported yet "
-            "(ROADMAP.md, queue 1 item 7)")
+    # -- failure domains: lane removal, re-admission, recovery -----------
+    def _set_workers(self, n: int) -> None:
+        """Run on ``n`` stacked workers from now on, and drop everything
+        built for the old count: the shuffle and migrate steps, the
+        in-flight and staged stages, and the least-load vector.  The
+        partitioner stays: the partitions re-fold onto the new count
+        through the modulo placement."""
+        self.num_workers = int(n)
+        self._shuffle = None
+        self._shuffle_sig = None
+        self._migrate_steps.clear()
+        self._part_loads = None
+        self._inflight = None
+        self._hidden_since = None
+        self._staged = None
+
+    def _fetch_state(self) -> tuple[np.ndarray, np.ndarray]:
+        """The state tables on the host (the pre-action drain is done)."""
+        with safe_point():
+            return host_fetch(self._sk), host_fetch(self._sv)
+
+    def _apply_lane_removal(self, lane: int, *, park: bool) -> None:
+        """Execute a Quarantine (``park=True``) or an Evict at a safe point:
+        fetch the state, remove row ``lane`` from the stack and fold its
+        rows onto the survivors."""
+        sk, sv = self._fetch_state()
+        orig = self._lane_ids.pop(lane)
+        if park:
+            self._parked.append(orig)
+        backend = self.exchange_backend
+        if isinstance(backend, FaultyBackend):
+            (backend.note_quarantined if park else backend.note_evicted)(orig)
+        self._set_workers(self.num_workers - 1)
+        self._adopt_state(sk, sv)
+
+    def _apply_recover(self) -> None:
+        """Execute a Recover at a safe point: re-admit the oldest parked lane
+        as the last row and spread the state back over the grown stack."""
+        if not self._parked:
+            # a restored ledger can outlive the parked list (the snapshot
+            # predates the quarantine): reconcile, and run on unchanged
+            self.drm.quarantined.clear()
+            return
+        sk, sv = self._fetch_state()
+        orig = self._parked.pop(0)
+        self._lane_ids.append(orig)
+        backend = self.exchange_backend
+        if isinstance(backend, FaultyBackend):
+            backend.note_recovered(orig)
+        self._set_workers(self.num_workers + 1)
+        self._adopt_state(sk, sv)
+
+    def _reconcile_quarantine(self) -> None:
+        """The parked list is ground truth for what can be re-admitted: trim
+        the DR master's quarantine ledger to it."""
+        while len(self.drm.quarantined) > len(self._parked):
+            self.drm.quarantined.pop()
+
+    def _recover_from_loss(self, loss: WorkerLostError) -> str:
+        """Zero-loss recovery from a hard worker loss: drain the survivors'
+        in-flight stages, evict the lost lane (the last worker restarts in
+        place instead), restore the last auto-snapshot onto the surviving
+        workers and record the forced eviction.  The caller replays the gap
+        and retries the lost batch.  Returns ``"evict"`` or ``"restart"``."""
+        try:
+            self._drain_inflight()  # the state is replaced below, but the
+        except Exception:           # stream must run empty first
+            self._inflight = None
+            self._hidden_since = None
+        self._discard_staged()
+        backend = self.exchange_backend
+        kind = "evict"
+        if self.num_workers > 1 and loss.lane in self._lane_ids:
+            self._lane_ids.remove(loss.lane)
+            self._set_workers(self.num_workers - 1)
+            if isinstance(backend, FaultyBackend):
+                backend.note_evicted(loss.lane)
+        else:
+            # a single worker (or a lane already removed): restore and replay
+            # in place; the restarted lane stays eligible for later faults,
+            # only its standing death clears
+            kind = "restart"
+            if isinstance(backend, FaultyBackend):
+                backend.note_restarted(loss.lane)
+        self.restore(self._auto_snap, _keep_recovery_log=True)
+        # the restored DR master predates the loss: log the forced eviction,
+        # and reconcile its quarantine ledger with the parked lanes
+        self.drm.note_lost(loss.lane, reason=str(loss))
+        self._reconcile_quarantine()
+        while len(self.drm.quarantined) < len(self._parked):
+            self.drm.quarantined.append((-1, self.drm.batches_seen))
+        return kind
 
     # -- state inspection ----------------------------------------------
     def state_count(self, key: int) -> float:
@@ -737,12 +958,13 @@ class StreamingJob:
     # -- checkpoint / restore --------------------------------------------
     def snapshot(self) -> dict:
         """State tables plus the DRM snapshot under ``drm_`` — the keys of the
-        reference's ``StreamingJob.snapshot`` (flat, same worker count).
-        Drains the in-flight merge first."""
+        reference's ``StreamingJob.snapshot``.  Drains the in-flight merge
+        first.  The tables are copies: an auto-snapshot outlives several
+        batches and must not share memory with the live state."""
         with safe_point():
             return {
-                "state_keys": host_fetch(self.state_keys),
-                "state_vals": host_fetch(self.state_vals),
+                "state_keys": np.array(host_fetch(self.state_keys)),
+                "state_vals": np.array(host_fetch(self.state_vals)),
                 **{f"drm_{k}": v for k, v in self.drm.snapshot().items()},
             }
 
@@ -773,17 +995,22 @@ class StreamingJob:
             new_v[worker, : len(rows)] = acc[rows]
         self.state_keys = torch.from_numpy(new_k).to(self.device)
         self.state_vals = torch.from_numpy(new_v).to(self.device)
+        self._last_state_rows = int((new_k != _SENT).sum())
         if overflow:
             self.telemetry.record_overflow(migration=overflow)
 
-    def restore(self, snap: dict) -> None:
+    def restore(self, snap: dict, *, _keep_recovery_log: bool = False) -> None:
         """Resume from a snapshot of either package.  The snapshot's
         transport and partition count win over the ones this job was built
-        with.  A snapshot of another worker count is re-folded onto this
-        job's workers and state capacity (:meth:`_adopt_state`).  The
+        with (an armed fault seam stays armed, re-pointed at the snapshot's
+        transport).  A snapshot of another worker count is re-folded onto
+        this job's workers and state capacity (:meth:`_adopt_state`).  The
         in-flight finish belongs to the replaced state and the staged start
         to the replaced partitioner: both go, as do a pending resize and the
-        least-load vector (measured before the restore)."""
+        least-load vector (measured before the restore).  An external
+        restore starts a new failure epoch: the auto-snapshot and the replay
+        buffer go too (the recovery protocol keeps them, since it is about
+        to replay that buffer)."""
         drm_snap = {k[4:]: v for k, v in snap.items() if k.startswith("drm_")}
         snap_keys = np.asarray(snap["state_keys"])
         self._inflight = None
@@ -801,7 +1028,7 @@ class StreamingJob:
             self.state_capacity = int(snap_keys.shape[1])
         self.payload_dim = int(self._sv.shape[2])
         if "exchange_backend" in drm_snap:  # the snapshot's transport wins
-            self.exchange_backend = self.drm.exchange_backend
+            self._adopt_backend(self.drm.exchange_backend)
         else:  # a snapshot older than the backends: this job's stands
             self.drm.exchange_backend = self.exchange_backend
         n = self.drm.partitioner.num_partitions
@@ -811,4 +1038,8 @@ class StreamingJob:
         self._shuffle = None
         self._shuffle_sig = None
         self._migrate_steps.clear()
+        if not _keep_recovery_log:
+            self._auto_snap = None
+            self._replay = []
+        self._reconcile_quarantine()
         self._state_rows()  # refresh the drain-time row count

@@ -1,13 +1,22 @@
 """Exchange plane for stacked workers — routed all-to-all for the shuffle
 and state migration, split spec + backend.  See
 :mod:`repro_torch.exchange.plane` (binding), :mod:`repro_torch.exchange.spec`
-(shapes) and :mod:`repro_torch.exchange.backends` (transports)."""
+(shapes), :mod:`repro_torch.exchange.backends` (transports) and
+:mod:`repro_torch.exchange.faults` (the fault seam)."""
 from repro_torch.exchange.backends import (
     DenseBackend,
     ExchangeBackend,
     LocalBackend,
     RaggedBackend,
     resolve_backend,
+)
+from repro_torch.exchange.faults import (
+    FaultPlan,
+    FaultyBackend,
+    LaneFault,
+    TransientExchangeError,
+    WorkerLostError,
+    maybe_inject,
 )
 from repro_torch.exchange.plane import (
     Exchange,
@@ -29,12 +38,18 @@ __all__ = [
     "ExchangeResult",
     "ExchangeSpec",
     "ExchangeStats",
+    "FaultPlan",
+    "FaultyBackend",
+    "LaneFault",
     "LocalBackend",
     "Payload",
     "PendingExchange",
     "RaggedBackend",
     "SendInfo",
+    "TransientExchangeError",
+    "WorkerLostError",
     "make_exchange",
+    "maybe_inject",
     "resolve_backend",
     "route_bucketize",
     "route_dispatch",

@@ -28,7 +28,7 @@ from repro.data.generators import drifting_zipf as j_drifting, zipf_keys as j_zi
 from repro.exchange.backends import resolve_backend as j_backend
 from repro_torch.control import Signals
 from repro_torch.core import hashing
-from repro_torch.core.drm import UNPORTED, DRConfig, DRMaster
+from repro_torch.core.drm import DRConfig, DRMaster
 from repro_torch.core.histogram import Histogram, local_topk_histogram
 from repro_torch.core.migration import exchange_lane_cost, migration_capacity, plan_migration
 from repro_torch.core.partitioner import Partitioner, kip_update, uniform_partitioner
@@ -264,13 +264,19 @@ def test_drconfig_validation_matches_reference(bad):
     dict(health_enabled=True), dict(split_least_load=True), dict(snapshot_interval=2),
 ])
 def test_unported_features_raise(flag):
-    """The features still in ``UNPORTED`` raise, citing their ROADMAP item;
-    ``elastic``, ``split_keys_enabled``, ``auto_backend`` and
-    ``split_least_load`` are ported and construct."""
-    if next(iter(flag)) in ("elastic", "split_keys_enabled", "auto_backend",
-                            "split_least_load"):
-        assert next(iter(flag)) not in {f for f, _, _ in UNPORTED}
-        DRMaster(uniform_partitioner(4), DRConfig(**flag))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DRMaster(uniform_partitioner(4), DRConfig(**flag))
+    """Every ``DRConfig`` feature is ported now (the name dates from when
+    some raised): a master built with each flag takes the reference's
+    decisions over the same signals, and its snapshot is the reference's."""
+    rng = np.random.default_rng(1)
+    td = DRMaster(uniform_partitioner(4), DRConfig(**flag))
+    jd = JDRMaster(j_uniform(4), JDRConfig(**flag))
+    for step in range(4):
+        loads = rng.integers(1, 50, 4).astype(np.float64)
+        straggle = np.asarray([0.0, 0.2 * (step % 2), 0.0, 0.0])
+        for drm, sig in ((td, Signals), (jd, JSignals)):
+            drm.evaluate(sig(loads=loads, num_workers=2, lane_straggle_s=straggle[:2]))
+    assert _decision_rows(td.decisions) == _decision_rows(jd.decisions)
+    js, ts = jd.snapshot(), td.snapshot()
+    assert sorted(js) == sorted(ts)
+    for k in js:
+        np.testing.assert_array_equal(np.asarray(js[k]), np.asarray(ts[k]), err_msg=k)

@@ -1063,3 +1063,76 @@ def test_least_load_and_auto_backend_jobs_card_equal_cpu(cuda, driver):
         assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
         assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
         assert want <= {m.action for m in cpu.metrics}, [m.action for m in cpu.metrics]
+
+
+@pytest.mark.parametrize("n", [599_187, 2341, 4097])
+@pytest.mark.parametrize("splits", [None, (4, 3)])
+def test_route_kernels_at_seven_lanes(cuda, n, splits):
+    """Seven workers, as after an eviction from eight: each worker's slice
+    of a stacked ``[7, n]`` key tensor starts at an offset that is not a
+    multiple of 16 bytes for odd ``n`` (599,187 is a 4 Mi-record batch over
+    7 workers); both route kernels equal their plain versions over 32
+    partitions, 7 lanes, and a capacity sized as the shuffle sizes it."""
+    p, keys, valid, vals = _case(7, n, 32, splits, False, n % 1000)
+    k, v, x = (torch.as_tensor(a, device=cuda) for a in (keys, valid, vals))
+    assert k.is_contiguous() and k[1].data_ptr() % 16 != 0
+    cap = int(np.ceil(2.0 * n / 8.0) * 8)
+    t = p.tables(cuda)
+    hk, hp, hr = ops.pad_heavy_tables(t, num_partitions=32, pad_empty=True)
+    kw = dict(seed=p.seed, num_hosts=p.num_hosts, num_lanes=7, num_partitions=32)
+    got = route_bucketize(k, v, x, hk, hp, t.host_to_part, hr, capacity=cap, key_fill=SENT, **kw)
+    want = route_bucketize_plain(k, v, x, hk, hp, t.host_to_part, hr, capacity=cap,
+                                 key_fill=SENT, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    lk, lp, _ = ops.pad_heavy_tables(t, num_partitions=0, pad_empty=False)
+    home = dict(kw, num_partitions=0)
+    got = lookup_dispatch(k, v, lk, lp, t.host_to_part, None, **home)
+    want = lookup_dispatch_plain(k, v, lk, lp, t.host_to_part, None, **home)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+@pytest.mark.parametrize("driver", ["serial", "d1", "d2"])
+def test_failure_domain_jobs_card_equal_cpu(cuda, driver):
+    """A kill evicted onto 7 workers (then repartitions at 7 lanes), and
+    Quarantine, Recover and Evict from lane health, on the card and on the
+    CPU by each driver: equal trajectories, recoveries, lane ids and
+    state."""
+    from repro_torch.exchange import FaultPlan, FaultyBackend, LaneFault
+
+    batches = list(drifting_zipf(12, 16_384, num_keys=5000, exponent=1.3, drift_every=3,
+                                 seed=3))
+    kill = FaultPlan(faults=(LaneFault(4, 5, "kill"),))
+    health = FaultPlan(faults=(LaneFault(0, 2, "latency", delay_s=0.005, span=4),)
+                       + tuple(LaneFault(t, 6, "transient") for t in range(6, 11)))
+    cases = ((kill, dict(imbalance_trigger=1.2, migration_cost_weight=0.2,
+                         snapshot_interval=3), ["evict"]),
+             (health, dict(imbalance_trigger=1e9, health_enabled=True, health_straggler_ms=3.0,
+                           health_recover_after=3, snapshot_interval=3),
+              ["quarantine", "recover", "evict"]))
+    for plan, kw, want in cases:
+        jobs = {}
+        for label, device in (("card", cuda), ("cpu", "cpu")):
+            extra = {"serial": dict(overlap_exchange=False), "d1": {},
+                     "d2": dict(pipeline_depth=2)}[driver]
+            job = jobs[label] = StreamingJob(
+                device=device, num_workers=8, num_partitions=32, state_capacity=16_384,
+                dr=DRConfig(**kw, **extra), exchange_backend=FaultyBackend("dense", plan))
+            if driver == "d1":
+                for b in batches:
+                    job.process_batch(b)
+            else:
+                job.run(batches)
+        card, cpu = jobs["card"], jobs["cpu"]
+        for a, b in zip(card.metrics, cpu.metrics, strict=True):
+            assert _fields(a, _WALLS) == _fields(b, _WALLS)
+        assert ([dataclasses.replace(r, wall_s=0.0) for r in card.recoveries]
+                == [dataclasses.replace(r, wall_s=0.0) for r in cpu.recoveries])
+        assert card._lane_ids == cpu._lane_ids
+        assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
+        assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
+        changes = [m.action for m in cpu.metrics if m.action not in ("noop", "repartition")]
+        assert changes + [r.kind for r in cpu.recoveries] == want, changes
+        if plan is kill:  # the repartitions after the eviction route at 7 lanes
+            assert any(m.repartitioned and m.lanes == 7 for m in cpu.metrics)

@@ -223,3 +223,11 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
         fa_mod.flash_attention(torch.zeros((1, 1, 4, 16), device="meta"),
                                torch.zeros((1, 4, 16), device="meta"),
                                torch.zeros((1, 4, 16), device="meta"), causal=True)
+
+
+def test_scan_covers_the_failure_domain_modules():
+    """The scan above reaches the fault seam and lane health, the port's own
+    copies of the reference's ``exchange/faults.py`` and
+    ``control/health.py``."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/exchange/faults.py", "src/repro_torch/control/health.py"} <= names

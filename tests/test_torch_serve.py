@@ -19,6 +19,7 @@ import torch
 from repro.configs.base import reduce_for_smoke
 from repro.configs.registry import get_config
 from repro.control import Telemetry as JTelemetry
+from repro.core.drm import DRConfig as JDRConfig
 from repro.exchange import ExchangeStats as JStats
 from repro.models import model as jmodel
 from repro.models.modules import Policy as JPolicy
@@ -204,8 +205,18 @@ def test_scheduler_resize_is_not_ported():
     # the BackendPolicy is ported: the scheduler constructs with it
     # (tests/test_torch_backends.py holds its checkpoints to the reference)
     assert TScheduler(4, dr=DRConfig(auto_backend=True)).drm.config.auto_backend
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TScheduler(4, dr=DRConfig(health_enabled=True))
+    # lane health is ported: the scheduler constructs with it, and its
+    # checkpoints (one replica-set "lane" view, no fault evidence) are the
+    # reference's
+    keys = _hot_tenant_keys()
+    tsched = TScheduler(4, dr=DRConfig(health_enabled=True))
+    jsched = JScheduler(4, dr=JDRConfig(health_enabled=True))
+    for i in range(3):
+        win = keys[i * 2000: (i + 1) * 2000]
+        for k in win:
+            assert tsched.route(int(k), 2.0) == jsched.route(int(k), 2.0)
+        assert tsched.checkpoint(win) == jsched.checkpoint(win)
+    assert tsched.drm.lane_health.num_lanes == jsched.drm.lane_health.num_lanes == 1
 
 
 def test_telemetry_queue_depths_and_exchange_walls_match():

@@ -32,6 +32,7 @@ from repro_torch.carry import job_from_reference_snapshot
 from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.data.generators import drifting_zipf
+from repro_torch.exchange import FaultPlan, FaultyBackend, LaneFault
 
 CFG = dict(imbalance_trigger=1.1, migration_cost_weight=0.2, overlap_exchange=False)
 JOB = dict(num_partitions=8, state_capacity=16_384)
@@ -183,11 +184,36 @@ def test_port_snapshot_restore_round_trip():
 @pytest.mark.parametrize("key", ["drm_topology_lanes_per_host", "drm_health_num_lanes",
                                  "drm_quarantined_lane"])
 def test_carry_rejects_unported_snapshot_keys(key):
-    job = _port_job()
-    job.process_batch(next(drifting_zipf(1, 1024, **STREAM)))
-    snap = job.snapshot() | {key: np.int64(2)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        job_from_reference_snapshot(snap, config=DRConfig(**CFG), device="cpu")
+    """The topology keys still raise, citing their ROADMAP item.  The lane
+    health keys are ported: a reference snapshot with the health record
+    (and, for ``drm_quarantined_lane``, a quarantine ledger naming a lane
+    that no job has parked, which both restores trim) carries into the
+    port, and both jobs run on alike."""
+    batches = list(drifting_zipf(4, 1024, **STREAM))
+    if key == "drm_topology_lanes_per_host":
+        job = _port_job()
+        job.process_batch(batches[0])
+        snap = job.snapshot() | {key: np.int64(2)}
+        with pytest.raises(NotImplementedError, match="not ported"):
+            job_from_reference_snapshot(snap, config=DRConfig(**CFG), device="cpu")
+        return
+    cfg = dict(CFG, health_enabled=True)
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("data",))
+    ref = JStreamingJob(mesh=mesh, dr=JDRConfig(**cfg), **JOB)
+    ref.run(batches[:2])
+    snap = ref.snapshot()
+    assert key in snap
+    if key == "drm_quarantined_lane":
+        snap |= {key: np.asarray([3], np.int64), "drm_quarantined_tick": np.asarray([1], np.int64)}
+    ref.restore(snap)
+    port = job_from_reference_snapshot(snap, config=DRConfig(**cfg), device="cpu")
+    assert port.drm.quarantined == ref.drm.quarantined == []
+    _assert_same_trajectory(ref.run(batches[2:]), port.run(batches[2:]), skip={"batch"})
+    ref_snap, port_snap = ref.snapshot(), port.snapshot()
+    assert sorted(ref_snap) == sorted(port_snap)
+    for k in ref_snap:
+        np.testing.assert_array_equal(np.asarray(ref_snap[k]), np.asarray(port_snap[k]),
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("make,ported", [
@@ -195,17 +221,21 @@ def test_carry_rejects_unported_snapshot_keys(key):
     (lambda: _port_job(exchange_backend="hierarchical"), False),
     (lambda: _port_job(topology=object()), False),
     (lambda: StreamingJob(device="cpu", dr=DRConfig(split_least_load=True)), True),
-    (lambda: _port_job()._recover_from_loss(None), False),
+    (lambda: StreamingJob(device="cpu", dr=DRConfig(snapshot_interval=1),
+                          exchange_backend=FaultyBackend(
+                              "dense", FaultPlan(faults=(LaneFault(1, 0, "kill"),)))), True),
 ])
 def test_unported_paths_raise(make, ported):
     """What is not ported raises, citing its ROADMAP item; the ragged
-    transport and the least-load pick are ported, and their jobs run
-    (``tests/test_torch_backends.py`` and ``tests/test_torch_least_load.py``
+    transport, the least-load pick and zero-loss recovery are ported, and
+    their jobs run (``tests/test_torch_backends.py``,
+    ``tests/test_torch_least_load.py`` and ``tests/test_torch_recovery.py``
     hold them to the reference)."""
     if ported:
         job = make()
         job.run(list(drifting_zipf(2, 1024, **STREAM)))
         assert len(job.metrics) == 2
+        assert len(job.recoveries) == isinstance(job.exchange_backend, FaultyBackend)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
