@@ -202,6 +202,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     without and with ``snapshot_interval=3`` in turns: the walls per batch
     and each snapshot's wall.
 
+17. The lane topology at phase 2's size, on two hosts of four lanes
+    (``ExchangeTopology(8, 4)``).  (a) Phase 2's job with the topology on
+    the dense and on the hierarchical transport, by each driver: every
+    metric but the walls and the traffic (dense: its shipped rows too),
+    and the state, equal to phase 2's run; the rows by class sum to
+    ``shipped_rows`` in every batch, zero overflow, exact counts, 0 host
+    syncs outside safe points at depths 1 and 2, every hierarchical ship
+    two-hop; the two transports equal but for the traffic, the drivers
+    equal, and hierarchical's inter-host rows above 0 and below dense's in
+    every batch; fresh depth-1 jobs with the
+    policies off in turns (flat, dense with the topology, hierarchical,
+    and back), each equal to the flat job but the walls and the traffic,
+    with their walls; one ship of phase 2's send buffers, two hops against
+    the flat transpose, in device time; card == CPU over 16,384-record
+    batches, the classes included.  (b) Every lane its own host at 400x
+    (``ExchangeTopology(8, 1, (0.0, 1.0, 400.0))``) beside the two-host
+    and the blind (phase 2) jobs: the repartitions taken, the imbalance
+    per batch and the reasons of the declines.  (c) Phase 16 (b)'s loss
+    at depth 1 on ``FaultyBackend("hierarchical", ...)``: one eviction
+    onto 7 lanes (hosts of 4 and 3), two-hop ships before it and flat
+    ones after it, zero rows lost, the recovery's wall.  The ``kernels``
+    line's route kernels carry their launches in (a)'s depth-1 runs
+    (``launches_phase_17``).
+
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
 """
@@ -214,6 +238,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1053,6 +1078,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     float_payload_phase(dev)
     kernels += failure_phase(dev, card, batches, phase2, steady_walls)
+    topo_launches = topology_phase(dev, card, batches, phase2, steady_walls)
+    for row in kernels:
+        if row["name"] in ("route_bucketize", "lookup_dispatch"):
+            row["launches_phase_17"] = {job: n[row["name"]] for job, n in topo_launches.items()}
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1906,6 +1935,230 @@ def failure_phase(dev, card, batches, phase2, steady_walls) -> list[dict]:
         f"{steady_walls['depth 1']:.2f} ms; card {card}")
     torch.cuda.empty_cache()
     return rows
+
+
+def topology_phase(dev, card, batches, phase2, steady_walls) -> dict:
+    """Phase 17: the lane topology at phase 2's size.  Returns the route
+    kernels' launches in (a)'s depth-1 runs, by job, for the ``kernels``
+    line."""
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.data.generators import drifting_zipf
+    from repro_torch.exchange import ExchangeTopology, FaultPlan, FaultyBackend, LaneFault
+    from repro_torch.exchange.backends import _transposed, _two_hop_a2a
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+    from repro_torch.kernels.route_bucketize import route_bucketize
+
+    t_phase = time.perf_counter()
+    kernels = (route_bucketize, lookup_dispatch)
+    job_kw = dict(num_workers=8, num_partitions=32, state_capacity=262_144,
+                  capacity_factor=2.0)
+    dr_kw = dict(imbalance_trigger=1.2, migration_cost_weight=0.2)
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    traffic = skip | {"shipped_rows", "shipped_rows_by_class", "backend"}
+    stream = dict(num_keys=1_000_000, exponent=1.3, drift_every=3, drift_fraction=0.3, seed=0)
+    two_hosts = ExchangeTopology(8, 4)
+    transports = {"dense + topology": "dense", "hierarchical": "hierarchical"}
+    sampled = sample_keys(batches, dev)
+    fed = float(sum(len(b) for b in batches))
+
+    def job_of(device, backend, driver, dr=dr_kw, topology=two_hosts, **kw):
+        return StreamingJob(device=device, dr=DRConfig(**dr, **DRIVERS[driver]),
+                            topology=topology, exchange_backend=backend, **job_kw, **kw)
+
+    # ---- (a) the transports under the topology, by each driver -------------
+    # Each run is held to phase 2's (every field but the walls and the
+    # traffic: dense's shipped rows too; and the state: at this size the
+    # two-host price declines no repartition phase 2 takes, where at
+    # 1,048,576 records it declines three), the drivers to each other, and
+    # the two transports to each other; with the policies off (below) both
+    # are held to a flat job's run.
+    runs = {label: {} for label in transports}
+    launches = {}
+    for label, backend in transports.items():
+        for name in DRIVERS:
+            job = job_of("cuda", backend, name)
+            r = drive(job, f"{name} ({label})", batches, kernels, phase=17)
+            other = traffic - ({"shipped_rows"} if backend == "dense" else set())
+            for m, p in zip(r["ms"], phase2[name]["ms"], strict=True):
+                assert sum(m.shipped_rows_by_class) == m.shipped_rows, (label, name, m.batch)
+                assert m.overflow == 0, (label, name, m.batch)
+                dm, dp = dataclasses.asdict(m), dataclasses.asdict(p)
+                diff = {k: (dm[k], dp[k]) for k in dm if k not in other and dm[k] != dp[k]}
+                assert not diff, ("17 (a)", label, name, m.batch, diff)
+            assert torch.equal(job.state_keys, phase2[name]["final"][0]), (label, name)
+            assert torch.equal(job.state_vals, phase2[name]["final"][1]), (label, name)
+            for key, want in sampled:
+                assert job.state_count(key) == want, ("17 (a)", label, name, key)
+            assert all(v > 0 for v in r["launches"].values()), (label, name, r["launches"])
+            if name != "serial":
+                assert r["syncs"] == 0, (label, name, r["syncs"])
+            ships = ""
+            if backend == "hierarchical":
+                be = job.exchange_backend
+                assert be.flat_ships == 0 < be.two_hop_ships, (be.two_hop_ships, be.flat_ships)
+                ships = f"; ships two-hop {be.two_hop_ships}, flat {be.flat_ships}"
+            final = types.SimpleNamespace(state_keys=job.state_keys.clone(),
+                                          state_vals=job.state_vals.clone())
+            runs[label][name] = dict(ms=r["ms"], job=final)
+            if name == "depth 1":
+                launches[label] = r["launches"]
+            ref = phase2[name]["ms"]
+            log(f"phase 17 (a): {name}, {label}, phase 2's policies: every metric but the "
+                f"walls and the traffic, and the state, equal to phase 2's run; repartitions at "
+                f"{[m.batch for m in r['ms'] if m.repartitioned]} (phase 2: "
+                f"{[m.batch for m in ref if m.repartitioned]}); classes sum to shipped_rows "
+                f"each batch; shipped per worker {[m.shipped_rows for m in r['ms']]} (phase 2: "
+                f"{[m.shipped_rows for m in ref]}); host syncs outside safe points "
+                f"{r['syncs']}; launches {r['launches']}{ships}; 0 overflow, 64 exact counts; "
+                f"wall per batch {r['wall_ms']:.2f} ms (phase 2: {phase2[name]['wall_ms']:.2f} "
+                f"ms); card {card}")
+            del job, r
+        assert_same_drivers(runs[label], phase=f"17 (a), {label}")
+    for name in DRIVERS:
+        dense, hier = runs["dense + topology"][name], runs["hierarchical"][name]
+        for d, h in zip(dense["ms"], hier["ms"], strict=True):
+            dd, dh = dataclasses.asdict(d), dataclasses.asdict(h)
+            diff = {k: (dd[k], dh[k]) for k in dd if k not in traffic and dd[k] != dh[k]}
+            assert not diff, ("17 (a)", name, d.batch, diff)
+            assert 0 < h.shipped_rows_by_class[2] < d.shipped_rows_by_class[2], (name, d, h)
+        for t in ("state_keys", "state_vals"):
+            assert torch.equal(getattr(dense["job"], t), getattr(hier["job"], t)), (name, t)
+    for label in transports:
+        ms = runs[label]["depth 1"]["ms"]
+        log(f"phase 17 (a): depth 1, {label}: rows by class (self, intra-host, inter-host) a "
+            f"worker, batch by batch {[m.shipped_rows_by_class for m in ms]}; inter-host share "
+            f"{[round(m.shipped_rows_by_class[2] / m.shipped_rows, 4) for m in ms]}")
+    log("phase 17 (a): dense + topology and hierarchical: equal trajectories but the "
+        "traffic, and equal states, by each driver; hierarchical's inter-host rows above 0 and "
+        "below dense's in every batch")
+    torch.cuda.empty_cache()
+
+    # the walls with the policies off, fresh depth-1 jobs in turns, each held
+    # to the first flat job: every field but the walls and the traffic (and
+    # dense's traffic too), and the state
+    walls = {"flat": [], "dense + topology": [], "hierarchical": []}
+    flat_run = None
+    for label in ("flat", "dense + topology", "hierarchical", "hierarchical",
+                  "dense + topology", "flat"):
+        job = job_of("cuda", transports.get(label, "dense"), "depth 1",
+                     topology=None if label == "flat" else two_hosts, dr_enabled=False)
+        r = drive(job, f"depth 1 ({label}, policies off)", batches, kernels, phase=17)
+        assert all(m.action == "noop" and m.overflow == 0 for m in r["ms"])
+        assert r["syncs"] == 0, (label, r["syncs"])
+        if flat_run is None:
+            flat_run = (r["ms"], job.state_keys.clone(), job.state_vals.clone())
+        other = traffic if label == "hierarchical" else skip | {"shipped_rows_by_class"}
+        for a, b in zip(r["ms"], flat_run[0], strict=True):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            diff = {k: (da[k], db[k]) for k in da if k not in other and da[k] != db[k]}
+            assert not diff, ("17 (a)", label, a.batch, diff)
+        assert torch.equal(job.state_keys, flat_run[1]) and torch.equal(job.state_vals,
+                                                                         flat_run[2])
+        walls[label].append(round(r["wall_ms"], 2))
+        del job, r
+    log(f"phase 17 (a): depth 1, policies off, fresh jobs in turns (flat, dense + topology, "
+        f"hierarchical, hierarchical, dense + topology, flat), each equal to the first flat "
+        f"job but the walls and the traffic, state equal: wall per batch {walls} ms; phase "
+        f"2's policies-off depth-1 wall {steady_walls['depth 1']:.2f} ms; card {card}")
+    del flat_run
+
+    # one ship's device time on phase 2's send buffers: two hops against
+    # the flat transpose, in turns
+    job = job_of("cuda", "hierarchical", "depth 1", dr=dict(imbalance_trigger=1e9))
+    job.process_batch(batches[0])
+    pending, _ = job._shuffle.start(job._tables(), *job._upload(batches[-1], None), None)
+    torch.cuda.synchronize()
+    send = (pending.buffers.valid, *pending.buffers.payloads)
+    nbytes = sum(t.numel() * t.element_size() for t in send)
+
+    def two_hop():
+        return [_two_hop_a2a(t, 2, 4) for t in send]
+
+    def flat():
+        return [_transposed(t) for t in send]
+
+    assert all(torch.equal(a, b) for a, b in zip(two_hop(), flat()))
+    ship = {"flat": [], "two-hop": []}
+    for label in ("flat", "two-hop", "two-hop", "flat"):
+        fn = flat if label == "flat" else two_hop
+        ship[label].append((round(device_ms(fn), 4), round(cuda_ms(fn), 4)))
+    bound = {k: c * nbytes / HBM_BYTES_PER_S * 1e3 for k, c in (("flat", 2), ("two-hop", 4))}
+    log(f"phase 17 (a): one ship of phase 2's send buffers ({tuple(send[0].shape)}, mask and "
+        f"three payloads, {nbytes:,} bytes), in turns: (device ms over 20 calls, events ms "
+        f"around one call) flat transpose {ship['flat']}, two hops {ship['two-hop']}; bounds "
+        f"(each hop reads and writes every byte) flat {bound['flat']:.4f} ms, two hops "
+        f"{bound['two-hop']:.4f} ms; outputs equal; card {card}")
+    del job, pending, send
+    torch.cuda.empty_cache()
+
+    # card against CPU, by-class included, on small batches
+    small = list(drifting_zipf(8, 16_384, **stream))
+    for label, backend in transports.items():
+        cpu = card_equals_cpu(lambda device, driver, backend=backend: job_of(device, backend,
+                                                                            driver),
+                              small, f"17 (a), {label}")
+        for job in cpu.values():
+            assert all(sum(m.shipped_rows_by_class) == m.shipped_rows for m in job.metrics)
+
+    # ---- (b) locality pricing at full size: every lane its own host, 400x --
+    dear = ExchangeTopology(8, 1, (0.0, 1.0, 400.0))
+    job = job_of("cuda", "dense", "depth 1", topology=dear)
+    r = drive(job, "depth 1 (all inter-host, 400x)", batches, kernels, phase=17)
+    ms, blind = r["ms"], phase2["depth 1"]["ms"]
+    assert all(m.overflow == 0 for m in ms)
+    for key, want in sampled:
+        assert job.state_count(key) == want, ("17 (b)", key)
+    two_host = runs["dense + topology"]["depth 1"]["ms"]
+    for tag, run in (("aware, every lane its own host, 400x", ms),
+                     ("aware, two hosts of 4, 10x (17 (a))", two_host),
+                     ("blind (phase 2)", blind)):
+        log(f"phase 17 (b): {tag}: repartitions at batches "
+            f"{[m.batch for m in run if m.repartitioned]}; imbalance per batch "
+            f"{[round(m.imbalance, 4) for m in run]}; declines "
+            f"{[(m.batch, m.reason) for m in run if not m.repartitioned]}")
+    log(f"phase 17 (b): aware: inter-host share of the shipped rows "
+        f"{[round(m.shipped_rows_by_class[2] / m.shipped_rows, 4) for m in ms]}; wall per batch "
+        f"{r['wall_ms']:.2f} ms; 0 overflow; 64 exact counts; card {card}")
+    del job, r, ms
+    torch.cuda.empty_cache()
+
+    # ---- (c) a loss under hierarchical: phase 16 (b)'s, at depth 1 ---------
+    kill = FaultPlan(faults=(LaneFault(4, 5, "kill"),))
+    job = job_of("cuda", FaultyBackend("hierarchical", kill), "depth 1",
+                 dr=dict(imbalance_trigger=1e9, snapshot_interval=3))
+    before = {}
+    recover = job._recover_from_loss
+
+    def recording(loss):
+        inner = job.exchange_backend.inner
+        before.update(two_hop=inner.two_hop_ships, flat=inner.flat_ships)
+        return recover(loss)
+
+    job._recover_from_loss = recording
+    r = drive(job, "depth 1 (hierarchical, a lane killed)", batches, kernels, phase=17)
+    ms = r["ms"]
+    assert [(x.lane, x.kind, x.workers) for x in job.recoveries] == [(5, "evict", 7)], (
+        job.recoveries)
+    assert job.num_workers == 7 and job._lane_ids == [0, 1, 2, 3, 4, 6, 7]
+    assert all(m.overflow == 0 and m.action == "noop" for m in ms)
+    assert before["two_hop"] > 0 and before["flat"] == 0, before
+    after = job.exchange_backend.inner
+    assert after.two_hop_ships == 0 < after.flat_ships, (after.two_hop_ships, after.flat_ships)
+    assert job._shuffle_spec.topology == ExchangeTopology(7, 4)
+    exact_after_loss(job, "depth 1, hierarchical", sampled, fed, "17 (c)")
+    rec = job.recoveries[0]
+    log(f"phase 17 (c): depth 1, hierarchical, lane 5 killed at tick 4: evicted onto 7 lanes "
+        f"(hosts of 4 and 3), recovery wall {rec.wall_s * 1e3:.2f} ms, {rec.replayed} "
+        f"replayed; ships before the loss two-hop {before['two_hop']}, flat {before['flat']}; "
+        f"after it two-hop {after.two_hop_ships}, flat {after.flat_ships}; rows by class at 7 "
+        f"lanes {[m.shipped_rows_by_class for m in ms if m.lanes == 7]}; 0 overflow, exact, "
+        f"the sum of all counts {fed:.0f} = records fed; wall per batch {r['wall_ms']:.2f} ms; "
+        f"launches {r['launches']}; card {card}")
+    del job, r, ms
+    torch.cuda.empty_cache()
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches
 
 
 def batch_phases(dev, sent) -> list[dict]:

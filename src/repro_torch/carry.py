@@ -7,11 +7,9 @@ arrays) into the port's per-layer parameters.
 
 The snapshot's keys are the reference's own (state tables, partitioner
 tables with ``heavy_repl``, split fields, sketch, tick counters, the lane
-health record and quarantine ledger, decision log), and the port's
-``snapshot()`` writes the same keys, so a snapshot round-trips between the
-packages.  Keys of features the port does not run yet — ``topology_*``, a
-backend other than ``dense`` / ``ragged`` / ``local`` — raise
-``NotImplementedError``.
+topology's ``topology_*`` keys, the lane health record and quarantine
+ledger, decision log), and the port's ``snapshot()`` writes the same keys,
+so a snapshot round-trips between the packages.
 """
 from __future__ import annotations
 
@@ -33,7 +31,8 @@ def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
     """A port job resuming ``snap`` on ``device`` (``None``: the CUDA device).
 
     The worker count, state capacity, payload width, partition count and
-    partitioner seed come from the snapshot; ``config`` is the DR
+    partitioner seed come from the snapshot (its lane topology and transport
+    too, through ``restore``); ``config`` is the DR
     configuration the reference job ran with, and ``job_kwargs`` the other
     ``StreamingJob`` arguments it was built with (``capacity_factor``,
     ``hist_k``, ...)."""

@@ -120,8 +120,9 @@ class LaneHealth:
 def _fold_cost(host, num_workers: int, lane: int) -> float:
     """Price the quarantine fold: the sick lane's fair state share (1/W of
     the mass) spread evenly over the W-1 survivors, costed by the active
-    transport's sizing rule (``exchange_lane_cost``, partition-level lanes
-    as in the reference: no ``num_workers``, no topology)."""
+    transport's sizing rule and the host's lane topology
+    (``exchange_lane_cost``; partition-level lanes, as in the reference: no
+    ``num_workers``)."""
     w = int(num_workers)
     if w <= 1:
         return 0.0
@@ -139,7 +140,7 @@ def _fold_cost(host, num_workers: int, lane: int) -> float:
         num_src=w, num_dst=w,
     )
     return exchange_lane_cost(plan, backend=getattr(host, "exchange_backend", None),
-                              topology=None)
+                              topology=getattr(host, "exchange_topology", None))
 
 
 class HealthPolicy:

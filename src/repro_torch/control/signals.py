@@ -14,10 +14,11 @@ Only the fields the ported consumers record are ported: the streaming
 drivers' (serial and overlapped: the count, ship and hidden walls behind
 ``overlap_fraction``), and the serving scheduler's replica queue depths,
 count-phase wall and per-backend wall EWMA, the rows split hot keys
-landed on each partition, and the fault seam's per-lane evidence
+landed on each partition, the fault seam's per-lane evidence
 (``record_fault`` -> ``lane_straggle_s`` / ``lane_retries``, the lane-health
-layer's input).  The per-distance-class vector arrives with the topology
-(ROADMAP.md, queue 1).
+layer's input), and the shipped rows by lane distance class
+(``exchange_rows_by_class`` -> ``inter_host_fraction``) when the exchanges
+carry a topology.
 """
 from __future__ import annotations
 
@@ -68,6 +69,11 @@ class Signals:
     exchange_replica_rows: np.ndarray | None = None  # int64[N] rows landed per
                                            # partition from *split* hot keys
                                            # this window (None: nothing split)
+    exchange_rows_by_class: np.ndarray | None = None  # int64[C] shipped rows by
+                                           # lane distance class (self /
+                                           # intra-host / inter-host); None
+                                           # when no exchange carried a
+                                           # topology this window
     queue_depths: np.ndarray | None = None # serving replica queue depths
     lane_straggle_s: np.ndarray | None = None  # float64[L] injected/observed
                                            # per-lane straggle seconds this
@@ -137,6 +143,18 @@ class Signals:
         return rows / self.exchange_padded_rows
 
     @property
+    def inter_host_fraction(self) -> float:
+        """Share of the window's shipped rows that crossed a host boundary
+        (the slow tier); 0.0 when no exchange carried a topology."""
+        by = self.exchange_rows_by_class
+        if by is None:
+            return 0.0
+        total = float(np.sum(by))
+        if total <= 0.0:
+            return 0.0
+        return float(by[-1]) / total
+
+    @property
     def hot_lane(self) -> int:
         """Lane with the most capacity drops this window, or -1 when nothing
         overflowed."""
@@ -180,6 +198,7 @@ class Telemetry:
         self._degenerate_walls = 0
         self._lane_overflow: np.ndarray | None = None
         self._replica_rows: np.ndarray | None = None
+        self._rows_by_class: np.ndarray | None = None
         self._queues: np.ndarray | None = None
         self._lane_straggle: np.ndarray | None = None
         self._lane_retries: np.ndarray | None = None
@@ -275,6 +294,9 @@ class Telemetry:
                 if stats.replica_rows is not None:
                     self._replica_rows = self._fold_vector(self._replica_rows,
                                                            stats.replica_rows)
+                if stats.rows_by_class is not None:
+                    self._rows_by_class = self._fold_vector(self._rows_by_class,
+                                                            stats.rows_by_class)
         self._pending_stats.clear()
 
     def record_fault(self, lane: int, *, straggle_s: float = 0.0,
@@ -337,6 +359,7 @@ class Telemetry:
             backend_wall_ewma=dict(self.wall_ewma) if self.wall_ewma else None,
             lane_overflow=self._lane_overflow,
             exchange_replica_rows=self._replica_rows,
+            exchange_rows_by_class=self._rows_by_class,
             queue_depths=self._queues,
             lane_straggle_s=self._lane_straggle,
             lane_retries=self._lane_retries,

@@ -48,6 +48,7 @@ from repro_torch.control.signals import Signals
 from repro_torch.core.histogram import CounterSketch
 from repro_torch.core.partitioner import Partitioner, heavy_capacity_for, resize_partitioner
 from repro_torch.exchange.backends import resolve_backend
+from repro_torch.exchange.spec import ExchangeTopology
 
 __all__ = ["DRConfig", "DRDecision", "DRMaster"]
 
@@ -210,16 +211,16 @@ class DRDecision:
 class DRMaster:
     def __init__(self, initial: Partitioner, config: DRConfig = DRConfig(),
                  *, consumer: str = "stream", exchange_backend=None,
-                 exchange_topology=None):
-        if exchange_topology is not None:
-            raise NotImplementedError(
-                "ExchangeTopology is not ported yet (ROADMAP.md, queue 1 item 4)")
+                 exchange_topology: ExchangeTopology | None = None):
         self.config = config
         self.partitioner = initial
         # the transport the hosted runtime exchanges through — its sizing
         # rule prices candidate migration plans.  None = dense.
         self.exchange_backend = resolve_backend(exchange_backend)
-        self.exchange_topology = None
+        # the lanes' locality: with it, plan pricing weighs each (src, dst)
+        # cell by distance class (exchange_lane_cost's topology).  None is
+        # the flat world, every lane priced alike
+        self.exchange_topology = exchange_topology
         self.sketch = CounterSketch(config.sketch_capacity, decay=config.sketch_decay)
         self.batches_seen = 0
         self.last_repartition = -(10**9)
@@ -492,9 +493,9 @@ class DRMaster:
 
     # -- checkpoint integration ----------------------------------------------
     def snapshot(self) -> dict:
-        """The reference's DRM snapshot keys (flat: no topology).  The
-        failure-domain keys ride only while the health layer is live, so a
-        legacy snapshot stays byte-stable."""
+        """The reference's DRM snapshot keys.  The topology's three keys ride
+        only when a topology is set, and the failure-domain keys only while
+        the health layer is live, so a legacy snapshot stays byte-stable."""
         p = self.partitioner
         split_items = sorted(self.split_keys.items())
         return {
@@ -523,6 +524,12 @@ class DRMaster:
             "last_backend_switch": np.int64(self.last_backend_switch),
             "backend_streak": np.int64(self.backend_streak),
             "exchange_backend": np.str_(self.exchange_backend.name),
+            **({
+                "topology_lanes_per_host": np.int64(self.exchange_topology.lanes_per_host),
+                "topology_num_lanes": np.int64(self.exchange_topology.num_lanes),
+                "topology_class_weights": np.asarray(self.exchange_topology.class_weights,
+                                                     np.float64),
+            } if self.exchange_topology is not None else {}),
             **(self.lane_health.snapshot() if self.lane_health is not None else {}),
             **({
                 "quarantined_lane": np.asarray([l for l, _ in self.quarantined], np.int64),
@@ -534,13 +541,8 @@ class DRMaster:
 
     @classmethod
     def restore(cls, snap: dict, config: DRConfig = DRConfig()) -> "DRMaster":
-        """Rebuild a master from a snapshot of either package.  Raises on the
-        topology keys (not ported yet)."""
-        topo = sorted(k for k in snap if k.startswith("topology_"))
-        if topo:
-            raise NotImplementedError(
-                f"snapshot carries {topo}: ExchangeTopology is not ported yet "
-                "(ROADMAP.md, queue 1 item 4)")
+        """Rebuild a master from a snapshot of either package (a topology
+        without its weights takes the default ``(0.0, 1.0, 10.0)``)."""
         p = Partitioner(
             int(snap["num_partitions"]),
             np.asarray(snap["heavy_keys"]),
@@ -550,9 +552,17 @@ class DRMaster:
             heavy_repl=(np.asarray(snap["heavy_repl"], np.int32)
                         if "heavy_repl" in snap else None),
         )
+        topo = None
+        if "topology_lanes_per_host" in snap:
+            topo = ExchangeTopology(
+                num_lanes=int(snap.get("topology_num_lanes", snap["num_partitions"])),
+                lanes_per_host=int(snap["topology_lanes_per_host"]),
+                class_weights=tuple(np.asarray(snap["topology_class_weights"], np.float64))
+                if "topology_class_weights" in snap else (0.0, 1.0, 10.0))
         drm = cls(p, config, consumer=str(snap.get("decisions_consumer", "stream")),
                   exchange_backend=str(snap["exchange_backend"])
-                  if "exchange_backend" in snap else None)
+                  if "exchange_backend" in snap else None,
+                  exchange_topology=topo)
         drm.sketch._keys = np.array(snap["sketch_keys"])
         drm.sketch._counts = np.array(snap["sketch_counts"], np.float64)
         drm.sketch._floor = float(snap["sketch_floor"])

@@ -160,19 +160,21 @@ def exchange_lane_cost(
     :class:`~repro_torch.exchange.backends.ExchangeBackend` ``cost`` verb (or
     ``None`` for the dense rule).
 
-    ``topology`` must be ``None``: the locality-priced estimate is not
-    ported yet.
+    ``topology`` (an :class:`~repro_torch.exchange.spec.ExchangeTopology`)
+    makes the estimate locality-priced: each (src, dst) cell of the
+    worker-folded transfer is weighted by its distance class before the
+    backend's rule sees it, so a plan that keeps its mass within a host
+    costs less than one that scatters it across hosts (10x a row by
+    default), which can flip a decision the flat estimate would take.
     """
-    if topology is not None:
-        raise NotImplementedError(
-            "locality-priced plans (ExchangeTopology) are not ported yet "
-            "(ROADMAP.md, queue 1 item 4)")
     transfer = plan.transfer
     if transfer.size == 0:
         return 0.0
     if num_workers is not None and num_workers > 1:
         transfer = fold_to_workers(transfer, num_workers)
         np.fill_diagonal(transfer, 0.0)
+    if topology is not None:
+        transfer = transfer * topology.weight_matrix(transfer.shape[0])
     if backend is not None:
         return float(backend.cost(None, transfer, slack=slack))
     return float(transfer.max()) * slack

@@ -47,6 +47,7 @@ from repro_torch.core.partitioner import PartitionerTables
 from repro_torch.exchange import (
     ExchangeSpec,
     ExchangeStats,
+    ExchangeTopology,
     Payload,
     PendingExchange,
     make_exchange,
@@ -81,7 +82,9 @@ class ShuffleResult(NamedTuple):
     overflow: torch.Tensor   # int64[]           records dropped for capacity globally
     lane_overflow: torch.Tensor  # int32[W]      global per-lane capacity drops
     shipped_rows: torch.Tensor   # int64[]       rows the backend moved, all workers
-    shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
+    shipped_rows_by_class: torch.Tensor  # int64[C] shipped by lane distance class
+                             # (self / intra-host / inter-host), all workers;
+                             # zeros when the spec carries no topology
 
 
 class ShuffleStart(NamedTuple):
@@ -109,7 +112,7 @@ class MigrateResult(NamedTuple):
     overflow: torch.Tensor    # int64[] rows dropped for lane capacity
     lane_overflow: torch.Tensor  # int32[W]
     shipped_rows: torch.Tensor   # int64[]
-    shipped_rows_by_class: torch.Tensor  # int64[C] zeros: flat exchange
+    shipped_rows_by_class: torch.Tensor  # int64[C], as ShuffleResult's
 
 
 class MigrateStart(NamedTuple):
@@ -156,9 +159,18 @@ def _recycling(finish_rows):
     return start_buffers, finish
 
 
+def _summed_by_class(started, like: torch.Tensor) -> torch.Tensor:
+    """The start phase's per-class traffic summed over the workers, int64[C]
+    (zeros on a flat spec, whose backend stamps none)."""
+    by = started.shipped_rows_by_class
+    if by is None:
+        return torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=like.device)
+    return by.sum(dim=0, dtype=torch.int64)
+
+
 def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
                       hist_k: int = 64, num_hosts: int, seed: int = 0,
-                      backend=None):
+                      backend=None, topology: ExchangeTopology | None = None):
     """Build the shuffle step for a fixed worker count and lane capacity.
 
     ``step(tables, keys[W, n], vals[W, n, D], valid[W, n], part_loads=None)
@@ -168,9 +180,10 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
     buffer pool).  ``part_loads`` (float32 ``[num_partitions]``, the
     previous batch's loads) turns the route kernel's split-key replica pick
     into the two-choice least-load pick; ``None`` is the hash pick, as
-    equal loads are."""
+    equal loads are.  ``topology`` rides the spec: the start phase then
+    splits the shipped rows by distance class."""
     ex = make_exchange(ExchangeSpec(num_lanes=num_workers, capacity=capacity,
-                                    axis="data"), backend)
+                                    axis="data", topology=topology), backend)
 
     def _start(tables: PartitionerTables, keys, vals, valid, bufs, part_loads):
         part, buffers = route_bucketize(
@@ -185,8 +198,7 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
         send = started.send
         return pending, ShuffleStart(
             loads, hk, hc, send.overflow.sum(), send.lane_overflow.sum(dim=0),
-            started.shipped_rows.sum(),
-            torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=keys.device))
+            started.shipped_rows.sum(), _summed_by_class(started, keys))
 
     def _finish(pending: PendingExchange):
         res = ex.finish(pending)
@@ -224,7 +236,8 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
     routing: ``num_partitions`` stays 0 so split partials converge) and
     ships rows whose worker changed; rows on lane ``me`` stay put, so that
     lane's count is zeroed before the bucketize.  ``lane_capacity`` bounds
-    the per-(src, dst) rows (default: the full state table)."""
+    the per-(src, dst) rows (default: the full state table); ``spec``
+    replaces the derived spec whole (a topology rides it there)."""
     if spec is None:
         cap = state_capacity if lane_capacity is None else min(lane_capacity, state_capacity)
         spec = ExchangeSpec(num_lanes=num_workers, capacity=cap, axis="data")
@@ -252,7 +265,7 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
             torch.where(moving, _SENT, state_keys), state_vals, valid & ~moving,
             moving.sum(), valid.sum(), send.overflow.sum(),
             send.lane_overflow.sum(dim=0), started.shipped_rows.sum(),
-            torch.zeros(DISTANCE_CLASSES, dtype=torch.int64, device=dev))
+            _summed_by_class(started, state_keys))
 
     def _finish(pending: PendingExchange):
         res = ex.finish(pending)
@@ -302,6 +315,11 @@ def shuffle_stats(res: "ShuffleResult | ShuffleStart", spec: ExchangeSpec,
     shipped = int(host_fetch(res.shipped_rows)) // num_workers
     occupied = max(int(host_fetch(res.loads).sum()) - int(host_fetch(res.overflow)),
                    0) // num_workers
+    by_class = None
+    if spec.topology is not None and res.shipped_rows_by_class is not None:
+        # summed over the workers first, then divided, as the reference's
+        # psum-then-divide
+        by_class = np.asarray(host_fetch(res.shipped_rows_by_class), np.int64) // num_workers
     return ExchangeStats(
         rows=shipped,
         wall_s=wall_s,
@@ -311,19 +329,27 @@ def shuffle_stats(res: "ShuffleResult | ShuffleStart", spec: ExchangeSpec,
         count_wall_s=count_wall_s,
         backend=backend,
         replica_rows=replica_rows,
+        rows_by_class=by_class,
     )
 
 
 def migrate_stats(*, shipped_rows, buffer_rows: int, moved_rows: int, overflow: int,
-                  num_workers: int, lane_overflow=None,
-                  wall_s: float = 0.0) -> ExchangeStats:
+                  num_workers: int, lane_overflow=None, wall_s: float = 0.0,
+                  shipped_rows_by_class=None) -> ExchangeStats:
     """:class:`ExchangeStats` for one state migration: ``buffer_rows`` is the
     per-worker lane provision, ``moved_rows`` the rows that crossed
-    workers (globally summed, like ``shipped_rows`` and ``overflow``)."""
+    workers (globally summed, like ``shipped_rows``, ``overflow`` and
+    ``shipped_rows_by_class``, whose all-zero vector of a flat spec gives
+    ``rows_by_class=None``)."""
+    by_class = None
+    if shipped_rows_by_class is not None:
+        by_class = np.asarray(host_fetch(shipped_rows_by_class), np.int64)
+        by_class = by_class // num_workers if by_class.any() else None
     return ExchangeStats(
-        rows=int(shipped_rows) // num_workers,
+        rows=int(host_fetch(shipped_rows)) // num_workers,
         wall_s=wall_s,
         padded_rows=int(buffer_rows),
         occupied_rows=max(int(moved_rows) - int(overflow), 0) // num_workers,
         lane_overflow=None if lane_overflow is None else np.asarray(lane_overflow),
+        rows_by_class=by_class,
     )

@@ -86,6 +86,14 @@ change), keeps the batches since in a replay buffer, and on a
 :class:`~repro_torch.exchange.WorkerLostError` drains the survivors,
 evicts the lost lane (a single worker restarts in place), restores the
 snapshot, replays the buffer and retries the batch.  No row is lost.
+
+**The lane topology.**  ``StreamingJob(topology=...)`` puts an
+:class:`~repro_torch.exchange.ExchangeTopology` on every spec the job
+builds (the shuffle's, each migration's, and after a lane change the
+snapped one of the new worker count); ``BatchMetrics.shipped_rows_by_class``
+splits the batch's shipped rows by distance class, and the DR master
+prices plans by locality.  A snapshot carries the topology; restoring a
+flat one keeps the topology the job was built with.
 """
 from __future__ import annotations
 
@@ -175,7 +183,9 @@ class BatchMetrics:
     overlap_fraction: float = 0.0  # hidden / (hidden + ship) wall this window
                                 # (lags one batch); 0.0 when serial
     split_keys: int = 0         # hot keys replicated after this safe point
-    shipped_rows_by_class: tuple = (0, 0, 0)  # zeros: flat exchange
+    shipped_rows_by_class: tuple = (0, 0, 0)  # shipped_rows by lane distance class
+                                # (self / intra-host / inter-host), per
+                                # worker; zeros when the job has no topology
     lanes: int = 0              # live workers after this batch
 
 
@@ -252,6 +262,10 @@ class StreamingJob:
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
     ``payload_dim`` is the record payload width (the reduce is a per-key
     vector sum — the word-count family of stateful operators).
+    ``topology`` (an :class:`~repro_torch.exchange.ExchangeTopology`, e.g.
+    :func:`repro_torch.launch.mesh.exchange_topology_of`) rides every spec
+    the job builds, at the live worker count: the shipped rows are split by
+    distance class, and the DR master prices plans by locality.
     """
 
     def __init__(
@@ -273,9 +287,6 @@ class StreamingJob:
         topology=None,
     ):
         self.device = resolve_device(device)
-        if topology is not None:
-            raise NotImplementedError(
-                "ExchangeTopology is not ported yet (ROADMAP.md, queue 1 item 4)")
         self.num_workers = int(num_workers)
         self.num_partitions = num_partitions or self.num_workers
         if self.num_partitions < self.num_workers:
@@ -289,11 +300,13 @@ class StreamingJob:
         self.hist_k = hist_k
         self.seed = seed
         self.exchange_backend = resolve_backend(exchange_backend or "dense")
+        self.exchange_topology = topology
         cfg = dr or DRConfig()
         heavy_cap = heavy_capacity_for(cfg.lam, self.num_partitions)
         part = initial or uniform_partitioner(
             self.num_partitions, DEFAULT_NUM_HOSTS, seed, heavy_capacity=heavy_cap)
-        self.drm = DRMaster(part, cfg, exchange_backend=self.exchange_backend)
+        self.drm = DRMaster(part, cfg, exchange_backend=self.exchange_backend,
+                            exchange_topology=topology)
         self.telemetry = Telemetry("stream")
         self._shuffle = None
         self._shuffle_sig = None    # (capacity, num_partitions) the step was built for
@@ -431,12 +444,12 @@ class StreamingJob:
             return
         self._shuffle_sig = sig
         self._shuffle_spec = ExchangeSpec(num_lanes=self.num_workers, capacity=cap,
-                                          axis="data")
+                                          axis="data", topology=self.exchange_topology)
         self._shuffle = make_shuffle_step(
             num_workers=self.num_workers, num_partitions=self.num_partitions,
             capacity=cap, hist_k=self.hist_k,
             num_hosts=self.drm.partitioner.num_hosts, seed=self.seed,
-            backend=self.exchange_backend)
+            backend=self.exchange_backend, topology=self.exchange_topology)
 
     def _migrate_step(self, lane_capacity: int):
         """Migrate step with lanes >= ``lane_capacity`` rows, rounded up to a
@@ -450,7 +463,8 @@ class StreamingJob:
             self._migrate_steps[cap] = make_migrate_step(
                 num_workers=self.num_workers, state_capacity=self.state_capacity,
                 num_hosts=self.drm.partitioner.num_hosts, seed=self.seed,
-                spec=ExchangeSpec(num_lanes=self.num_workers, capacity=cap, axis="data"),
+                spec=ExchangeSpec(num_lanes=self.num_workers, capacity=cap, axis="data",
+                                  topology=self.exchange_topology),
                 backend=self.exchange_backend)
         return self._migrate_steps[cap], cap
 
@@ -648,7 +662,7 @@ class StreamingJob:
         if action.taken:
             self._drain_inflight()
             self._discard_staged()
-        migration = (0.0, 0, 0, 0, 0, 0)
+        migration = (0.0, 0, 0, 0, 0, 0, None)
         if isinstance(action, Resize):
             migration = self._apply_resize(action.target)
         elif isinstance(action, Repartition):
@@ -671,13 +685,23 @@ class StreamingJob:
         elif isinstance(action, Recover):
             self._apply_recover()
         # a Split needs nothing here: the next batch's route fans the key out
-        rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved = migration
+        (rel_mig, mig_overflow, mig_rows, plan_rows, mig_shipped, mig_moved,
+         mig_by_class) = migration
         if mig_rows:
             self.telemetry.record_exchange(migrate_stats(
                 shipped_rows=mig_shipped * w,  # helper re-divides per worker
                 buffer_rows=mig_rows, moved_rows=mig_moved,
-                overflow=mig_overflow, num_workers=w))
+                overflow=mig_overflow, num_workers=w,
+                shipped_rows_by_class=mig_by_class))
             self.telemetry.record_overflow(migration=mig_overflow)
+        # shipped rows by class, the shuffle's and the migration's, per
+        # worker (each divided on its own, as in the reference); zeros when
+        # the job has no topology
+        by_class = np.zeros(DISTANCE_CLASSES, np.int64)
+        if stats.rows_by_class is not None:
+            by_class += stats.rows_by_class
+        if mig_by_class is not None:
+            by_class += mig_by_class // w
 
         m = BatchMetrics(
             batch=len(self.metrics),
@@ -704,7 +728,7 @@ class StreamingJob:
             pipelined=pipelined,
             overlap_fraction=signals.overlap_fraction,
             split_keys=len(self.drm.split_keys),
-            shipped_rows_by_class=(0,) * DISTANCE_CLASSES,
+            shipped_rows_by_class=tuple(int(x) for x in by_class),
             lanes=self.num_workers,
         )
         # the host wall since the count sync ran under this batch's (or the
@@ -748,7 +772,8 @@ class StreamingJob:
         the start phase is waited for: the ship and merge stay in flight
         across the safe point.  Returns ``(relative_migration, overflow,
         buffer_rows, planned_lane_rows, shipped_rows per worker,
-        moved_rows)``."""
+        moved_rows, shipped_rows_by_class)``, the last summed over the
+        workers (int64[C], zeros on a flat spec)."""
         with safe_point():
             sk = host_fetch(self.state_keys).reshape(-1)
         live = sk[sk != _SENT].astype(np.int64)
@@ -761,8 +786,9 @@ class StreamingJob:
         tables = self._tables()
         if self._overlap_active():
             pending, st = migrate.start(tables, self._sk, self._sv)
-            (moved, total, mig_ov, lane_ov, mig_shipped), ready = copy_to_host(
-                (st.moved, st.total, st.overflow, st.lane_overflow, st.shipped_rows))
+            (moved, total, mig_ov, lane_ov, mig_shipped, mig_by), ready = copy_to_host(
+                (st.moved, st.total, st.overflow, st.lane_overflow, st.shipped_rows,
+                 st.shipped_rows_by_class))
             # interim state = the kept rows; the pending merge adds the
             # received ones (readers drain first, so never see the interim)
             self._sk = torch.where(st.kept_valid, st.kept_keys, _SENT)
@@ -779,8 +805,9 @@ class StreamingJob:
             kept_keys = torch.where(out.kept_valid, out.kept_keys, _SENT)
             self._sk, self._sv, _ = merge_into(
                 kept_keys, out.kept_vals, out.recv_keys, out.recv_vals, out.recv_valid)
-            moved, total, mig_ov, lane_ov, mig_shipped = (
-                out.moved, out.total, out.overflow, out.lane_overflow, out.shipped_rows)
+            moved, total, mig_ov, lane_ov, mig_shipped, mig_by = (
+                out.moved, out.total, out.overflow, out.lane_overflow, out.shipped_rows,
+                out.shipped_rows_by_class)
             ready = None
         with safe_point():
             host_wait(ready)
@@ -789,11 +816,12 @@ class StreamingJob:
             mig_shipped_i = int(host_fetch(mig_shipped))
             mig_ov_i = int(host_fetch(mig_ov))
             lane_ov = host_fetch(lane_ov)
+            mig_by_np = np.asarray(host_fetch(mig_by), np.int64)
         rel_mig = float(moved_i) / max(float(total_i), 1e-9)
         mig_rows = self.num_workers * lane_cap  # rows received per worker
         self.telemetry.record_exchange(ExchangeStats(rows=0, lane_overflow=lane_ov))
         return (rel_mig, mig_ov_i, mig_rows, plan_rows,
-                mig_shipped_i // self.num_workers, moved_i)
+                mig_shipped_i // self.num_workers, moved_i, mig_by_np)
 
     # ------------------------------------------------------------------
     def run(self, batches: Iterable[np.ndarray]) -> list[BatchMetrics]:
@@ -1010,7 +1038,8 @@ class StreamingJob:
         least-load vector (measured before the restore).  An external
         restore starts a new failure epoch: the auto-snapshot and the replay
         buffer go too (the recovery protocol keeps them, since it is about
-        to replay that buffer)."""
+        to replay that buffer).  A snapshot's lane topology wins too; a flat
+        snapshot keeps the one this job was built with."""
         drm_snap = {k[4:]: v for k, v in snap.items() if k.startswith("drm_")}
         snap_keys = np.asarray(snap["state_keys"])
         self._inflight = None
@@ -1031,6 +1060,10 @@ class StreamingJob:
             self._adopt_backend(self.drm.exchange_backend)
         else:  # a snapshot older than the backends: this job's stands
             self.drm.exchange_backend = self.exchange_backend
+        if self.drm.exchange_topology is not None:  # the snapshot's topology wins
+            self.exchange_topology = self.drm.exchange_topology
+        else:  # a flat snapshot: the topology this job was built with stands
+            self.drm.exchange_topology = self.exchange_topology
         n = self.drm.partitioner.num_partitions
         if n < self.num_workers:
             raise ValueError(f"snapshot has {n} partitions < {self.num_workers} workers")

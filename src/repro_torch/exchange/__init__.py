@@ -6,6 +6,7 @@ and state migration, split spec + backend.  See
 from repro_torch.exchange.backends import (
     DenseBackend,
     ExchangeBackend,
+    HierarchicalBackend,
     LocalBackend,
     RaggedBackend,
     resolve_backend,
@@ -23,12 +24,14 @@ from repro_torch.exchange.plane import (
     ExchangeResult,
     ExchangeSpec,
     ExchangeStats,
+    ExchangeTopology,
     Payload,
     PendingExchange,
     SendInfo,
     make_exchange,
     route_bucketize,
     route_dispatch,
+    take_from,
 )
 
 __all__ = [
@@ -38,8 +41,10 @@ __all__ = [
     "ExchangeResult",
     "ExchangeSpec",
     "ExchangeStats",
+    "ExchangeTopology",
     "FaultPlan",
     "FaultyBackend",
+    "HierarchicalBackend",
     "LaneFault",
     "LocalBackend",
     "Payload",
@@ -53,4 +58,5 @@ __all__ = [
     "resolve_backend",
     "route_bucketize",
     "route_dispatch",
+    "take_from",
 ]

@@ -1,7 +1,8 @@
 """Exchange backends: the *how* of a routed exchange, for stacked workers.
 
 An :class:`ExchangeBackend` implements the plane's verbs — ``bucketize`` /
-``a2a_start`` / ``a2a_finish`` / ``all_to_all`` / ``cost`` — against one
+``a2a_start`` / ``a2a_finish`` / ``all_to_all`` / ``backhaul`` / ``cost`` —
+against one
 :class:`~repro_torch.exchange.spec.ExchangeSpec`.  The port's first
 transport keeps all W workers on one device as ``[W, ...]`` tensors, so the
 dense all-to-all is the lane/worker transpose ``[W_src, L, cap] ->
@@ -24,24 +25,44 @@ new receive tensors, so the send set is free to be recycled, and
   sender's fills, as the fallback ships them.  A native uneven-split
   collective waits for the ``torch.distributed`` transport.
 * :class:`LocalBackend` — ``axis=None``: bucketize only, nothing ships.
+* :class:`HierarchicalBackend` — the topology-aware two-tier exchange: an
+  intra-host permutation, then an inter-host one (:func:`_two_hop_a2a`),
+  composing to the dense transpose bit for bit; traffic is priced per
+  distance class, the intra tier dense and the inter tier by real rows.
 
-The hierarchical and ``torch.distributed`` transports are not ported yet.
+``backhaul`` is the return trip of a request-response exchange: response
+rows ride the request lanes back (the same permutation, which is its own
+inverse).  When the spec carries an :class:`~repro_torch.exchange.spec.
+ExchangeTopology` the start phase also stamps ``shipped_rows_by_class``
+``[W, C]``; worker ``w`` reads its class tables at row ``min(w, L - 1)``.
+The tables live on the device once per ``(L, G, device)``
+(:func:`_class_tensors`).  The ``torch.distributed`` transport is not
+ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
 
-from repro_torch.exchange.spec import ExchangeResult, ExchangeSpec, Payload, SendInfo
+from repro_torch.compat import to_device
+from repro_torch.exchange.spec import (
+    ExchangeResult,
+    ExchangeSpec,
+    ExchangeTopology,
+    Payload,
+    SendInfo,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import scatter_rows
 
 __all__ = [
     "DenseBackend",
     "ExchangeBackend",
+    "HierarchicalBackend",
     "LocalBackend",
     "RaggedBackend",
     "resolve_backend",
@@ -62,6 +83,9 @@ class ExchangeBackend(Protocol):
     def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
 
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult: ...
+
+    def backhaul(self, spec: ExchangeSpec, buffers: torch.Tensor, *, send_counts=None,
+                 recv_counts=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]: ...
 
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float: ...
@@ -133,8 +157,7 @@ def _count_phase_rows(spec: ExchangeSpec, payloads: tuple) -> int:
     return -(-4 * spec.num_lanes // _row_bytes(payloads))
 
 
-def _check_stacked(spec: ExchangeSpec, buffers: ExchangeResult) -> None:
-    w = buffers.valid.shape[0]
+def _check_stacked(spec: ExchangeSpec, w: int) -> None:
     if w != spec.num_lanes:
         raise ValueError(f"stacked all-to-all needs one lane per worker: "
                          f"{w} workers, {spec.num_lanes} lanes")
@@ -144,6 +167,61 @@ def _transposed(b: torch.Tensor) -> torch.Tensor:
     """``b`` with its first two axes swapped, in a new contiguous tensor
     (never a view of ``b``, even when ``W = 1`` makes the swap free)."""
     return b.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+
+
+def _per_worker(like: torch.Tensor, value: int) -> torch.Tensor:
+    """int64[W] holding ``value`` for each of ``like``'s W workers."""
+    return torch.full((like.shape[0],), value, dtype=torch.int64, device=like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _class_tensors(num_lanes: int, lanes_per_host: int, device: str):
+    """``(class_lane_counts int64[L, C], class_onehot int64[L, C, L])`` of
+    one topology on ``device``, uploaded once (pinned, without waiting for
+    the stream) and kept."""
+    topo = ExchangeTopology(num_lanes, lanes_per_host)
+    return (to_device(topo.class_lane_counts.astype(np.int64), device),
+            to_device(topo.class_onehot.astype(np.int64), device))
+
+
+def _rows_of_me(table: torch.Tensor, w: int) -> torch.Tensor:
+    """``table[min(w_i, L - 1)]`` for each of ``w`` workers: worker ``i``
+    reads its own row, and workers past the last lane read the last."""
+    l = table.shape[0]
+    if w <= l:
+        return table[:w]
+    return torch.cat([table, table[-1:].expand((w - l,) + tuple(table.shape[1:]))])
+
+
+def _by_class_dense(spec: ExchangeSpec, like: torch.Tensor) -> torch.Tensor:
+    """Dense-priced per-class traffic ``[W, C]``: every lane ships its full
+    capacity, so each worker's split is its lanes of each class x capacity."""
+    topo = spec.topology
+    counts, _ = _class_tensors(topo.num_lanes, topo.lanes_per_host, str(like.device))
+    return _rows_of_me(counts, like.shape[0]) * spec.capacity
+
+
+def _by_class_counts(spec: ExchangeSpec, counts: torch.Tensor) -> torch.Tensor:
+    """Count-priced per-class traffic ``[W, C]``: each worker's per-lane
+    occupancy ``counts[W, L]`` summed over each distance class."""
+    topo = spec.topology
+    _, onehot = _class_tensors(topo.num_lanes, topo.lanes_per_host, str(counts.device))
+    me = _rows_of_me(onehot, counts.shape[0])  # [W, C, L]
+    return (me * counts.to(torch.int64)[:, None, :]).sum(dim=2)
+
+
+def _count_phase_class(spec: ExchangeSpec) -> int:
+    """The class the ragged count phase is charged to: it crosses every
+    lane, so the slowest tier the topology has."""
+    if spec.topology.num_hosts > 1:
+        return 2
+    return 1 if spec.num_lanes > 1 else 0
+
+
+def _no_ship(buffers: torch.Tensor):
+    """A backhaul over no axis: the buffers stay, nothing ships."""
+    zero = torch.zeros(buffers.shape[0], dtype=torch.int64, device=buffers.device)
+    return buffers, zero, zero
 
 
 class DenseBackend:
@@ -157,31 +235,47 @@ class DenseBackend:
                           buffers=buffers)
 
     @staticmethod
-    def _shipped(spec: ExchangeSpec, buffers: ExchangeResult) -> torch.Tensor:
-        w = buffers.valid.shape[0]
-        return torch.full((w,), spec.rows, dtype=torch.int64, device=buffers.valid.device)
+    def _stamped(spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """The statically known traffic: the whole pad, per class when the
+        spec carries a topology."""
+        by = (_by_class_dense(spec, buffers.valid) if spec.topology is not None
+              else None)
+        return buffers._replace(shipped_rows=_per_worker(buffers.valid, spec.rows),
+                                shipped_rows_by_class=by)
 
     def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
-        """No count phase to run: only stamp the statically known traffic
-        (the whole pad), so control-plane reads never wait for the ship."""
+        """No count phase to run: only stamp the statically known traffic,
+        so control-plane reads never wait for the ship."""
         if spec.axis is None:
             return buffers
-        return buffers._replace(shipped_rows=self._shipped(spec, buffers))
+        return self._stamped(spec, buffers)
 
     def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         """Row ``j`` of worker ``i`` -> position ``i`` of worker ``j``, into
         new receive tensors."""
         if spec.axis is None:
             return buffers
-        _check_stacked(spec, buffers)
-        return buffers._replace(
+        _check_stacked(spec, buffers.valid.shape[0])
+        return self._stamped(spec, buffers)._replace(
             valid=_transposed(buffers.valid),
             payloads=tuple(_transposed(b) for b in buffers.payloads),
-            shipped_rows=self._shipped(spec, buffers),
         )
 
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         return self.a2a_finish(spec, self.a2a_start(spec, buffers))
+
+    def backhaul(self, spec: ExchangeSpec, buffers: torch.Tensor, *, send_counts=None,
+                 recv_counts=None):
+        """The reverse collective for laned response buffers ``[W, L, cap,
+        ...]``: ships the whole pad back whatever the counts say, and reports
+        the counted occupancy beside it when counts are given.  Returns
+        ``(rows, shipped int64[W], occupied int64[W])``."""
+        if spec.axis is None:
+            return _no_ship(buffers)
+        _check_stacked(spec, buffers.shape[0])
+        pad = _per_worker(buffers, spec.rows)
+        occupied = pad if send_counts is None else send_counts.sum(dim=1, dtype=torch.int64)
+        return _transposed(buffers), pad, occupied
 
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:
@@ -214,16 +308,23 @@ class RaggedBackend:
         if counts is None:  # bucketize had no dispatch counts to reuse
             counts = buffers.valid.sum(dim=2, dtype=torch.int32)
         phase_rows = _count_phase_rows(spec, buffers.payloads)
+        by = None
+        if spec.topology is not None:
+            # the count phase crosses every lane: charge it to the slowest
+            # tier present, so the classes still sum to shipped_rows
+            by = _by_class_counts(spec, counts)
+            by[:, _count_phase_class(spec)] += phase_rows
         return buffers._replace(
             shipped_rows=counts.sum(dim=1, dtype=torch.int64) + phase_rows,
-            lane_counts=counts, recv_counts=_transposed(counts))
+            lane_counts=counts, recv_counts=_transposed(counts),
+            shipped_rows_by_class=by)
 
     def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         """Phase 2: the rows by the dense transpose, valid where the
         started counts say (rows past a count hold the sender's fills)."""
         if spec.axis is None:
             return buffers
-        _check_stacked(spec, buffers)
+        _check_stacked(spec, buffers.valid.shape[0])
         recv = buffers.recv_counts
         slots = torch.arange(spec.capacity, device=recv.device, dtype=torch.int32)
         return buffers._replace(
@@ -233,6 +334,29 @@ class RaggedBackend:
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         return self.a2a_finish(spec, self.a2a_start(spec, buffers))
 
+    def backhaul(self, spec: ExchangeSpec, buffers: torch.Tensor, *, send_counts=None,
+                 recv_counts=None):
+        """Response rows ride the request lanes back.  With the forward
+        hop's counts the return trip is ragged with no second count phase:
+        a worker's response occupancy is what it received (``send_counts``
+        = the forward ``recv_counts``) and what comes back is what it sent
+        (``recv_counts`` = the forward ``lane_counts``); the rows past a
+        lane's count come back as 0, as the reference's masked collective
+        gives them.  Without counts the return trip ships dense."""
+        if spec.axis is None:
+            return _no_ship(buffers)
+        _check_stacked(spec, buffers.shape[0])
+        rows = _transposed(buffers)
+        if send_counts is None or recv_counts is None:
+            pad = _per_worker(buffers, spec.rows)
+            return rows, pad, pad
+        shipped = send_counts.sum(dim=1, dtype=torch.int64)
+        slots = torch.arange(spec.capacity, device=rows.device, dtype=torch.int32)
+        live = slots[None, None, :] < recv_counts[:, :, None]
+        live = live.reshape(live.shape + (1,) * (rows.ndim - 3))
+        rows = torch.where(live, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+        return rows, shipped, shipped
+
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:
         """Real rows: the per-lane average planned mass (empty lanes are
@@ -241,6 +365,133 @@ class RaggedBackend:
         if plan_rows.size == 0:
             return 0.0
         return float(plan_rows.sum()) / plan_rows.size * slack
+
+
+def _two_hop_a2a(x: torch.Tensor, num_hosts: int, lanes_per_host: int) -> torch.Tensor:
+    """The hierarchical all-to-all on stacked send buffers ``[W, L, cap,
+    ...]`` with ``W = L = num_hosts * lanes_per_host``, lane ``j`` on host
+    ``j // lanes_per_host`` at rank ``j % lanes_per_host``.
+
+    Hop 1 moves rows within each host: worker ``(h, s)`` hands its rows for
+    rank ``r`` of every host to worker ``(h, r)``.  Hop 2 moves them across
+    hosts: worker ``(h, r)`` hands the rows for host ``h'`` to worker
+    ``(h', r)``.  Each hop is a copy into a new tensor.  The composition
+    lands row ``x[src, dst]`` at ``out[dst, src]``, the flat transpose bit
+    for bit, so applying it twice is the identity and the backhaul rides the
+    same function."""
+    h, g = num_hosts, lanes_per_host
+    tail = tuple(x.shape[2:])
+    rest = tuple(range(4, 4 + len(tail)))
+    v = x.reshape((h, g, h, g) + tail)  # [src host, src rank, dst host, dst rank]
+    hop1 = v.permute((0, 3, 2, 1) + rest).contiguous()  # worker (h, r): [h', s]
+    hop2 = hop1.permute((2, 1, 0, 3) + rest).contiguous()  # worker (h', r): [h, s]
+    return hop2.reshape((h * g, h * g) + tail)
+
+
+class HierarchicalBackend:
+    """Two-tier transport: an intra-host hop, then an inter-host hop.
+
+    The composed permutation equals the dense transpose (:func:`_two_hop_a2a`),
+    so the received rows and the overflow accounting equal the flat
+    backends'; only the measured traffic differs: ``shipped_rows_by_class``
+    prices the intra tier dense (its pad, ``cap`` to self and ``(L - 1) x
+    cap`` within the host) and the inter tier by the rows each worker sends
+    to other hosts, so ``shipped_rows`` exceeds the dense pad by those rows.
+
+    Without a usable topology (none on the spec, one host, lanes not a
+    multiple of ``lanes_per_host``, or a stacked worker count other than the
+    lane count) the ship falls back to the flat transpose.  The instance
+    counts its ships by kind: ``two_hop_ships`` and ``flat_ships``.
+    """
+
+    name = "hierarchical"
+
+    def __init__(self):
+        self.two_hop_ships = 0
+        self.flat_ships = 0
+
+    def bucketize(self, spec, lane, valid, payloads, slot=None, counts=None,
+                  buffers=None):
+        return _bucketize(spec, lane, valid, payloads, slot=slot, counts=counts,
+                          buffers=buffers)
+
+    def _plan(self, spec: ExchangeSpec, num_workers: int) -> tuple[int, int] | None:
+        """``(num_hosts, lanes_per_host)`` when the two-hop ship applies to
+        ``num_workers`` stacked workers, else ``None`` (the flat ship)."""
+        topo, l = spec.topology, spec.num_lanes
+        if topo is None:
+            return None
+        g = min(topo.lanes_per_host, l)
+        if g <= 1 or g >= l or l % g:
+            return None
+        if num_workers != l:
+            return None
+        return l // g, g
+
+    def _ship(self, spec: ExchangeSpec, tensors: Sequence[torch.Tensor]) -> tuple:
+        """Each of ``tensors`` through one ship (counted once)."""
+        plan = self._plan(spec, tensors[0].shape[0])
+        if plan is None:
+            _check_stacked(spec, tensors[0].shape[0])
+            self.flat_ships += 1
+            return tuple(_transposed(t) for t in tensors)
+        self.two_hop_ships += 1
+        return tuple(_two_hop_a2a(t, *plan) for t in tensors)
+
+    def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """No count phase blocks the control plane: the intra tier ships its
+        statically known pad, the inter tier the measured occupancy of the
+        lanes on other hosts."""
+        if spec.axis is None:
+            return buffers
+        if spec.topology is None:
+            return buffers._replace(
+                shipped_rows=_per_worker(buffers.valid, spec.rows))
+        counts = buffers.lane_counts
+        if counts is None:
+            counts = buffers.valid.sum(dim=2, dtype=torch.int32)
+        inter = _by_class_counts(spec, counts)[:, 2]
+        cap = spec.capacity
+        by = torch.stack([torch.full_like(inter, cap),
+                          torch.full_like(inter, (spec.num_lanes - 1) * cap), inter], dim=1)
+        return buffers._replace(shipped_rows=by.sum(dim=1), shipped_rows_by_class=by)
+
+    def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        """Move the validity mask and the payloads through the two hops."""
+        if spec.axis is None:
+            return buffers
+        valid, *payloads = self._ship(spec, (buffers.valid, *buffers.payloads))
+        return buffers._replace(valid=valid, payloads=tuple(payloads))
+
+    def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
+        return self.a2a_finish(spec, self.a2a_start(spec, buffers))
+
+    def backhaul(self, spec: ExchangeSpec, buffers: torch.Tensor, *, send_counts=None,
+                 recv_counts=None):
+        """Responses ride the two hops back (the permutation is its own
+        inverse).  The accounting mirrors the forward hop: the pad plus, with
+        a topology and counts, the counted rows that cross hosts."""
+        if spec.axis is None:
+            return _no_ship(buffers)
+        pad = _per_worker(buffers, spec.rows)
+        if send_counts is not None:
+            occupied = send_counts.sum(dim=1, dtype=torch.int64)
+            shipped = (pad + _by_class_counts(spec, send_counts)[:, 2]
+                       if spec.topology is not None else pad)
+        else:
+            shipped = occupied = pad
+        rows, = self._ship(spec, (buffers,))
+        return rows, shipped, occupied
+
+    def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
+             slack: float = 1.25) -> float:
+        """The intra tier pads every lane to the peak (the dense rule); the
+        locality discount comes from ``exchange_lane_cost`` weighting the
+        plan by distance class first."""
+        plan_rows = np.asarray(plan_rows, np.float64)
+        if plan_rows.size == 0:
+            return 0.0
+        return float(plan_rows.max()) * slack
 
 
 class LocalBackend:
@@ -265,13 +516,19 @@ class LocalBackend:
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         return self.a2a_finish(spec, self.a2a_start(spec, buffers))
 
+    def backhaul(self, spec: ExchangeSpec, buffers: torch.Tensor, *, send_counts=None,
+                 recv_counts=None):
+        if spec.axis is not None:
+            raise ValueError(f"LocalBackend cannot cross worker axis {spec.axis!r}")
+        return _no_ship(buffers)
+
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:
         return 0.0
 
 
-_BACKENDS = {"dense": DenseBackend, "local": LocalBackend, "ragged": RaggedBackend}
-_NOT_PORTED = ("hierarchical",)
+_BACKENDS = {"dense": DenseBackend, "hierarchical": HierarchicalBackend,
+             "local": LocalBackend, "ragged": RaggedBackend}
 
 
 def resolve_backend(backend, spec: ExchangeSpec | None = None) -> ExchangeBackend:
@@ -280,10 +537,6 @@ def resolve_backend(backend, spec: ExchangeSpec | None = None) -> ExchangeBacken
     if backend is None:
         return LocalBackend() if spec is not None and spec.axis is None else DenseBackend()
     if isinstance(backend, str):
-        if backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the {backend} exchange backend is not ported yet "
-                "(ROADMAP.md, queue 1 item 4)")
         try:
             return _BACKENDS[backend]()
         except KeyError:

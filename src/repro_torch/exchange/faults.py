@@ -239,6 +239,10 @@ class FaultyBackend:
     def all_to_all(self, spec, buffers):
         return self.inner.all_to_all(spec, buffers)
 
+    def backhaul(self, spec, buffers, *, send_counts=None, recv_counts=None):
+        return self.inner.backhaul(spec, buffers, send_counts=send_counts,
+                                   recv_counts=recv_counts)
+
     def cost(self, spec, plan_rows, slack: float = 1.25) -> float:
         return self.inner.cost(spec, plan_rows, slack=slack)
 

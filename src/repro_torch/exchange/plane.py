@@ -16,6 +16,9 @@ returned :class:`PendingExchange`, and :meth:`Exchange.finish` ships the
 rows; ``finish(start(...))`` equals the fused call.  The overlapped
 streaming driver holds a pending exchange in flight across a batch
 boundary.  ``buffers=`` recycles a drained send-buffer set.
+:meth:`Exchange.backhaul` runs the return trip of a request-response
+pattern over the same lanes, and ``take_from`` gathers each record's row
+back out of lane-major buffers.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ from repro_torch.exchange.spec import (
     ExchangeResult,
     ExchangeSpec,
     ExchangeStats,
+    ExchangeTopology,
     Payload,
     SendInfo,
+    take_from,
 )
 from repro_torch.kernels import ops
 
@@ -40,12 +45,14 @@ __all__ = [
     "ExchangeResult",
     "ExchangeSpec",
     "ExchangeStats",
+    "ExchangeTopology",
     "Payload",
     "PendingExchange",
     "SendInfo",
     "make_exchange",
     "route_bucketize",
     "route_dispatch",
+    "take_from",
 ]
 
 
@@ -142,6 +149,22 @@ class Exchange:
     def all_to_all(self, buffers: ExchangeResult) -> ExchangeResult:
         return self.backend.all_to_all(self.spec, buffers)
 
+    def backhaul(self, buffers, forward: ExchangeResult | None = None):
+        """The return trip for laned response buffers ``[W, L, cap, ...]``.
+
+        ``forward`` is the request hop's exchanged result: its counts make a
+        ragged return trip need no second count phase (the response
+        occupancy is the forward ``recv_counts``, what comes back the forward
+        ``lane_counts``); a dense forward hop's received mask gives the
+        occupancy instead.  Returns ``(rows, shipped_rows int64[W],
+        occupied_rows int64[W])``."""
+        send_counts = forward.recv_counts if forward is not None else None
+        recv_counts = forward.lane_counts if forward is not None else None
+        if send_counts is None and forward is not None:
+            send_counts = forward.valid.sum(dim=-1, dtype=torch.int32)
+        return self.backend.backhaul(self.spec, buffers, send_counts=send_counts,
+                                     recv_counts=recv_counts)
+
     def __call__(self, lane, valid, payloads: Sequence[Payload], slot=None,
                  counts=None) -> ExchangeResult:
         return self.all_to_all(self.bucketize(lane, valid, payloads, slot=slot,
@@ -150,5 +173,6 @@ class Exchange:
 
 def make_exchange(spec: ExchangeSpec, backend: str | ExchangeBackend | None = None) -> Exchange:
     """Build the exchange primitive for one static spec (``"dense"`` /
-    ``"ragged"`` / ``"local"``, an instance, or ``None`` to auto-select)."""
+    ``"ragged"`` / ``"hierarchical"`` / ``"local"``, an instance, or
+    ``None`` to auto-select)."""
     return Exchange(spec, backend)

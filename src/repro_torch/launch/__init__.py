@@ -1,1 +1,2 @@
-"""Launchers (a port of ``repro.launch``): ``serve``."""
+"""Launchers (a port of ``repro.launch``): ``serve``, and ``mesh``'s lane
+topology for the stacked workers."""

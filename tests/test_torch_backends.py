@@ -55,6 +55,7 @@ from repro_torch.exchange import (
     DenseBackend,
     ExchangeSpec,
     ExchangeStats,
+    HierarchicalBackend,
     LocalBackend,
     Payload,
     RaggedBackend,
@@ -326,8 +327,8 @@ def test_resolve_backend_names():
     assert resolve_backend(be) is be
     with pytest.raises(ValueError):
         resolve_backend("nccl")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        resolve_backend("hierarchical")
+    assert isinstance(resolve_backend("hierarchical"), HierarchicalBackend)
+    assert resolve_backend("hierarchical").name == "hierarchical"
     with pytest.raises(ValueError, match="dense or ragged"):
         LocalBackend().a2a_start(ExchangeSpec(2, 4, axis="data"), None)
 

@@ -1136,3 +1136,45 @@ def test_failure_domain_jobs_card_equal_cpu(cuda, driver):
         assert changes + [r.kind for r in cpu.recoveries] == want, changes
         if plan is kill:  # the repartitions after the eviction route at 7 lanes
             assert any(m.repartitioned and m.lanes == 7 for m in cpu.metrics)
+
+
+@pytest.mark.parametrize("backend", ["dense", "hierarchical"])
+def test_topology_jobs_on_the_card(cuda, backend):
+    """Eight workers on two hosts of four: the card equals the CPU in every
+    metric but the walls (the shipped rows by class included) and in the
+    state, by each driver; the hierarchical ships take two hops; and at
+    depth 2 the steady-state batches stay free of host syncs (the class
+    tables reach the card once, pinned, at the steps' first use)."""
+    from repro_torch.exchange import ExchangeTopology
+
+    batches = list(drifting_zipf(6, 16384, num_keys=5000, exponent=1.3, drift_every=2, seed=2))
+    topo = ExchangeTopology(8, 4)
+    for extra in (dict(overlap_exchange=False), {}, dict(pipeline_depth=2)):
+        jobs = {label: StreamingJob(device=device, num_workers=8, num_partitions=32,
+                                    state_capacity=16_384, topology=topo,
+                                    exchange_backend=backend,
+                                    dr=DRConfig(imbalance_trigger=1.2, migration_cost_weight=0.2,
+                                                **extra))
+                for label, device in (("card", cuda), ("cpu", "cpu"))}
+        for job in jobs.values():
+            job.run(batches)
+        card, cpu = jobs["card"], jobs["cpu"]
+        for a, b in zip(card.metrics, cpu.metrics, strict=True):
+            assert _fields(a, _WALLS) == _fields(b, _WALLS)
+            assert sum(a.shipped_rows_by_class) == a.shipped_rows
+        assert torch.equal(card.state_keys.cpu(), cpu.state_keys)
+        assert torch.equal(card.state_vals.cpu(), cpu.state_vals)
+        if backend == "hierarchical":
+            assert card.exchange_backend.flat_ships == 0 < card.exchange_backend.two_hop_ships
+    job = StreamingJob(device=cuda, num_workers=8, num_partitions=32, state_capacity=16_384,
+                       topology=topo, exchange_backend=backend,
+                       dr=DRConfig(imbalance_trigger=1e9, pipeline_depth=2))
+    job.run(batches[:2])
+    compat.reset_host_sync_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms = job.run(batches[2:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert compat.host_sync_count() == 0
+    assert all(m.pipelined for m in ms[1:])

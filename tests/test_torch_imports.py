@@ -231,3 +231,21 @@ def test_scan_covers_the_failure_domain_modules():
     ``control/health.py``."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"src/repro_torch/exchange/faults.py", "src/repro_torch/control/health.py"} <= names
+
+
+def test_scan_covers_the_topology_modules():
+    """The scan reaches ``launch/mesh.py``, the port's own counterpart of
+    the reference's ``exchange_topology_of``, which imports with jax
+    blocked and builds the topology from the exchange spec module alone."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "src/repro_torch/launch/mesh.py" in names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.launch.mesh import exchange_topology_of\n"
+            "t = exchange_topology_of(8, lanes_per_host=4)\n"
+            "print(t.num_lanes, t.lanes_per_host, t.num_hosts)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO / "src",
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["8", "4", "2"]

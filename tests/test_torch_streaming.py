@@ -32,7 +32,7 @@ from repro_torch.carry import job_from_reference_snapshot
 from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.data.generators import drifting_zipf
-from repro_torch.exchange import FaultPlan, FaultyBackend, LaneFault
+from repro_torch.exchange import ExchangeTopology, FaultPlan, FaultyBackend, LaneFault
 
 CFG = dict(imbalance_trigger=1.1, migration_cost_weight=0.2, overlap_exchange=False)
 JOB = dict(num_partitions=8, state_capacity=16_384)
@@ -184,22 +184,19 @@ def test_port_snapshot_restore_round_trip():
 @pytest.mark.parametrize("key", ["drm_topology_lanes_per_host", "drm_health_num_lanes",
                                  "drm_quarantined_lane"])
 def test_carry_rejects_unported_snapshot_keys(key):
-    """The topology keys still raise, citing their ROADMAP item.  The lane
-    health keys are ported: a reference snapshot with the health record
-    (and, for ``drm_quarantined_lane``, a quarantine ledger naming a lane
-    that no job has parked, which both restores trim) carries into the
+    """The keys once unported carry into the port.  A reference snapshot
+    with a lane topology (its three ``topology_*`` keys), or with the health
+    record (and, for ``drm_quarantined_lane``, a quarantine ledger naming a
+    lane that no job has parked, which both restores trim) carries into the
     port, and both jobs run on alike."""
+    from repro.exchange import ExchangeTopology as JTopology
+
     batches = list(drifting_zipf(4, 1024, **STREAM))
-    if key == "drm_topology_lanes_per_host":
-        job = _port_job()
-        job.process_batch(batches[0])
-        snap = job.snapshot() | {key: np.int64(2)}
-        with pytest.raises(NotImplementedError, match="not ported"):
-            job_from_reference_snapshot(snap, config=DRConfig(**CFG), device="cpu")
-        return
-    cfg = dict(CFG, health_enabled=True)
+    topology = key == "drm_topology_lanes_per_host"
+    cfg = CFG if topology else dict(CFG, health_enabled=True)
+    kw = dict(topology=JTopology(1, 1, (0.0, 2.0, 7.0))) if topology else {}
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("data",))
-    ref = JStreamingJob(mesh=mesh, dr=JDRConfig(**cfg), **JOB)
+    ref = JStreamingJob(mesh=mesh, dr=JDRConfig(**cfg), **JOB, **kw)
     ref.run(batches[:2])
     snap = ref.snapshot()
     assert key in snap
@@ -207,6 +204,10 @@ def test_carry_rejects_unported_snapshot_keys(key):
         snap |= {key: np.asarray([3], np.int64), "drm_quarantined_tick": np.asarray([1], np.int64)}
     ref.restore(snap)
     port = job_from_reference_snapshot(snap, config=DRConfig(**cfg), device="cpu")
+    if topology:
+        assert port.exchange_topology == port.drm.exchange_topology
+        assert (port.exchange_topology.num_lanes, port.exchange_topology.lanes_per_host,
+                port.exchange_topology.class_weights) == (1, 1, (0.0, 2.0, 7.0))
     assert port.drm.quarantined == ref.drm.quarantined == []
     _assert_same_trajectory(ref.run(batches[2:]), port.run(batches[2:]), skip={"batch"})
     ref_snap, port_snap = ref.snapshot(), port.snapshot()
@@ -218,17 +219,18 @@ def test_carry_rejects_unported_snapshot_keys(key):
 
 @pytest.mark.parametrize("make,ported", [
     (lambda: _port_job(exchange_backend="ragged"), True),
-    (lambda: _port_job(exchange_backend="hierarchical"), False),
-    (lambda: _port_job(topology=object()), False),
+    (lambda: _port_job(exchange_backend="hierarchical"), True),
+    (lambda: _port_job(topology=ExchangeTopology(1, 1)), True),
     (lambda: StreamingJob(device="cpu", dr=DRConfig(split_least_load=True)), True),
     (lambda: StreamingJob(device="cpu", dr=DRConfig(snapshot_interval=1),
                           exchange_backend=FaultyBackend(
                               "dense", FaultPlan(faults=(LaneFault(1, 0, "kill"),)))), True),
 ])
 def test_unported_paths_raise(make, ported):
-    """What is not ported raises, citing its ROADMAP item; the ragged
-    transport, the least-load pick and zero-loss recovery are ported, and
-    their jobs run (``tests/test_torch_backends.py``,
+    """What is not ported raises, citing its ROADMAP item; the ragged and
+    hierarchical transports, the lane topology, the least-load pick and
+    zero-loss recovery are ported, and their jobs run
+    (``tests/test_torch_backends.py``, ``tests/test_torch_topology.py``,
     ``tests/test_torch_least_load.py`` and ``tests/test_torch_recovery.py``
     hold them to the reference)."""
     if ported:
