@@ -226,6 +226,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     line's route kernels carry their launches in (a)'s depth-1 runs
     (``launches_phase_17``).
 
+18. Llama 4 Scout at its full published width (d 5120, 40 q heads over 8
+    kv heads, head_dim 128, 16 experts top-1 with a shared expert,
+    d_ff_expert 8192, vocab 202,048), cut to 8 of its 48 layers, bf16,
+    over 4 stacked EP shards (``Policy(ep_shards=4)``, the dense
+    transport).  (b) One MoE layer on 1,024 tokens at capacity 8.0:
+    ``moe_apply`` against ``moe_ref`` on the card within 2e-2 x max(1,
+    |ref|), counts equal, no drops, the dense and ragged transports' ``y``
+    bit-identical.  (a) Phase 9's serving mix (32 requests, prompts of
+    256-2048 tokens, both multiples of 4 and not, 16 new tokens, 4
+    replicas x 4 slots) at the config's capacity 1.25: every request
+    served, per prefill ``moe_apply`` (2 dispatch_count launches a layer)
+    or ``moe_apply_replicated`` (1), 8 flash launches, per decoded token 8
+    dispatch_count launches; walls, drops, shipped and occupied rows per
+    prefill.  (d) ``PlacementController(16, 4)`` on each prefill's
+    ``moe_counts`` at the safe point between prefills (a ``Replace``
+    permutes every MoE layer's experts on the card; the calls then pass
+    the new ``inv_place``), and one with ``expert_weight_bytes`` of one
+    expert in bf16 beside it: every decision logged, each move's wall and
+    the next prefill's shard imbalance and drops.  (c) dispatch_count on
+    hop 1's, hop 2's and a decode step's inputs bit-equal to its plain
+    version, flash on layer 0's prefill inputs (G 8, P 5, hd 128) within
+    8e-3, with times, bounds and SDPA's; a profile of a 1,024-token
+    prefill and 8 decode steps.  (d) A fixed permutation at capacity 8.0:
+    prefill and decode logits within 2e-2 x max(1, |ref|) of the
+    placement before.  The ``kernels`` line's dispatch_count and flash
+    rows carry ``launches_phase_18`` and ``phase_18``.
+
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
 """
@@ -1082,6 +1109,11 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("route_bucketize", "lookup_dispatch"):
             row["launches_phase_17"] = {job: n[row["name"]] for job, n in topo_launches.items()}
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("dispatch_count", "flash_attention"):
+            row.update(moe[row["name"]])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2436,20 +2468,24 @@ def causal_flash_cost(g, p, s, hd, dtype):
     return nbytes, 4 * g * p * hd * (s * (s + 1) // 2)
 
 
-def profile_serving(model, params, cfg, pol, rng, dev, max_len) -> None:
+def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv_place=None,
+                    names=()) -> None:
     """Device time by kernel (``torch.profiler``) of one 1024-token prefill
-    and of 8 decode steps, beside the same work's wall clock unprofiled."""
+    and of 8 decode steps, beside the same work's wall clock unprofiled;
+    ``names`` are kernels whose summed device time is logged beside the
+    largest six."""
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
     one = torch.zeros((1, 1), dtype=torch.int64, device=dev)
 
     def prefill(_=None):
-        return model.prefill(params, {"tokens": toks}, cfg, pol, max_len=max_len)[1]
+        return model.prefill(params, {"tokens": toks}, cfg, pol, max_len=max_len,
+                             inv_place=inv_place)[1]
 
     def decode(cache):
         for _ in range(8):
-            model.decode_step(params, cache, one, cfg, pol)
+            model.decode_step(params, cache, one, cfg, pol, inv_place=inv_place)
 
     cases = {"prefill of 1024 tokens": (lambda: None, prefill),
              "8 decode steps after it": (prefill, decode)}
@@ -2474,11 +2510,16 @@ def profile_serving(model, params, cfg, pol, rng, dev, max_len) -> None:
         total = sum(busy.values())
         wall = statistics.median(walls) * 1e3
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        log(f"phase 12: profile, {name}: wall {wall:.2f} ms unprofiled (median of 3); "
+        log(f"phase {phase}: profile, {name}: wall {wall:.2f} ms unprofiled (median of 3); "
             f"{len(kern)} kernel launches, device busy {total:.2f} ms "
             f"({100 * total / wall:.1f}% of the wall, idle {100 - 100 * total / wall:.1f}%)")
         for kname, ms in top:
-            log(f"phase 12:   {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  {kname[:90]}")
+            log(f"phase {phase}:   {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  {kname[:90]}")
+        for want in names:
+            ms = sum(v for k, v in busy.items() if want in k)
+            n = sum(1 for e in kern if want in e.name)
+            log(f"phase {phase}:   {want}: {ms:.4f} ms over {n} launches "
+                f"({100 * ms / max(total, 1e-9):.2f}% of the device busy time)")
 
 
 def serve_phases(dev, card) -> list[dict]:
@@ -2735,6 +2776,386 @@ def serve_phases(dev, card) -> list[dict]:
         "library_device_ms": l_dev,
         "shape": "G=1 P=8 Sq=Sk=2048 hd=256 bf16 causal",
     }]
+
+
+# phase 18: Llama 4 Scout at its full published width, cut in depth only
+SCOUT_LAYERS = 8      # of its 48 (PERF.md §4: 16 would not fit beside the cache)
+EP_SHARDS = 4         # the model axis of the reference's own test mesh
+EXPERT_BYTES = 3 * 5120 * 8192 * 2  # one expert's wi [d, 2, f] and wo [f, d] in bf16
+BF16_REL = 2e-2       # |a - b| <= 2e-2 * max(1, |b|): two bf16 paths of one function
+
+
+def bf16_rel_err(got, want) -> float:
+    """max |got - want| / max(1, |want|) over all elements, in float64."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+
+
+def _place_after(place: np.ndarray, perm: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(place, inv_place)`` once the weights at slots ``place`` (slot p
+    holds logical expert place[p]) are permuted by ``perm`` (new slot p
+    takes old slot perm[p])."""
+    new = np.asarray(place)[np.asarray(perm)].astype(np.int32)
+    inv = np.zeros_like(new)
+    inv[new] = np.arange(len(new), dtype=np.int32)
+    return new, inv
+
+
+def moe_phase(dev, card) -> dict:
+    """Phase 18: Llama 4 Scout at full width (8 of 48 layers, bf16) over 4
+    stacked EP shards: DR-routed serving with KIP re-placement between
+    prefills, one layer's dispatch against its oracle, the two path
+    kernels on the path's own inputs, and a fixed re-placement.  Returns
+    the ``kernels`` line's phase-18 entries by kernel name."""
+    import torch.nn.functional as F
+
+    import repro_torch.models.model as model
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models.modules import Policy
+    from repro_torch.moe.kip_placement import PlacementController, apply_placement_to_weights
+    from repro_torch.moe.layer import moe_apply, moe_ref
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+
+    bf16 = torch.bfloat16
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=SCOUT_LAYERS)
+    spec = cfg.moe
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16, ep_shards=EP_SHARDS,
+                 exchange_backend="dense")
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    moe_idx = [i for i, blk in enumerate(transformer.layers(cfg)) if blk.ffn == "moe"]
+    assert len(moe_idx) == SCOUT_LAYERS
+    log(f"phase 18: {full.name}: {cfg.num_layers} of {full.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads, head_dim "
+        f"{cfg.head_dim}, {spec.num_experts} experts top-{spec.top_k} (d_ff_expert "
+        f"{spec.d_ff_expert}, shared expert, capacity factor {spec.capacity_factor}), vocab "
+        f"{cfg.vocab_size}: {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
+        f"initialised on the card in {time.perf_counter() - t:.1f} s; {EP_SHARDS} stacked EP "
+        f"shards of {spec.num_experts // EP_SHARDS} experts, dense transport; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    identity = torch.arange(spec.num_experts, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    # ---- (b) one MoE layer against its oracle, nothing dropped ------------
+    p0 = params["layers"][moe_idx[0]]["moe"]
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device=dev).to(bf16)
+    pol8 = dataclasses.replace(pol, moe_capacity_factor=8.0)
+    want = moe_ref(p0, x, spec, cfg.ffn_kind, pol8)
+    outs = {be: moe_apply(p0, x, spec, cfg.ffn_kind,
+                          dataclasses.replace(pol8, exchange_backend=be), identity)
+            for be in ("dense", "ragged")}
+    torch.cuda.synchronize()
+    got = outs["dense"]
+    err = bf16_rel_err(got.y, want.y)
+    assert got.y.dtype == bf16 and got.y.shape == x.shape and bool(torch.isfinite(got.y).all())
+    assert torch.equal(got.counts, want.counts), (got.counts, want.counts)
+    assert float(got.overflow) == 0.0 == float(outs["ragged"].overflow)
+    assert err <= BF16_REL, err
+    assert torch.equal(got.y, outs["ragged"].y)
+    assert torch.equal(got.counts, outs["ragged"].counts)
+    log(f"phase 18 (b): one MoE layer, 1,024 tokens, capacity 8.0: moe_apply against moe_ref "
+        f"on the card max |diff| / max(1, |ref|) {err:.3g} (<= {BF16_REL:g}), max abs diff "
+        f"{float((got.y.float() - want.y.float()).abs().max()):.3g}; counts equal "
+        f"{got.counts.int().tolist()}, overflow 0; dense and ragged y bit-identical (shipped "
+        f"rows {int(got.shipped_rows)} dense, {int(outs['ragged'].shipped_rows)} ragged; "
+        f"occupied {int(got.occupied_rows)} both)")
+    del x, want, outs, got
+    torch.cuda.empty_cache()
+
+    # ---- (a) serving through DRScheduler + ServeEngine --------------------
+    n_req, max_new, n_rep, slots, max_len = 32, 16, 4, 4, 2064
+    rng = np.random.default_rng(0)
+    sessions = np.where(rng.random(n_req) < 0.3, 7, rng.integers(0, 1000, n_req))
+    lens = rng.integers(256, 2049, n_req)
+    assert (lens % EP_SHARDS == 0).any() and (lens % EP_SHARDS != 0).any(), lens
+    sched = DRScheduler(n_rep)
+    engines = [ServeEngine(cfg, params, pol, slots=slots, max_len=max_len, device=dev)
+               for _ in range(n_rep)]
+    queues: list[list] = [[] for _ in range(n_rep)]
+    for i in range(n_req):
+        req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
+                      max_new_tokens=max_new, session_key=int(sessions[i]))
+        queues[sched.route(req.session_key, cost_tokens=max_new)].append(req)
+
+    ctl = PlacementController(spec.num_experts, EP_SHARDS)
+    costed = PlacementController(spec.num_experts, EP_SHARDS, expert_weight_bytes=EXPERT_BYTES)
+    state = {"inv": identity}
+    prefills, decodes, finite, moves = [], [], [], []
+    per_call: dict = {}
+    orig = {"prefill": model.prefill, "decode": model.decode_step,
+            "backbone": transformer.backbone, "moe_apply": transformer.moe_apply,
+            "moe_apply_replicated": transformer.moe_apply_replicated}
+
+    def backbone(*a, **k):
+        out = orig["backbone"](*a, **k)
+        per_call["counts"], per_call["overflow"] = out[2], out[3]
+        return out
+
+    def dispatch(name):
+        def call(*a, **k):
+            out = orig[name](*a, **k)
+            per_call.setdefault("paths", []).append(name)
+            if out.shipped_rows is not None:
+                per_call["shipped"] = per_call.get("shipped", 0) + int(out.shipped_rows)
+                per_call["occupied"] = per_call.get("occupied", 0) + int(out.occupied_rows)
+            return out
+        return call
+
+    def timed(kind):
+        def call(params_, batch_or_cache, *a, **k):
+            per_call.clear()
+            launches = (dispatch_count.launches, flash_attention.launches)
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](params_, batch_or_cache, *a, inv_place=state["inv"], **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            finite.append(bool(torch.isfinite(logits).all()))
+            rec = {"wall": wall, "dc": dispatch_count.launches - launches[0],
+                   "fa": flash_attention.launches - launches[1],
+                   "paths": sorted(set(per_call.get("paths", []))),
+                   "overflow": float(per_call["overflow"])}
+            if kind == "decode":
+                decodes.append(rec)
+                return logits, cache
+            counts = per_call["counts"].cpu().numpy()
+            s = batch_or_cache["tokens"].shape[1]
+            assert counts.sum() == s * SCOUT_LAYERS * spec.top_k, (counts.sum(), s)
+            sl = counts[ctl.placement.place].reshape(EP_SHARDS, -1).sum(axis=1)
+            rec.update(len=s, counts=counts, imbalance=float(sl.max() / sl.mean()),
+                       shipped=per_call.get("shipped"), occupied=per_call.get("occupied"))
+            prefills.append(rec)
+            # the safe point between prefills: the router's counts feed the
+            # controllers; a Replace permutes every MoE layer's experts
+            for c in (ctl, costed):
+                c.observe(counts)
+            changed, _, perm = ctl.maybe_update()
+            costed.maybe_update()
+            if changed:
+                t1 = time.perf_counter()
+                for i in moe_idx:
+                    params["layers"][i]["moe"] = apply_placement_to_weights(
+                        params["layers"][i]["moe"], perm)
+                state["inv"] = torch.as_tensor(ctl.placement.inv_place, device=dev)
+                torch.cuda.synchronize()
+                moves.append({"after_prefill": len(prefills) - 1,
+                              "moved": int((perm != np.arange(len(perm))).sum()),
+                              "wall_ms": (time.perf_counter() - t1) * 1e3})
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    transformer.backbone = backbone
+    transformer.moe_apply = dispatch("moe_apply")
+    transformer.moe_apply_replicated = dispatch("moe_apply_replicated")
+    try:
+        dispatch_count.launches = flash_attention.launches = 0
+        t = time.perf_counter()
+        for r, (eng, q) in enumerate(zip(engines, queues)):
+            eng.run(q, max_ticks=200)
+            log(f"phase 18 (a): replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
+                f"{eng.steps} ticks")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        path_launches = {"dispatch_count": dispatch_count.launches,
+                         "flash_attention": flash_attention.launches}
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+        transformer.backbone = orig["backbone"]
+        transformer.moe_apply = orig["moe_apply"]
+        transformer.moe_apply_replicated = orig["moe_apply_replicated"]
+    reqs = [r for q in queues for r in q]
+    assert len(reqs) == n_req == len(prefills)
+    for r in reqs:
+        assert len(r.out_tokens) == max_new and r.done, (r.rid, r.out_tokens)
+        assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
+    assert finite and all(finite), "non-finite logits"
+    assert all(v > 0 for v in path_launches.values()), path_launches
+    for rec in prefills:
+        split = rec["len"] % EP_SHARDS == 0
+        assert rec["paths"] == (["moe_apply"] if split else ["moe_apply_replicated"]), rec
+        assert rec["dc"] == SCOUT_LAYERS * (2 if split else 1), rec
+        assert rec["fa"] == SCOUT_LAYERS, rec
+    assert all(d["paths"] == ["moe_apply_replicated"] and d["dc"] == SCOUT_LAYERS
+               and d["fa"] == 0 for d in decodes), decodes[:3]
+    assert path_launches["dispatch_count"] == sum(p["dc"] for p in prefills + decodes)
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    split_pre = [p for p in prefills if p["len"] % EP_SHARDS == 0]
+    repl_pre = [p for p in prefills if p["len"] % EP_SHARDS]
+    prefill_ms = statistics.median(p["wall"] for p in prefills) * 1e3
+    decode_ms = statistics.median(d["wall"] for d in decodes) * 1e3
+    dropped = sum(p["overflow"] for p in prefills) + sum(d["overflow"] for d in decodes)
+    log(f"phase 18 (a): routed={sched.routed} imbalance={sched.imbalance():.2f}; prompts "
+        f"{int(lens.min())}-{int(lens.max())} tokens, {len(split_pre)} a multiple of "
+        f"{EP_SHARDS} (moe_apply), {len(repl_pre)} not (moe_apply_replicated); {tokens} tokens "
+        f"in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); launches in the serving run: "
+        f"{path_launches}; per prefill dispatch_count {SCOUT_LAYERS * 2} (moe_apply) or "
+        f"{SCOUT_LAYERS} (replicated) and flash {SCOUT_LAYERS}; per decoded token "
+        f"dispatch_count {SCOUT_LAYERS}, flash 0; all logits finite")
+    log(f"phase 18 (a): walls: prefill median {prefill_ms:.2f} ms ({len(prefills)} prefills; "
+        f"moe_apply {statistics.median(p['wall'] for p in split_pre) * 1e3:.2f} ms, "
+        f"replicated {statistics.median(p['wall'] for p in repl_pre) * 1e3:.2f} ms), decode "
+        f"median {decode_ms:.2f} ms per token ({len(decodes)} steps, one slot each); dropped "
+        f"(token, expert) pairs: {dropped:g} in all, prefills {[p['overflow'] for p in prefills]}"
+        f"; card {card}")
+    log("phase 18 (a): per prefill (length: shipped / occupied rows, dropped, shard "
+        "imbalance): " + "; ".join(
+            f"{p['len']}: {p['shipped']} / {p['occupied']}, {p['overflow']:g}, "
+            f"{p['imbalance']:.3f}" for p in prefills))
+
+    # ---- (d) placement: every decision, the moves and their effect --------
+    for name, c in (("PlacementController(16, 4)", ctl),
+                    (f"PlacementController(16, 4, expert_weight_bytes={EXPERT_BYTES})", costed)):
+        taken, declined = c.decisions.counts()
+        log(f"phase 18 (d): {name}: {taken} taken, {declined} declined; history {c.history}")
+        for d in c.decisions.records:
+            log(f"phase 18 (d):   tick {d.tick} {d.kind} taken={d.taken} imbalance "
+                f"{d.imbalance:.4f}: {d.reason} {d.detail or ''}")
+    for mv in moves:
+        i = mv["after_prefill"]
+        nxt = prefills[i + 1] if i + 1 < len(prefills) else None
+        log(f"phase 18 (d): Replace after prefill {i}: {mv['moved']} experts moved, "
+            f"apply_placement_to_weights over {SCOUT_LAYERS} layers {mv['wall_ms']:.2f} ms; "
+            f"shard imbalance {prefills[i]['imbalance']:.4f} / dropped "
+            f"{prefills[i]['overflow']:g} (length {prefills[i]['len']}) before, "
+            + (f"{nxt['imbalance']:.4f} / {nxt['overflow']:g} (length {nxt['len']}) at the "
+               f"next prefill" if nxt else "no prefill after it"))
+    if not moves:
+        log("phase 18 (d): no Replace was taken in the serving run")
+
+    # ---- (c) the path kernels on the path's own inputs --------------------
+    captured = {"dispatch": [], "flash": []}
+    orig_slots, orig_flash = ops.dispatch_slots, kflash.flash_attention_seq_major
+
+    def slots_capture(dest, valid=None, *, num_parts):
+        captured["dispatch"].append((dest.clone(), None if valid is None else valid.clone(),
+                                     num_parts))
+        return orig_slots(dest, valid, num_parts=num_parts)
+
+    def flash_capture(q, k, v, **kw):
+        captured["flash"].append((q.clone(), k.clone(), v.clone(), kw))
+        return orig_flash(q, k, v, **kw)
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
+    ops.dispatch_slots, kflash.flash_attention_seq_major = slots_capture, flash_capture
+    try:
+        logits, cache = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=1040,
+                                      inv_place=state["inv"])
+        hop = captured["dispatch"][:2]
+        captured["dispatch"].clear()
+        model.decode_step(params, cache, torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                          cfg, pol, inv_place=state["inv"])
+        dec = captured["dispatch"][:1]
+    finally:
+        ops.dispatch_slots, kflash.flash_attention_seq_major = orig_slots, orig_flash
+    del cache
+    out = {}
+    dc_rows = {}
+    for name, (dest, valid, parts) in zip(("hop 1", "hop 2", "decode"), hop + dec):
+        valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+        dest = dest.to(torch.int32).contiguous()
+        got = dispatch_count(dest, valid, num_parts=parts)
+        want = dispatch_count_plain(dest, valid, num_parts=parts)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        w, n = dest.shape
+        nbytes = w * n * (4 + 1) + w * n * 4 + w * parts * 4
+        k_ms = cuda_ms(lambda: dispatch_count(dest, valid, num_parts=parts))
+        p_ms = cuda_ms(lambda: dispatch_count_plain(dest, valid, num_parts=parts))
+        d_ms, split, n_ops = own_device_time(lambda: dispatch_count(dest, valid, num_parts=parts),
+                                             DEVICE_NAMES["dispatch_count"])
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        dc_rows[name] = {"shape": f"W={w} n={n} L={parts}", "ms": k_ms, "plain_ms": p_ms,
+                         "device_ms": d_ms, "device_split_ms": split, "bound_ms": bound,
+                         "bytes": nbytes, "equal": True,
+                         "valid": int(valid.sum())}
+        log(f"phase 18 (c): dispatch_count [{name}] W={w} n={n} L={parts} "
+            f"({int(valid.sum())} valid): bit-equal to its plain version; {k_ms:.4f} ms by "
+            f"events around one call, device time {d_ms:.4f} ms ({split}), plain "
+            f"{p_ms:.4f} ms, bound {bound:.6f} ms by bytes ({nbytes} bytes); card {card}")
+    out["dispatch_count"] = {"launches_phase_18": path_launches["dispatch_count"],
+                             "phase_18": dc_rows}
+    q, k, v, kw = captured["flash"][0]
+    b, sq, g, pp, hd = q.shape
+    assert (g, pp, hd, q.dtype) == (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                                    cfg.head_dim, bf16), (q.shape, q.dtype)
+    got = kflash.flash_attention_seq_major(q, k, v, **kw)
+    qp = q.permute(0, 2, 3, 1, 4).reshape(b * g, pp, sq, hd)
+    kp = k.permute(0, 2, 1, 3).reshape(b * g, -1, hd)
+    vp = v.permute(0, 2, 1, 3).reshape(b * g, -1, hd)
+    plain = lambda: flash_attention_plain(qp, kp, vp, causal=kw["causal"], window=kw["window"],
+                                          q_offset=kw["q_offset"], p_bf16=kw["p_bf16"])
+    want = plain().reshape(b, g, pp, sq, hd).permute(0, 3, 1, 2, 4).reshape(b, sq, -1)
+    torch.cuda.synchronize()
+    f_err = float((got.float() - want.float()).abs().max())
+    assert kw["causal"] and not kw["p_bf16"] and f_err <= 8e-3, (f_err, kw)
+    # SDPA on the same inputs, the kv heads expanded to the 40 q heads
+    qs = q.reshape(b, sq, g * pp, hd).transpose(1, 2)
+    ks = k.repeat_interleave(pp, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(pp, dim=2).transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    s_err = float((sdpa().transpose(1, 2).reshape(b, sq, -1).float() - want.float()).abs().max())
+    fk = lambda: kflash.flash_attention_seq_major(q, k, v, **kw)
+    k_ms, p_ms, l_ms = cuda_ms(fk), cuda_ms(plain), cuda_ms(sdpa)
+    k_dev, l_dev = device_ms(fk), device_ms(sdpa)
+    nbytes, flops = causal_flash_cost(g, pp, sq, hd, bf16)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[bf16]) * 1e3
+    out["flash_attention"] = {"launches_phase_18": path_launches["flash_attention"], "phase_18": {
+        "shape": f"G={g} P={pp} Sq=Sk={sq} hd={hd} bf16 causal (Scout layer 0's prefill)",
+        "max_abs_err": f_err, "ms": k_ms, "plain_ms": p_ms, "device_ms": k_dev,
+        "bound_ms": bound, "bound_by": "operations" if flops / PEAK_FLOPS[bf16]
+        > nbytes / HBM_BYTES_PER_S else "bytes", "bytes": nbytes, "flops": flops,
+        "library_ms": l_ms, "library_device_ms": l_dev}}
+    log(f"phase 18 (c): flash_attention on layer 0's prefill inputs G={g} P={pp} Sq=Sk={sq} "
+        f"hd={hd} bf16 causal: max abs error against its plain version {f_err:.3g} (<= 8e-3; "
+        f"SDPA against the plain version {s_err:.3g}); events around one call: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms; device time: kernel "
+        f"{k_dev:.4f} ms ({100 * bound / k_dev:.1f}% of the bound {bound:.4f} ms: {flops:,} "
+        f"FLOP, {nbytes:,} bytes), SDPA {l_dev:.4f} ms (kernel / SDPA {k_dev / l_dev:.2f}); "
+        f"card {card}")
+    del captured, q, k, v, qs, ks, vs, got, want
+
+    profile_serving(model, params, cfg, pol, rng, dev, 1040, phase=18, inv_place=state["inv"],
+                    names=("dispatch_rank_kernel", "flash"))
+
+    # ---- (d) a fixed re-placement at capacity 8.0 changes no output --------
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
+    one = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+
+    def logits_of(inv):
+        lg, cache = model.prefill(params, {"tokens": toks}, cfg, pol8, max_len=1040,
+                                  inv_place=inv)
+        ld, _ = model.decode_step(params, cache, one, cfg, pol8, inv_place=inv)
+        return lg.float(), ld.float()
+
+    before = logits_of(state["inv"])
+    perm = np.arange(spec.num_experts, dtype=np.int32)[::-1].copy()  # every expert moves shard
+    t = time.perf_counter()
+    for i in moe_idx:
+        params["layers"][i]["moe"] = apply_placement_to_weights(params["layers"][i]["moe"], perm)
+    torch.cuda.synchronize()
+    permute_ms = (time.perf_counter() - t) * 1e3
+    _, inv = _place_after(ctl.placement.place, perm)
+    after = logits_of(torch.as_tensor(inv, device=dev))
+    errs = [bf16_rel_err(a, b) for a, b in zip(after, before)]
+    assert all(bool(torch.isfinite(a).all()) for a in after)
+    assert max(errs) <= BF16_REL, errs
+    log(f"phase 18 (d): a fixed permutation (experts reversed: each to another shard), "
+        f"apply_placement_to_weights over {SCOUT_LAYERS} layers {permute_ms:.2f} ms; at capacity "
+        f"8.0 the 1,024-token prefill's and the next decode step's logits against the "
+        f"placement before: max |diff| / max(1, |ref|) {errs[0]:.3g} and {errs[1]:.3g} "
+        f"(<= {BF16_REL:g}); card {card}")
+    log(f"phase 18: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    del params, engines
+    return out
 
 
 if __name__ == "__main__":

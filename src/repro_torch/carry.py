@@ -72,14 +72,18 @@ def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) ->
     The reference stacks each pattern position's blocks ``[periods, ...]``
     under ``blocks.b{j}``; the port keeps one dict per layer, layer
     ``period * len(pattern) + j``.  ``embed.tok``, ``lm_head``,
-    ``final_norm`` and ``tail{j}`` map one to one."""
+    ``final_norm`` and ``tail{j}`` map one to one.  A MoE block's ``moe``
+    dict carries over the same way: its ``router [d, E]`` stays float32
+    (the reference keeps it so in every policy), its stacked experts ``wi
+    [E, d, gate, f]`` and ``wo [E, f, d]`` and its ``shared`` FFN are cast
+    like the rest; dense and MoE blocks may interleave (Maverick)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, name=""):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, pol.param_dtype, dev)
+            return {k: conv(v, k) for k, v in node.items()}
+        return _tensor(node, torch.float32 if name == "router" else pol.param_dtype, dev)
 
     out = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"])}
     if not cfg.tie_embeddings:

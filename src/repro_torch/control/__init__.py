@@ -18,6 +18,7 @@ from repro_torch.control.log import Decision, DecisionLog
 from repro_torch.control.policy import (
     BackendPolicy,
     CooldownGuard,
+    PlacementPolicy,
     RepartitionPolicy,
     ResizePolicy,
     SplitPolicy,
@@ -34,6 +35,7 @@ __all__ = [
     "HealthPolicy",
     "LaneHealth",
     "NoOp",
+    "PlacementPolicy",
     "Quarantine",
     "Recover",
     "Repartition",

@@ -24,6 +24,9 @@
   above ``backend_dense_above`` flips back.  The gap between the two is a
   dead zone, and a patience streak, a :class:`CooldownGuard` and a guard on
   the measured walls of both transports add hysteresis.
+* :class:`PlacementPolicy` — the MoE expert re-placement trigger over EP
+  shard loads, with the shared cooldown guard; with expert-weight costing
+  on it also picks which candidate placement wins (or declines them all).
 
 Each is a port of its ``repro.control.policy`` namesake, bit for bit.
 
@@ -40,6 +43,7 @@ from repro_torch.control.actions import (
     Action,
     NoOp,
     Repartition,
+    Replace,
     Resize,
     Split,
     SwitchBackend,
@@ -52,6 +56,7 @@ from repro_torch.core.partitioner import expected_loads, heavy_capacity_for, kip
 __all__ = [
     "BackendPolicy",
     "CooldownGuard",
+    "PlacementPolicy",
     "RepartitionPolicy",
     "ResizePolicy",
     "SplitPolicy",
@@ -322,3 +327,57 @@ class BackendPolicy:
         return SwitchBackend(
             reason=f"backend {name}->{target} (padding fraction {frac:.2f})",
             backend=target, padding_fraction=frac)
+
+
+class PlacementPolicy:
+    """Expert re-placement trigger over shard loads (see module doc).
+
+    Without weight costing (``host.expert_weight_bytes == 0``) the policy
+    only decides *whether*: the host computes the KIP placement on a bare
+    :class:`Replace`.  With it, the policy also gates *which* placement
+    wins, mirroring the streaming cost model: the host's candidate
+    placements (``plan_candidates``) are priced by folding expert-weight
+    bytes through :func:`~repro_torch.core.migration.exchange_lane_cost` on the
+    shard-to-shard weight-transfer matrix, and the candidate minimizing
+    ``planned_imbalance + cost_weight * moved_bytes / total_bytes`` is
+    chosen — including the zero-move "stay" candidate, so a re-placement
+    whose balance gain cannot pay for its weight movement is declined."""
+
+    def evaluate(self, host, signals: Signals) -> Action:
+        imb = signals.imbalance
+        if host.e <= host.n:
+            return NoOp("too-few-experts", imb, imb)
+        if imb < host.trigger:
+            return NoOp("balanced", imb, imb)
+        guard = CooldownGuard(host.min_steps_between)
+        if not guard.ready(host.steps, host.last_update):
+            return NoOp("cooldown", imb, imb)
+        weight_bytes = float(getattr(host, "expert_weight_bytes", 0.0))
+        if weight_bytes <= 0:
+            return Replace(reason=f"imbalance {imb:.3f} >= trigger {host.trigger:.3f}")
+        total = weight_bytes * host.e
+        candidates = host.plan_candidates()
+        cost_w = float(getattr(host, "cost_weight", 1.0))
+
+        def score(c: dict) -> float:
+            return c["planned_imbalance"] + cost_w * c["est_migration"] / max(total, 1e-12)
+
+        best = min(candidates, key=score)
+        if best["moved"] == 0:
+            # the stay candidate won: no placement's gain pays for its bytes
+            alt = min((c for c in candidates if c["moved"]), key=score, default=None)
+            detail = (f" (best alternative {alt['choice']}: imb "
+                      f"{alt['planned_imbalance']:.3f}, "
+                      f"{alt['est_migration']:.0f} bytes)" if alt else "")
+            return NoOp(f"placement gain <= migration cost{detail}",
+                        imb, best["planned_imbalance"], 0.0)
+        return Replace(
+            reason=(f"placement {best['choice']}: imbalance {imb:.3f} -> "
+                    f"{best['planned_imbalance']:.3f}, "
+                    f"{best['est_migration']:.0f} bytes"),
+            placement=best["placement"],
+            perm=best["perm"],
+            choice=best["choice"],
+            planned_imbalance=best["planned_imbalance"],
+            est_migration=best["est_migration"],
+        )

@@ -3,10 +3,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --requests 12 --max-new 6 --slots 3 --replicas 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch llama4-scout-17b-a16e
 
-``--device`` defaults to ``cuda`` and raises without a card.  As in the
-reference, ``--smoke`` is a ``store_true`` flag whose default is already
-True, so this CLI always serves the ``reduce_for_smoke`` model;
+``--device`` defaults to ``cuda`` and raises without a card.  A MoE
+model's layers run the dense oracle ``moe_ref``, as on the reference
+launcher's mesh-free policy.  As in the reference, ``--smoke`` is a
+``store_true`` flag whose default is already True, so this CLI always
+serves the ``reduce_for_smoke`` model;
 ``chip_smoke.py`` drives ``ServeEngine`` and ``DRScheduler`` directly at
 full width.
 """

@@ -21,6 +21,7 @@ cache's ``offset`` (the next write position) is a host ``int``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -90,6 +91,13 @@ def _rope_freqs(hd_rot: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, hd_rot, 2, dtype=np.float64) / hd_rot))
 
 
+@functools.lru_cache(maxsize=64)
+def _rope_freqs_on(hd_rot: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``_rope_freqs`` as float32 on ``device``, uploaded once: a pageable
+    upload in every call would wait for the whole stream."""
+    return torch.as_tensor(_rope_freqs(hd_rot, theta).astype(np.float32), device=device)
+
+
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, *, theta: float, pct: float = 1.0,
                mrope_sections: tuple | None = None) -> torch.Tensor:
     """x ``[B, S, H, hd]``; pos int ``[B, S]``.  Angles are float32; the
@@ -98,7 +106,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, *, theta: float, pct: float =
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, queue 1 item 10)")
     hd = x.shape[-1]
     hd_rot = int(hd * pct) // 2 * 2
-    freqs = torch.as_tensor(_rope_freqs(hd_rot, theta).astype(np.float32), device=x.device)
+    freqs = _rope_freqs_on(hd_rot, float(theta), x.device)
     angles = pos.to(torch.float32)[..., None] * freqs        # [B, S, hd_rot/2]
     dt = x.dtype
     sin = torch.sin(angles).to(dt)[:, :, None, :]

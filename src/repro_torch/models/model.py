@@ -35,14 +35,14 @@ def init_params(cfg: ArchConfig, seed: int, pol: Policy, *, device=None) -> dict
     return transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(int(seed)), pol)
 
 
-def prefill(params, batch, cfg: ArchConfig, pol: Policy, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, pol: Policy, max_len: int, inv_place=None):
     _dense_only(cfg)
-    return transformer.prefill(params, batch, cfg, pol, max_len)
+    return transformer.prefill(params, batch, cfg, pol, max_len, inv_place)
 
 
-def decode_step(params, cache, tokens, cfg: ArchConfig, pol: Policy):
+def decode_step(params, cache, tokens, cfg: ArchConfig, pol: Policy, inv_place=None):
     _dense_only(cfg)
-    return transformer.decode_step(params, cache, tokens, cfg, pol)
+    return transformer.decode_step(params, cache, tokens, cfg, pol, inv_place)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *, device=None):

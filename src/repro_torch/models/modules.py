@@ -44,9 +44,16 @@ class Policy:
     """dtype policy threaded through the model (one device: ``shard`` is
     the identity and ``tp`` only pads the head layout).
 
-    ``mesh``, ``remat`` and the MoE fields of the reference's policy are
-    kept so that setting one fails loudly: they raise
-    ``NotImplementedError`` (ROADMAP.md, queue 1 items 9 and 10)."""
+    ``ep_shards`` stands for what the reference reads as
+    ``mesh.shape[tp_axis]``: the number of expert-parallel shards, stacked
+    on the one device.  At 0 the MoE layers run the dense oracle
+    ``moe_ref``, as the reference does with ``mesh=None``; ``tp`` alone
+    never switches the path.  ``moe_capacity_factor`` (0: the config's)
+    and ``exchange_backend`` (the dispatch transport: ``"dense"``,
+    ``"ragged"``, an instance, or ``None`` for dense) are the reference's.
+
+    ``mesh`` and ``remat`` are kept so that setting one fails loudly: they
+    raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 10)."""
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -59,18 +66,18 @@ class Policy:
     attn_block_skip: bool = True     # skip fully-masked kv blocks
     attn_p_bf16: bool = False        # bf16 softmax weights for the PV product
     remat_policy: str = "nothing"
-    moe_capacity_factor: float = 0.0
-    exchange_backend: object = None
+    moe_capacity_factor: float = 0.0  # 0 = use config value
+    exchange_backend: object = None   # MoE dispatch transport
+    ep_shards: int = 0               # stacked EP shards (0: the moe_ref path)
 
     def __post_init__(self):
-        for field, unset, item in (("mesh", None, 10), ("remat", False, 10),
-                                   ("remat_policy", "nothing", 10),
-                                   ("moe_capacity_factor", 0.0, 9),
-                                   ("exchange_backend", None, 9)):
+        for field, unset in (("mesh", None), ("remat", False), ("remat_policy", "nothing")):
             if getattr(self, field) != unset:
                 raise NotImplementedError(
                     f"Policy.{field}={getattr(self, field)!r} is not ported yet "
-                    f"(ROADMAP.md, queue 1 item {item})")
+                    f"(ROADMAP.md, queue 1 item 10)")
+        if self.ep_shards < 0:
+            raise ValueError(f"Policy.ep_shards must be >= 0, got {self.ep_shards}")
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:

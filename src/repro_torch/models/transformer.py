@@ -1,6 +1,6 @@
 """Decoder-only LM assembled from the config's block pattern, for serving
 (a port of ``repro.models.transformer`` for ``attn`` / ``local_attn``
-mixers with dense FFNs).
+mixers with dense or MoE FFNs).
 
 The reference scans over *periods* with weights stacked ``[periods,
 ...]``; eager PyTorch needs no scan, so parameters and caches hold one
@@ -8,9 +8,17 @@ entry per layer: ``params["layers"][i]`` is layer ``i = period *
 len(pattern) + j`` (pattern position ``j``), and the non-repeating tail
 blocks stay ``params["tail{j}"]``, as in the reference.
 
+A ``moe`` FFN runs ``repro_torch.moe.layer`` with the reference's rule:
+the dense oracle ``moe_ref`` without EP shards (``Policy.ep_shards == 0``,
+the reference's ``mesh=None``), else ``moe_apply`` when the sequence
+splits over the shards and is longer than one token, else
+``moe_apply_replicated``.  ``inv_place`` (logical expert -> physical slot,
+``None``: the identity) is the KIP placement the expert weights are laid
+out by.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``mamba``, ``mlstm`` and ``slstm`` mixers, ``moe`` FFNs, M-RoPE,
-vision tokens and ``loss_fn``.
+the ``mamba``, ``mlstm`` and ``slstm`` mixers, M-RoPE, vision tokens and
+``loss_fn``.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.models.modules import (
     pad_vocab,
     unembed_logits,
 )
+from repro_torch.moe.layer import init_moe, moe_apply, moe_apply_replicated, moe_ref
 
 __all__ = ["backbone", "decode_step", "init_cache", "init_params", "loss_fn", "prefill"]
 
@@ -55,8 +64,6 @@ def check_supported(cfg: ArchConfig) -> None:
     for blk in cfg.pattern + cfg.tail:
         if blk.mixer in _UNPORTED_MIXERS:
             raise _not_ported(_UNPORTED_MIXERS[blk.mixer], 10)
-        if blk.ffn == "moe":
-            raise _not_ported("the MoE layer (moe/layer.py) and kip_placement", 9)
     if cfg.rope_kind == "mrope":
         raise _not_ported("M-RoPE", 10)
     if cfg.vision_tokens:
@@ -82,6 +89,9 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayo
     if blk.ffn == "dense":
         p["ln2"] = init_norm(cfg.norm_kind, cfg.d_model, dt, dev)
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt)
+    elif blk.ffn == "moe":
+        p["ln2"] = init_norm(cfg.norm_kind, cfg.d_model, dt, dev)
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, dt)
     return p
 
 
@@ -130,9 +140,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *,
 # ---------------------------------------------------------------------------
 
 
+def _moe_fn(h: torch.Tensor, pol: Policy):
+    """The reference's path rule (``pol.ep_shards`` stands for the mesh's
+    model-axis size; no shards is its ``mesh=None``)."""
+    if pol.ep_shards == 0:
+        return moe_ref
+    if h.shape[1] % pol.ep_shards == 0 and h.shape[1] > 1:
+        return moe_apply             # prefill: the sequence splits over the shards
+    return moe_apply_replicated      # decode: tokens replicated over EP
+
+
 def _apply_block(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: HeadLayout,
-                 pol: Policy, *, pos, cache=None):
-    """Pre-norm residual block.  Returns ``(x, new_cache)``."""
+                 pol: Policy, *, pos, cache=None, inv_place=None):
+    """Pre-norm residual block.  Returns ``(x, new_cache, moe_stats)``,
+    ``moe_stats = (counts, overflow, aux_loss)`` for a MoE block, else
+    ``None``."""
     h = apply_norm(p["ln1"], x, cfg.norm_kind)
     local = blk.mixer == "local_attn"
     y, new_cache = attention_block(
@@ -141,10 +163,16 @@ def _apply_block(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: Hea
         rope_pct=cfg.rope_pct, rope_kind=cfg.rope_kind, norm_kind=cfg.norm_kind,
         cache=cache)
     x = pol.shard(x + y, "act_btd")
+    moe_stats = None
     if blk.ffn == "dense":
         h = apply_norm(p["ln2"], x, cfg.norm_kind)
         x = pol.shard(x + apply_ffn(p["ffn"], h, cfg.ffn_kind, pol), "act_btd")
-    return x, new_cache
+    elif blk.ffn == "moe":
+        h = apply_norm(p["ln2"], x, cfg.norm_kind)
+        out = _moe_fn(h, pol)(p["moe"], h, cfg.moe, cfg.ffn_kind, pol, inv_place)
+        moe_stats = (out.counts, out.overflow, out.aux_loss)
+        x = pol.shard(x + out.y, "act_btd")
+    return x, new_cache, moe_stats
 
 
 def _positions(cfg: ArchConfig, b: int, s: int, offset, device=None) -> torch.Tensor:
@@ -159,17 +187,34 @@ def _positions(cfg: ArchConfig, b: int, s: int, offset, device=None) -> torch.Te
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos,
-             cache: dict | None = None):
+             cache: dict | None = None, inv_place: torch.Tensor | None = None):
     """Embedded input ``[B, S, d]`` -> final hidden ``[B, S, d]``.
-    Returns ``(x, cache)``; the cache's layers are updated in place."""
+
+    Returns ``(x, cache, moe_counts, overflow, aux_loss)`` as the reference
+    does: ``moe_counts`` f32[E] summed over the periodic MoE layers (``None``
+    without MoE), their dropped pairs summed, and their aux losses summed
+    over the number of periods (the mean over periods of each period's
+    sum; the tail's MoE stats are not counted, as in the reference).  The
+    cache's layers are updated in place."""
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
+    stats = []
     for i, blk in enumerate(layers(cfg)):
         c = cache["layers"][i] if cache is not None else None
-        x, _ = _apply_block(blk, params["layers"][i], x, cfg, lay, pol, pos=pos, cache=c)
+        x, _, ms = _apply_block(blk, params["layers"][i], x, cfg, lay, pol, pos=pos, cache=c,
+                                inv_place=inv_place)
+        if ms is not None:
+            stats.append(ms)
     for j, blk in enumerate(cfg.tail):
         c = cache[f"tail{j}"] if cache is not None else None
-        x, _ = _apply_block(blk, params[f"tail{j}"], x, cfg, lay, pol, pos=pos, cache=c)
-    return apply_norm(params["final_norm"], x, cfg.norm_kind), cache
+        x, _, _ = _apply_block(blk, params[f"tail{j}"], x, cfg, lay, pol, pos=pos, cache=c,
+                               inv_place=inv_place)
+    x = apply_norm(params["final_norm"], x, cfg.norm_kind)
+    if cfg.moe is None:
+        # filled on the device: an upload of a host scalar would wait for the stream
+        zeros = torch.zeros(2, dtype=torch.float32, device=x.device)
+        return x, cache, None, zeros[0], zeros[1]
+    counts, overflow, aux = (torch.stack(s) for s in zip(*stats))
+    return x, cache, counts.sum(dim=0), overflow.sum(), aux.sum() / cfg.num_periods
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +237,8 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, pol: Policy, inv_place=None):
     raise _not_ported("training (loss_fn, chunked_softmax_xent, train/)", 10)
 
 
-def prefill(params, batch: dict, cfg: ArchConfig, pol: Policy, max_len: int):
+def prefill(params, batch: dict, cfg: ArchConfig, pol: Policy, max_len: int,
+            inv_place: torch.Tensor | None = None):
     """Fill caches for the prompt ``batch["tokens"] [B, S]``; return the
     last token's logits ``[B, 1, Vp]`` and the cache."""
     tokens = batch["tokens"]
@@ -200,18 +246,21 @@ def prefill(params, batch: dict, cfg: ArchConfig, pol: Policy, max_len: int):
     cache = init_cache(cfg, b, max_len, pol, device=tokens.device)
     x = _embed_inputs(params, batch, cfg, pol)
     pos = _positions(cfg, b, s, 0, device=tokens.device)
-    x, cache = backbone(params, x, cfg, pol, pos=pos, cache=cache)
+    x, cache, _, _, _ = backbone(params, x, cfg, pol, pos=pos, cache=cache,
+                                 inv_place=inv_place)
     cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     logits = unembed_logits(x[:, -1:], _unembed_w(params, cfg), pol)
     return logits, cache
 
 
-def decode_step(params, cache: dict, tokens: torch.Tensor, cfg: ArchConfig, pol: Policy):
+def decode_step(params, cache: dict, tokens: torch.Tensor, cfg: ArchConfig, pol: Policy,
+                inv_place: torch.Tensor | None = None):
     """One token step.  tokens ``[B, 1]``.  Returns ``(logits [B, 1, Vp],
     cache)``; ``cache`` is updated in place."""
     b = tokens.shape[0]
     x = embed(params["embed"], tokens, scale=cfg.embed_scale, d=cfg.d_model, pol=pol)
     pos = _positions(cfg, b, 1, cache["pos"], device=tokens.device)
-    x, cache = backbone(params, x, cfg, pol, pos=pos, cache=cache)
+    x, cache, _, _, _ = backbone(params, x, cfg, pol, pos=pos, cache=cache,
+                                 inv_place=inv_place)
     cache["pos"] = cache["pos"] + 1
     return unembed_logits(x, _unembed_w(params, cfg), pol), cache

@@ -1178,3 +1178,79 @@ def test_topology_jobs_on_the_card(cuda, backend):
         torch.cuda.set_sync_debug_mode("default")
     assert compat.host_sync_count() == 0
     assert all(m.pipelined for m in ms[1:])
+
+
+@pytest.mark.parametrize("ep_shards,backend", [(0, None), (4, "dense"), (4, "ragged")])
+def test_moe_serving_card_equals_cpu(cuda, ep_shards, backend):
+    """Smoke Scout in float32 (TF32 off) over 4 stacked EP shards and on the
+    oracle path: the card's engine gives the CPU's tokens and the same
+    router counts a prefill; with shards every MoE layer launches
+    dispatch_count (hop 1 and hop 2 for a prompt of a multiple of 4, one
+    local bucketize otherwise and per decoded token)."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model, transformer
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("llama4-scout-17b-a16e"))
+    pol = Policy(ep_shards=ep_shards, exchange_backend=backend)
+    params = model.init_params(cfg, 0, pol, device="cpu")
+    card_params = _to(params, cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (20, 13, 8)]
+    out, counts = {}, {}
+    backbone = transformer.backbone
+
+    def capturing(*a, **k):
+        res = backbone(*a, **k)
+        counts.setdefault(str(a[1].device), []).append(res[2].cpu())
+        return res
+
+    transformer.backbone = capturing
+    try:
+        for dev, p in (("cpu", params), (cuda, card_params)):
+            before = dispatch_count.launches
+            reqs = [Request(i, pr, 5) for i, pr in enumerate(prompts)]
+            ServeEngine(cfg, p, pol, slots=2, max_len=32, device=dev).run(reqs)
+            out[str(dev)] = [r.out_tokens for r in reqs]
+            launched = dispatch_count.launches - before
+    finally:
+        transformer.backbone = backbone
+    assert out["cuda"] == out["cpu"]
+    assert all(torch.equal(a, b) for a, b in zip(counts["cuda:0"], counts["cpu"], strict=True))
+    moe_layers = sum(blk.ffn == "moe" for blk in transformer.layers(cfg))
+    # prefills: 20 and 8 split over 4 shards (2 launches a layer), 13 does not
+    want = moe_layers * (2 + 1 + 2 + 3 * 4) if ep_shards else 0
+    assert launched == want, (launched, want)
+
+
+def test_dense_prefill_and_decode_are_sync_free_on_the_card(cuda):
+    """One prefill and one decode step of smoke gemma-2b in bf16 make no
+    blocking call (``set_sync_debug_mode("error")``): the backbone fills a
+    dense model's MoE outputs on the card and the rope frequencies are
+    uploaded once, by the warm-up call."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+
+    cfg = reduce_for_smoke(get_config("gemma-2b"))
+    pol = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    params = model.init_params(cfg, 0, pol, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), dtype=torch.int32, device=cuda)
+
+    def serve():
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg, pol, 32)
+        nxt = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        return logits, model.decode_step(params, cache, nxt, cfg, pol)[0]
+
+    serve()  # loads the kernels and uploads the rope frequencies
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, step = serve()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert first.shape == step.shape == (2, 1, first.shape[-1])
+    assert bool(torch.isfinite(first).all()) and bool(torch.isfinite(step).all())

@@ -249,3 +249,22 @@ def test_scan_covers_the_topology_modules():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split() == ["8", "4", "2"]
+
+
+def test_scan_covers_the_moe_modules():
+    """The scan reaches the MoE layer and the expert placement, which import
+    with jax blocked."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/moe/layer.py", "src/repro_torch/moe/kip_placement.py",
+            "src/repro_torch/moe/__init__.py"} <= names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.moe.kip_placement import PlacementController\n"
+            "from repro_torch.moe.layer import moe_apply\n"
+            "from repro_torch.control import PlacementPolicy\n"
+            "print(PlacementController(16, 4).placement.n_shards)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO / "src",
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["4"]

@@ -158,10 +158,15 @@ def test_rope_matches(pct, theta):
 
 
 def test_policy_rejects_unported_fields():
-    for kw in ({"mesh": object()}, {"remat": True}, {"remat_policy": "save_moe"},
-               {"moe_capacity_factor": 1.5}, {"exchange_backend": "ragged"}):
+    """The mesh and remat fields still raise; the MoE fields are ported and
+    construct (their parity is ``tests/test_torch_moe*.py``'s)."""
+    for kw in ({"mesh": object()}, {"remat": True}, {"remat_policy": "save_moe"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmod.Policy(**kw)
+    pol = tmod.Policy(moe_capacity_factor=1.5, exchange_backend="ragged", ep_shards=4)
+    assert (pol.moe_capacity_factor, pol.exchange_backend, pol.ep_shards) == (1.5, "ragged", 4)
+    with pytest.raises(ValueError, match="ep_shards"):
+        tmod.Policy(ep_shards=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -348,12 +353,26 @@ def test_port_init_params_shapes_match_the_reference():
 
 @pytest.mark.parametrize("arch,match", [
     ("xlstm-125m", "mLSTM"), ("jamba-1.5-large-398b", "Mamba"),
-    ("llama4-scout-17b-a16e", "MoE"), ("qwen2-vl-7b", "M-RoPE"), ("whisper-base", "enc-dec"),
+    ("qwen2-vl-7b", "M-RoPE"), ("whisper-base", "enc-dec"),
 ])
 def test_unported_families_raise(arch, match):
     cfg = tbase.reduce_for_smoke(treg.get_config(arch))
     with pytest.raises(NotImplementedError, match=match):
         tmodel.init_params(cfg, 0, TPOL, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"])
+def test_moe_families_are_supported(arch):
+    """Both MoE configs pass ``check_supported``; the port's own init draws
+    the reference's parameter shapes (the router float32)."""
+    cfg = jbase.reduce_for_smoke(jreg.get_config(arch))
+    ttr.check_supported(treg.get_config(arch))
+    tparams = tmodel.init_params(_port_cfg(cfg), 0, TPOL, device="cpu")
+    _, carried = _carry(cfg)
+    shapes = lambda tree: [tuple(t.shape) for t in _leaves(tree)]
+    assert shapes(tparams) == shapes(carried)
+    moe = [layer["moe"] for layer in tparams["layers"] if "moe" in layer]
+    assert moe and all(m["router"].dtype == torch.float32 for m in moe)
 
 
 def test_training_is_not_ported():
