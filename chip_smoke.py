@@ -252,6 +252,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     prefill and decode logits within 2e-2 x max(1, |ref|) of the
     placement before.  The ``kernels`` line's dispatch_count and flash
     rows carry ``launches_phase_18`` and ``phase_18``.
+19. Training.  (a) gemma-2b at full width and depth (bf16, float32 AdamW
+    moments), 8 steps of 4 x 1,024 ``lm_token_stream`` tokens through
+    ``make_train_step``: finite loss and grad norm, 18 flash forward and
+    18 backward launches a step; walls, tokens/s, peak memory, one
+    profiled step (idle share, top device ops) and the AdamW update alone;
+    then 8 steps on one batch at ``OptConfig(lr=1e-3, warmup=1)``, the last
+    loss below the first.  (b) Llama 4 Scout at full width over 2 of its
+    48 layers and 4 stacked EP shards (bf16 moments), 12 steps of 2 x
+    1,024 tokens with ``PlacementController(16, 4)`` at each step
+    boundary: every decision logged, each move (``wi``, ``wo`` and both
+    moments of every MoE layer, in place) timed, ``expert_counts`` summing
+    to the batch's pairs, 2 dispatch_count launches a MoE layer a step.
+    (c) The float32 smoke configs of gemma-2b and of Scout at 4 shards, 3
+    steps on the card and the CPU: counts and overflow equal, loss and
+    grad norm within 1e-4 relative, then a fixed re-placement and one more
+    step with equal counts.  (d) The flash backward kernel against its
+    plain version on layer 0's inputs of (a) and (b), bf16 and float32,
+    Sq 1,000 and window 512, each gradient within its limit times its own
+    largest entry (a 5% error refused), outputs handed out dirty, two
+    calls bit-equal; its times beside the bound and SDPA's backward.  The
+    ``kernels`` line gains the ``flash_attention_bwd`` row, and the flash
+    and dispatch_count rows ``launches_phase_19``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -1114,6 +1136,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("dispatch_count", "flash_attention"):
             row.update(moe[row["name"]])
+    torch.cuda.empty_cache()
+    train = train_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("dispatch_count", "flash_attention"):
+            row.update(train[row["name"]])
+    kernels.append(train["row"])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3156,6 +3184,478 @@ def moe_phase(dev, card) -> dict:
     log(f"phase 18: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
     del params, engines
     return out
+
+
+
+# phase 19: training at full width
+TRAIN_SEQ = 1024
+GEMMA_BATCH = 4
+SCOUT_TRAIN_LAYERS = 2   # of its 48: 4 would not fit beside the optimizer state on 80 GB
+SCOUT_BATCH = 2
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_EXCESS = 1e-3        # bf16 gradients: excess over their own rounding <= 1e-3 x max |ref|
+BWD_F32_REL = 1e-4       # float32 gradients: |diff| <= 1e-4 x max |ref|
+
+
+def _lm_batch(toks, dev):
+    t = torch.as_tensor(toks, device=dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:],
+            "mask": torch.ones(t.shape[0], t.shape[1] - 1, device=dev)}
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.dispatch_count import dispatch_count
+
+    return {"flash_attention": kflash.flash_attention.launches,
+            "flash_attention_bwd": kflash.flash_attention_bwd_seq_major.launches,
+            "dispatch_count": dispatch_count.launches}
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.dispatch_count import dispatch_count
+
+    for fn in (kflash.flash_attention, kflash.flash_attention_bwd_seq_major, dispatch_count):
+        fn.launches = 0
+
+
+def _profiled_step(fn):
+    """``fn()`` (one train step) under ``torch.profiler``: its wall, the
+    card's busy time (the union of its kernels, copies and memsets), the
+    idle share and the six device operations that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = busy_ms(prof)
+    by: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "top": top}
+
+
+def _log_profile(tag, prof, card):
+    log(f"phase 19 {tag}: one profiled step: wall {prof['wall_ms']:.2f} ms (profiled), device "
+        f"busy {prof['busy_ms']:.2f} ms, idle {100 * prof['idle']:.1f}%; card {card}")
+    for name, ms in prof["top"]:
+        log(f"phase 19 {tag}:   {ms:9.3f} ms {100 * ms / prof['busy_ms']:5.1f}%  {name[:90]}")
+
+
+def _bwd_cost(b, g, p, sq, sk, hd, causal, window, dtype):
+    """(bytes, FLOPs) of the attention backward: q, k, v, o, dO read once,
+    dq, dk, dv written once; five products (S, dV, dP, dK, dQ) of 2 * hd
+    FLOPs per visible (q, k) pair and head."""
+    qpos = np.arange(sq)[:, None]
+    kpos = np.arange(sk)[None, :]
+    ok = np.ones((sq, sk), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * (4 * g * p * sq * hd + 4 * g * sk * hd) * size
+    return nbytes, 5 * 2 * hd * int(ok.sum()) * b * g * p
+
+
+def _bwd_error(got, ref) -> float:
+    """A gradient's error on its own scale: bf16 ``got``'s excess over its
+    rounding, float32's |diff|, each over the largest |entry| of ``ref``.
+    The captured dO of a mean loss over thousands of tokens is tiny, so a
+    limit that takes max(1, |ref|) would bind on nothing."""
+    scale = float(ref.abs().max())
+    assert scale > 0, "a gradient of zeros checks nothing"
+    if got.dtype == torch.bfloat16:
+        return excess_over_bf16_rounding(got, ref) / scale
+    return float((got - ref).abs().max()) / scale
+
+
+def check_flash_backward(captured, card) -> dict:
+    """Phase 19 (d): the backward kernels against ``flash_attention_bwd_plain``
+    on layer 0's inputs of (a) and (b), bf16 and float32, at Sq = 1,000,
+    with window 512, outputs handed out dirty; two calls bit-equal; times
+    at the captured shapes.  Each gradient is held to its own largest entry
+    (:func:`_bwd_error`), and the same check must refuse that gradient 5%
+    off, so the limit is seen to bind."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+
+    rows = {}
+    for name, (q, k, v, o, dout, kw) in captured.items():
+        b, sq, g, p, hd = q.shape
+        variants = {"as trained": (q, k, v, o, dout, kw)}
+        cut = dict(kw)
+        qc, kc, vc, dc = q[:, :1000], k[:, :1000], v[:, :1000], dout.reshape(q.shape)[:, :1000]
+        variants["Sq = Sk = 1,000"] = (qc, kc, vc, None, dc, cut)
+        variants["window 512"] = (q, k, v, None, dout, dict(kw, window=512))
+        for vname, (vq, vk, vv, vo, vd, vkw) in variants.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                tq, tk, tv, td = (t.to(dtype).contiguous() for t in (vq, vk, vv, vd))
+                mask = {key: vkw[key] for key in ("causal", "window", "q_offset")}
+                to = (vo.to(dtype) if vo is not None and dtype == vo.dtype else
+                      kflash.flash_attention_seq_major(tq, tk, tv, **vkw))
+                with dirty_outputs():
+                    got = kflash.flash_attention_bwd_seq_major(tq, tk, tv, to, td, **mask)
+                again = kflash.flash_attention_bwd_seq_major(tq, tk, tv, to, td, **mask)
+                torch.cuda.synchronize()
+                want = kflash.flash_attention_bwd_seq_major_plain(
+                    *(t.float() for t in (tq, tk, tv, to, td)), **mask)
+                limit = BWD_EXCESS if dtype == torch.bfloat16 else BWD_F32_REL
+                errs, scales, controls, abs_err = [], [], [], 0.0
+                for grad, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+                    assert torch.equal(a, a2), (name, vname, dtype, grad)
+                    abs_err = max(abs_err, float((a.float() - w).abs().max()))
+                    e = _bwd_error(a, w)
+                    assert e <= limit, (name, vname, dtype, grad, e)
+                    control = _bwd_error((a.float() * 1.05).to(dtype), w)
+                    assert control > limit, (name, vname, dtype, grad, control)
+                    errs.append(e)
+                    scales.append(float(w.abs().max()))
+                    controls.append(control)
+                dt = str(dtype).split(".")[-1]
+                rows[(name, vname, dt)] = {"checked": max(errs), "max_abs_err": abs_err,
+                                           "max_abs_ref": dict(zip(("dq", "dk", "dv"), scales))}
+                log(f"phase 19 (d): flash_attention_bwd [{name}, {vname}, {dt}] B={tq.shape[0]} "
+                    f"G={g} P={p} Sq={tq.shape[1]} hd={hd} window={vkw['window']}: dq, dk, dv "
+                    f"against the plain version, "
+                    f"{'excess over bf16 rounding' if dtype == torch.bfloat16 else 'max |diff|'} "
+                    f"/ max |ref| {[f'{x:.3g}' for x in errs]} (<= {limit:g}; max |ref| "
+                    f"{[f'{x:.3g}' for x in scales]}; the same gradients 5% off read "
+                    f"{[f'{x:.3g}' for x in controls]}, refused); two calls bit-equal; outputs "
+                    f"handed out dirty")
+        del variants
+
+    timing = {}
+    for name, (q, k, v, o, dout, kw) in captured.items():
+        b, sq, g, p, hd = q.shape
+        mask = {key: kw[key] for key in ("causal", "window", "q_offset")}
+        fk = lambda: kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **mask)
+        plain = lambda: kflash.flash_attention_bwd_seq_major_plain(q, k, v, o, dout, **mask)
+        # SDPA's backward on the same inputs, the kv heads expanded to G * P
+        qs = q.reshape(b, sq, g * p, hd).transpose(1, 2).detach().requires_grad_()
+        ks = k.repeat_interleave(p, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        vs = v.repeat_interleave(p, dim=2).transpose(1, 2).contiguous().requires_grad_()
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sd = dout.reshape(b, sq, g * p, hd).transpose(1, 2)
+        sdpa = lambda: torch.autograd.grad(so, (qs, ks, vs), sd, retain_graph=True)
+        k_ms, p_ms, l_ms = cuda_ms(fk), cuda_ms(plain, warmup=1, reps=5), cuda_ms(sdpa)
+        k_dev, split, _ = own_device_time(fk, ("flash_bwd",))
+        l_dev = device_ms(sdpa)
+        nbytes, flops = _bwd_cost(b, g, p, sq, sq, hd, mask["causal"], mask["window"],
+                                  q.dtype)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        timing[name] = {
+            "shape": f"B={b} G={g} P={p} Sq=Sk={sq} hd={hd} bf16 causal ({name} layer 0)",
+            "ms": k_ms, "plain_ms": p_ms, "device_ms": k_dev, "device_split_ms": split,
+            "bound_ms": bound, "bound_by": "operations" if flops / PEAK_FLOPS[torch.bfloat16]
+            > nbytes / HBM_BYTES_PER_S else "bytes", "bytes": nbytes, "flops": flops,
+            "library_ms": l_ms, "library_device_ms": l_dev}
+        log(f"phase 19 (d): flash_attention_bwd at {timing[name]['shape']}: events around one "
+            f"call {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA's backward {l_ms:.4f} ms; device "
+            f"time: kernel {k_dev:.4f} ms ({split}; {flops / k_dev / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound / k_dev:.2f}% of the bound {bound:.4f} ms by "
+            f"{timing[name]['bound_by']}: {flops:,} FLOP, {nbytes:,} bytes), SDPA's backward "
+            f"{l_dev:.4f} ms (kernel / SDPA {k_dev / l_dev:.2f}); card {card}")
+        del qs, ks, vs, so
+    return {"errors": rows, "timing": timing}
+
+
+def adamw_ms(params, opt, opt_cfg) -> tuple[float, float, int]:
+    """One ``apply_updates`` over every parameter (zero grads: the same
+    passes), by CUDA events around the call, median of 3 after one
+    warm-up: the optimizer's share of a train step.  Returns ``(ms,
+    bound_ms, bytes)``: the bound reads g twice (the norm, the update)
+    and p, m, v once, and writes p, m, v once, at the card's memory rate."""
+    from repro_torch.train.optimizer import apply_updates, leaves, tree_map
+
+    grads = tree_map(lambda p: torch.zeros_like(p, requires_grad=False), params)
+    ms = cuda_ms(lambda: apply_updates(params, grads, opt, opt_cfg), warmup=1, reps=3)
+    nbytes = sum(2 * (p.nbytes + g.nbytes + m.nbytes + v.nbytes)
+                 for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt.m),
+                                       leaves(opt.v)))
+    del grads
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def train_phase(dev, card) -> dict:
+    """Phase 19: training.  (a) gemma-2b at full width and depth, (b) Llama
+    4 Scout at full width over 2 layers and 4 stacked EP shards with KIP
+    re-placement at the step boundaries, (c) the smoke configs card
+    against CPU, (d) the backward kernels against their plain version.
+    Returns the ``kernels`` line's flash_attention_bwd row and the
+    phase-19 entries of the flash and dispatch_count rows."""
+    import repro_torch.models.model as model
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.generators import lm_token_stream
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models.modules import Policy
+    from repro_torch.moe.kip_placement import PlacementController, apply_placement_in_place
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves, tree_map
+    from repro_torch.train.train_step import make_train_step, moe_state
+
+    bf16 = torch.bfloat16
+    captured: dict = {}
+    orig_bwd = kflash.flash_attention_bwd_seq_major
+
+    def capture_into(name):
+        def bwd(q, k, v, o, dout, **kw):  # the last call of a step's backward is layer 0's
+            captured[name] = (q.detach().clone(), k.detach().clone(), v.detach().clone(),
+                              o.detach().clone(), dout.detach().clone(),
+                              dict(kw, p_bf16=False, q_chunk=256, kv_chunk=512,
+                                   block_skip=True))
+            return orig_bwd(q, k, v, o, dout, **kw)
+        return bwd
+
+    def run_steps(step, params, opt, batches, tag, per_step, inv_of=lambda: None,
+                  after=lambda i, m: None):
+        walls, metrics = [], []
+        for i, batch in enumerate(batches):
+            before = _launch_counts()
+            if i == 0:  # the wrapper holds the launch count while it stands in
+                kflash.flash_attention_bwd_seq_major = capture_into(tag)
+                kflash.flash_attention_bwd_seq_major.launches = orig_bwd.launches
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, batch, inv_of())
+                m = {k: v.cpu() for k, v in m.items()}  # the safe point's fetch
+                walls.append((time.perf_counter() - t) * 1e3)
+            finally:
+                orig_bwd.launches = kflash.flash_attention_bwd_seq_major.launches
+                kflash.flash_attention_bwd_seq_major = orig_bwd
+            now = _launch_counts()
+            diff = {k: now[k] - before[k] for k in now}
+            assert diff == per_step, (tag, i, diff, per_step)
+            assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+            metrics.append(m)
+            after(i, m)
+        return params, opt, walls, metrics
+
+    # ---- (a) gemma-2b, full width and depth -----------------------------
+    cfg = get_config("gemma-2b")
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    opt_cfg = OptConfig()
+    opt = init_opt(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    log(f"phase 19 (a): {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} q "
+        f"heads over {cfg.num_kv_heads} kv head, head_dim {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}: {n_params:,} parameters bf16 ({n_params * 2 / 1e9:.2f} GB), AdamW "
+        f"moments float32 ({n_params * 8 / 1e9:.2f} GB), made on the card in "
+        f"{time.perf_counter() - t:.1f} s; batch {GEMMA_BATCH} x {TRAIN_SEQ} tokens from "
+        f"lm_token_stream; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    step = make_train_step(cfg, pol, opt_cfg)
+    batches = [_lm_batch(x, dev) for x in
+               lm_token_stream(8, GEMMA_BATCH, TRAIN_SEQ + 1, cfg.vocab_size, seed=19)]
+    per_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+                "dispatch_count": 0}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    params, opt, walls, ms = run_steps(step, params, opt, batches, "gemma-2b", per_step)
+    gemma_launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = statistics.median(walls[1:])
+    log(f"phase 19 (a): 8 steps through make_train_step: losses "
+        f"{[round(float(m['loss']), 4) for m in ms]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
+        f"{[round(w, 1) for w in walls]}: median of steps 2-8 {wall:.1f} ms, "
+        f"{GEMMA_BATCH * TRAIN_SEQ / wall * 1e3:,.0f} tokens/s; peak memory {peak:.2f} GB; "
+        f"launches {gemma_launches} ({cfg.num_layers} flash forward and {cfg.num_layers} "
+        f"backward a step); card {card}")
+    prof = _profiled_step(lambda: step(params, opt, batches[1]))
+    _log_profile("(a)", prof, card)
+    opt_ms, opt_bound, opt_bytes = adamw_ms(params, opt, opt_cfg)
+    log(f"phase 19 (a): AdamW alone (apply_updates over {n_params:,} parameters, float32 "
+        f"moments): {opt_ms:.2f} ms of the {wall:.1f} ms step; its bound {opt_bound:.2f} ms "
+        f"({opt_bytes:,} bytes: g read twice, p, m, v read and written once); card {card}")
+    gemma_prof = dict(prof, wall_ms_unprofiled=wall, peak_gb=peak, adamw_ms=opt_ms,
+                      adamw_bound_ms=opt_bound)
+    del opt
+    torch.cuda.empty_cache()
+    over_cfg = OptConfig(lr=1e-3, warmup=1)
+    opt = init_opt(params, over_cfg)
+    over = make_train_step(cfg, pol, over_cfg)
+    losses = []
+    for _ in range(8):
+        params, opt, m = over(params, opt, batches[0])
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log(f"phase 19 (a): one batch repeated for 8 steps at OptConfig(lr=1e-3, warmup=1): losses "
+        f"{[round(x, 4) for x in losses]} (the last below the first)")
+    del params, opt, step, over, batches
+    torch.cuda.empty_cache()
+
+    # ---- (b) Llama 4 Scout, full width, 2 layers, 4 EP shards, KIP ---------
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=SCOUT_TRAIN_LAYERS)
+    spec = cfg.moe
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16, ep_shards=EP_SHARDS,
+                 exchange_backend="dense")
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    opt_cfg = OptConfig(moment_dtype=bf16)
+    opt = init_opt(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    moe_layers = sum(blk.ffn == "moe" for blk in transformer.layers(cfg))
+    log(f"phase 19 (b): {full.name}: {cfg.num_layers} of {full.num_layers} layers (cut in depth "
+        f"only: 4 would not fit with the optimizer state on 80 GB), d {cfg.d_model}, "
+        f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads, head_dim {cfg.head_dim}, "
+        f"{spec.num_experts} experts top-{spec.top_k} + shared (d_ff_expert "
+        f"{spec.d_ff_expert}, capacity {spec.capacity_factor}), vocab {cfg.vocab_size}: "
+        f"{n_params:,} parameters bf16, moments bf16 (OptConfig(moment_dtype=bfloat16)): "
+        f"{n_params * 6 / 1e9:.2f} GB of state, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, made in {time.perf_counter() - t:.1f} s; {EP_SHARDS} stacked EP shards, "
+        f"dense transport; batch {SCOUT_BATCH} x {TRAIN_SEQ}")
+    step = make_train_step(cfg, pol, opt_cfg)
+    batches = [_lm_batch(x, dev) for x in
+               lm_token_stream(12, SCOUT_BATCH, TRAIN_SEQ + 1, cfg.vocab_size, seed=191)]
+    ctl = PlacementController(spec.num_experts, EP_SHARDS)
+    state = {"inv": torch.as_tensor(ctl.placement.inv_place, device=dev)}
+    per_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+                "dispatch_count": 2 * moe_layers}
+    steps_log, moves = [], []
+
+    def safe_point(i, m):
+        counts = m["expert_counts"].numpy()
+        want = SCOUT_BATCH * TRAIN_SEQ * spec.top_k * moe_layers
+        assert counts.sum() == want, (counts.sum(), want)
+        sl = ctl.shard_loads(counts.astype(np.float64))
+        steps_log.append({"loss": float(m["loss"]), "overflow": float(m["overflow"]),
+                          "imbalance": float(sl.max() / sl.mean())})
+        ctl.observe(counts)
+        changed, _, perm = ctl.maybe_update()
+        if changed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply_placement_in_place(moe_state(params_ref["p"], params_ref["o"]), perm)
+            torch.cuda.synchronize()
+            moves.append({"after_step": i, "moved": int((perm != np.arange(len(perm))).sum()),
+                          "wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "planned": ctl.history[-1]["imbalance_planned"]})
+            state["inv"] = torch.as_tensor(ctl.placement.inv_place, device=dev)
+
+    params_ref = {"p": params, "o": opt}  # the same tensors, permuted in place
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    params, opt, walls, ms = run_steps(step, params, opt, batches, "Scout", per_step,
+                                       inv_of=lambda: state["inv"], after=safe_point)
+    scout_launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = statistics.median(walls[1:])
+    log(f"phase 19 (b): 12 steps: step walls (ms) {[round(w, 1) for w in walls]}: median of "
+        f"steps 2-12 {wall:.1f} ms, {SCOUT_BATCH * TRAIN_SEQ / wall * 1e3:,.0f} tokens/s; peak "
+        f"memory {peak:.2f} GB; launches {scout_launches} ({cfg.num_layers} flash forward, "
+        f"{cfg.num_layers} backward and {2 * moe_layers} dispatch_count a step); card {card}")
+    log("phase 19 (b): per step (loss, dropped pairs, shard imbalance of its counts): " +
+        "; ".join(f"{i}: {s['loss']:.4f}, {s['overflow']:g}, {s['imbalance']:.3f}"
+                  for i, s in enumerate(steps_log)))
+    taken, declined = ctl.decisions.counts()
+    log(f"phase 19 (b): PlacementController(16, 4): {taken} taken, {declined} declined; "
+        f"history {ctl.history}")
+    for d in ctl.decisions.records:
+        log(f"phase 19 (b):   tick {d.tick} {d.kind} taken={d.taken} imbalance "
+            f"{d.imbalance:.4f}: {d.reason} {d.detail or ''}")
+    for mv in moves:
+        i = mv["after_step"]
+        nxt = steps_log[i + 1]["imbalance"] if i + 1 < len(steps_log) else None
+        log(f"phase 19 (b): Replace after step {i}: {mv['moved']} experts moved, wi / wo and "
+            f"both moments of {moe_layers} layers permuted in {mv['wall_ms']:.2f} ms; shard "
+            f"imbalance {steps_log[i]['imbalance']:.4f} before, planned {mv['planned']:.4f}, "
+            + (f"{nxt:.4f} at the next step" if nxt is not None else "no step after it"))
+    prof = _profiled_step(lambda: step(params, opt, batches[1], state["inv"]))
+    _log_profile("(b)", prof, card)
+    opt_ms, opt_bound, opt_bytes = adamw_ms(params, opt, opt_cfg)
+    log(f"phase 19 (b): AdamW alone (apply_updates over {n_params:,} parameters, bf16 "
+        f"moments): {opt_ms:.2f} ms of the {wall:.1f} ms step; its bound {opt_bound:.2f} ms "
+        f"({opt_bytes:,} bytes: g read twice, p, m, v read and written once); card {card}")
+    scout_prof = dict(prof, wall_ms_unprofiled=wall, peak_gb=peak, adamw_ms=opt_ms,
+                      adamw_bound_ms=opt_bound)
+    del params, opt, params_ref, step, batches
+    torch.cuda.empty_cache()
+
+    # ---- (c) the smoke configs, card against CPU ---------------------------
+    for arch, shards in (("gemma-2b", 0), ("llama4-scout-17b-a16e", EP_SHARDS)):
+        scfg = reduce_for_smoke(get_config(arch))
+        spol = Policy(ep_shards=shards, exchange_backend="dense" if shards else None)
+        sopt = OptConfig(lr=1e-3, warmup=1)
+        cpu = model.init_params(scfg, 0, spol, device="cpu")
+        card_p = tree_map(lambda x: x.to(dev, copy=True), cpu)
+        runs = {"cpu": [cpu, init_opt(cpu, sopt)], "card": [card_p, init_opt(card_p, sopt)]}
+        where = {"cpu": torch.device("cpu"), "card": dev}
+        sstep = make_train_step(scfg, spol, sopt)
+        rng = np.random.default_rng(19)
+        toks = [rng.integers(0, scfg.vocab_size, (2, 65)) for _ in range(4)]
+        worst = 0.0
+        e = scfg.moe.num_experts if scfg.moe else 0
+        inv = {d: None for d in runs}
+        for i, tk in enumerate(toks):
+            if i == 3 and e:  # a fixed re-placement on both devices first
+                perm = np.arange(e, dtype=np.int32)[::-1].copy()
+                for d, (p, o) in runs.items():
+                    apply_placement_in_place(moe_state(p, o), perm)
+                    inv[d] = torch.as_tensor(np.argsort(perm).astype(np.int32), device=where[d])
+            elif i == 3:
+                break
+            out = {}
+            for d, (p, o) in runs.items():
+                p, o, m = sstep(p, o, _lm_batch(tk, where[d]), inv[d])
+                runs[d] = [p, o]
+                out[d] = {k: v.cpu() for k, v in m.items()}
+            assert float(out["card"]["overflow"]) == float(out["cpu"]["overflow"]), out
+            if e:
+                assert torch.equal(out["card"]["expert_counts"], out["cpu"]["expert_counts"])
+            for key in ("loss", "grad_norm"):
+                a, b = float(out["card"][key]), float(out["cpu"][key])
+                assert abs(a - b) <= 1e-4 * abs(b), (arch, i, key, a, b)
+                worst = max(worst, abs(a - b) / abs(b))
+        log(f"phase 19 (c): {scfg.name} float32{f' at {shards} EP shards' if shards else ''}: 3 "
+            f"train steps on the card and the CPU: overflow and expert counts equal, loss and "
+            f"grad_norm within {worst:.3g} relative (<= 1e-4)"
+            + ("; after a fixed re-placement (experts reversed, weights and moments) one more "
+               "step: counts equal" if e else ""))
+        del runs, cpu, card_p
+
+    # ---- (d) the backward kernels against their plain version ----------------
+    checked = check_flash_backward(captured, card)
+    del captured
+    torch.cuda.empty_cache()
+    log(f"phase 19: gemma-2b {gemma_prof['wall_ms_unprofiled']:.1f} ms a step (AdamW "
+        f"{gemma_prof['adamw_ms']:.1f}, peak {gemma_prof['peak_gb']:.2f} GB, idle "
+        f"{100 * gemma_prof['idle']:.1f}%), Scout 2 layers "
+        f"{scout_prof['wall_ms_unprofiled']:.1f} ms a step (AdamW {scout_prof['adamw_ms']:.1f}, "
+        f"peak {scout_prof['peak_gb']:.2f} GB, idle {100 * scout_prof['idle']:.1f}%); card "
+        f"{card}")
+    tm = checked["timing"]["gemma-2b"]
+    launches = {"gemma-2b": gemma_launches, "Scout": scout_launches}
+    row = {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SOURCE,
+           "replaces": "src/repro/kernels/flash_attention.py:73 (the gradient of "
+                       "flash_attention_tpu; no Pallas backward exists: the reference "
+                       "differentiates its jnp flash, src/repro/models/attention.py:154)",
+           "launches": gemma_launches["flash_attention_bwd"] + scout_launches["flash_attention_bwd"],
+           "launches_phase_19": {k: v["flash_attention_bwd"] for k, v in launches.items()},
+           "max_abs_err": max(e["max_abs_err"] for e in checked["errors"].values()),
+           "errors": {" / ".join(k): v for k, v in checked["errors"].items()},
+           **{k: tm[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "bytes",
+                                 "flops", "library_ms", "library_device_ms", "shape")},
+           "library": "scaled_dot_product_attention backward, k/v expanded to the q heads",
+           "phase_19": checked["timing"]}
+    return {"row": row,
+            "flash_attention": {"launches_phase_19": {k: v["flash_attention"]
+                                                      for k, v in launches.items()}},
+            "dispatch_count": {"launches_phase_19": {k: v["dispatch_count"]
+                                                     for k, v in launches.items()}}}
 
 
 if __name__ == "__main__":

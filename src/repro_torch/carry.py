@@ -3,7 +3,9 @@
 ``job_from_reference_snapshot`` builds a port ``StreamingJob`` from the
 numpy dict ``repro.core.streaming.StreamingJob.snapshot()`` returns;
 ``params_from_jax`` turns the reference's LM parameter tree (as numpy
-arrays) into the port's per-layer parameters.
+arrays) into the port's per-layer parameters, and ``opt_from_jax`` its
+``OptState`` (step and the two Adam moment trees) into the port's, so
+both packages start a training step from the same state.
 
 The snapshot's keys are the reference's own (state tables, partitioner
 tables with ``heavy_repl``, split fields, sketch, tick counters, the lane
@@ -22,8 +24,9 @@ from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.models.modules import Policy
 from repro_torch.models.transformer import check_supported
+from repro_torch.train.optimizer import OptState
 
-__all__ = ["job_from_reference_snapshot", "params_from_jax"]
+__all__ = ["job_from_reference_snapshot", "opt_from_jax", "params_from_jax"]
 
 
 def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
@@ -77,13 +80,41 @@ def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) ->
     (the reference keeps it so in every policy), its stacked experts ``wi
     [E, d, gate, f]`` and ``wo [E, f, d]`` and its ``shared`` FFN are cast
     like the rest; dense and MoE blocks may interleave (Maverick)."""
-    check_supported(cfg)
     dev = resolve_device(device)
+    return _layers_from_jax(tree, cfg, lambda a, name: _tensor(
+        a, torch.float32 if name == "router" else pol.param_dtype, dev))
+
+
+def opt_from_jax(opt_state, cfg: ArchConfig, pol: Policy, *, device=None) -> OptState:
+    """The port's ``OptState`` from the reference's ``repro.train.
+    optimizer.OptState`` (numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    opt)``): ``step`` as an int32 scalar, and ``m`` and ``v`` laid out per
+    layer as :func:`params_from_jax` lays out the parameters, each moment
+    in its own dtype (float32, or bf16 for ``moment_dtype=bfloat16``), on
+    ``device`` (``None``: the CUDA device)."""
+    dev = resolve_device(device)
+    keep = lambda a, name: _tensor(a, _dtype_of(a), dev)
+    step = torch.as_tensor(np.asarray(opt_state[0]).astype(np.int32), device=dev)
+    return OptState(step, _layers_from_jax(opt_state[1], cfg, keep),
+                    _layers_from_jax(opt_state[2], cfg, keep))
+
+
+def _dtype_of(a) -> torch.dtype:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), a.dtype)).dtype
+
+
+def _layers_from_jax(tree: dict, cfg: ArchConfig, convert) -> dict:
+    """The reference's ``[periods, ...]``-stacked tree as the port's
+    per-layer tree, each array through ``convert(array, key)``."""
+    check_supported(cfg)
 
     def conv(node, name=""):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
-        return _tensor(node, torch.float32 if name == "router" else pol.param_dtype, dev)
+        return convert(node, name)
 
     out = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"])}
     if not cfg.tie_embeddings:

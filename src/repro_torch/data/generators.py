@@ -7,6 +7,7 @@
   batch boundary and a disjoint set goes hot.
 * ``sawtooth_skew`` — nonstationary: hard-Zipf and near-uniform batches
   alternate every ``period`` batches (the elastic triggers' stress load).
+* ``lm_token_stream`` — Zipfian token batches for the LM training loop.
 
 All draw from ``numpy.random.default_rng(seed)`` exactly as
 ``repro.data.generators`` does, so the same seed yields the same keys in
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["zipf_keys", "drifting_zipf", "hotspot_flip", "sawtooth_skew"]
+__all__ = ["zipf_keys", "drifting_zipf", "hotspot_flip", "sawtooth_skew", "lm_token_stream"]
 
 
 def _zipf_probs(num_keys: int, exponent: float) -> np.ndarray:
@@ -104,3 +105,15 @@ def sawtooth_skew(
         probs = hot if (b // period) % 2 == 0 else flat
         ranks = rng.choice(num_keys, size=batch_size, p=probs)
         yield ids[ranks].copy()
+
+
+def lm_token_stream(
+    n_batches: int, batch: int, seq: int, vocab: int, seed: int = 0, exponent: float = 1.1
+):
+    """Zipfian int32 token-id batches ``[batch, seq]`` over the first
+    ``min(vocab, 50_000)`` ids, for the LM training loop."""
+    rng = np.random.default_rng(seed)
+    probs = _zipf_probs(min(vocab, 50_000), exponent)
+    for _ in range(n_batches):
+        toks = rng.choice(len(probs), size=(batch, seq), p=probs)
+        yield toks.astype(np.int32)

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # q k v o strides | stream
     "fa_flash_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _LP, _LP, _LP, _LP, _P], _I),
+    # q k v o dout dq dk dv lse dsum | B G P Sq Sk hd dtype causal window
+    # q_offset scale | q k v o dout dq dk dv strides | stream
+    "fa_flash_backward": ([_P] * 10 + [_I] * 10 + [ctypes.c_float] + [_LP] * 8 + [_P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -28,6 +28,17 @@ On a CPU tensor a wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); on a CUDA tensor it
 launches the kernel or raises.  ``flash_attention.launches`` counts the
 launches of both entries.
+
+The backward (``csrc/flash_attention_bwd.cu``, three launches: the row
+statistics lse and D, then dk and dv, then dq) replaces no Pallas kernel:
+the reference trains through its jnp flash, which XLA differentiates.
+:func:`flash_attention_bwd_seq_major` takes the models' layout;
+:func:`flash_attention_bwd_plain` is the plain version (in the Pallas
+layout, and :func:`flash_attention_bwd_seq_major_plain` in the models').
+:func:`flash_attention_seq_major_grad` is the forward as a
+``torch.autograd.Function`` whose backward is that kernel on the card and
+the plain version on the CPU; ``flash_attention_bwd_seq_major.launches``
+counts the backward calls (one a call, for its three kernels).
 """
 from __future__ import annotations
 
@@ -38,10 +49,14 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
-__all__ = ["MAX_HEAD_DIM", "FlashLaunch", "flash_attention", "flash_attention_plain",
-           "flash_attention_seq_major", "pallas_views", "plan", "seq_major_views"]
+__all__ = ["BWD_HEAD_DIMS", "MAX_HEAD_DIM", "FlashBwdLaunch", "FlashLaunch", "flash_attention",
+           "flash_attention_bwd_plain", "flash_attention_bwd_seq_major",
+           "flash_attention_bwd_seq_major_plain",
+           "flash_attention_plain", "flash_attention_seq_major",
+           "flash_attention_seq_major_grad", "pallas_views", "plan", "plan_bwd",
+           "seq_major_views"]
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -215,3 +230,192 @@ def flash_attention_seq_major(q, k, v, *, causal, window=0, q_offset=0, p_bf16=F
     _launch(*seq_major_views(q, k, v, out), causal=causal, window=window, q_offset=q_offset,
             p_bf16=p_bf16)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # the backward kernel's templates
+_BWD_Q_CHUNK = 512  # q rows a step of the plain backward: bounds its [.., q, Sk] temporaries
+
+
+def flash_attention_bwd_plain(q, k, v, o, dout, *, causal, window=0, q_offset=0):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``q [G,
+    P, Sq, hd]``, ``k, v [G, Sk, hd]``, given its output ``o`` and the
+    output's gradient ``dout``: the formulas of the kernel in float32,
+    ``_BWD_Q_CHUNK`` q rows at a time, returned in the inputs' types.  The
+    softmax weights are the exact float32 ones (``p_bf16`` rounds only the
+    forward).  A float64 input is computed in float64 (gradcheck)."""
+    g, p, sq, hd = q.shape
+    sk = k.shape[1]
+    scale = hd**-0.5
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kf, vf = k.to(ct), v.to(ct)
+    dk = torch.zeros((g, sk, hd), dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    for q0 in range(0, sq, _BWD_Q_CHUNK):
+        q1 = min(q0 + _BWD_Q_CHUNK, sq)
+        qb = q[:, :, q0:q1].to(ct) * scale
+        s = torch.einsum("gpqh,gkh->gpqk", qb, kf)
+        qpos = q_offset + q0 + torch.arange(q1 - q0, device=q.device)[:, None]
+        ok = torch.ones((q1 - q0, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, NEG_INF)
+        pw = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        pw = torch.where(ok, pw, 0.0)
+        dob = dout[:, :, q0:q1].to(ct)
+        dsum = (dob * o[:, :, q0:q1].to(ct)).sum(dim=-1, keepdim=True)
+        ds = pw * (torch.einsum("gpqh,gkh->gpqk", dob, vf) - dsum)
+        dv += torch.einsum("gpqk,gpqh->gkh", pw, dob)
+        dk += torch.einsum("gpqk,gpqh->gkh", ds, qb)
+        dqs.append(torch.einsum("gpqk,gkh->gpqh", ds, kf) * scale)
+    dq = torch.cat(dqs, dim=2) if dqs else torch.zeros(q.shape, dtype=ct, device=q.device)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdLaunch:
+    """The arguments of one backward launch sequence, from shapes and
+    strides alone."""
+    dtype: int           # 0 float32, 1 bf16
+    dims: tuple          # (B, G, P, Sq, Sk, hd)
+    strides: tuple       # q, k, v, o, dout, dq, dk, dv element strides
+
+    @functools.cached_property
+    def c_strides(self) -> list:
+        return [(ctypes.c_int64 * len(st))(*st) for st in self.strides]
+
+
+def plan_bwd(q, k, v, o, dout, dq, dk, dv) -> FlashBwdLaunch:
+    """Check q, o, dout, dq ``[B, G, P, Sq, hd]`` and k, v, dk, dv ``[B, G,
+    Sk, hd]`` (strided views, the last dimension dense, one type) and
+    return the launch's arguments; raises ``ValueError`` on what the
+    kernels do not take."""
+    return _plan_bwd(tuple((t.dtype, tuple(t.shape), t.stride())
+                           for t in (q, k, v, o, dout, dq, dk, dv)))
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_bwd(specs) -> FlashBwdLaunch:
+    names = ("q", "k", "v", "o", "dout", "dq", "dk", "dv")
+    (qdt, qsh, _), (_, ksh, _) = specs[0], specs[1]
+    if len(qsh) != 5 or len(ksh) != 4:
+        raise ValueError(f"flash_attention_bwd input: need q [B, G, P, Sq, hd] and k "
+                         f"[B, G, Sk, hd], got {list(qsh)}, {list(ksh)}")
+    for name, (dt, sh, _) in zip(names, specs):
+        want = qsh if name in ("q", "o", "dout", "dq") else ksh
+        if sh != want:
+            raise ValueError(f"flash_attention_bwd input: {name} {list(sh)} does not match "
+                             f"{list(want)}")
+        if dt != qdt or dt not in _DTYPES:
+            raise ValueError(f"flash_attention_bwd input: every tensor must be float32 or "
+                             f"every one bf16, got {name} {dt} beside q {qdt}")
+    b, g, p, sq, hd = qsh
+    if tuple(ksh[:2]) != (b, g) or ksh[3] != hd:
+        raise ValueError(f"flash_attention_bwd input: k {list(ksh)} does not match "
+                         f"q {list(qsh)}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd input: head_dim {hd} is not one of "
+                         f"{BWD_HEAD_DIMS}")
+    if b * g > 65535 or p > 65535 or max(sq, ksh[2]) >= 2**31 - 128:
+        raise ValueError("flash_attention_bwd input: too large for one launch")
+    strides = tuple(_strides(sh, st, name, hd, False) for name, (_, sh, st) in zip(names, specs))
+    return FlashBwdLaunch(_DTYPES[qdt], (b, g, p, sq, ksh[2], hd), strides)
+
+
+def _launch_bwd(q, k, v, o, dout, dq, dk, dv, *, causal, window, q_offset):
+    """Launch the backward on views q, o, dout, dq ``[B, G, P, Sq, hd]``
+    and k, v, dk, dv ``[B, G, Sk, hd]`` (all on one CUDA device)."""
+    dev = q.device
+    for t in (q, k, v, o, dout, dq, dk, dv):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flash_attention_bwd input: tensor on {t.device}; the kernel "
+                             "path takes CUDA tensors on one device only")
+    if window < 0:
+        raise ValueError("flash_attention_bwd input: window < 0")
+    lp = plan_bwd(q, k, v, o, dout, dq, dk, dv)
+    b, g, p, sq, sk, hd = lp.dims
+    lse = torch.empty((b, g, p, sq), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    lib = build.library()
+    code = lib.fa_flash_backward(
+        *(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, dsum)), *lp.dims,
+        lp.dtype, int(bool(causal)), int(window), int(q_offset), hd**-0.5, *lp.c_strides,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "flash_attention_bwd")
+    flash_attention_bwd_seq_major.launches += 1
+
+
+def flash_attention_bwd_seq_major(q, k, v, o, dout, *, causal, window=0, q_offset=0):
+    """``(dq, dk, dv)`` of :func:`flash_attention_seq_major`, in the inputs'
+    type: q ``[B, Sq, G, P, hd]``, k, v ``[B, Sk, G, hd]``, its output o and
+    the output's gradient dout ``[B, Sq, G * P * hd]``; returns dq ``[B, Sq,
+    G, P, hd]`` and dk, dv ``[B, Sk, G, hd]``.  On the card the kernel
+    reads the views and writes those layouts directly; on the CPU the
+    plain version runs."""
+    o, dout = o.reshape(q.shape), dout.reshape(q.shape)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_seq_major_plain(q, k, v, o, dout, causal=causal,
+                                                   window=window, q_offset=q_offset)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    qv = lambda t: t.permute(0, 2, 3, 1, 4)
+    kv = lambda t: t.permute(0, 2, 1, 3)
+    _launch_bwd(qv(q), kv(k), kv(v), qv(o), qv(dout), qv(dq), kv(dk), kv(dv), causal=causal,
+                window=window, q_offset=q_offset)
+    return dq, dk, dv
+
+
+flash_attention_bwd_seq_major.launches = 0
+
+
+def flash_attention_bwd_seq_major_plain(q, k, v, o, dout, *, causal, window=0, q_offset=0):
+    """:func:`flash_attention_bwd_plain` (any device) in the models' layout
+    of :func:`flash_attention_bwd_seq_major`."""
+    b, sq, g, p, hd = q.shape
+    sk = k.shape[1]
+    to_pallas = lambda t: t.reshape(q.shape).permute(0, 2, 3, 1, 4).reshape(b * g, p, sq, hd)
+    kv = lambda t: t.permute(0, 2, 1, 3).reshape(b * g, sk, hd)
+    dq, dk, dv = flash_attention_bwd_plain(to_pallas(q), kv(k), kv(v), to_pallas(o),
+                                           to_pallas(dout), causal=causal, window=window,
+                                           q_offset=q_offset)
+    back = lambda t: t.reshape(b, g, sk, hd).permute(0, 2, 1, 3)
+    return dq.reshape(b, g, p, sq, hd).permute(0, 3, 1, 2, 4), back(dk), back(dv)
+
+
+class _FlashSeqMajor(torch.autograd.Function):
+    """:func:`flash_attention_seq_major` with its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out = flash_attention_seq_major(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (kw["causal"], kw["window"], kw["q_offset"])
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd_seq_major(q, k, v, out, dout, causal=causal,
+                                                   window=window, q_offset=q_offset)
+        return dq, dk, dv, None
+
+
+def flash_attention_seq_major_grad(q, k, v, *, causal, window=0, q_offset=0, p_bf16=False,
+                                   q_chunk=256, kv_chunk=512, block_skip=True):
+    """:func:`flash_attention_seq_major` under autograd: the same forward,
+    and a backward that is the CUDA kernel on the card and the plain
+    version on the CPU, never autograd through the plain forward."""
+    return _FlashSeqMajor.apply(q, k, v, dict(
+        causal=causal, window=window, q_offset=q_offset, p_bf16=p_bf16, q_chunk=q_chunk,
+        kv_chunk=kv_chunk, block_skip=block_skip))

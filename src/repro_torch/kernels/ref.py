@@ -244,17 +244,19 @@ def flash_attention_ref(q, k, v, *, causal, window=0, q_offset=0, q_chunk=256,
     ``kpos <= qpos`` when causal and ``kpos > qpos - window`` when
     ``window > 0``, masked scores are -1e30, and ``block_skip`` skips blocks
     the mask hides entirely.  ``p_bf16`` rounds the softmax weights to bf16
-    for the PV product (summed in float32), as the jnp flash does."""
+    for the PV product (summed in float32), as the jnp flash does.  A
+    float64 input is computed in float64 (``torch.autograd.gradcheck``)."""
     g, p, sq, hd = q.shape
     sk = k.shape[1]
     scale = hd**-0.5
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32  # float64 for gradcheck
     qc, kc = max(1, min(q_chunk, sq)), max(1, min(kv_chunk, sk))
     outs = []
     for q0 in range(0, sq, qc):
         q1 = min(q0 + qc, sq)
-        qb = q[:, :, q0:q1].to(torch.float32) * scale
-        acc = torch.zeros((g, p, q1 - q0, hd), dtype=torch.float32, device=q.device)
-        m = torch.full((g, p, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
+        qb = q[:, :, q0:q1].to(ct) * scale
+        acc = torch.zeros((g, p, q1 - q0, hd), dtype=ct, device=q.device)
+        m = torch.full((g, p, q1 - q0), NEG_INF, dtype=ct, device=q.device)
         l = torch.zeros_like(m)
         qpos = q_offset + q0 + torch.arange(q1 - q0, device=q.device)[:, None]
         for k0 in range(0, sk, kc):
@@ -262,8 +264,8 @@ def flash_attention_ref(q, k, v, *, causal, window=0, q_offset=0, q_chunk=256,
             if block_skip and not block_visible(causal, window, q0 + q_offset,
                                                 q1 + q_offset, k0, k1):
                 continue
-            kb = k[:, k0:k1].to(torch.float32)
-            vb = v[:, k0:k1].to(torch.float32)
+            kb = k[:, k0:k1].to(ct)
+            vb = v[:, k0:k1].to(ct)
             s = torch.einsum("gpqh,gkh->gpqk", qb, kb)
             kpos = k0 + torch.arange(k1 - k0, device=q.device)[None, :]
             ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)

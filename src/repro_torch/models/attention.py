@@ -159,11 +159,16 @@ def flash_attention(
     """The reference's signature and layout over the flash kernel, which
     reads these views as they are and writes a contiguous ``[B, Sq, Hkv_p
     * qps * hd]`` buffer (returned as its ``[B, Sq, Hkv_p, qps, hd]`` view);
-    the chunk sizes and ``block_skip`` reach only the plain version (CPU)."""
+    the chunk sizes and ``block_skip`` reach only the plain version (CPU).
+    Under autograd (an input that requires grad) it goes through
+    ``flash_attention_seq_major_grad``, whose backward is the backward
+    kernel on the card."""
     b, sq, g, qps, hd = q.shape
-    out = kflash.flash_attention_seq_major(q, k, v, causal=causal, window=window,
-                                           q_offset=q_offset, p_bf16=p_bf16, q_chunk=q_chunk,
-                                           kv_chunk=kv_chunk, block_skip=block_skip)
+    fn = kflash.flash_attention_seq_major
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        fn = kflash.flash_attention_seq_major_grad  # training: the backward kernel
+    out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset, p_bf16=p_bf16,
+             q_chunk=q_chunk, kv_chunk=kv_chunk, block_skip=block_skip)
     return out.view(b, sq, g, qps, hd)
 
 

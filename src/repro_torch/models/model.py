@@ -3,7 +3,8 @@ decoder-only families; enc-dec raises ``NotImplementedError``).
 
 ``init_params`` runs on the card unless the caller passes
 ``device="cpu"``; without a card it raises, never falling back to the CPU.
-``prefill``, ``decode_step`` and ``init_cache`` run where their inputs lie.
+``loss_fn``, ``prefill``, ``decode_step`` and ``init_cache`` run where
+their inputs lie.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.modules import Policy
 
-__all__ = ["decode_step", "init_cache", "init_params", "is_encdec", "prefill"]
+__all__ = ["decode_step", "init_cache", "init_params", "is_encdec", "loss_fn", "prefill"]
 
 
 def is_encdec(cfg: ArchConfig) -> bool:
@@ -33,6 +34,11 @@ def init_params(cfg: ArchConfig, seed: int, pol: Policy, *, device=None) -> dict
     _dense_only(cfg)
     dev = resolve_device(device)
     return transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(int(seed)), pol)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, pol: Policy, inv_place=None):
+    _dense_only(cfg)
+    return transformer.loss_fn(params, batch, cfg, pol, inv_place)
 
 
 def prefill(params, batch, cfg: ArchConfig, pol: Policy, max_len: int, inv_place=None):

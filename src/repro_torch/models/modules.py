@@ -5,8 +5,8 @@ Parameters are nested dicts of tensors.  Random init draws from an
 explicit ``torch.Generator`` on the target device, so the same seed gives
 the same weights on that device; it does not give the reference's
 ``jax.random`` weights (``repro_torch.carry.params_from_jax`` carries
-those across).  ``chunked_softmax_xent`` is training and is not ported
-(ROADMAP.md, queue 1 item 10).
+those across).  ``chunked_softmax_xent`` is the training loss over the
+vocab in sequence chunks, each chunk under ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -16,12 +16,14 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 __all__ = [
     "Policy",
     "act_fn",
     "apply_ffn",
     "apply_norm",
+    "chunked_softmax_xent",
     "embed",
     "init_embed",
     "init_ffn",
@@ -165,3 +167,49 @@ def apply_ffn(p: dict, x: torch.Tensor, kind: str, pol: Policy) -> torch.Tensor:
     a = act_fn(kind)
     h = a(h[..., 0, :]) * h[..., 1, :] if gate == 2 else a(h[..., 0, :])
     return torch.matmul(h, p["wo"].to(pol.compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (huge-vocab safe: never materializes [B, S, V])
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                pol: Policy, vocab: int, softcap: float) -> torch.Tensor:
+    """The summed masked loss of one chunk ``x [B, c, d]``: float32 logits,
+    softcap, padded-vocab columns at -1e30, logsumexp minus the gold
+    logit."""
+    logits = unembed_logits(x, w, pol).to(torch.float32)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    live = torch.arange(w.shape[0], device=x.device) < vocab
+    logits = torch.where(live, logits, torch.full((), -1e30, device=x.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask.to(torch.float32))
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_unembed: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor, pol: Policy, vocab: int, chunk: int = 512,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy of ``x [B, S, d]`` against ``labels [B, S]`` over
+    the ``mask``, in ``max(1, S // chunk)`` sequence chunks as the
+    reference cuts them (``S`` must split evenly).  Each chunk runs under
+    ``torch.utils.checkpoint``: the forward keeps none of its ``[B, c,
+    Vp]`` logits, and the backward rebuilds one chunk's at a time."""
+    b, s, d = x.shape
+    nchunk = max(1, s // chunk)
+    if s % nchunk:
+        raise ValueError(f"chunked_softmax_xent: sequence {s} does not split into "
+                         f"{nchunk} chunks")
+    c = s // nchunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nchunk):
+        sl = slice(i * c, (i + 1) * c)
+        args = (x[:, sl], w_unembed, labels[:, sl], mask[:, sl], pol, vocab, softcap)
+        if torch.is_grad_enabled() and (x.requires_grad or w_unembed.requires_grad):
+            part = torch.utils.checkpoint.checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            part = _xent_chunk(*args)
+        total = total + part
+    return total / torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)

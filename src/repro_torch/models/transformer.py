@@ -1,6 +1,6 @@
-"""Decoder-only LM assembled from the config's block pattern, for serving
-(a port of ``repro.models.transformer`` for ``attn`` / ``local_attn``
-mixers with dense or MoE FFNs).
+"""Decoder-only LM assembled from the config's block pattern, for training
+and serving (a port of ``repro.models.transformer`` for ``attn`` /
+``local_attn`` mixers with dense or MoE FFNs).
 
 The reference scans over *periods* with weights stacked ``[periods,
 ...]``; eager PyTorch needs no scan, so parameters and caches hold one
@@ -16,9 +16,12 @@ splits over the shards and is longer than one token, else
 ``None``: the identity) is the KIP placement the expert weights are laid
 out by.
 
+``loss_fn`` is the training loss: the backbone under autograd (the flash
+kernel's backward on the card), then ``chunked_softmax_xent``, plus the
+MoE layers' auxiliary loss.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``mamba``, ``mlstm`` and ``slstm`` mixers, M-RoPE, vision tokens and
-``loss_fn``.
+the ``mamba``, ``mlstm`` and ``slstm`` mixers, M-RoPE and vision tokens.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.models.modules import (
     Policy,
     apply_ffn,
     apply_norm,
+    chunked_softmax_xent,
     embed,
     init_embed,
     init_ffn,
@@ -218,7 +222,7 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos
 
 
 # ---------------------------------------------------------------------------
-# entry points (prefill / decode)
+# entry points (train / prefill / decode)
 # ---------------------------------------------------------------------------
 
 
@@ -233,8 +237,23 @@ def _unembed_w(params, cfg: ArchConfig):
     return params["lm_head"] if not cfg.tie_embeddings else params["embed"]["tok"]
 
 
-def loss_fn(params, batch: dict, cfg: ArchConfig, pol: Policy, inv_place=None):
-    raise _not_ported("training (loss_fn, chunked_softmax_xent, train/)", 10)
+def loss_fn(params, batch: dict, cfg: ArchConfig, pol: Policy,
+            inv_place: torch.Tensor | None = None):
+    """Training loss of ``batch`` (``tokens``, ``labels`` int ``[B, S]``,
+    ``mask`` bool / float ``[B, S]``): ``(loss, metrics)`` with
+    ``metrics = {"overflow"}``, plus ``"expert_counts"`` f32[E] for MoE."""
+    tokens = batch["tokens"]
+    x = _embed_inputs(params, batch, cfg, pol)
+    pos = _positions(cfg, *tokens.shape, 0, device=tokens.device)
+    x, _, counts, overflow, aux = backbone(params, x, cfg, pol, pos=pos, inv_place=inv_place)
+    loss = chunked_softmax_xent(x, _unembed_w(params, cfg), batch["labels"], batch["mask"], pol,
+                                cfg.vocab_size, softcap=cfg.logit_softcap)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    metrics = {"overflow": overflow}
+    if counts is not None:
+        metrics["expert_counts"] = counts
+    return loss, metrics
 
 
 def prefill(params, batch: dict, cfg: ArchConfig, pol: Policy, max_len: int,

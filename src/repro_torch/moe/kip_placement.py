@@ -34,8 +34,8 @@ from repro_torch.core.migration import MigrationPlan, exchange_lane_cost
 from repro_torch.core.partitioner import Partitioner, kip_update, uniform_partitioner
 from repro_torch.exchange.backends import resolve_backend
 
-__all__ = ["ExpertPlacement", "PlacementController", "apply_placement_to_weights",
-           "placement_from_assignment", "replicated_assignment"]
+__all__ = ["ExpertPlacement", "PlacementController", "apply_placement_in_place",
+           "apply_placement_to_weights", "placement_from_assignment", "replicated_assignment"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,3 +309,22 @@ def apply_placement_to_weights(moe_params: dict, perm) -> dict:
         return arr
 
     return {k: permute(k, v) if not isinstance(v, dict) else v for k, v in moe_params.items()}
+
+
+def apply_placement_in_place(moe_trees, perm) -> None:
+    """The training safe point's state migration: ``wi`` and ``wo`` of each
+    dict of ``moe_trees`` (every MoE layer's parameters and each of its
+    two Adam moments, as ``train.train_step.moe_state`` lists them)
+    permuted to the new physical slots by ``perm`` on dim 0, copied into
+    the same tensors under ``torch.no_grad()``: a parameter stays the leaf
+    that requires grad, and its moments stay paired with it.  The
+    reference's launcher moves the weights alone and leaves the moments
+    where they were (ROADMAP.md, queue 3)."""
+    idx = None
+    with torch.no_grad():
+        for tree in moe_trees:
+            for name in ("wi", "wo"):
+                t = tree[name]
+                if idx is None or idx.device != t.device:
+                    idx = torch.as_tensor(np.asarray(perm, np.int64), device=t.device)
+                t.copy_(torch.index_select(t, 0, idx))

@@ -210,6 +210,33 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
                 fa_mod.flash_attention(*qkv(1, 2, 64, 64, hd), causal=True)
         with pytest.raises(ValueError, match="float32 or all bf16"):
             fa_mod.flash_attention(*qkv(1, 2, 64, 64, 64, torch.float16), causal=True)
+        # the backward (the models' layout): its kernel is taken, its plain version never
+        monkeypatch.setattr(fa_mod, "flash_attention_bwd_plain", plain_called)
+        monkeypatch.setattr(fa_mod, "flash_attention_bwd_seq_major_plain", plain_called)
+
+        def qkv_s(b, sq, sk, g, p, hd, dtype=torch.bfloat16):
+            return (torch.zeros((b, sq, g, p, hd), dtype=dtype, device="cuda"),
+                    torch.zeros((b, sk, g, hd), dtype=dtype, device="cuda"),
+                    torch.zeros((b, sk, g, hd), dtype=dtype, device="cuda"))
+
+        for dtype, hd in ((torch.bfloat16, 256), (torch.float32, 16), (torch.bfloat16, 128)):
+            q, k, v = qkv_s(1, 100, 100, 2, 5, hd, dtype)
+            with pytest.raises(NoLibrary):
+                fa_mod.flash_attention_bwd_seq_major(q, k, v, q, q, causal=True, window=32)
+        for hd in (48, 8, 272):
+            q, k, v = qkv_s(1, 64, 64, 1, 2, hd, torch.float32)
+            with pytest.raises(ValueError, match="head_dim"):
+                fa_mod.flash_attention_bwd_seq_major(q, k, v, q, q, causal=True)
+        q, k, v = qkv_s(1, 64, 64, 1, 2, 64)
+        with pytest.raises(ValueError, match="float32 or"):
+            fa_mod.flash_attention_bwd_seq_major(q, k, v, q, q.float(), causal=True)
+        with pytest.raises(ValueError, match="does not match"):
+            fa_mod.flash_attention_bwd_seq_major(q, k, qkv_s(1, 64, 32, 1, 2, 64)[2], q, q,
+                                                 causal=True)
+        q, k, v = qkv_s(2, 64, 64, 1, 8, 256)
+        with pytest.raises(NoLibrary):
+            fa_mod.flash_attention_bwd_seq_major(q, k, v, q.reshape(2, 64, -1),
+                                                 q.reshape(2, 64, -1), causal=True)
     meta = [t.to("meta") for t in _inputs()]
     with pytest.raises(ValueError, match="CUDA"):
         ld_mod.lookup_dispatch(meta[0], meta[1], *meta[3:], num_lanes=4)
