@@ -96,8 +96,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    routed by ``DRScheduler.route`` to 4 replicas, each a 4-slot
    ``ServeEngine`` with ``max_len`` 2064, then ``checkpoint``.  Asserts 16
    tokens in the vocabulary for every request, finite logits, one
-   flash-kernel launch per layer per prefill (576) and the checkpoint's
-   schema.
+   flash-kernel launch per layer per prefill (576), the checkpoint's
+   schema, and the first prefill's layer-0 flash output equal bit for bit
+   to a launch that also writes lse (training's).
 10. The flash kernel against its plain version on the card: gemma-2b's
     prefill shapes (G = 1, P = 8, hd = 256, Sq = Sk in 1, 100, 512, 2048)
     and hd 16, 64, 128, 192 with G > 1, P in 1, 2; causal, non-causal and
@@ -121,8 +122,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     CUDA events around one call (the ``ms`` of every kernel), and the
     kernel and SDPA also as device time over 20 calls (``torch.profiler``,
     no host time in it); the float32 kernel at 2048; the prefill wall at
-    those lengths and the kernel's share of it; a profile of a 1024-token
-    prefill and of 8 decode steps;
+    those lengths and the kernel's share of it; at each length the
+    output without lse (serving's launch) equal bit for bit to a launch
+    that also writes lse (training's); a profile of a 1024-token prefill
+    and of 8 decode steps;
     phase 9's median prefill wall per request, decode wall per token and
     tokens per second.
 
@@ -247,7 +250,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     the next prefill's shard imbalance and drops.  (c) dispatch_count on
     hop 1's, hop 2's and a decode step's inputs bit-equal to its plain
     version, flash on layer 0's prefill inputs (G 8, P 5, hd 128) within
-    8e-3, with times, bounds and SDPA's; a profile of a 1,024-token
+    8e-3 and equal bit for bit to a launch that also writes lse, with
+    times, bounds and SDPA's; a profile of a 1,024-token
     prefill and 8 decode steps.  (d) A fixed permutation at capacity 8.0:
     prefill and decode logits within 2e-2 x max(1, |ref|) of the
     placement before.  The ``kernels`` line's dispatch_count and flash
@@ -267,13 +271,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     (c) The float32 smoke configs of gemma-2b and of Scout at 4 shards, 3
     steps on the card and the CPU: counts and overflow equal, loss and
     grad norm within 1e-4 relative, then a fixed re-placement and one more
-    step with equal counts.  (d) The flash backward kernel against its
-    plain version on layer 0's inputs of (a) and (b), bf16 and float32,
-    Sq 1,000 and window 512, each gradient within its limit times its own
-    largest entry (a 5% error refused), outputs handed out dirty, two
-    calls bit-equal; its times beside the bound and SDPA's backward.  The
-    ``kernels`` line gains the ``flash_attention_bwd`` row, and the flash
-    and dispatch_count rows ``launches_phase_19``.
+    step with equal counts.  (a) and (b) launch the bf16 backward's
+    tensor-core kernels with the forward's lse and never its stats pass
+    (the launch count of calls that ran it, and the profiled step's
+    kernel names).  (d) The flash backward kernels against their plain
+    version on layer 0's inputs of (a) and (b), bf16 (with the forward's
+    lse, and by the stats pass) and float32, Sq 1,000 and window 512, each
+    gradient within its limit times its own largest entry (a 5% error
+    refused), outputs handed out dirty, two calls bit-equal; the forward's
+    lse within 1e-5 of ``torch.logsumexp`` of the plain masked scores; the
+    bf16 times beside the bound and SDPA's backward, the device time split
+    by kernel (D, dkdv, reduce, dq).  The
+    ``kernels`` line gains the ``flash_attention_bwd`` row (with ptxas's
+    registers and spills of its kernels), and the flash and dispatch_count
+    rows ``launches_phase_19``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -283,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2487,6 +2499,18 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def same_bits_with_lse(q, k, v, kw) -> bool:
+    """Does the bf16 flash kernel give the same output bits when it also
+    writes lse (the training path) as without (serving's)?  q ``[B, Sq, G,
+    P, hd]``, k, v ``[B, Sk, G, hd]``."""
+    from repro_torch.kernels.flash_attention import flash_attention_seq_major
+
+    plain = flash_attention_seq_major(q, k, v, **kw)
+    with_lse, _ = flash_attention_seq_major(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    return torch.equal(plain, with_lse)
+
+
 def causal_flash_cost(g, p, s, hd, dtype):
     """(bytes, FLOPs) causal flash attention over Sq = Sk = s needs: q, k,
     v read once and the output written once; 4*hd FLOPs per visible (q, k)
@@ -2554,6 +2578,7 @@ def serve_phases(dev, card) -> list[dict]:
     """Phases 9-12: DR-routed serving of gemma-2b and the flash kernel."""
     import repro_torch.models.model as model
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.models.modules import Policy
     from repro_torch.serve.engine import Request, ServeEngine
@@ -2600,7 +2625,16 @@ def serve_phases(dev, card) -> list[dict]:
             return logits, cache
         return call
 
+    first_flash = []  # the first prefill's layer-0 flash inputs
+    orig_flash = kflash.flash_attention_seq_major
+
+    def flash_capture(q, k, v, **kw):
+        if not first_flash:
+            first_flash.append((q.clone(), k.clone(), v.clone(), kw))
+        return orig_flash(q, k, v, **kw)
+
     model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    kflash.flash_attention_seq_major = flash_capture
     try:
         flash_attention.launches = 0
         t = time.perf_counter()
@@ -2613,6 +2647,7 @@ def serve_phases(dev, card) -> list[dict]:
         launches = flash_attention.launches
     finally:
         model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+        kflash.flash_attention_seq_major = orig_flash
     info = sched.checkpoint(sessions)
     reqs = [r for q in queues for r in q]
     assert len(reqs) == n_req
@@ -2631,7 +2666,11 @@ def serve_phases(dev, card) -> list[dict]:
         f"in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); flash launches {launches} "
         f"(= {cfg.num_layers} layers x {n_req} prefills); all logits finite")
     log(f"phase 9: DR checkpoint: {info}")
-    del engines
+    q9, k9, v9, kw9 = first_flash[0]
+    assert same_bits_with_lse(q9, k9, v9, kw9), kw9
+    log(f"phase 9: the first prefill's layer-0 flash (Sq={q9.shape[1]}) gives the same bits "
+        f"with and without lse")
+    del engines, first_flash, q9, k9, v9
     torch.cuda.empty_cache()
 
     # ---- phase 10: the flash kernel against its plain version -------------
@@ -2756,6 +2795,8 @@ def serve_phases(dev, card) -> list[dict]:
         l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
         k_dev = device_ms(lambda: flash_attention(q, k, v, causal=True))
         kb_dev = device_ms(lambda: flash_attention(q, k, v, causal=True, p_bf16=True))
+        assert same_bits_with_lse(q.permute(2, 0, 1, 3)[None], k.permute(1, 0, 2)[None],
+                                  v.permute(1, 0, 2)[None], dict(causal=True)), sq
         l_dev = device_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
         nbytes, flops = causal_flash_cost(1, 8, sq, 256, bf16)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[bf16]) * 1e3
@@ -2773,7 +2814,8 @@ def serve_phases(dev, card) -> list[dict]:
             f"SDPA {l_ms:.4f} ms; device time: kernel {k_dev:.4f} ms ({flops / k_dev / 1e9:.1f} "
             f"TFLOP/s, {100 * bound_ms / k_dev:.1f}% of the bound {bound_ms:.4f} ms by "
             f"operations: {flops:,} FLOP, {nbytes:,} bytes), p_bf16=True {kb_dev:.4f} ms, SDPA "
-            f"{l_dev:.4f} ms (kernel / SDPA {k_dev / l_dev:.2f}); prefill of {sq} tokens "
+            f"{l_dev:.4f} ms (kernel / SDPA {k_dev / l_dev:.2f}); the output equal bit for bit "
+            f"with and without lse; prefill of {sq} tokens "
             f"{pre_ms:.2f} ms, of which flash {cfg.num_layers} x {k_ms:.4f} ms = "
             f"{100 * cfg.num_layers * k_ms / pre_ms:.1f}% (by device time "
             f"{100 * cfg.num_layers * k_dev / pre_ms:.1f}%)")
@@ -3125,6 +3167,7 @@ def moe_phase(dev, card) -> dict:
     torch.cuda.synchronize()
     f_err = float((got.float() - want.float()).abs().max())
     assert kw["causal"] and not kw["p_bf16"] and f_err <= 8e-3, (f_err, kw)
+    assert same_bits_with_lse(q, k, v, kw)
     # SDPA on the same inputs, the kv heads expanded to the 40 q heads
     qs = q.reshape(b, sq, g * pp, hd).transpose(1, 2)
     ks = k.repeat_interleave(pp, dim=2).transpose(1, 2).contiguous()
@@ -3144,6 +3187,7 @@ def moe_phase(dev, card) -> dict:
         "library_ms": l_ms, "library_device_ms": l_dev}}
     log(f"phase 18 (c): flash_attention on layer 0's prefill inputs G={g} P={pp} Sq=Sk={sq} "
         f"hd={hd} bf16 causal: max abs error against its plain version {f_err:.3g} (<= 8e-3; "
+        f"bit-equal with and without lse; "
         f"SDPA against the plain version {s_err:.3g}); events around one call: kernel "
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms; device time: kernel "
         f"{k_dev:.4f} ms ({100 * bound / k_dev:.1f}% of the bound {bound:.4f} ms: {flops:,} "
@@ -3195,6 +3239,12 @@ SCOUT_BATCH = 2
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 BWD_EXCESS = 1e-3        # bf16 gradients: excess over their own rounding <= 1e-3 x max |ref|
 BWD_F32_REL = 1e-4       # float32 gradients: |diff| <= 1e-4 x max |ref|
+LSE_ABS = 1e-5           # the forward's lse against torch.logsumexp (natural-log units)
+# the backward's device kernels, by the profiler's names: D, the stats pass
+# (float32, or bf16 without the forward's lse), dk and dv, the reduce of
+# split partials, dq
+BWD_DEVICE_NAMES = ("flash_bwd_dsum", "flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_reduce",
+                    "flash_bwd_dq")
 
 
 def _lm_batch(toks, dev):
@@ -3209,6 +3259,7 @@ def _launch_counts():
 
     return {"flash_attention": kflash.flash_attention.launches,
             "flash_attention_bwd": kflash.flash_attention_bwd_seq_major.launches,
+            "flash_attention_bwd_stats": kflash.flash_attention_bwd_seq_major.stats_launches,
             "dispatch_count": dispatch_count.launches}
 
 
@@ -3218,12 +3269,14 @@ def _zero_launch_counts():
 
     for fn in (kflash.flash_attention, kflash.flash_attention_bwd_seq_major, dispatch_count):
         fn.launches = 0
+    kflash.flash_attention_bwd_seq_major.stats_launches = 0
 
 
 def _profiled_step(fn):
     """``fn()`` (one train step) under ``torch.profiler``: its wall, the
     card's busy time (the union of its kernels, copies and memsets), the
-    idle share and the six device operations that took longest."""
+    idle share, the six device operations that took longest and the names
+    of every device operation."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3238,7 +3291,20 @@ def _profiled_step(fn):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "top": top}
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "top": top,
+            "names": sorted(by)}
+
+
+def assert_bwd_kernels(tag, prof):
+    """The profiled bf16 train step ran the backward's tensor-core kernels
+    (D, dkdv, dq) and neither the stats pass nor the float32 kernels."""
+    names = prof["names"]
+    for want in ("flash_bwd_dsum", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"):
+        assert any(want in n for n in names), (tag, want, names)
+    for never in ("flash_bwd_stats", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        assert not any(never in n for n in names), (tag, never, names)
+    ran = sorted({m for n in names for m in re.findall(r"flash_bwd_\w+?_kernel", n)})
+    log(f"phase 19 {tag}: the profiled step's backward kernels: {ran} (no flash_bwd_stats)")
 
 
 def _log_profile(tag, prof, card):
@@ -3264,6 +3330,32 @@ def _bwd_cost(b, g, p, sq, sk, hd, causal, window, dtype):
     return nbytes, 5 * 2 * hd * int(ok.sum()) * b * g * p
 
 
+def bwd_errors(q, k, v, o, dout, mask, lse=None) -> dict:
+    """Phase 19 (d)'s reading of the backward kernels on one input (the
+    models' layout, one type; ``lse`` the forward's, or None for the stats
+    pass): each gradient's error on its own scale (:func:`_bwd_error`)
+    against the plain version on the float32 copies, the same gradient 5%
+    off read the same way, the largest |ref| and |diff|, and whether two
+    calls (the first with its outputs handed out dirty) give equal bits."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    extra = {} if lse is None else {"lse": lse}
+    with dirty_outputs():
+        got = kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **mask, **extra)
+    again = kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **mask, **extra)
+    torch.cuda.synchronize()
+    want = kflash.flash_attention_bwd_seq_major_plain(*(t.float() for t in (q, k, v, o, dout)),
+                                                      **mask)
+    out = {"errs": [], "controls": [], "scales": [], "abs_err": 0.0,
+           "equal": all(torch.equal(a, a2) for a, a2 in zip(got, again))}
+    for a, w in zip(got, want):
+        out["abs_err"] = max(out["abs_err"], float((a.float() - w).abs().max()))
+        out["errs"].append(_bwd_error(a, w))
+        out["controls"].append(_bwd_error((a.float() * 1.05).to(a.dtype), w))
+        out["scales"].append(float(w.abs().max()))
+    return out
+
+
 def _bwd_error(got, ref) -> float:
     """A gradient's error on its own scale: bf16 ``got``'s excess over its
     rounding, float32's |diff|, each over the largest |entry| of ``ref``.
@@ -3278,65 +3370,71 @@ def _bwd_error(got, ref) -> float:
 
 def check_flash_backward(captured, card) -> dict:
     """Phase 19 (d): the backward kernels against ``flash_attention_bwd_plain``
-    on layer 0's inputs of (a) and (b), bf16 and float32, at Sq = 1,000,
-    with window 512, outputs handed out dirty; two calls bit-equal; times
-    at the captured shapes.  Each gradient is held to its own largest entry
-    (:func:`_bwd_error`), and the same check must refuse that gradient 5%
-    off, so the limit is seen to bind."""
+    on layer 0's inputs of (a) and (b), bf16 (with the forward's lse, as
+    training runs it, and without, by the stats pass) and float32, at Sq =
+    1,000, with window 512, outputs handed out dirty; two calls bit-equal;
+    the forward's lse against ``torch.logsumexp`` of the plain masked
+    scores; times at the captured shapes.  Each gradient is held to its own
+    largest entry (:func:`_bwd_error`), and the same check must refuse that
+    gradient 5% off, so the limit is seen to bind."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
 
-    rows = {}
-    for name, (q, k, v, o, dout, kw) in captured.items():
+    rows, lse_errs = {}, {}
+    for name, (q, k, v, o, dout, lse, kw) in captured.items():
         b, sq, g, p, hd = q.shape
-        variants = {"as trained": (q, k, v, o, dout, kw)}
+        variants = {"as trained": (q, k, v, o, lse, dout, kw)}
         cut = dict(kw)
         qc, kc, vc, dc = q[:, :1000], k[:, :1000], v[:, :1000], dout.reshape(q.shape)[:, :1000]
-        variants["Sq = Sk = 1,000"] = (qc, kc, vc, None, dc, cut)
-        variants["window 512"] = (q, k, v, None, dout, dict(kw, window=512))
-        for vname, (vq, vk, vv, vo, vd, vkw) in variants.items():
+        variants["Sq = Sk = 1,000"] = (qc, kc, vc, None, None, dc, cut)
+        variants["window 512"] = (q, k, v, None, None, dout, dict(kw, window=512))
+        for vname, (vq, vk, vv, vo, vl, vd, vkw) in variants.items():
             for dtype in (torch.bfloat16, torch.float32):
                 tq, tk, tv, td = (t.to(dtype).contiguous() for t in (vq, vk, vv, vd))
                 mask = {key: vkw[key] for key in ("causal", "window", "q_offset")}
-                to = (vo.to(dtype) if vo is not None and dtype == vo.dtype else
-                      kflash.flash_attention_seq_major(tq, tk, tv, **vkw))
-                with dirty_outputs():
-                    got = kflash.flash_attention_bwd_seq_major(tq, tk, tv, to, td, **mask)
-                again = kflash.flash_attention_bwd_seq_major(tq, tk, tv, to, td, **mask)
-                torch.cuda.synchronize()
-                want = kflash.flash_attention_bwd_seq_major_plain(
-                    *(t.float() for t in (tq, tk, tv, to, td)), **mask)
-                limit = BWD_EXCESS if dtype == torch.bfloat16 else BWD_F32_REL
-                errs, scales, controls, abs_err = [], [], [], 0.0
-                for grad, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
-                    assert torch.equal(a, a2), (name, vname, dtype, grad)
-                    abs_err = max(abs_err, float((a.float() - w).abs().max()))
-                    e = _bwd_error(a, w)
-                    assert e <= limit, (name, vname, dtype, grad, e)
-                    control = _bwd_error((a.float() * 1.05).to(dtype), w)
-                    assert control > limit, (name, vname, dtype, grad, control)
-                    errs.append(e)
-                    scales.append(float(w.abs().max()))
-                    controls.append(control)
-                dt = str(dtype).split(".")[-1]
-                rows[(name, vname, dt)] = {"checked": max(errs), "max_abs_err": abs_err,
-                                           "max_abs_ref": dict(zip(("dq", "dk", "dv"), scales))}
-                log(f"phase 19 (d): flash_attention_bwd [{name}, {vname}, {dt}] B={tq.shape[0]} "
-                    f"G={g} P={p} Sq={tq.shape[1]} hd={hd} window={vkw['window']}: dq, dk, dv "
-                    f"against the plain version, "
-                    f"{'excess over bf16 rounding' if dtype == torch.bfloat16 else 'max |diff|'} "
-                    f"/ max |ref| {[f'{x:.3g}' for x in errs]} (<= {limit:g}; max |ref| "
-                    f"{[f'{x:.3g}' for x in scales]}; the same gradients 5% off read "
-                    f"{[f'{x:.3g}' for x in controls]}, refused); two calls bit-equal; outputs "
-                    f"handed out dirty")
+                bf = dtype == torch.bfloat16
+                if vo is not None and dtype == vo.dtype:
+                    to, tl = vo, vl
+                elif bf:
+                    to, tl = kflash.flash_attention_seq_major(tq, tk, tv, return_lse=True, **vkw)
+                else:
+                    to, tl = kflash.flash_attention_seq_major(tq, tk, tv, **vkw), None
+                if bf:  # the forward's lse against the plain masked scores' logsumexp
+                    ref = kflash.flash_lse_plain(
+                        tq.float().permute(0, 2, 3, 1, 4).reshape(-1, p, tq.shape[1], hd),
+                        tk.float().permute(0, 2, 1, 3).reshape(-1, tk.shape[1], hd), **mask)
+                    lse_errs[(name, vname)] = float(
+                        (tl - ref.reshape(tl.shape)).abs().max())
+                    assert lse_errs[(name, vname)] <= LSE_ABS, (name, vname, lse_errs)
+                limit = BWD_EXCESS if bf else BWD_F32_REL
+                for mode, ml in ((("lse", tl), ("stats", None)) if bf else (("stats", None),)):
+                    r = bwd_errors(tq, tk, tv, to, td, mask, ml)
+                    assert r["equal"], (name, vname, dtype, mode)
+                    for grad, e, c in zip(("dq", "dk", "dv"), r["errs"], r["controls"]):
+                        assert e <= limit, (name, vname, dtype, mode, grad, e)
+                        assert c > limit, (name, vname, dtype, mode, grad, c)
+                    dt = str(dtype).split(".")[-1] + (f" {mode}" if bf else "")
+                    rows[(name, vname, dt)] = {
+                        "checked": max(r["errs"]), "max_abs_err": r["abs_err"],
+                        "max_abs_ref": dict(zip(("dq", "dk", "dv"), r["scales"]))}
+                    log(f"phase 19 (d): flash_attention_bwd [{name}, {vname}, {dt}] "
+                        f"B={tq.shape[0]} G={g} P={p} Sq={tq.shape[1]} hd={hd} "
+                        f"window={vkw['window']}: dq, dk, dv against the plain version, "
+                        f"{'excess over bf16 rounding' if bf else 'max |diff|'} / max |ref| "
+                        f"{[f'{x:.3g}' for x in r['errs']]} (<= {limit:g}; max |ref| "
+                        f"{[f'{x:.3g}' for x in r['scales']]}; the same gradients 5% off read "
+                        f"{[f'{x:.3g}' for x in r['controls']]}, refused); two calls "
+                        f"bit-equal; outputs handed out dirty"
+                        + (f"; the forward's lse within {lse_errs[(name, vname)]:.3g} of "
+                           f"logsumexp (<= {LSE_ABS:g})" if bf and mode == "lse" else ""))
         del variants
 
     timing = {}
-    for name, (q, k, v, o, dout, kw) in captured.items():
+    for name, (q, k, v, o, dout, lse, kw) in captured.items():
         b, sq, g, p, hd = q.shape
         mask = {key: kw[key] for key in ("causal", "window", "q_offset")}
-        fk = lambda: kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **mask)
+        fk = lambda: kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, lse=lse, **mask)
         plain = lambda: kflash.flash_attention_bwd_seq_major_plain(q, k, v, o, dout, **mask)
         # SDPA's backward on the same inputs, the kv heads expanded to G * P
         qs = q.reshape(b, sq, g * p, hd).transpose(1, 2).detach().requires_grad_()
@@ -3346,7 +3444,8 @@ def check_flash_backward(captured, card) -> dict:
         sd = dout.reshape(b, sq, g * p, hd).transpose(1, 2)
         sdpa = lambda: torch.autograd.grad(so, (qs, ks, vs), sd, retain_graph=True)
         k_ms, p_ms, l_ms = cuda_ms(fk), cuda_ms(plain, warmup=1, reps=5), cuda_ms(sdpa)
-        k_dev, split, _ = own_device_time(fk, ("flash_bwd",))
+        k_dev, split, _ = own_device_time(fk, BWD_DEVICE_NAMES)
+        assert "flash_bwd_stats" not in split, split
         l_dev = device_ms(sdpa)
         nbytes, flops = _bwd_cost(b, g, p, sq, sq, hd, mask["causal"], mask["window"],
                                   q.dtype)
@@ -3356,15 +3455,18 @@ def check_flash_backward(captured, card) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "device_ms": k_dev, "device_split_ms": split,
             "bound_ms": bound, "bound_by": "operations" if flops / PEAK_FLOPS[torch.bfloat16]
             > nbytes / HBM_BYTES_PER_S else "bytes", "bytes": nbytes, "flops": flops,
-            "library_ms": l_ms, "library_device_ms": l_dev}
+            "library_ms": l_ms, "library_device_ms": l_dev,
+            "splits": kflash.bwd_splits(b, g, p, sq, torch.cuda.get_device_properties(
+                q.device).multi_processor_count)}
         log(f"phase 19 (d): flash_attention_bwd at {timing[name]['shape']}: events around one "
             f"call {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA's backward {l_ms:.4f} ms; device "
-            f"time: kernel {k_dev:.4f} ms ({split}; {flops / k_dev / 1e9:.1f} TFLOP/s, "
+            f"time: kernels {k_dev:.4f} ms ({split}; {timing[name]['splits']} head split(s); "
+            f"{flops / k_dev / 1e9:.1f} TFLOP/s of the essential work, "
             f"{100 * bound / k_dev:.2f}% of the bound {bound:.4f} ms by "
-            f"{timing[name]['bound_by']}: {flops:,} FLOP, {nbytes:,} bytes), SDPA's backward "
-            f"{l_dev:.4f} ms (kernel / SDPA {k_dev / l_dev:.2f}); card {card}")
+            f"{timing[name]['bound_by']}: {flops:,} FLOP, {nbytes:,} bytes), "
+            f"SDPA's backward {l_dev:.4f} ms (kernels / SDPA {k_dev / l_dev:.2f}); card {card}")
         del qs, ks, vs, so
-    return {"errors": rows, "timing": timing}
+    return {"errors": rows, "lse_errors": lse_errs, "timing": timing}
 
 
 def adamw_ms(params, opt, opt_cfg) -> tuple[float, float, int]:
@@ -3408,9 +3510,12 @@ def train_phase(dev, card) -> dict:
 
     def capture_into(name):
         def bwd(q, k, v, o, dout, **kw):  # the last call of a step's backward is layer 0's
+            lse = kw.get("lse")
+            mask = {key: kw[key] for key in ("causal", "window", "q_offset")}
             captured[name] = (q.detach().clone(), k.detach().clone(), v.detach().clone(),
                               o.detach().clone(), dout.detach().clone(),
-                              dict(kw, p_bf16=False, q_chunk=256, kv_chunk=512,
+                              None if lse is None else lse.clone(),
+                              dict(mask, p_bf16=False, q_chunk=256, kv_chunk=512,
                                    block_skip=True))
             return orig_bwd(q, k, v, o, dout, **kw)
         return bwd
@@ -3420,9 +3525,10 @@ def train_phase(dev, card) -> dict:
         walls, metrics = [], []
         for i, batch in enumerate(batches):
             before = _launch_counts()
-            if i == 0:  # the wrapper holds the launch count while it stands in
+            if i == 0:  # the wrapper holds the launch counts while it stands in
                 kflash.flash_attention_bwd_seq_major = capture_into(tag)
                 kflash.flash_attention_bwd_seq_major.launches = orig_bwd.launches
+                kflash.flash_attention_bwd_seq_major.stats_launches = orig_bwd.stats_launches
             try:
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -3431,6 +3537,7 @@ def train_phase(dev, card) -> dict:
                 walls.append((time.perf_counter() - t) * 1e3)
             finally:
                 orig_bwd.launches = kflash.flash_attention_bwd_seq_major.launches
+                orig_bwd.stats_launches = kflash.flash_attention_bwd_seq_major.stats_launches
                 kflash.flash_attention_bwd_seq_major = orig_bwd
             now = _launch_counts()
             diff = {k: now[k] - before[k] for k in now}
@@ -3459,7 +3566,7 @@ def train_phase(dev, card) -> dict:
     batches = [_lm_batch(x, dev) for x in
                lm_token_stream(8, GEMMA_BATCH, TRAIN_SEQ + 1, cfg.vocab_size, seed=19)]
     per_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
-                "dispatch_count": 0}
+                "flash_attention_bwd_stats": 0, "dispatch_count": 0}
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     params, opt, walls, ms = run_steps(step, params, opt, batches, "gemma-2b", per_step)
@@ -3472,9 +3579,10 @@ def train_phase(dev, card) -> dict:
         f"{[round(w, 1) for w in walls]}: median of steps 2-8 {wall:.1f} ms, "
         f"{GEMMA_BATCH * TRAIN_SEQ / wall * 1e3:,.0f} tokens/s; peak memory {peak:.2f} GB; "
         f"launches {gemma_launches} ({cfg.num_layers} flash forward and {cfg.num_layers} "
-        f"backward a step); card {card}")
+        f"backward a step, none through the stats pass); card {card}")
     prof = _profiled_step(lambda: step(params, opt, batches[1]))
     _log_profile("(a)", prof, card)
+    assert_bwd_kernels("(a)", prof)
     opt_ms, opt_bound, opt_bytes = adamw_ms(params, opt, opt_cfg)
     log(f"phase 19 (a): AdamW alone (apply_updates over {n_params:,} parameters, float32 "
         f"moments): {opt_ms:.2f} ms of the {wall:.1f} ms step; its bound {opt_bound:.2f} ms "
@@ -3524,7 +3632,7 @@ def train_phase(dev, card) -> dict:
     ctl = PlacementController(spec.num_experts, EP_SHARDS)
     state = {"inv": torch.as_tensor(ctl.placement.inv_place, device=dev)}
     per_step = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
-                "dispatch_count": 2 * moe_layers}
+                "flash_attention_bwd_stats": 0, "dispatch_count": 2 * moe_layers}
     steps_log, moves = [], []
 
     def safe_point(i, m):
@@ -3557,7 +3665,8 @@ def train_phase(dev, card) -> dict:
     log(f"phase 19 (b): 12 steps: step walls (ms) {[round(w, 1) for w in walls]}: median of "
         f"steps 2-12 {wall:.1f} ms, {SCOUT_BATCH * TRAIN_SEQ / wall * 1e3:,.0f} tokens/s; peak "
         f"memory {peak:.2f} GB; launches {scout_launches} ({cfg.num_layers} flash forward, "
-        f"{cfg.num_layers} backward and {2 * moe_layers} dispatch_count a step); card {card}")
+        f"{cfg.num_layers} backward (none through the stats pass) and {2 * moe_layers} "
+        f"dispatch_count a step); card {card}")
     log("phase 19 (b): per step (loss, dropped pairs, shard imbalance of its counts): " +
         "; ".join(f"{i}: {s['loss']:.4f}, {s['overflow']:g}, {s['imbalance']:.3f}"
                   for i, s in enumerate(steps_log)))
@@ -3576,6 +3685,7 @@ def train_phase(dev, card) -> dict:
             + (f"{nxt:.4f} at the next step" if nxt is not None else "no step after it"))
     prof = _profiled_step(lambda: step(params, opt, batches[1], state["inv"]))
     _log_profile("(b)", prof, card)
+    assert_bwd_kernels("(b)", prof)
     opt_ms, opt_bound, opt_bytes = adamw_ms(params, opt, opt_cfg)
     log(f"phase 19 (b): AdamW alone (apply_updates over {n_params:,} parameters, bf16 "
         f"moments): {opt_ms:.2f} ms of the {wall:.1f} ms step; its bound {opt_bound:.2f} ms "
@@ -3639,16 +3749,28 @@ def train_phase(dev, card) -> dict:
         f"{card}")
     tm = checked["timing"]["gemma-2b"]
     launches = {"gemma-2b": gemma_launches, "Scout": scout_launches}
+    from repro_torch.kernels import build
+
+    ptxas = build.ptxas_report("flash_attention_bwd")
+    log(f"phase 19 (d): ptxas, csrc/flash_attention_bwd.cu: " + "; ".join(
+        f"{k} {v.get('registers')} registers, spills {v.get('spill_stores')} / "
+        f"{v.get('spill_loads')} bytes" for k, v in ptxas.items() if k != "warnings")
+        + f"; serialised wgmma: {ptxas['warnings'] or 'none'}")
     row = {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SOURCE,
            "replaces": "src/repro/kernels/flash_attention.py:73 (the gradient of "
                        "flash_attention_tpu; no Pallas backward exists: the reference "
                        "differentiates its jnp flash, src/repro/models/attention.py:154)",
            "launches": gemma_launches["flash_attention_bwd"] + scout_launches["flash_attention_bwd"],
            "launches_phase_19": {k: v["flash_attention_bwd"] for k, v in launches.items()},
+           "stats_launches_phase_19": {k: v["flash_attention_bwd_stats"]
+                                       for k, v in launches.items()},
            "max_abs_err": max(e["max_abs_err"] for e in checked["errors"].values()),
            "errors": {" / ".join(k): v for k, v in checked["errors"].items()},
-           **{k: tm[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "bytes",
-                                 "flops", "library_ms", "library_device_ms", "shape")},
+           **{k: tm[k] for k in ("ms", "plain_ms", "device_ms", "device_split_ms",
+                                 "bound_ms", "bound_by", "bytes", "flops",
+                                 "library_ms", "library_device_ms", "shape")},
+           "lse_max_abs_err": max(checked["lse_errors"].values()),
+           "ptxas": ptxas,
            "library": "scaled_dot_product_attention backward, k/v expanded to the q heads",
            "phase_19": checked["timing"]}
     return {"row": row,

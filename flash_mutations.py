@@ -1,10 +1,11 @@
-"""Do the flash kernel's checks catch a broken kernel?  (Needs one CUDA card.)
+"""Do the flash kernels' checks catch a broken kernel?  (Needs one CUDA card.)
 
     python3 flash_mutations.py
 
 Builds the port's kernels from copies of ``src/`` in a temporary directory,
-each with one deliberate fault in ``csrc/flash_attention.cu``, and reads
-what the checks of ``chip_smoke.py`` phase 10 and of
+each with one deliberate fault in ``csrc/flash_attention.cu`` (the
+forward) or ``csrc/flash_attention_bwd.cu`` (the backward), and reads what
+the checks of ``chip_smoke.py`` phases 10 and 19 (d) and of
 ``tests/test_torch_gpu.py`` read on it:
 
 * ``excess``: bf16 outputs with float32 softmax weights (``p_bf16=False``)
@@ -19,15 +20,36 @@ what the checks of ``chip_smoke.py`` phase 10 and of
   limits 2e-2);
 * ``load``: the gemma 2048-token shape on four streams at once beside a
   busy copy, every output equal bit for bit to a launch on an idle card
-  (``test_flash_attention_is_deterministic_under_concurrent_load``).
+  (``test_flash_attention_is_deterministic_under_concurrent_load``);
+* ``bwd``: phase 19 (d)'s check (``chip_smoke.bwd_errors``) of the bf16
+  backward, with the forward's lse and by the stats pass, at the two
+  captured layers' shapes (gemma-2b: B 4, G 1, P 8, hd 256; Scout: B 2,
+  G 8, P 5, hd 128) on seeded inputs, Sq 1,024, Sq 1,000 and window 512:
+  each gradient's excess over its bf16 rounding within 1e-3 of its
+  largest entry, the 5% controls refused, two calls bit-equal, and the
+  forward's lse within 1e-5 of ``torch.logsumexp``.
 
-The faults: P_lo dropped (one PV product on bf16 P), a causal mask off by
-one, the block's first kv tile dropped, and the K/V ring without its
-"empty" barriers (the wait on "full" alone, which may pass one phase
-early).  The unchanged kernel must pass every check, and each of the first
-three faults must fail the check named beside it; the fourth is a race
-that needs a load slower than two tiles of compute, so its reading is
-printed, not required.  Exits 0 when all of that holds.
+The forward's faults: P_lo dropped (one PV product on bf16 P), a causal
+mask off by one, the block's first kv tile dropped, and the K/V ring
+without its "empty" barriers (the wait on "full" alone, which may pass one
+phase early).  The backward's: dS^T's low bf16 half dropped in dk (one
+product on bf16 dS), one head left out of the GQA sum of dk and dv, the
+dkdv causal mask off by one, and one split's partial left out of the
+reduce (gemma-2b's shape splits its 8 heads over 4 blocks); and P^T's low
+half dropped in dV and dS's low half dropped in dq: with dk's, a single
+bf16 rounding in place of each hi/lo split.  The unchanged kernels must
+pass every check, and every fault but the fourth must fail the check
+named beside it; the fourth is a race that needs a load slower than two
+tiles of compute, so its reading is printed, not required.  A backward fault leaves the forward as it is, so only ``bwd``
+runs on it.  Exits 0 when all of that holds.
+
+    python3 flash_mutations.py --splits
+
+times the unchanged bf16 backward (the forward's lse given, as in
+training) at the two training layers' shapes with every head-split count
+of its dk/dv kernel from 1 to min(P, 8), twice in turns, as profiler
+device time split by kernel, beside the count
+``kernels.flash_attention.bwd_splits`` picks.
 """
 from __future__ import annotations
 
@@ -43,6 +65,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CU = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
+BWD_CU = Path("src/repro_torch/kernels/csrc/flash_attention_bwd.cu")
 EXCESS_LIMIT = 2e-4
 GEMMA_LIMIT = 2e-2
 
@@ -53,24 +76,49 @@ def _replace(text: str, old: str, new: str) -> str:
     return text.replace(old, new)
 
 
+# fault -> (file, the edit)
 MUTATIONS = {
-    "drop P_lo": lambda t: _replace(
+    "drop P_lo": (CU, lambda t: _replace(
         t, "    if (!s.p_bf16) pv_steps<NCH>(acc, plo, vd, std::make_integer_sequence<int, "
-           "4 * NCH>{});\n", ""),
-    "causal mask off by one": lambda t: _replace(
+           "4 * NCH>{});\n", "")),
+    "causal mask off by one": (CU, lambda t: _replace(
         t, "          if (s.causal) ok = ok && kpos <= qpos;\n",
-        "          if (s.causal) ok = ok && kpos < qpos;\n"),
-    "first kv tile dropped": lambda t: _replace(
+        "          if (s.causal) ok = ok && kpos < qpos;\n")),
+    "first kv tile dropped": (CU, lambda t: _replace(
         t, "    // online softmax over this thread's two rows (a quad shares a row)\n",
         "    if (i == 0)\n#pragma unroll\n      for (int x = 0; x < 32; ++x) sc[x] = kNegInf;\n"
-        "    // online softmax over this thread's two rows (a quad shares a row)\n"),
-    "no empty barriers": lambda t: _replace(_replace(
+        "    // online softmax over this thread's two rows (a quad shares a row)\n")),
+    "no empty barriers": (CU, lambda t: _replace(_replace(
         t, "    if (phase > 0) mbar_wait(empty0 + 8 * st, (phase - 1) & 1);\n", ""),
-        "      mbar_wait(empty0 + 8 * st, phase & 1);\n", ""),
+        "      mbar_wait(empty0 + 8 * st, phase & 1);\n", "")),
+    "bwd: dS^T low half dropped": (BWD_CU, lambda t: _replace(
+        t, "    split_bf16(sc, hi, lo);\n\n    // dV += P^T . dO",
+        "    split_bf16(sc, hi, lo);\n    if (wg == 1)\n#pragma unroll\n"
+        "      for (int x = 0; x < 16; ++x) lo[x / 4][x % 4] = 0u;\n\n    // dV += P^T . dO")),
+    "bwd: P^T low half dropped in dV": (BWD_CU, lambda t: _replace(
+        t, "    split_bf16(sc, hi, lo);\n\n    // dV += P^T . dO",
+        "    split_bf16(sc, hi, lo);\n    if (wg == 0)\n#pragma unroll\n"
+        "      for (int x = 0; x < 16; ++x) lo[x / 4][x % 4] = 0u;\n\n    // dV += P^T . dO")),
+    "bwd: dS low half dropped in dQ": (BWD_CU, lambda t: _replace(
+        t, "    split_bf16(sc, hi, lo);\n\n    // dQ += dS . K",
+        "    split_bf16(sc, hi, lo);\n#pragma unroll\n"
+        "    for (int x = 0; x < 16; ++x) lo[x / 4][x % 4] = 0u;\n\n    // dQ += dS . K")),
+    "bwd: a head left out of the GQA sum": (BWD_CU, lambda t: _replace(
+        t, "h_hi = (split + 1) * s.P / s.nsplit;",
+        "h_hi = (split + 1) * s.P / s.nsplit - (split + 1 == s.nsplit ? 1 : 0);")),
+    "bwd: dkdv causal mask off by one": (BWD_CU, lambda t: _replace(
+        t, "            if (s.causal) ok = ok && kpos <= qpos;\n",
+        "            if (s.causal) ok = ok && kpos < qpos;\n")),
+    "bwd: a split's partial left out of the reduce": (BWD_CU, lambda t: _replace(
+        t, "for (int sp = 0; sp < s.nsplit; ++sp) {", "for (int sp = 0; sp + 1 < s.nsplit; ++sp) {")),
 }
 # which probe must fail on each fault
 CAUGHT_BY = {"drop P_lo": "excess", "causal mask off by one": "gemma",
-             "first kv tile dropped": "gemma", "no empty barriers": None}
+             "first kv tile dropped": "gemma", "no empty barriers": None,
+             "bwd: dS^T low half dropped": "bwd", "bwd: P^T low half dropped in dV": "bwd",
+             "bwd: dS low half dropped in dQ": "bwd", "bwd: a head left out of the GQA sum": "bwd",
+             "bwd: dkdv causal mask off by one": "bwd",
+             "bwd: a split's partial left out of the reduce": "bwd"}
 
 
 def probe_excess() -> bool:
@@ -170,7 +218,74 @@ def probe_load() -> bool:
     return differ == 0
 
 
-PROBES = {"excess": probe_excess, "gemma": probe_gemma, "load": probe_load}
+def probe_bwd() -> bool:
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import flash_attention_seq_major, flash_lse_plain
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ok = True
+    for name, (b, g, p, hd) in (("gemma-2b", (4, 1, 8, 256)), ("Scout", (2, 8, 5, 128))):
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
+        q, k, v = mk(b, 1024, g, p, hd), mk(b, 1024, g, hd), mk(b, 1024, g, hd)
+        dout = (torch.randn((b, 1024, g * p * hd), generator=gen, device=dev) * 1e-3).to(bf16)
+        for vname, sq, window in (("Sq 1,024", 1024, 0), ("Sq 1,000", 1000, 0),
+                                  ("window 512", 1024, 512)):
+            kw = dict(causal=True, window=window, q_offset=0)
+            tq, tk, tv = q[:, :sq].contiguous(), k[:, :sq].contiguous(), v[:, :sq].contiguous()
+            td = dout[:, :sq].contiguous()
+            o, lse = flash_attention_seq_major(tq, tk, tv, return_lse=True, **kw)
+            ref = flash_lse_plain(tq.float().permute(0, 2, 3, 1, 4).reshape(-1, p, sq, hd),
+                                  tk.float().permute(0, 2, 1, 3).reshape(-1, sq, hd), **kw)
+            lse_err = float((lse - ref.reshape(lse.shape)).abs().max())
+            ok &= lse_err <= chip_smoke.LSE_ABS
+            for mode, ml in (("lse", lse), ("stats", None)):
+                r = chip_smoke.bwd_errors(tq, tk, tv, o, td, kw, ml)
+                good = (r["equal"] and max(r["errs"]) <= chip_smoke.BWD_EXCESS
+                        and min(r["controls"]) > chip_smoke.BWD_EXCESS)
+                ok &= good
+                print(f"    bwd [{name}, {vname}, {mode}]: dq, dk, dv excess / max |ref| "
+                      f"{[f'{x:.3g}' for x in r['errs']]} (limit {chip_smoke.BWD_EXCESS:g}), "
+                      f"controls {[f'{x:.3g}' for x in r['controls']]}, two calls "
+                      f"{'bit-equal' if r['equal'] else 'DIFFER'}, lse {lse_err:.3g}; "
+                      f"{'pass' if good else 'FAIL'}", flush=True)
+    return ok
+
+
+def split_sweep() -> int:
+    import chip_smoke
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kflash
+
+    build.library()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rule = kflash.bwd_splits
+    for name, (b, g, p, hd) in (("gemma-2b", (4, 1, 8, 256)), ("Scout", (2, 8, 5, 128))):
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = mk(b, 1024, g, p, hd), mk(b, 1024, g, hd), mk(b, 1024, g, hd)
+        dout = mk(b, 1024, g * p * hd)
+        o, lse = kflash.flash_attention_seq_major(q, k, v, causal=True, return_lse=True)
+        call = lambda: kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, causal=True,
+                                                            lse=lse)
+        counts = [n for n in (1, 2, 4, 8) if n <= p]
+        try:
+            for turn in (1, 2):
+                for n in counts if turn == 1 else counts[::-1]:
+                    kflash.bwd_splits = lambda *a, n=n: n
+                    ms, split, _ = chip_smoke.own_device_time(call, chip_smoke.BWD_DEVICE_NAMES)
+                    print(f"{name} B={b} G={g} P={p} hd={hd} Sq=Sk=1024 causal, {n} split(s), "
+                          f"turn {turn}: {ms:.4f} ms of device time "
+                          f"({ {key: round(x, 4) for key, x in split.items()} })", flush=True)
+        finally:
+            kflash.bwd_splits = rule
+        print(f"{name}: the rule picks {rule(b, g, p, 1024, sms)} on {sms} SMs", flush=True)
+    print(chip_smoke.card_line())
+    return 0
+
+
+PROBES = {"excess": probe_excess, "gemma": probe_gemma, "load": probe_load, "bwd": probe_bwd}
 
 
 def run_probe(root: Path, name: str) -> bool:
@@ -185,6 +300,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_mutations: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--splits"]:
+        return split_sweep()
     if sys.argv[1:2] == ["--probe"]:
         return 0 if PROBES[sys.argv[2]]() else 1
     good = True
@@ -194,13 +311,13 @@ def main() -> int:
         good &= passed
         print(f"  {name}: {'pass' if passed else 'FAIL'}", flush=True)
     with tempfile.TemporaryDirectory(prefix="flash_mutations_") as tmp:
-        for fault, mutate in MUTATIONS.items():
-            root = Path(tmp) / fault.replace(" ", "_")
+        for fault, (path, mutate) in MUTATIONS.items():
+            root = Path(tmp) / "".join(c if c.isalnum() else "_" for c in fault)
             shutil.copytree(REPO / "src", root / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            (root / CU).write_text(mutate((REPO / CU).read_text()))
+            (root / path).write_text(mutate((REPO / path).read_text()))
             print(f"fault: {fault}", flush=True)
-            for name in PROBES:
+            for name in (("bwd",) if path == BWD_CU else PROBES):
                 passed = run_probe(root, name)
                 caught = CAUGHT_BY[fault] == name
                 if caught:

@@ -105,24 +105,20 @@
 // q and k tiles have an odd row stride (hd + 1) so that the 16 lanes
 // reading 16 k rows hit 16 banks.
 //
+// The row statistics for the backward: when the caller hands it an lse
+// buffer (bf16, p_bf16 = 0), the bf16 kernel's epilogue writes each row's
+// log-sum-exp of the scaled scores, m * scale + log(l), which it has at
+// hand; flash_attention_bwd.cu takes it instead of rebuilding it.  With
+// p_bf16 = 1 l sums rounded weights, so no lse is written then.
+//
 // Widths: hd is any multiple of 16 up to 256 (float32: a template per
 // hd/16; bf16: a template per 64-column chunk count, ceil(hd / 64)).
+// The shared Hopper helpers (TMA, mbarriers, wgmma) are in
+// hopper_common.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <utility>
+#include "hopper_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 struct Shape {
   int B, G, P, Sq, Sk, hd;
@@ -130,40 +126,8 @@ struct Shape {
   float scale;
   int64_t qs[4], ks[3], vs[3], os[4];  // element strides: q/o (batch, group, head, row),
                                        // k/v (batch, group, row); the last dim is dense
+  int64_t ls;                          // lse: elements between (b, g, head) rows
 };
-
-// first and one-past-last kv tile (of bk rows) that q positions [qlo, qhi]
-// may see: the block-uniform test of _block_visible
-__device__ __forceinline__ void visible_tiles(const Shape& s, int qlo, int qhi, int bk,
-                                              int* t_lo, int* t_hi) {
-  const int ntiles = (s.Sk + bk - 1) / bk;
-  int hi = ntiles;
-  if (s.causal) hi = min(hi, qhi < 0 ? 0 : qhi / bk + 1);
-  int lo = 0;
-  if (s.window > 0) {
-    const int first = qlo - s.window + 1;  // the earliest key a row of the block sees
-    if (first > 0) lo = first / bk;
-    if (lo < hi && min(hi * bk, s.Sk) - 1 < first) hi = lo;  // a short last tile, hidden
-  }
-  *t_lo = lo;
-  *t_hi = hi;
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device (a launch
-// would pay the call otherwise); ``done`` holds a bit per device and
-// belongs to the kernel.
-template <typename K>
-cudaError_t raise_smem_limit(K kernel, size_t bytes, uint64_t& done) {
-  int dev = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return e;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (bit && (done & bit)) return cudaSuccess;
-  if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes)))
-    return e;
-  done |= bit;
-  return cudaSuccess;
-}
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMAs
@@ -370,160 +334,6 @@ constexpr size_t wgmma_smem_bytes() {
          2 * static_cast<size_t>(kv_stages<NCH>()) * NCH * kTileKV * 128 + 1024 + 128;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// 2**x on the special-function unit (relative error about 2**-22; 0 for
-// very negative x)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wait until the phase of the given parity has completed; a wait that
-// never ends (a fault in the pipeline) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    if (++tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128B-swizzled tile whose 8-row
-// groups are 1024 bytes apart (sbo); lbo is the stride between 64-column
-// atoms along M/N of an MN-major operand (unused by K-major ones).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-#define FA_D32(d)                                                                           \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define FA_D32_LIST                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// Step I of S (+)= Q . K^T, S [64 x 64] (I < 4 * NCH k16 steps): A (Q) and
-// B (K) are K-major; the step's offset into the tiles (chunk I / 4, 32
-// bytes a step within it) is added to the base descriptors inside the asm,
-// so only the bases live in registers.
-template <int I>
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t qd, uint64_t kd) {
-  constexpr int off = (I / 4) * (kQChunkBytes >> 4) + (I % 4) * 2;
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
-      "add.s64 da, %32, %34;\nadd.s64 db, %33, %34;\n"
-      "setp.ne.b32 p, %35, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_D32_LIST
-      ", da, db, p, 1, 1, 0, 0;\n}\n"
-      : FA_D32(d)
-      : "l"(qd), "l"(kd), "n"(off), "r"(I > 0 ? 1 : 0));
-}
-
-// Step (KK, C) of O += P . V: P's k16 step KK from registers (the m16n8k16
-// A fragment of each warp's 16 rows), V's rows 16 KK.. of column chunk C
-// (64 rows each), MN-major (transposed) in shared memory.
-template <int KK, int C>
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t vd) {
-  constexpr int off = C * (kTileKV * 128 >> 4) + KK * (16 * 128 >> 4);
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 db;\n"
-      "add.s64 db, %36, %37;\n"
-      "setp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_D32_LIST
-      ", {%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
-      : FA_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(vd), "n"(off), "r"(1));
-}
-
-// all 4 * NCH k16 steps of the padded width: the pad columns of Q and K
-// are zero (TMA fills them), so they add nothing, and a step count fixed at
-// compile time keeps the accumulator out of branches
-template <int... I>
-__device__ __forceinline__ void qk_steps(float (&d)[32], uint64_t qd, uint64_t kd,
-                                         std::integer_sequence<int, I...>) {
-  (wgmma_qk<I>(d, qd, kd), ...);
-}
-
-// the 4 k16 steps of P over the NCH column chunks of V
-template <int NCH, int... I>
-__device__ __forceinline__ void pv_steps(float (&acc)[NCH][32], const uint32_t (&p)[4][4],
-                                         uint64_t vd, std::integer_sequence<int, I...>) {
-  (wgmma_pv<I / NCH, I % NCH>(acc[I % NCH], p[I / NCH], vd), ...);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // NCH = ceil(hd / 64) column chunks.  Block: one 64-row q tile of one
 // (b, g, head); its two warpgroups split the visible kv tiles, even and
 // odd, and are combined at the end.  Grid: one block per q tile and head,
@@ -532,7 +342,7 @@ template <int NCH>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   Shape s, int nqt) {
+                   float* __restrict__ lse, Shape s, int nqt) {
   constexpr int kStages = kv_stages<NCH>();
   static_assert(kStages >= 3, "a ring of at least 3 stages (2 warpgroups, 1 ahead)");
   constexpr int KV_CHUNK = kTileKV * 128;   // bytes of one K or V column chunk
@@ -744,6 +554,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + rl + 8 * h;
     if (row >= s.Sq) continue;
+    if (lse != nullptr && cq == 0) {
+      // the row's log-sum-exp of the scaled scores, m * scale + log(l) in
+      // natural-log units (m is raw); a row that saw no key gets +1e30
+      const float mt = h ? mt1 : mt0;
+      lse[((static_cast<int64_t>(b) * s.G + g) * s.P + head) * s.ls + row] =
+          mt <= kNegInf ? -kNegInf : mt * s.scale + logf(den[h]);
+    }
     __nv_bfloat16* out = o + b * s.os[0] + g * s.os[1] + head * s.os[2] + row * s.os[3];
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
@@ -760,58 +577,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime
-// (so the build needs no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &res);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a bf16 tensor map with dims {hd, rows, outer...} (innermost first),
-// element strides of the dims past the first, a box of 64 columns x
-// box_rows rows, 128B swizzle; out-of-range elements read as zero
-cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                     const int64_t* strides, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t bytes[4];
-  cuuint32_t box[5], ones[5];
-  for (int i = 0; i < rank; ++i) {
-    box[i] = i == 0 ? 64 : i == 1 ? box_rows : 1;
-    ones[i] = 1;
-    if (i + 1 < rank) {
-      if (strides[i] <= 0 || (strides[i] * 2) % 16 != 0) return cudaErrorInvalidValue;
-      bytes[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-    }
-  }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        bytes, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int NCH>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, const Shape& s,
-                         cudaStream_t st) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         const Shape& s, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   const cuuint64_t qdims[5] = {static_cast<cuuint64_t>(s.hd), static_cast<cuuint64_t>(s.Sq),
                                static_cast<cuuint64_t>(s.P), static_cast<cuuint64_t>(s.G),
@@ -834,12 +602,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, c
   const int64_t blocks = static_cast<int64_t>(nqt) * s.B * s.G * s.P;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kWgmmaThreads, bytes, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), s, nqt);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, s, nqt);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, const Shape& s,
-                          cudaStream_t st) {
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                          const Shape& s, cudaStream_t st) {
   // TMA takes 16-byte aligned bases and strides; the output is stored in
   // pairs of bf16
   const uintptr_t mis = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -848,10 +616,10 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
   for (int i = 0; i < 4; ++i) odd |= s.os[i] & 1;
   if (mis || odd) return cudaErrorMisalignedAddress;
   switch ((s.hd + 63) / 64) {
-    case 1: return launch_wgmma<1>(q, k, v, o, s, st);
-    case 2: return launch_wgmma<2>(q, k, v, o, s, st);
-    case 3: return launch_wgmma<3>(q, k, v, o, s, st);
-    case 4: return launch_wgmma<4>(q, k, v, o, s, st);
+    case 1: return launch_wgmma<1>(q, k, v, o, lse, s, st);
+    case 2: return launch_wgmma<2>(q, k, v, o, lse, s, st);
+    case 3: return launch_wgmma<3>(q, k, v, o, lse, s, st);
+    case 4: return launch_wgmma<4>(q, k, v, o, lse, s, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -863,12 +631,16 @@ extern "C" {
 // dtype: 0 = float32 (scalar kernel), 1 = bf16 (wgmma kernel).  hd is a
 // multiple of 16 in [16, 256].  Strides are in elements: qs and os
 // (batch, group, head, row), ks and vs (batch, group, row); the last
-// dimension of every tensor is dense.
-int fa_flash_forward(const void* q, const void* k, const void* v, void* o, int B, int G, int P,
-                     int Sq, int Sk, int hd, int dtype, int p_bf16, int causal, int window,
-                     int q_offset, float scale, const int64_t* qs, const int64_t* ks,
-                     const int64_t* vs, const int64_t* os, void* stream) {
+// dimension of every tensor is dense.  lse, when not null (bf16 with
+// p_bf16 = 0 only), is float32 [B, G, P] rows of Sq, ls elements apart:
+// each row's log-sum-exp of the scaled scores, for the backward.
+int fa_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
+                     int64_t ls, int B, int G, int P, int Sq, int Sk, int hd, int dtype,
+                     int p_bf16, int causal, int window, int q_offset, float scale,
+                     const int64_t* qs, const int64_t* ks, const int64_t* vs, const int64_t* os,
+                     void* stream) {
   if (hd % 16 != 0 || hd < 16 || hd > 256 || Sk < 0 || window < 0) return cudaErrorInvalidValue;
+  if (lse != nullptr && (dtype != 1 || p_bf16 || ls < Sq)) return cudaErrorInvalidValue;
   if (B == 0 || G == 0 || P == 0 || Sq == 0) return 0;
   Shape s{B, G, P, Sq, Sk, hd, causal, window, q_offset, p_bf16, scale, {}, {}, {}, {}};
   for (int i = 0; i < 4; ++i) {
@@ -879,9 +651,10 @@ int fa_flash_forward(const void* q, const void* k, const void* v, void* o, int B
     s.ks[i] = ks[i];
     s.vs[i] = vs[i];
   }
+  s.ls = ls;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_f32(q, k, v, o, s, st);
-  if (dtype == 1) return dispatch_bf16(q, k, v, o, s, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, o, static_cast<float*>(lse), s, st);
   return cudaErrorInvalidValue;
 }
 

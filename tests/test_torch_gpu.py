@@ -1264,20 +1264,34 @@ BWD_CASES = {
     "window": (1, 4, 200, 200, 128, True, 48, 0),
     "offset": (2, 2, 37, 101, 32, True, 0, 64),
     "full": (3, 1, 70, 45, 16, False, 0, 0),
+    # Scout's and gemma-2b's head layouts with ragged Sq and Sk, a window
+    # and a q_offset (q positions 33-332 over 333 keys; 64-320 over 321)
+    "scout_ragged": (2, 5, 300, 333, 128, True, 100, 33),
+    "gemma_ragged": (1, 8, 257, 321, 256, True, 96, 64),
 }
+
+
+def _excess(got, ref):
+    """How much farther bf16 ``got`` lies from the float32 ``ref`` than half
+    a bf16 ulp, over the largest |ref| (``chip_smoke._bwd_error``)."""
+    g = got.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), ref.abs()))
+    half_ulp = torch.ldexp(torch.ones_like(ref), e - 9)
+    return float(((g - ref).abs() - half_ulp).max()) / float(ref.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_flash_backward_kernel_equals_plain(cuda, case, dtype):
-    """The backward kernel (``csrc/flash_attention_bwd.cu``) against its
+    """The backward kernels (``csrc/flash_attention_bwd.cu``) against their
     plain version on the same inputs and forward output: within 1e-4 x
     max(1, |ref|) in float32, and in bf16 no farther from the float32
     plain gradient than 1e-2 x max(1, |ref|) beyond the output's own
-    rounding; two calls give the same bits, outputs handed out dirty."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_seq_major,
-                                                     flash_attention_bwd_seq_major_plain,
-                                                     flash_attention_seq_major)
+    rounding, and that excess within 1e-3 of the gradient's largest entry
+    (phase 19 (d)'s measure); bf16 both with the forward's lse (the
+    training path: no stats pass) and without it (the stats pass); two
+    calls give the same bits, outputs handed out dirty."""
+    from repro_torch.kernels import flash_attention as kflash
 
     g, p, sq, sk, hd, causal, window, q_offset = BWD_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -1285,16 +1299,75 @@ def test_flash_backward_kernel_equals_plain(cuda, case, dtype):
     q, k, v = mk(1, sq, g, p, hd), mk(1, sk, g, hd), mk(1, sk, g, hd)
     dout = mk(1, sq, g * p * hd)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    o = flash_attention_seq_major(q, k, v, **kw)
-    with _dirty():
-        got = flash_attention_bwd_seq_major(q, k, v, o, dout, **kw)
-    again = flash_attention_bwd_seq_major(q, k, v, o, dout, **kw)
+    bf = dtype == torch.bfloat16
+    if bf:
+        o, lse = kflash.flash_attention_seq_major(q, k, v, return_lse=True, **kw)
+    else:
+        o, lse = kflash.flash_attention_seq_major(q, k, v, **kw), None
+    want = kflash.flash_attention_bwd_seq_major_plain(*(t.float() for t in (q, k, v, o, dout)),
+                                                      **kw)
+    for extra in ([{"lse": lse}, {}] if bf else [{}]):
+        stats = kflash.flash_attention_bwd_seq_major.stats_launches
+        with _dirty():
+            got = kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **kw, **extra)
+        again = kflash.flash_attention_bwd_seq_major(q, k, v, o, dout, **kw, **extra)
+        torch.cuda.synchronize()
+        assert kflash.flash_attention_bwd_seq_major.stats_launches - stats == (0 if extra else 2)
+        for a, b, w in zip(got, again, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+            err = ((a.float() - w).abs() / w.abs().clamp(min=1.0)).max()
+            assert float(err) <= (1e-4 if dtype == torch.float32 else 1e-2), (case, float(err))
+            if bf:
+                assert _excess(a, w) <= 1e-3, (case, extra.keys(), _excess(a, w))
+
+
+@pytest.mark.parametrize("case", ["gemma", "scout", "window", "offset", "gemma_ragged"])
+def test_flash_forward_bits_equal_with_lse(cuda, case):
+    """The bf16 forward gives the same output bits whether it also writes
+    lse (training) or not (serving), and its lse lies within 1e-5 of
+    ``torch.logsumexp`` of the plain masked scores."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    g, p, sq, sk, hd, causal, window, q_offset = BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = mk(2, sq, g, p, hd), mk(2, sk, g, hd), mk(2, sk, g, hd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    plain_out = kflash.flash_attention_seq_major(q, k, v, **kw)
+    out, lse = kflash.flash_attention_seq_major(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
-    want = flash_attention_bwd_seq_major_plain(*(t.float() for t in (q, k, v, o, dout)), **kw)
-    for a, b, w in zip(got, again, want):
-        assert a.dtype == dtype and torch.equal(a, b)
-        err = ((a.float() - w).abs() / w.abs().clamp(min=1.0)).max()
-        assert float(err) <= (1e-4 if dtype == torch.float32 else 1e-2), (case, float(err))
+    assert torch.equal(out, plain_out)
+    ref = kflash.flash_lse_plain(q.float().permute(0, 2, 3, 1, 4).reshape(-1, p, sq, hd),
+                                 k.float().permute(0, 2, 1, 3).reshape(-1, sk, hd), **kw)
+    assert float((lse - ref.reshape(lse.shape)).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="lse"):
+        kflash.flash_attention_seq_major(q, k, v, return_lse=True, p_bf16=True, **kw)
+
+
+def test_flash_backward_with_bf16_softmax_weights(cuda):
+    """``p_bf16=True`` under autograd on the card: the forward rounds its
+    weights and writes no lse, so the backward runs the stats pass (one
+    call of it) and gives the exact float32 weights' gradient of the
+    forward's own output, within phase 19 (d)'s 1e-3 excess."""
+    from repro_torch.kernels import flash_attention as kflash
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = (mk(2, 200, 2, 4, 128), mk(2, 200, 2, 128), mk(2, 200, 2, 128))
+    for t in (q, k, v):
+        t.requires_grad_()
+    dout = mk(2, 200, 2 * 4 * 128)
+    stats, launches = (kflash.flash_attention_bwd_seq_major.stats_launches,
+                       kflash.flash_attention_bwd_seq_major.launches)
+    out = kflash.flash_attention_seq_major_grad(q, k, v, causal=True, window=64, p_bf16=True)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention_bwd_seq_major.launches - launches == 1
+    assert kflash.flash_attention_bwd_seq_major.stats_launches - stats == 1
+    want = kflash.flash_attention_bwd_seq_major_plain(
+        *(t.detach().float() for t in (q, k, v, out, dout)), causal=True, window=64)
+    for a, w in zip(got, want):
+        assert _excess(a, w) <= 1e-3
 
 
 @contextlib.contextmanager
