@@ -285,6 +285,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``kernels`` line gains the ``flash_attention_bwd`` row (with ptxas's
     registers and spills of its kernels), and the flash and dispatch_count
     rows ``launches_phase_19``.
+20. The paper's partitioner comparison, every table routed on the card by
+    ``partition_apply`` (``replay_partition``), each id equal to the
+    host's ``lookup_np`` and each ``torch.bincount`` load vector to
+    ``np.bincount``'s.  (a) Fig. 2 (``benchmarks/bench_partitioners.py``)
+    at phase 6's size: ``zipf_keys(10,000,000, num_keys=1,000,000,
+    exponent=1.0, seed=0)``, N in 4-64, lambda 2, Hash, Readj, Redist,
+    Scan, Mixed, KIP and tight KIP: the imbalance beside the floor N * f1,
+    whether the bench's two orderings hold (logged, not gated), the host
+    update's microseconds on ``hist.top(64)`` at N=32, ``partition_apply``
+    by events around one call (and the device time of the empty and KIP
+    tables).  (b) Fig. 3 (``bench_migration.py``):
+    ``drifting_zipf(20, 1,048,576, num_keys=100,000, drift_every=4,
+    drift_fraction=0.3)``, N 20, 4 workers, Hash, Scan, Readj, KIP updated
+    every batch over a 5-batch state window: mean imbalance, relative
+    migration and ``migration_capacity``'s lane fraction.  (c) The §6 web
+    crawl: ``host_skew_keys(10,000,000, num_hosts=960, giants=16,
+    giant_mass=0.5, seed=49)`` through ``BatchJob(24, eps=0.003)``, every
+    ``BatchResult`` field equal to the CPU job's, and each baseline on the
+    job's prefix histogram.  (d) A Redist table of 1,536 rows (the
+    binary search above the probe's 1,024) on (a)'s stream, its device
+    time beside a 128-row table's.  Cut from the benches: 1 repetition,
+    no lambda sweep, a 1 Mi-record batch in (b).  The ``partition_apply``
+    row gains ``launches_phase_20`` and ``phase_20`` (each call's times).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -1154,6 +1177,9 @@ def main() -> int:
         if row["name"] in ("dispatch_count", "flash_attention"):
             row.update(train[row["name"]])
     kernels.append(train["row"])
+    torch.cuda.empty_cache()
+    fig = baselines_phase(dev, card)
+    next(r for r in kernels if r["name"] == "partition_apply").update(fig)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2233,6 +2259,23 @@ def topology_phase(dev, card, batches, phase2, steady_walls) -> dict:
     return launches
 
 
+def assert_same_batch_result(got, want, keys, dev, tag) -> None:
+    """Every ``BatchResult`` field of the card's job equals the CPU job's,
+    and the card's assignments equal the host's ``lookup_np``."""
+    assert (got.imbalance_before, got.imbalance_after, got.replayed_records,
+            got.sample_fraction) == (want.imbalance_before, want.imbalance_after,
+                                     want.replayed_records, want.sample_fraction), tag
+    gp, wp = got.partitioner, want.partitioner
+    assert (gp.num_partitions, gp.seed, gp.heavy_repl) == (wp.num_partitions, wp.seed,
+                                                           wp.heavy_repl), tag
+    for tab in ("heavy_keys", "heavy_parts", "host_to_part"):
+        assert np.array_equal(getattr(gp, tab), getattr(wp, tab)), (tag, tab)
+    assign = got.assignments
+    assert assign.device.type == dev.type and assign.dtype == torch.int32
+    assert torch.equal(assign.cpu(), want.assignments), tag
+    assert np.array_equal(assign.cpu().numpy(), gp.lookup_np(keys)), tag
+
+
 def batch_phases(dev, sent) -> list[dict]:
     """Phases 6-8: the batch replay path and its three kernels."""
     from repro_torch.core.drm import DRConfig
@@ -2260,18 +2303,8 @@ def batch_phases(dev, sent) -> list[dict]:
         torch.cuda.synchronize()
         run_walls.append(time.perf_counter() - t)
         want = BatchJob(BATCH_PARTS, dr=dr, device="cpu").run(keys)
-        assert (got.imbalance_before, got.imbalance_after, got.replayed_records,
-                got.sample_fraction) == (want.imbalance_before, want.imbalance_after,
-                                         want.replayed_records, want.sample_fraction), e
-        gp, wp = got.partitioner, want.partitioner
-        assert (gp.num_partitions, gp.seed, gp.heavy_repl) == (wp.num_partitions, wp.seed,
-                                                               wp.heavy_repl), e
-        for tab in ("heavy_keys", "heavy_parts", "host_to_part"):
-            assert np.array_equal(getattr(gp, tab), getattr(wp, tab)), (e, tab)
-        assign = got.assignments
-        assert assign.device.type == dev.type and assign.dtype == torch.int32
-        assert torch.equal(assign.cpu(), want.assignments), e
-        assert np.array_equal(assign.cpu().numpy(), gp.lookup_np(keys)), e
+        assert_same_batch_result(got, want, keys, dev, e)
+        gp, assign = got.partitioner, got.assignments
         assert got.imbalance_after <= got.imbalance_before, e
 
         # the shuffle reads the replayed buffer: bucketize it, no slot given
@@ -3778,6 +3811,244 @@ def train_phase(dev, card) -> dict:
                                                       for k, v in launches.items()}},
             "dispatch_count": {"launches_phase_19": {k: v["dispatch_count"]
                                                      for k, v in launches.items()}}}
+
+
+# phase 20: the paper's partitioner comparison (benchmarks/bench_partitioners.py,
+# bench_migration.py, bench_webcrawl.py), every table routed by partition_apply
+FIG2_PARTS = (4, 8, 16, 32, 64)
+FIG2_METHODS = ("hash", "readj", "redist", "scan", "mixed", "kip", "kip_tight")
+FIG3_PARTS, FIG3_WORKERS, FIG3_BATCHES, FIG3_BATCH = 20, 4, 20, 1_048_576
+FIG3_METHODS = ("hash", "scan", "readj", "kip")
+CRAWL_PARTS = 24  # bench_webcrawl.py: 3 partitions a worker, 8 workers
+SEARCH_ROWS = 1_536  # above the probe's 1,024 rows (csrc/route_common.cuh, kMaxProbeRows)
+
+
+def fig2_partitioner(method, hist, n, lam=2.0):
+    """bench_partitioners.py's ``_build``: a method's table from UHP on the
+    top ``lam * n`` keys."""
+    from repro_torch.core.baselines import make_baseline
+    from repro_torch.core.partitioner import kip_update, uniform_partitioner
+
+    if method in ("kip", "kip_tight"):
+        return kip_update(uniform_partitioner(n), hist.top(int(lam * n)),
+                          tight=method == "kip_tight")
+    update, prev = make_baseline(method, n)
+    return update(prev, hist.top(int(lam * n)), n)
+
+
+class RouteCheck:
+    """Routes a key buffer on the card under a partitioner (``replay_partition``:
+    one ``partition_apply`` launch) and holds the ids to the host's
+    ``lookup_np`` and the card's ``torch.bincount`` loads to ``np.bincount``'s,
+    both by equality.  Sums the walls of the two sides."""
+
+    def __init__(self):
+        self.card_s = self.host_s = 0.0
+        self.tables = 0
+
+    def __call__(self, part, dkeys, keys, tag) -> np.ndarray:
+        from repro_torch.core.replay import replay_partition
+
+        t = time.perf_counter()
+        ids = replay_partition(part, dkeys)
+        loads = torch.bincount(ids, minlength=part.num_partitions).cpu().numpy()
+        got = ids.cpu().numpy()
+        t1 = time.perf_counter()
+        want = part.lookup_np(keys)
+        want_loads = np.bincount(want, minlength=part.num_partitions)
+        self.card_s += t1 - t
+        self.host_s += time.perf_counter() - t1
+        self.tables += 1
+        assert ids.device == dkeys.device and ids.dtype == torch.int32, tag
+        assert np.array_equal(got, want), tag
+        assert np.array_equal(loads, want_loads), tag
+        return loads
+
+
+def imbalance_of(loads) -> float:
+    """``load_imbalance``'s max / mean, on integer loads."""
+    loads = np.asarray(loads, np.int64)
+    return float(loads.max() / max(loads.mean(), 1e-12))
+
+
+def partition_apply_call(part, dkeys):
+    """``(call, bound_ms, rows)``: one ``partition_apply`` launch on
+    ``part``'s tables, padded as ``ops.apply_partitioner`` pads them; the
+    bound (keys read, ids written, tables read, over the memory rate); the
+    heavy rows the kernel is given."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.partition_apply import partition_apply
+
+    tabs = part.tables(dkeys.device)
+    hk, hp, _ = ops.pad_heavy_tables(tabs, num_partitions=0, pad_empty=False)
+
+    def call():
+        return partition_apply(dkeys, hk, hp, tabs.host_to_part, seed=part.seed,
+                               num_hosts=part.num_hosts)
+
+    nbytes = dkeys.numel() * (4 + 4) + (hk.numel() + hp.numel() + tabs.host_to_part.numel()) * 4
+    return call, nbytes / HBM_BYTES_PER_S * 1e3, hk.numel()
+
+
+def baselines_phase(dev, card) -> dict:
+    """Phase 20: the paper's baselines beside KIP, every table routed on the
+    card by ``partition_apply``.  Returns what the ``partition_apply`` row
+    gains: the phase's launches and its calls' times."""
+    from repro_torch.core.baselines import make_baseline, redist_update
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.histogram import Histogram
+    from repro_torch.core.migration import migration_capacity, plan_migration
+    from repro_torch.core.partitioner import kip_update, uniform_partitioner
+    from repro_torch.core.replay import BatchJob
+    from repro_torch.data.generators import drifting_zipf, host_skew_keys, zipf_keys
+    from repro_torch.kernels import build
+    from repro_torch.kernels.partition_apply import partition_apply
+
+    t_phase = time.perf_counter()
+    route = RouteCheck()
+    lib = build.library()
+    partition_apply.launches = 0
+
+    # ---- (a) Fig. 2 at phase 6's size -----------------------------------
+    t = time.perf_counter()
+    keys = zipf_keys(BATCH_RECORDS, num_keys=BATCH_KEYS, exponent=1.0, seed=0)
+    hist = Histogram.exact(keys)
+    dkeys = torch.as_tensor(keys.astype(np.int32), device=dev)
+    f1 = float(hist.freqs[0])
+    log(f"phase 20 (a): zipf_keys({BATCH_RECORDS:,}, num_keys={BATCH_KEYS:,}, exponent=1.0, "
+        f"seed=0) and its exact histogram ({len(hist):,} keys, f1 {f1:.6f}) in "
+        f"{time.perf_counter() - t:.1f} s")
+    imb, tables = {}, {}
+    for n in FIG2_PARTS:
+        for m in FIG2_METHODS:
+            tables[m, n] = fig2_partitioner(m, hist, n)
+            imb[m, n] = imbalance_of(route(tables[m, n], dkeys, keys, ("fig 2", m, n)))
+    # ---- (d) the search branch: a table above the probe's rows ----------
+    big = redist_update(uniform_partitioner(64), hist.top(SEARCH_ROWS), 64)
+    big_imb = imbalance_of(route(big, dkeys, keys, "search"))
+    path = partition_apply.launches
+    assert path == len(FIG2_PARTS) * len(FIG2_METHODS) + 1, path
+    log(f"phase 20 (a), (d): {route.tables} tables routed and checked: card (route, loads, "
+        f"copies back) {route.card_s:.1f} s, the host twin {route.host_s:.1f} s")
+
+    timed = {}
+    for n in FIG2_PARTS:
+        for m in FIG2_METHODS:
+            call, bound, rows = partition_apply_call(tables[m, n], dkeys)
+            assert rows == 0 or lib.rk_probe_slots(rows) > 0, (m, n, rows)  # the probe
+            tm = timed[f"{m} N={n}"] = {"ms": cuda_ms(call), "bound_ms": bound, "rows": rows}
+            if m in ("hash", "kip"):  # the empty table, and the probe as N grows
+                tm["device_ms"] = own_device_time(call, DEVICE_NAMES["partition_apply"])[0]
+            log(f"phase 20 (a): {m} N={n}: imbalance {imb[m, n]:.6f} (floor max(1, N * f1) "
+                f"{max(1.0, n * f1):.6f}); {tables[m, n].num_heavy} heavy keys; "
+                f"partition_apply {tm['ms']:.4f} ms by events around one call"
+                + (f", device {tm['device_ms']:.4f} ms" if "device_ms" in tm else "")
+                + f" (bound {bound:.4f} ms)")
+        best = min(imb[m, n] for m in FIG2_METHODS if not m.startswith("kip"))
+        log(f"phase 20 (a): N={n}: kip {imb['kip', n]:.6f} <= best baseline {best:.6f} + 0.05: "
+            f"{imb['kip', n] <= best + 0.05}{'' if n <= 32 else ' (the bench asks it for N <= 32)'}"
+            f"; kip_tight {imb['kip_tight', n]:.6f} <= kip + 0.02: "
+            f"{imb['kip_tight', n] <= imb['kip', n] + 0.02}")
+    cost = {}
+    for m in ("kip", "readj", "redist", "scan", "mixed"):
+        best = float("inf")
+        for _ in range(3):  # benchmarks/common.py's timer: the best of 3
+            t = time.perf_counter()
+            fig2_partitioner(m, hist.top(64), 32)
+            best = min(best, time.perf_counter() - t)
+        cost[m] = best * 1e6
+    log("phase 20 (a): host update on hist.top(64) at N=32 (best of 3): "
+        + ", ".join(f"{m} {us:.1f} us" for m, us in cost.items()))
+    # the search against the probe on the same stream at N=64 (Redist's 128 rows)
+    for name, part in (("search", big), ("redist N=64", tables["redist", 64])):
+        call, bound, rows = partition_apply_call(part, dkeys)
+        timed.setdefault(name, {"ms": cuda_ms(call), "bound_ms": bound, "rows": rows})
+        timed[name]["device_ms"] = own_device_time(call, DEVICE_NAMES["partition_apply"])[0]
+    tm = timed["search"]
+    assert tm["rows"] == SEARCH_ROWS and lib.rk_probe_slots(SEARCH_ROWS) == 0
+    log(f"phase 20 (d): redist_update on hist.top({SEARCH_ROWS}) at N=64: {big.num_heavy} heavy "
+        f"rows, the binary search (probe slots 0): card ids == lookup_np, loads equal; "
+        f"imbalance {big_imb:.6f}; partition_apply {tm['ms']:.4f} ms by events around one call, "
+        f"device {tm['device_ms']:.4f} ms (bound {tm['bound_ms']:.4f} ms); Redist's 128-row "
+        f"table at N=64, the probe: device {timed['redist N=64']['device_ms']:.4f} ms")
+    partition_apply.launches = path
+    del dkeys, keys, hist, tables, big
+
+    # ---- (b) Fig. 3: drift, migration, the exchange lanes ---------------
+    t = time.perf_counter()
+    batches = list(drifting_zipf(FIG3_BATCHES, FIG3_BATCH, num_keys=100_000, exponent=1.0,
+                                 drift_every=4, drift_fraction=0.3, seed=0))
+    hists, windows, window = [], [], []
+    for batch in batches:
+        hists.append(Histogram.exact(batch).top(2 * FIG3_PARTS))
+        window = (window + [batch])[-5:]  # the state: a sliding window of 5 batches
+        live, counts = np.unique(np.concatenate(window), return_counts=True)
+        windows.append((live, counts.astype(np.float64)))
+    log(f"phase 20 (b): drifting_zipf({FIG3_BATCHES}, {FIG3_BATCH:,}, num_keys=100,000, "
+        f"drift_every=4, drift_fraction=0.3), histograms and windows in "
+        f"{time.perf_counter() - t:.1f} s")
+    dbatches = [torch.as_tensor(batch.astype(np.int32), device=dev) for batch in batches]
+    drift = {}
+    for m in FIG3_METHODS:
+        if m == "kip":
+            part = uniform_partitioner(FIG3_PARTS)
+            update = lambda prev, h, n=FIG3_PARTS: kip_update(prev, h.top(2 * FIG3_PARTS))
+        else:
+            update, part = make_baseline(m, FIG3_PARTS)
+        imbs, migs, lanes = [], [], []
+        for b, batch in enumerate(batches):
+            new = update(part, hists[b], FIG3_PARTS)
+            live, counts = windows[b]
+            plan = plan_migration(part, new, live, counts)
+            migs.append(plan.relative_migration)
+            lanes.append(migration_capacity(plan, num_workers=FIG3_WORKERS) / max(len(live), 1))
+            part = new
+            imbs.append(imbalance_of(route(part, dbatches[b], batch, ("fig 3", m, b))))
+        drift[m] = tuple(float(np.mean(x[1:])) for x in (imbs, migs, lanes))
+        log(f"phase 20 (b): {m}: mean imbalance {drift[m][0]:.6f}, mean relative migration "
+            f"{drift[m][1]:.6f}, migration lane fraction {drift[m][2]:.6f} (batches 1-"
+            f"{FIG3_BATCHES - 1}); heavy keys at the end {part.num_heavy}")
+    log(f"phase 20 (b): KIP's imbalance improvement over hash / scan / readj "
+        + " / ".join(f"{1 - drift['kip'][0] / drift[m][0]:.4f}" for m in ("hash", "scan", "readj"))
+        + f" (paper: 41% / 29% / 26%); readj's migration over KIP's "
+        f"{drift['readj'][1] / max(drift['kip'][1], 1e-9):.4f} (paper: about 4x)")
+    del batches, dbatches, hists, windows, window
+
+    # ---- (c) the §6 web crawl through the batch path ---------------------
+    t = time.perf_counter()
+    keys = host_skew_keys(BATCH_RECORDS, num_hosts=960, giants=16, giant_mass=0.5, seed=49)
+    log(f"phase 20 (c): host_skew_keys({BATCH_RECORDS:,}, num_hosts=960, giants=16, "
+        f"giant_mass=0.5, seed=49) in {time.perf_counter() - t:.1f} s")
+    dr = DRConfig(mode="batch", eps=0.003)
+    job = BatchJob(CRAWL_PARTS, dr=dr, device=dev)
+    t = time.perf_counter()
+    got = job.run(keys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    assert_same_batch_result(got, BatchJob(CRAWL_PARTS, dr=dr, device="cpu").run(keys), keys,
+                             dev, "web crawl")
+    log(f"phase 20 (c): BatchJob({CRAWL_PARTS}, eps=0.003): imbalance {got.imbalance_before:.6f} "
+        f"-> {got.imbalance_after:.6f}, replayed {got.replayed_records:,}; every BatchResult "
+        f"field == the CPU job's; run wall {wall:.3f} s")
+    cut = max(1, int(job.sample_fraction * len(keys)))
+    prefix = Histogram.exact(keys[:cut]).top(int(dr.lam * CRAWL_PARTS))
+    dkeys = torch.as_tensor(keys.astype(np.int32), device=dev)
+    for m in ("readj", "redist", "scan", "mixed"):
+        update, prev = make_baseline(m, CRAWL_PARTS)
+        after = imbalance_of(route(update(prev, prefix, CRAWL_PARTS), dkeys, keys,
+                                   ("web crawl", m)))
+        log(f"phase 20 (c): {m} on the job's prefix histogram (top {len(prefix)}): imbalance "
+            f"{got.imbalance_before:.6f} -> {after:.6f}")
+    del keys, dkeys, job, got
+
+    launches = partition_apply.launches
+    want = len(FIG2_PARTS) * len(FIG2_METHODS) + 1 + len(FIG3_METHODS) * FIG3_BATCHES + 2 + 4
+    assert launches == want, (launches, want)
+    log(f"phase 20: partition_apply launches {launches}; {route.tables} tables routed: card "
+        f"(route, loads, copies back) {route.card_s:.1f} s, the host twin (lookup_np, "
+        f"np.bincount) {route.host_s:.1f} s; {time.perf_counter() - t_phase:.1f} s in all; "
+        f"card {card}")
+    return {"launches_phase_20": launches, "phase_20": timed}
 
 
 if __name__ == "__main__":

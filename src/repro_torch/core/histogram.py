@@ -6,10 +6,11 @@ exact summaries of each micro-batch during normal routing work
 (:func:`local_topk_histogram`, on the device); the master merges them into
 a drift-respecting :class:`CounterSketch` on the host.
 
-``Histogram``, ``CounterSketch`` and ``CountMinSketch`` are numpy and
-bit-identical to ``repro.core.histogram``; the reference's ``SpaceSaving``
-and ``LossyCounting`` sketches are not ported yet (ROADMAP.md, queue 1
-item 3).
+Besides :class:`CounterSketch`, the host keeps the sketches the paper
+compares it with: :class:`SpaceSaving` (Metwally et al.),
+:class:`LossyCounting` (Manku & Motwani) and :class:`CountMinSketch`.
+Every host class here is numpy (the two sequential sketches plain Python
+dicts) and bit-identical to ``repro.core.histogram``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,14 @@ import torch
 
 from repro_torch.core.hashing import GOLDEN, fmix32
 
-__all__ = ["CountMinSketch", "CounterSketch", "Histogram", "local_topk_histogram"]
+__all__ = [
+    "Histogram",
+    "CounterSketch",
+    "SpaceSaving",
+    "LossyCounting",
+    "CountMinSketch",
+    "local_topk_histogram",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +205,88 @@ class CounterSketch:
     @property
     def memory_items(self) -> int:
         return len(self._keys)
+
+
+class SpaceSaving:
+    """Metwally et al. stream-summary (sequential reference implementation).
+
+    A record at a full table evicts the first minimum in the dict's
+    insertion order and enters at the end: the dict's order decides ties
+    here and in :meth:`histogram`'s stable sort."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.counts: dict[int, float] = {}
+        self.total = 0.0
+
+    def update(self, key_batch) -> None:
+        for k in np.asarray(key_batch).tolist():
+            self.total += 1.0
+            if k in self.counts:
+                self.counts[k] += 1.0
+            elif len(self.counts) < self.capacity:
+                self.counts[k] = 1.0
+            else:
+                mk = min(self.counts, key=self.counts.get)
+                mv = self.counts.pop(mk)
+                self.counts[k] = mv + 1.0
+
+    def histogram(self, top_b: int | None = None) -> Histogram:
+        return _dict_histogram(self.counts, self.total, top_b)
+
+    @property
+    def memory_items(self) -> int:
+        return len(self.counts)
+
+
+class LossyCounting:
+    """Manku & Motwani lossy counting with bucket width ceil(1/eps)."""
+
+    def __init__(self, epsilon: float):
+        self.epsilon = epsilon
+        self.width = int(np.ceil(1.0 / epsilon))
+        self.counts: dict[int, float] = {}
+        self.deltas: dict[int, float] = {}
+        self.total = 0.0
+        self._bucket = 1
+
+    def update(self, key_batch) -> None:
+        for k in np.asarray(key_batch).tolist():
+            self.total += 1.0
+            if k in self.counts:
+                self.counts[k] += 1.0
+            else:
+                self.counts[k] = 1.0
+                self.deltas[k] = self._bucket - 1
+            if int(self.total) % self.width == 0:
+                self._prune()
+                self._bucket += 1
+
+    def _prune(self) -> None:
+        dead = [k for k, c in self.counts.items() if c + self.deltas[k] <= self._bucket]
+        for k in dead:
+            del self.counts[k]
+            del self.deltas[k]
+
+    def histogram(self, top_b: int | None = None) -> Histogram:
+        return _dict_histogram(self.counts, self.total, top_b)
+
+    @property
+    def memory_items(self) -> int:
+        return len(self.counts)
+
+
+def _dict_histogram(counts: dict, total: float, top_b: int | None) -> Histogram:
+    """A sequential sketch's ``{key: count}`` as a histogram, ties in the
+    dict's order (``Histogram.from_counts`` sorts stably)."""
+    if not counts:
+        return Histogram(np.zeros(0, np.int64), np.zeros(0), 0.0)
+    h = Histogram.from_counts(
+        np.fromiter(counts.keys(), np.int64, len(counts)),
+        np.fromiter(counts.values(), np.float64, len(counts)),
+        total=max(total, 1e-30),
+    )
+    return h.top(top_b) if top_b is not None else h
 
 
 class CountMinSketch:

@@ -3,6 +3,8 @@
 * ``zipf_keys``     — the ZIPF dataset: parametrized Zipfian key streams.
 * ``drifting_zipf`` — LFM-like stream: Zipfian with the identity of the
   heavy keys re-drawn over time (concept drift).
+* ``host_skew_keys`` — web-crawl-like: few giant hosts, heavy-tailed rest
+  (the §6 fetch-list workload).
 * ``hotspot_flip``  — nonstationary: the whole heavy set goes cold at one
   batch boundary and a disjoint set goes hot.
 * ``sawtooth_skew`` — nonstationary: hard-Zipf and near-uniform batches
@@ -17,7 +19,14 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["zipf_keys", "drifting_zipf", "hotspot_flip", "sawtooth_skew", "lm_token_stream"]
+__all__ = [
+    "zipf_keys",
+    "drifting_zipf",
+    "host_skew_keys",
+    "hotspot_flip",
+    "sawtooth_skew",
+    "lm_token_stream",
+]
 
 
 def _zipf_probs(num_keys: int, exponent: float) -> np.ndarray:
@@ -63,6 +72,23 @@ def drifting_zipf(
             ids[swap] = rng.choice(2**30, size=k, replace=False)
         ranks = rng.choice(num_keys, size=batch_size, p=probs)
         yield ids[ranks].copy()
+
+
+def host_skew_keys(
+    n: int,
+    num_hosts: int = 64,
+    giants: int = 4,
+    giant_mass: float = 0.6,
+    seed: int = 0,
+) -> np.ndarray:
+    """Web-crawl fetch-list keys: ``giants`` hosts own ``giant_mass`` of all
+    pages; the rest follow Zipf(1.2) — the §6 distribution shape."""
+    rng = np.random.default_rng(seed)
+    tail = _zipf_probs(num_hosts - giants, 1.2) * (1.0 - giant_mass)
+    head = np.full(giants, giant_mass / giants)
+    probs = np.concatenate([head, tail])
+    ids = rng.choice(2**30, size=num_hosts, replace=False)
+    return ids[rng.choice(num_hosts, size=n, p=probs)].astype(np.int64)
 
 
 def hotspot_flip(

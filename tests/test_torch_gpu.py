@@ -18,9 +18,10 @@ import pytest
 import torch
 
 from repro_torch import compat
+from repro_torch.core.baselines import make_baseline
 from repro_torch.core.histogram import CountMinSketch, Histogram
 from repro_torch.core.partitioner import kip_update, uniform_partitioner
-from repro_torch.core.replay import BatchJob
+from repro_torch.core.replay import BatchJob, replay_partition
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.core.drm import DRConfig
 from repro_torch.data.generators import drifting_zipf, zipf_keys
@@ -263,6 +264,27 @@ def test_batch_job_card_equals_cpu(cuda):
     assert torch.equal(card.assignments.cpu(), cpu.assignments)
     np.testing.assert_array_equal(card.assignments.cpu().numpy(),
                                   card.partitioner.lookup_np(keys))
+
+
+@pytest.mark.parametrize("name", ["hash", "readj", "redist", "scan", "mixed"])
+@pytest.mark.parametrize("n,top", [(16, 32), (64, 1536), (8, 0)])
+def test_baseline_tables_route_on_the_card(cuda, name, n, top):
+    """Each baseline's table (empty, 2N rows, and 1,536 rows: the search
+    branch above the probe's 1,024) routed by ``partition_apply`` through
+    ``ops.apply_partitioner`` equals the host's ``lookup_np``."""
+    keys = zipf_keys(300_000, num_keys=60_000, exponent=1.0, seed=n)
+    hist = Histogram.exact(keys).top(top)
+    update, prev = make_baseline(name, n)
+    part = update(prev, hist, n)
+    assert part.heavy_keys.shape == ((0,) if name == "hash" else (top,))
+    before = partition_apply.launches
+    got = replay_partition(part, torch.as_tensor(keys.astype(np.int32), device=cuda))
+    assert partition_apply.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    want = part.lookup_np(keys)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(torch.bincount(got, minlength=n).cpu().numpy(),
+                                  np.bincount(want, minlength=n))
 
 
 # records per tile of each kernel's one-pass lane rank (csrc/lane_rank.cuh, kTileOf)

@@ -295,3 +295,27 @@ def test_scan_covers_the_moe_modules():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split() == ["4"]
+
+
+def test_scan_covers_the_baseline_modules():
+    """The scan reaches the paper's baselines, which import with jax
+    blocked, as do the sketches and the generator that came with them."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "src/repro_torch/core/baselines.py" in names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.core import LossyCounting, SpaceSaving, make_baseline\n"
+            "from repro_torch.core.baselines import readj_update\n"
+            "from repro_torch.core.histogram import Histogram\n"
+            "from repro_torch.data.generators import host_skew_keys\n"
+            "keys = host_skew_keys(1000, seed=1)\n"
+            "update, prev = make_baseline('readj', 4)\n"
+            "part = readj_update(prev, Histogram.exact(keys).top(8), 4)\n"
+            "ss, lc = SpaceSaving(4), LossyCounting(0.1)\n"
+            "ss.update(keys); lc.update(keys)\n"
+            "print(part.num_heavy, ss.memory_items, update is readj_update)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO / "src",
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["8", "4", "True"]
