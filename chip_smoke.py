@@ -308,6 +308,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     time beside a 128-row table's.  Cut from the benches: 1 repetition,
     no lambda sweep, a 1 Mi-record batch in (b).  The ``partition_apply``
     row gains ``launches_phase_20`` and ``phase_20`` (each call's times).
+21. The xLSTM family and activation checkpointing.  (a) xlstm-125m at
+    full width and depth (12 layers alternating mLSTM / sLSTM, d 768, 4
+    heads, vocab 50,304; bf16, float32 recurrent state) served through
+    ``DRScheduler(4)`` and ``ServeEngine(4 slots)``: 16 requests of 256,
+    512, 1,024 or 2,048 tokens, 16 new each, phase 9's session keys;
+    every request served with finite logits; a 300-token prompt makes
+    ``model.prefill`` raise ``ValueError`` (the reference's chunk
+    contract); teacher-forced in float32, 255 prefilled + 1 decoded
+    against a 256-token prefill and 256 + 256 against 512 (a 511-token
+    prefill is off the contract), within 2e-3 x (1 + |logit|); walls by
+    prompt length, device operations a 1,024-token prefill and a decoded
+    token, idle shares.  (b) 3 train steps of 4 x 1,024 tokens (bf16,
+    float32 moments): finite loss and grad norm, walls, tokens/s, peak
+    memory, one profiled step, one sLSTM layer's forward and backward
+    alone (its device operations a time step, the layers' share of the
+    step); then 8 steps on one batch of 4 x 256 at ``OptConfig(lr=1e-3,
+    warmup=1)``, the last loss below the first.  (c) The float32 smoke
+    config card against CPU: prefill and 4 decode steps within 1e-4 x
+    max(1, |cpu|), 3 train steps' loss and grad norm within 1e-4
+    relative.  (d) gemma-2b at full width and depth and (e) Scout at 2 of
+    48 layers over 4 stacked EP shards, 2 steps from one state (a host
+    copy of the parameters, moments made afresh) without remat and under
+    ``Policy(remat=True)`` (Scout: ``"nothing"`` and ``"save_moe"``):
+    losses, grad norms and final parameters equal bit for bit; peak
+    memory, walls; flash forward 2 a layer a step under remat (backward
+    1), ``dispatch_count`` 2 a MoE layer a step, 4 under ``"nothing"``.
+    The flash, flash-backward and dispatch_count rows gain
+    ``launches_phase_21`` (a step, by run).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -316,6 +344,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -626,10 +655,19 @@ def phase_walls(job) -> dict:
     return sums
 
 
+def device_ops(prof) -> list[tuple[str, float, float]]:
+    """``(name, start_us, end_us)`` of every device operation (kernels,
+    copies, memsets) of a finished profile, read from its kineto results:
+    the profiler's own event tree (``prof.events()``) takes minutes to
+    build for a step of 400,000 launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
 def busy_ms(prof) -> float:
     """The union of the card's kernels, copies and memsets in a profile (ms)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((a, b) for _, a, b in device_ops(prof))
     busy, end = 0.0, -1.0
     for a, b in spans:
         if b > end:
@@ -1166,11 +1204,15 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("route_bucketize", "lookup_dispatch"):
             row["launches_phase_17"] = {job: n[row["name"]] for job, n in topo_launches.items()}
+    # earlier phases' jobs hold tensors in reference cycles: collect them,
+    # so that the phases that report peak memory start from their own state
+    gc.collect()
     torch.cuda.empty_cache()
     moe = moe_phase(dev, card)
     for row in kernels:
         if row["name"] in ("dispatch_count", "flash_attention"):
             row.update(moe[row["name"]])
+    gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(dev, card)
     for row in kernels:
@@ -1180,6 +1222,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     fig = baselines_phase(dev, card)
     next(r for r in kernels if r["name"] == "partition_apply").update(fig)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = xlstm_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("dispatch_count", "flash_attention", "flash_attention_bwd"):
+            row.update(xl[row["name"]])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2554,11 +2602,12 @@ def causal_flash_cost(g, p, s, hd, dtype):
 
 
 def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv_place=None,
-                    names=()) -> None:
+                    names=(), reps=3) -> dict:
     """Device time by kernel (``torch.profiler``) of one 1024-token prefill
     and of 8 decode steps, beside the same work's wall clock unprofiled;
     ``names`` are kernels whose summed device time is logged beside the
-    largest six."""
+    largest six.  Returns each case's wall, device operations (kernels,
+    copies, memsets), busy time and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
@@ -2574,9 +2623,10 @@ def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv
 
     cases = {"prefill of 1024 tokens": (lambda: None, prefill),
              "8 decode steps after it": (prefill, decode)}
+    out = {}
     for name, (setup, work) in cases.items():
         walls = []
-        for _ in range(3):
+        for _ in range(reps):
             state = setup()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2588,23 +2638,26 @@ def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             work(state)
             torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = device_ops(prof)
         busy: dict[str, float] = {}
-        for e in kern:
-            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        for kname, a, b in kern:
+            busy[kname] = busy.get(kname, 0.0) + (b - a) / 1e3
         total = sum(busy.values())
         wall = statistics.median(walls) * 1e3
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        log(f"phase {phase}: profile, {name}: wall {wall:.2f} ms unprofiled (median of 3); "
+        log(f"phase {phase}: profile, {name}: wall {wall:.2f} ms unprofiled (median of {reps}); "
             f"{len(kern)} kernel launches, device busy {total:.2f} ms "
             f"({100 * total / wall:.1f}% of the wall, idle {100 - 100 * total / wall:.1f}%)")
         for kname, ms in top:
             log(f"phase {phase}:   {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  {kname[:90]}")
         for want in names:
             ms = sum(v for k, v in busy.items() if want in k)
-            n = sum(1 for e in kern if want in e.name)
+            n = sum(1 for kname, _, _ in kern if want in kname)
             log(f"phase {phase}:   {want}: {ms:.4f} ms over {n} launches "
                 f"({100 * ms / max(total, 1e-9):.2f}% of the device busy time)")
+        out[name] = {"wall_ms": wall, "device_ops": len(kern), "busy_ms": total,
+                     "idle": 1 - total / wall}
+    return out
 
 
 def serve_phases(dev, card) -> list[dict]:
@@ -3308,8 +3361,8 @@ def _zero_launch_counts():
 def _profiled_step(fn):
     """``fn()`` (one train step) under ``torch.profiler``: its wall, the
     card's busy time (the union of its kernels, copies and memsets), the
-    idle share, the six device operations that took longest and the names
-    of every device operation."""
+    idle share, the six device operations that took longest, the names of
+    every device operation and their count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3320,12 +3373,12 @@ def _profiled_step(fn):
         wall = (time.perf_counter() - t) * 1e3
     busy = busy_ms(prof)
     by: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    ops = device_ops(prof)
+    for name, a, b in ops:
+        by[name] = by.get(name, 0.0) + (b - a) / 1e3
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "top": top,
-            "names": sorted(by)}
+            "names": sorted(by), "device_ops": len(ops)}
 
 
 def assert_bwd_kernels(tag, prof):
@@ -4049,6 +4102,415 @@ def baselines_phase(dev, card) -> dict:
         f"np.bincount) {route.host_s:.1f} s; {time.perf_counter() - t_phase:.1f} s in all; "
         f"card {card}")
     return {"launches_phase_20": launches, "phase_20": timed}
+
+
+
+# phase 21: activation checkpointing and the xLSTM family
+XLSTM_PROMPTS = (256, 512, 1024, 2048)   # multiples of 256: the mLSTM's chunk contract
+XLSTM_REQUESTS, XLSTM_NEW, XLSTM_REPLICAS, XLSTM_SLOTS = 16, 16, 4, 4
+XLSTM_BATCH = 4
+# cut from 8 steps, and the one-batch check from 4 x 1,024 tokens: the
+# sLSTM's per-time-step loop takes 6-10 s a step at 1,024 time steps
+# (PERF.md §5), which would put the script past its 1,200 s
+XLSTM_STEPS, XLSTM_OVERFIT_SEQ = 3, 256
+TEACHER_TOL = 2e-3       # the reference's teacher-forced limit (tests/test_models_smoke.py)
+CARD_CPU_TOL = 1e-4      # smoke config, float32: x max(1, |cpu|)
+
+
+def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total) -> float:
+    """Largest excess over ``TEACHER_TOL * (1 + |full|)`` of the logits of
+    ``prefix`` prompt tokens prefilled then ``total - prefix`` decoded
+    teacher-forced, against the ``total``-token prefill's last logits."""
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, total)), device=dev)
+    full, _ = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=total)
+    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix]}, cfg, pol, max_len=total)
+    for t in range(prefix, total):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1], cfg, pol)
+    a, b = logits[..., :cfg.vocab_size].double(), full[..., :cfg.vocab_size].double()
+    excess = float(((a - b).abs() - TEACHER_TOL * (1 + b.abs())).max())
+    assert bool(torch.isfinite(a).all()) and excess <= TEACHER_TOL, (prefix, total, excess)
+    return float((a - b).abs().max())
+
+
+def _remat_runs(dev, cfg, base: dict, variants: dict, opt_cfg, batches, tag, card) -> dict:
+    """Train ``len(batches)`` steps from one state under each policy of
+    ``variants`` (name -> extra ``Policy`` fields; the first is the
+    reference run): the parameters are made once, kept as a host copy and
+    copied back before each run, the moments made afresh.  Every run's
+    metrics and final parameters must equal the first run's bit for bit
+    (or, where a library call is not deterministic, within 1e-6 of each
+    tensor's largest entry, its largest difference logged).  Returns each
+    run's walls, peak memory and launches a step."""
+    import repro_torch.models.model as model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import init_opt, leaves
+    from repro_torch.train.train_step import make_train_step
+
+    params = model.init_params(cfg, 0, Policy(**base), device=dev)
+    start = [t.detach().to("cpu", copy=True) for t in leaves(params)]
+    out, first = {}, None
+    for name, extra in variants.items():
+        with torch.no_grad():
+            for t, h in zip(leaves(params), start):
+                t.copy_(h)
+        opt = init_opt(params, opt_cfg)
+        step = make_train_step(cfg, Policy(**base, **extra), opt_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        walls, metrics = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            m = {k: v.cpu() for k, v in m.items()}
+            walls.append((time.perf_counter() - t) * 1e3)
+            assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+            metrics.append(m)
+        launches = {k: v / len(batches) for k, v in _launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del opt, step
+        final = [t.detach().to("cpu", copy=True) for t in leaves(params)]
+        run = {"walls_ms": walls, "peak_gb": peak, "launches_a_step": launches,
+               "losses": [float(m["loss"]) for m in metrics],
+               "grad_norms": [float(m["grad_norm"]) for m in metrics]}
+        if first is None:
+            first = (metrics, final)
+        else:
+            for a, b in zip(metrics, first[0]):
+                assert sorted(a) == sorted(b), (tag, name)
+                for k in a:
+                    assert torch.equal(a[k], b[k]), (tag, name, k, a[k], b[k])
+            worst, unequal = 0.0, 0
+            for a, b in zip(final, first[1]):
+                if not torch.equal(a, b):
+                    unequal += 1
+                    diff = float((a.float() - b.float()).abs().max())
+                    worst = max(worst, diff / max(float(b.float().abs().max()), 1e-30))
+            assert worst <= 1e-6, (tag, name, unequal, worst)
+            run["unequal_tensors"], run["largest_rel_diff"] = unequal, worst
+        out[name] = run
+        log(f"phase 21 ({tag}): {name}: {len(batches)} steps: losses {run['losses']}, grad_norm "
+            f"{run['grad_norms']}; step walls (ms) {[round(w, 1) for w in walls]}; peak memory "
+            f"{peak:.2f} GB; launches a step {launches}"
+            + ("" if name == next(iter(variants)) else
+               f"; metrics equal bit for bit to the first run's, final parameters: "
+               f"{run['unequal_tensors']} of {len(final)} tensors differ (largest difference "
+               f"{run['largest_rel_diff']:.3g} of the tensor's largest entry)")
+            + f"; card {card}")
+        del final
+    del params, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_phase(dev, card) -> dict:
+    """Phase 21: the xLSTM family and activation checkpointing.  (a)
+    xlstm-125m served at full width and depth, (b) trained, (c) its smoke
+    config card against CPU, (d) remat on gemma-2b at full width and depth,
+    (e) remat on Scout at 2 of 48 layers over 4 stacked EP shards.  Returns
+    the phase-21 entries of the flash, flash-backward and dispatch_count
+    rows."""
+    import repro_torch.models.model as model
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.generators import lm_token_stream
+    from repro_torch.models import xlstm
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("xlstm-125m")
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+
+    # ---- (a) serving at full width and depth ------------------------------
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    log(f"phase 21 (a): {cfg.name}: {cfg.num_layers} layers alternating mLSTM / sLSTM, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads (mLSTM head dim {2 * cfg.d_model // cfg.num_heads}, "
+        f"sLSTM {cfg.d_model // cfg.num_heads}), vocab {cfg.vocab_size}: {n_params:,} parameters "
+        f"bf16 (the config's own count {cfg.param_count():,}), float32 recurrent state; made on "
+        f"the card in {time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(21)
+    sessions = np.where(rng.random(XLSTM_REQUESTS) < 0.3, 7,
+                        rng.integers(0, 1000, XLSTM_REQUESTS))
+    lens = rng.choice(XLSTM_PROMPTS, XLSTM_REQUESTS)
+    sched = DRScheduler(XLSTM_REPLICAS)
+    engines = [ServeEngine(cfg, params, pol, slots=XLSTM_SLOTS, max_len=2064, device=dev)
+               for _ in range(XLSTM_REPLICAS)]
+    queues: list[list] = [[] for _ in range(XLSTM_REPLICAS)]
+    for i in range(XLSTM_REQUESTS):
+        req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
+                      max_new_tokens=XLSTM_NEW, session_key=int(sessions[i]))
+        queues[sched.route(req.session_key, cost_tokens=XLSTM_NEW)].append(req)
+    walls = {"prefill": [], "decode": []}
+    by_len: dict[int, list] = {}
+    finite = []
+    orig = {"prefill": model.prefill, "decode": model.decode_step}
+
+    def timed(kind):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](*a, **k)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            if kind == "prefill":
+                by_len.setdefault(a[1]["tokens"].shape[1], []).append(walls[kind][-1])
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    try:
+        t = time.perf_counter()
+        for r, (eng, q) in enumerate(zip(engines, queues)):
+            eng.run(q, max_ticks=200)
+            log(f"phase 21 (a): replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
+                f"{eng.steps} ticks")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    reqs = [r for q in queues for r in q]
+    assert len(reqs) == XLSTM_REQUESTS
+    for r in reqs:
+        assert len(r.out_tokens) == XLSTM_NEW and r.done, (r.rid, r.out_tokens)
+        assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
+    assert finite and all(finite), "non-finite logits"
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    prefill_ms = statistics.median(walls["prefill"]) * 1e3
+    decode_ms = statistics.median(walls["decode"]) * 1e3
+    log(f"phase 21 (a): DRScheduler({XLSTM_REPLICAS}) x ServeEngine({XLSTM_SLOTS} slots): "
+        f"{XLSTM_REQUESTS} requests served, prompts {sorted(lens.tolist())} tokens, "
+        f"{XLSTM_NEW} new each: {tokens} tokens in {serve_s:.2f} s ({tokens / serve_s:.1f} "
+        f"tokens/s); prefill wall a request median {prefill_ms:.2f} ms (by length: "
+        + ", ".join(f"{n}: {statistics.median(w) * 1e3:.1f}" for n, w in sorted(by_len.items()))
+        + f" ms), decode wall a token median {decode_ms:.2f} ms; routed {sched.routed}, "
+        f"imbalance {sched.imbalance():.2f}; card {card}")
+    bad = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 300)), device=dev)
+    try:
+        model.prefill(params, {"tokens": bad}, cfg, pol, max_len=304)
+    except ValueError as e:
+        log(f"phase 21 (a): a 300-token prompt: model.prefill raised ValueError ({e})")
+    else:
+        raise AssertionError("a 300-token prompt was prefilled: the chunk contract is gone")
+    t = time.perf_counter()
+    prof = profile_serving(model, params, cfg, pol, rng, dev, 1040, phase="21 (a)", reps=1)
+    dec = prof["8 decode steps after it"]
+    log(f"phase 21 (a): {prof['prefill of 1024 tokens']['device_ops']:,} device operations a "
+        f"1,024-token prefill, {dec['device_ops'] / 8:,.0f} a decoded token; idle "
+        f"{100 * prof['prefill of 1024 tokens']['idle']:.1f}% / {100 * dec['idle']:.1f}%; the "
+        f"profile took {time.perf_counter() - t:.1f} s")
+    del engines, queues, reqs
+    # teacher-forced at full width in float32: 255 + 1 against 256 (the
+    # reference's check), and 256 + 256 decoded against a 512-token prefill
+    # (two chunks carried); a 511-token prefill is refused by the contract
+    t = time.perf_counter()
+    f32 = Policy()
+    p32 = model.init_params(cfg, 0, f32, device=dev)
+    tf = {(p, n): _teacher_forced(model, p32, cfg, f32, dev, rng, p, n)
+          for p, n in ((255, 256), (256, 512))}
+    log(f"phase 21 (a): teacher-forced, float32 at full width: " + "; ".join(
+        f"{p} prefilled + {n - p} decoded against {n} prefilled: largest logit difference "
+        f"{d:.3g} (limit {TEACHER_TOL} x (1 + |logit|))" for (p, n), d in tf.items())
+        + f"; {time.perf_counter() - t:.1f} s")
+    log(f"phase 21 (a): {time.perf_counter() - t_phase:.1f} s so far")
+    del p32, params
+    torch.cuda.empty_cache()
+
+    # ---- (b) training at full width and depth -----------------------------
+    params = model.init_params(cfg, 0, pol, device=dev)
+    opt_cfg = OptConfig()
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(cfg, pol, opt_cfg)
+    batches = [_lm_batch(x, dev) for x in lm_token_stream(
+        XLSTM_STEPS, XLSTM_BATCH, TRAIN_SEQ + 1, cfg.vocab_size, seed=21)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        m = {k: v.cpu() for k, v in m.items()}
+        walls.append((time.perf_counter() - t) * 1e3)
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+        ms.append(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = statistics.median(walls[1:])
+    log(f"phase 21 (b): {XLSTM_STEPS} steps of {XLSTM_BATCH} x {TRAIN_SEQ} lm_token_stream "
+        f"tokens through make_train_step (bf16 parameters, float32 moments): losses "
+        f"{[round(float(m['loss']), 4) for m in ms]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
+        f"{[round(w, 1) for w in walls]}: median of steps 2-{XLSTM_STEPS} {wall:.1f} ms, "
+        f"{XLSTM_BATCH * TRAIN_SEQ / wall * 1e3:,.0f} tokens/s; peak memory {peak:.2f} GB; "
+        f"card {card}")
+    t = time.perf_counter()
+    prof = _profiled_step(lambda: step(params, opt, batches[1]))
+    log(f"phase 21 (b): one profiled step: wall {prof['wall_ms']:.2f} ms (profiled), device busy "
+        f"{prof['busy_ms']:.2f} ms, idle {100 * prof['idle']:.1f}%, {prof['device_ops']:,} "
+        f"device operations; the profile took {time.perf_counter() - t:.1f} s; card {card}")
+    for name, t_ms in prof["top"]:
+        log(f"phase 21 (b):   {t_ms:9.3f} ms {100 * t_ms / prof['busy_ms']:5.1f}%  {name[:90]}")
+    # the sLSTM layers' share: one sLSTM layer's forward and backward on the
+    # step's shape, on layer 1's weights, timed alone and under the profiler
+    sp = {k: v.detach() for k, v in params["layers"][1]["slstm"].items()}
+    for v in sp.values():
+        v.requires_grad_(True)
+    x = torch.randn((XLSTM_BATCH, TRAIN_SEQ, cfg.d_model), device=dev, dtype=bf16,
+                    requires_grad=True)
+    cot = torch.randn((XLSTM_BATCH, TRAIN_SEQ, cfg.d_model), device=dev, dtype=bf16)
+
+    def slstm_layer():
+        y, _ = xlstm.slstm_forward(sp, x, pol)
+        torch.autograd.grad(y, [x, *sp.values()], cot)
+
+    slstm_walls = []
+    for _ in range(3):  # the first warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slstm_layer()
+        torch.cuda.synchronize()
+        slstm_walls.append((time.perf_counter() - t) * 1e3)
+    one = statistics.median(slstm_walls[1:])
+    sprof = _profiled_step(slstm_layer)
+    n_slstm = sum(blk.mixer == "slstm" for blk in cfg.pattern) * cfg.num_periods
+    share = n_slstm * one / wall
+    log(f"phase 21 (b): one sLSTM layer's forward and backward at [{XLSTM_BATCH}, {TRAIN_SEQ}, "
+        f"{cfg.d_model}] alone: {one:.1f} ms (median of 2), {sprof['device_ops']:,} device "
+        f"operations ({sprof['device_ops'] / TRAIN_SEQ:.1f} a time step), device busy "
+        f"{sprof['busy_ms']:.2f} ms of {sprof['wall_ms']:.1f} (idle {100 * sprof['idle']:.1f}%); "
+        f"x {n_slstm} layers = {100 * share:.1f}% of the {wall:.1f} ms step; card {card}")
+    del opt, sp, x, cot, batches
+    torch.cuda.empty_cache()
+    over_cfg = OptConfig(lr=1e-3, warmup=1)
+    opt = init_opt(params, over_cfg)
+    over = make_train_step(cfg, pol, over_cfg)
+    one_batch = _lm_batch(next(iter(lm_token_stream(
+        1, XLSTM_BATCH, XLSTM_OVERFIT_SEQ + 1, cfg.vocab_size, seed=22))), dev)
+    losses = []
+    for _ in range(8):
+        params, opt, m = over(params, opt, one_batch)
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log(f"phase 21 (b): one batch of {XLSTM_BATCH} x {XLSTM_OVERFIT_SEQ} repeated for 8 steps at "
+        f"OptConfig(lr=1e-3, warmup=1): losses {[round(v, 4) for v in losses]} (the last below "
+        f"the first); {time.perf_counter() - t_phase:.1f} s so far")
+    del params, opt, step, over, one_batch
+    torch.cuda.empty_cache()
+
+    # ---- (c) the smoke config, card against CPU ---------------------------
+    scfg = reduce_for_smoke(cfg)
+    spol = Policy()
+    cpu = model.init_params(scfg, 0, spol, device="cpu")
+    card_p = tree_map(lambda v: v.to(dev, copy=True), cpu)
+    where = {"cpu": torch.device("cpu"), "card": dev}
+    sides = {"cpu": cpu, "card": card_p}
+    toks = rng.integers(0, scfg.vocab_size, (2, 24))
+    caches, logits = {}, {"cpu": [], "card": []}
+    for side, p in sides.items():
+        lg, caches[side] = model.prefill(
+            p, {"tokens": torch.as_tensor(toks, device=where[side])}, scfg, spol, max_len=32)
+        logits[side].append(lg.cpu())
+    for _ in range(4):
+        nxt = rng.integers(0, scfg.vocab_size, (2, 1))
+        for side, p in sides.items():
+            lg, caches[side] = model.decode_step(
+                p, caches[side], torch.as_tensor(nxt, device=where[side]), scfg, spol)
+            logits[side].append(lg.cpu())
+    worst = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                for a, b in zip(logits["card"], logits["cpu"]))
+    assert worst <= CARD_CPU_TOL, worst
+    sopt = OptConfig(lr=1e-3, warmup=1)
+    runs = {"cpu": [cpu, init_opt(cpu, sopt)], "card": [card_p, init_opt(card_p, sopt)]}
+    sstep = make_train_step(scfg, spol, sopt)
+    train_worst = 0.0
+    for i in range(3):
+        tk = rng.integers(0, scfg.vocab_size, (2, 65))
+        out = {}
+        for side, (p, o) in runs.items():
+            p, o, m = sstep(p, o, _lm_batch(tk, where[side]))
+            runs[side] = [p, o]
+            out[side] = {k: v.cpu() for k, v in m.items()}
+        for key in ("loss", "grad_norm"):
+            a, b = float(out["card"][key]), float(out["cpu"][key])
+            assert abs(a - b) <= CARD_CPU_TOL * abs(b), (i, key, a, b)
+            train_worst = max(train_worst, abs(a - b) / abs(b))
+    log(f"phase 21 (c): {scfg.name} float32: prefill and 4 decode steps, logits within "
+        f"{worst:.3g} x max(1, |cpu|) (<= {CARD_CPU_TOL}); 3 train steps, loss and grad_norm "
+        f"within {train_worst:.3g} relative (<= {CARD_CPU_TOL}); {time.perf_counter() - t_phase:.1f} "
+        f"s so far")
+    del runs, cpu, card_p, sides, caches
+
+    # ---- (d) remat on gemma-2b, full width and depth ----------------------
+    gemma = get_config("gemma-2b")
+    gb = [_lm_batch(x, dev) for x in
+          lm_token_stream(2, GEMMA_BATCH, TRAIN_SEQ + 1, gemma.vocab_size, seed=211)]
+    remat_d = _remat_runs(dev, gemma, dict(param_dtype=bf16, compute_dtype=bf16),
+                          {"no remat": {}, "remat": dict(remat=True)}, OptConfig(), gb, "d",
+                          card)
+    want = {"no remat": 1, "remat": 2}
+    for name, run in remat_d.items():
+        got = run["launches_a_step"]
+        assert got["flash_attention"] == want[name] * gemma.num_layers, (name, got)
+        assert got["flash_attention_bwd"] == gemma.num_layers, (name, got)
+        assert got["flash_attention_bwd_stats"] == 0, (name, got)
+    log(f"phase 21 (d): gemma-2b, 2 steps of {GEMMA_BATCH} x {TRAIN_SEQ}: peak memory "
+        f"{remat_d['no remat']['peak_gb']:.2f} GB without remat, "
+        f"{remat_d['remat']['peak_gb']:.2f} GB with Policy(remat=True) (phase 19 (a) trains the "
+        f"same model and batch shape); flash forward launches a step "
+        f"{remat_d['no remat']['launches_a_step']['flash_attention']:g} / "
+        f"{remat_d['remat']['launches_a_step']['flash_attention']:g}, backward "
+        f"{remat_d['remat']['launches_a_step']['flash_attention_bwd']:g}; "
+        f"{time.perf_counter() - t_phase:.1f} s so far; card {card}")
+    del gb
+    torch.cuda.empty_cache()
+
+    # ---- (e) remat on Scout, 2 of 48 layers, 4 stacked EP shards ------------
+    scout = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                                num_layers=SCOUT_TRAIN_LAYERS)
+    sb = [_lm_batch(x, dev) for x in
+          lm_token_stream(2, SCOUT_BATCH, TRAIN_SEQ + 1, scout.vocab_size, seed=212)]
+    remat_e = _remat_runs(
+        dev, scout, dict(param_dtype=bf16, compute_dtype=bf16, ep_shards=EP_SHARDS,
+                         exchange_backend="dense"),
+        {"no remat": {}, "nothing": dict(remat=True, remat_policy="nothing"),
+         "save_moe": dict(remat=True, remat_policy="save_moe")},
+        OptConfig(moment_dtype=bf16), sb, "e", card)
+    moe_layers = sum(blk.ffn == "moe" for blk in scout.pattern) * scout.num_periods
+    want = {"no remat": 2, "nothing": 4, "save_moe": 2}  # dispatch_count a MoE layer a step
+    for name, run in remat_e.items():
+        got = run["launches_a_step"]
+        assert got["dispatch_count"] == want[name] * moe_layers, (name, got)
+        assert got["flash_attention"] == (1 if name == "no remat" else 2) * scout.num_layers, got
+    log(f"phase 21 (e): Scout, 2 steps of {SCOUT_BATCH} x {TRAIN_SEQ}, no remat / 'nothing' / "
+        f"'save_moe': peak memory "
+        + " / ".join(f"{r['peak_gb']:.2f}" for r in remat_e.values())
+        + " GB; dispatch_count launches a step "
+        + " / ".join(f"{r['launches_a_step']['dispatch_count']:g}" for r in remat_e.values())
+        + "; step walls (ms) "
+        + " / ".join(f"{statistics.median(r['walls_ms']):.1f}" for r in remat_e.values())
+        + f"; card {card}")
+    del sb
+    torch.cuda.empty_cache()
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+
+    def per_step(kname):
+        return {f"{model_name} {name}": run["launches_a_step"][kname]
+                for model_name, runs in (("gemma-2b", remat_d), ("Scout", remat_e))
+                for name, run in runs.items()}
+
+    return {"flash_attention": {"launches_phase_21": per_step("flash_attention")},
+            "flash_attention_bwd": {"launches_phase_21": per_step("flash_attention_bwd")},
+            "dispatch_count": {"launches_phase_21": per_step("dispatch_count")}}
 
 
 if __name__ == "__main__":

@@ -79,7 +79,8 @@ def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) ->
     dict carries over the same way: its ``router [d, E]`` stays float32
     (the reference keeps it so in every policy), its stacked experts ``wi
     [E, d, gate, f]`` and ``wo [E, f, d]`` and its ``shared`` FFN are cast
-    like the rest; dense and MoE blocks may interleave (Maverick)."""
+    like the rest; dense and MoE blocks may interleave (Maverick).  The
+    xLSTM blocks' ``mlstm`` and ``slstm`` dicts carry over as any other."""
     dev = resolve_device(device)
     return _layers_from_jax(tree, cfg, lambda a, name: _tensor(
         a, torch.float32 if name == "router" else pol.param_dtype, dev))

@@ -35,6 +35,7 @@ __all__ = [
 ]
 
 Shard = Callable[[torch.Tensor, str], torch.Tensor]  # (x, logical_name) -> x
+REMAT_POLICIES = ("nothing", "save_moe")
 
 
 def no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -54,8 +55,17 @@ class Policy:
     and ``exchange_backend`` (the dispatch transport: ``"dense"``,
     ``"ragged"``, an instance, or ``None`` for dense) are the reference's.
 
-    ``mesh`` and ``remat`` are kept so that setting one fails loudly: they
-    raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 10)."""
+    ``remat`` checkpoints each period's activations in training
+    (``transformer.backbone``): ``remat_policy="nothing"`` recomputes the
+    whole period in the backward, ``"save_moe"`` keeps each MoE layer's
+    activations and recomputes the rest, so the expert dispatch never runs
+    again; any other policy raises ``ValueError``.  ``recurrent_bf16``
+    rounds the mLSTM's ``[chunk, chunk]`` weight products' operands to
+    bf16 (float32 sums), and ``slstm_unroll`` is the reference's sLSTM
+    scan grouping, which changes no bit (``models/xlstm.py``).
+
+    ``mesh`` is kept so that setting it fails loudly: it raises
+    ``NotImplementedError`` (ROADMAP.md, queue 1 item 10)."""
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -67,17 +77,20 @@ class Policy:
     attn_kv_chunk: int = 2048
     attn_block_skip: bool = True     # skip fully-masked kv blocks
     attn_p_bf16: bool = False        # bf16 softmax weights for the PV product
-    remat_policy: str = "nothing"
+    recurrent_bf16: bool = False     # bf16 operands of the mLSTM's weight products
+    slstm_unroll: int = 1            # steps per sLSTM scan tick in the reference
+    remat_policy: str = "nothing"    # "nothing" | "save_moe"
     moe_capacity_factor: float = 0.0  # 0 = use config value
     exchange_backend: object = None   # MoE dispatch transport
     ep_shards: int = 0               # stacked EP shards (0: the moe_ref path)
 
     def __post_init__(self):
-        for field, unset in (("mesh", None), ("remat", False), ("remat_policy", "nothing")):
-            if getattr(self, field) != unset:
-                raise NotImplementedError(
-                    f"Policy.{field}={getattr(self, field)!r} is not ported yet "
-                    f"(ROADMAP.md, queue 1 item 10)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"Policy.mesh={self.mesh!r} is not ported yet (ROADMAP.md, queue 1 item 10)")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"Policy.remat_policy must be one of {REMAT_POLICIES}, got "
+                             f"{self.remat_policy!r}")
         if self.ep_shards < 0:
             raise ValueError(f"Policy.ep_shards must be >= 0, got {self.ep_shards}")
 

@@ -1,6 +1,6 @@
 """Decoder-only LM assembled from the config's block pattern, for training
-and serving (a port of ``repro.models.transformer`` for ``attn`` /
-``local_attn`` mixers with dense or MoE FFNs).
+and serving (a port of ``repro.models.transformer`` for the ``attn``,
+``local_attn``, ``mlstm`` and ``slstm`` mixers with dense, MoE or no FFNs).
 
 The reference scans over *periods* with weights stacked ``[periods,
 ...]``; eager PyTorch needs no scan, so parameters and caches hold one
@@ -16,18 +16,26 @@ splits over the shards and is longer than one token, else
 ``None``: the identity) is the KIP placement the expert weights are laid
 out by.
 
+The xLSTM mixers (``models/xlstm.py``) return a new state dict, where
+attention updates its cache in place; ``backbone`` stores every layer's
+returned cache back into ``cache["layers"][i]`` (``cache["tail{j}"]``).
+
 ``loss_fn`` is the training loss: the backbone under autograd (the flash
 kernel's backward on the card), then ``chunked_softmax_xent``, plus the
-MoE layers' auxiliary loss.
+MoE layers' auxiliary loss.  With ``Policy.remat`` each period's blocks run
+under ``torch.utils.checkpoint`` (non-reentrant) in training, never the
+tail's, as in the reference; see :func:`backbone`.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``mamba``, ``mlstm`` and ``slstm`` mixers, M-RoPE and vision tokens.
+the ``mamba`` mixer, M-RoPE and vision tokens.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.models.attention import (
@@ -50,13 +58,19 @@ from repro_torch.models.modules import (
     pad_vocab,
     unembed_logits,
 )
+from repro_torch.models.xlstm import (
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+    mlstm_forward,
+    slstm_forward,
+)
 from repro_torch.moe.layer import init_moe, moe_apply, moe_apply_replicated, moe_ref
 
 __all__ = ["backbone", "decode_step", "init_cache", "init_params", "loss_fn", "prefill"]
 
-_UNPORTED_MIXERS = {"mamba": "the Mamba mixer (models/ssm.py)",
-                    "mlstm": "the mLSTM mixer (models/xlstm.py)",
-                    "slstm": "the sLSTM mixer (models/xlstm.py)"}
+_UNPORTED_MIXERS = {"mamba": "the Mamba mixer (models/ssm.py)"}
 
 
 def _not_ported(what: str, item: int):
@@ -88,8 +102,13 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayo
                 pol: Policy) -> dict:
     dt, dev = pol.param_dtype, gen.device
     p: dict[str, Any] = {"ln1": init_norm(cfg.norm_kind, cfg.d_model, dt, dev)}
-    p["attn"] = init_attention(gen, cfg.d_model, lay, cfg.head_dim, qk_norm=cfg.qk_norm,
-                               norm_kind=cfg.norm_kind, dtype=dt)
+    if blk.mixer == "mlstm":
+        p["mlstm"] = init_mlstm(gen, cfg.d_model, cfg.num_heads, _heads_p(cfg, pol), dtype=dt)
+    elif blk.mixer == "slstm":
+        p["slstm"] = init_slstm(gen, cfg.d_model, cfg.num_heads, _heads_p(cfg, pol), dtype=dt)
+    else:
+        p["attn"] = init_attention(gen, cfg.d_model, lay, cfg.head_dim, qk_norm=cfg.qk_norm,
+                                   norm_kind=cfg.norm_kind, dtype=dt)
     if blk.ffn == "dense":
         p["ln2"] = init_norm(cfg.norm_kind, cfg.d_model, dt, dev)
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt)
@@ -97,6 +116,12 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayo
         p["ln2"] = init_norm(cfg.norm_kind, cfg.d_model, dt, dev)
         p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, dt)
     return p
+
+
+def _heads_p(cfg: ArchConfig, pol: Policy) -> int:
+    """The xLSTM mixers' heads padded up to a multiple of ``pol.tp``."""
+    h = cfg.num_heads
+    return -(-h // pol.tp) * pol.tp
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
@@ -123,11 +148,19 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *,
                device=None) -> dict:
-    """Decode caches, one per layer (a ring cache for ``local_attn``)."""
+    """Decode caches, one per layer (a ring cache for ``local_attn``, the
+    recurrent state for ``mlstm`` and ``slstm``)."""
     check_supported(cfg)
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
+    hp = _heads_p(cfg, pol)
 
     def one(blk: Block) -> dict:
+        if blk.mixer == "mlstm":
+            di = 2 * cfg.d_model
+            return init_mlstm_state(batch, hp, di // cfg.num_heads, di, dtype=pol.compute_dtype,
+                                    device=device)
+        if blk.mixer == "slstm":
+            return init_slstm_state(batch, hp, cfg.d_model // cfg.num_heads, device=device)
         window = cfg.window if blk.mixer == "local_attn" else 0
         return init_kv_cache(batch, max_len, lay, cfg.head_dim, window=window,
                              dtype=pol.compute_dtype, device=device)
@@ -154,29 +187,85 @@ def _moe_fn(h: torch.Tensor, pol: Policy):
     return moe_apply_replicated      # decode: tokens replicated over EP
 
 
+def _apply_mixer(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: HeadLayout,
+                 pol: Policy, *, pos, cache=None):
+    """The block's first half, ``x + mixer(norm(x))``.  Returns ``(x,
+    new_cache)``."""
+    h = apply_norm(p["ln1"], x, cfg.norm_kind)
+    if blk.mixer == "mlstm":
+        y, new_cache = mlstm_forward(p["mlstm"], h, pol, chunk=min(256, h.shape[1]), state=cache)
+    elif blk.mixer == "slstm":
+        y, new_cache = slstm_forward(p["slstm"], h, pol, state=cache)
+    else:
+        local = blk.mixer == "local_attn"
+        y, new_cache = attention_block(
+            p["attn"], h, lay, pol, pos=pos, causal=True, window=cfg.window if local else 0,
+            theta=cfg.rope_local_theta if (local and cfg.rope_local_theta) else cfg.rope_theta,
+            rope_pct=cfg.rope_pct, rope_kind=cfg.rope_kind, norm_kind=cfg.norm_kind,
+            cache=cache)
+    return pol.shard(x + y, "act_btd"), new_cache
+
+
+def _apply_ffn(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *,
+               inv_place=None):
+    """The block's second half, ``x + ffn(norm(x))`` (``x`` itself for
+    ``ffn == "none"``).  Returns ``(x, moe_stats)``, ``moe_stats =
+    (counts, overflow, aux_loss)`` for a MoE block, else ``None``."""
+    if blk.ffn == "none":
+        return x, None
+    h = apply_norm(p["ln2"], x, cfg.norm_kind)
+    if blk.ffn == "dense":
+        return pol.shard(x + apply_ffn(p["ffn"], h, cfg.ffn_kind, pol), "act_btd"), None
+    out = _moe_fn(h, pol)(p["moe"], h, cfg.moe, cfg.ffn_kind, pol, inv_place)
+    return pol.shard(x + out.y, "act_btd"), (out.counts, out.overflow, out.aux_loss)
+
+
 def _apply_block(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: HeadLayout,
                  pol: Policy, *, pos, cache=None, inv_place=None):
-    """Pre-norm residual block.  Returns ``(x, new_cache, moe_stats)``,
-    ``moe_stats = (counts, overflow, aux_loss)`` for a MoE block, else
-    ``None``."""
-    h = apply_norm(p["ln1"], x, cfg.norm_kind)
-    local = blk.mixer == "local_attn"
-    y, new_cache = attention_block(
-        p["attn"], h, lay, pol, pos=pos, causal=True, window=cfg.window if local else 0,
-        theta=cfg.rope_local_theta if (local and cfg.rope_local_theta) else cfg.rope_theta,
-        rope_pct=cfg.rope_pct, rope_kind=cfg.rope_kind, norm_kind=cfg.norm_kind,
-        cache=cache)
-    x = pol.shard(x + y, "act_btd")
-    moe_stats = None
-    if blk.ffn == "dense":
-        h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        x = pol.shard(x + apply_ffn(p["ffn"], h, cfg.ffn_kind, pol), "act_btd")
-    elif blk.ffn == "moe":
-        h = apply_norm(p["ln2"], x, cfg.norm_kind)
-        out = _moe_fn(h, pol)(p["moe"], h, cfg.moe, cfg.ffn_kind, pol, inv_place)
-        moe_stats = (out.counts, out.overflow, out.aux_loss)
-        x = pol.shard(x + out.y, "act_btd")
+    """Pre-norm residual block.  Returns ``(x, new_cache, moe_stats)``."""
+    x, new_cache = _apply_mixer(blk, p, x, cfg, lay, pol, pos=pos, cache=cache)
+    x, moe_stats = _apply_ffn(blk, p, x, cfg, pol, inv_place=inv_place)
     return x, new_cache, moe_stats
+
+
+def _remat_period(x: torch.Tensor, first: int, params: dict, cfg: ArchConfig, lay: HeadLayout,
+                  pol: Policy, *, pos, inv_place=None):
+    """One period's blocks (layers ``first`` to ``first + len(pattern) - 1``)
+    under activation checkpointing.  Returns ``(x, [moe_stats, ...])``.
+
+    ``"nothing"`` runs the whole period as one checkpointed segment: the
+    backward recomputes every block.  ``"save_moe"`` runs each MoE FFN half
+    outside the segments, so its activations are kept and its dispatch is
+    never recomputed (the reference's intent: "never re-run the expert
+    all-to-all in the backward pass"), and checkpoints the runs of halves
+    between them.  The MoE statistics leave a segment as its outputs."""
+    halves = [(first + j, half) for j in range(len(cfg.pattern)) for half in ("mixer", "ffn")]
+
+    def run(x, part):
+        stats = []
+        for i, half in part:
+            blk, p = cfg.pattern[i % len(cfg.pattern)], params["layers"][i]
+            if half == "mixer":
+                x, _ = _apply_mixer(blk, p, x, cfg, lay, pol, pos=pos)
+            else:
+                x, ms = _apply_ffn(blk, p, x, cfg, pol, inv_place=inv_place)
+                if ms is not None:
+                    stats.append(ms)
+        return x, stats
+
+    def kept(i, half):
+        return (pol.remat_policy == "save_moe" and half == "ffn"
+                and cfg.pattern[i % len(cfg.pattern)].ffn == "moe")
+
+    stats = []
+    for keep, part in itertools.groupby(halves, key=lambda ih: kept(*ih)):
+        part = list(part)
+        if keep:
+            x, st = run(x, part)
+        else:
+            x, st = torch.utils.checkpoint.checkpoint(run, x, part, use_reentrant=False)
+        stats += st
+    return x, stats
 
 
 def _positions(cfg: ArchConfig, b: int, s: int, offset, device=None) -> torch.Tensor:
@@ -198,20 +287,36 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos
     does: ``moe_counts`` f32[E] summed over the periodic MoE layers (``None``
     without MoE), their dropped pairs summed, and their aux losses summed
     over the number of periods (the mean over periods of each period's
-    sum; the tail's MoE stats are not counted, as in the reference).  The
-    cache's layers are updated in place."""
+    sum; the tail's MoE stats are not counted, as in the reference).  Each
+    layer's returned cache is stored back in ``cache`` (the attention
+    caches are the same dicts, updated in place; the recurrent states are
+    new ones).
+
+    With ``pol.remat``, when autograd records and there is no cache (a
+    training forward), each period runs through :func:`_remat_period`; the
+    tail blocks never do, as in the reference."""
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
     stats = []
-    for i, blk in enumerate(layers(cfg)):
-        c = cache["layers"][i] if cache is not None else None
-        x, _, ms = _apply_block(blk, params["layers"][i], x, cfg, lay, pol, pos=pos, cache=c,
-                                inv_place=inv_place)
-        if ms is not None:
-            stats.append(ms)
+    if pol.remat and cache is None and torch.is_grad_enabled():
+        for per in range(cfg.num_periods):
+            x, st = _remat_period(x, per * len(cfg.pattern), params, cfg, lay, pol, pos=pos,
+                                  inv_place=inv_place)
+            stats += st
+    else:
+        for i, blk in enumerate(layers(cfg)):
+            c = cache["layers"][i] if cache is not None else None
+            x, nc, ms = _apply_block(blk, params["layers"][i], x, cfg, lay, pol, pos=pos,
+                                     cache=c, inv_place=inv_place)
+            if cache is not None:
+                cache["layers"][i] = nc
+            if ms is not None:
+                stats.append(ms)
     for j, blk in enumerate(cfg.tail):
         c = cache[f"tail{j}"] if cache is not None else None
-        x, _, _ = _apply_block(blk, params[f"tail{j}"], x, cfg, lay, pol, pos=pos, cache=c,
-                               inv_place=inv_place)
+        x, nc, _ = _apply_block(blk, params[f"tail{j}"], x, cfg, lay, pol, pos=pos, cache=c,
+                                inv_place=inv_place)
+        if cache is not None:
+            cache[f"tail{j}"] = nc
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
     if cfg.moe is None:
         # filled on the device: an upload of a host scalar would wait for the stream

@@ -1452,3 +1452,105 @@ def test_smoke_train_steps_card_equal_cpu(cuda, arch, ep_shards):
             a, b = float(out["cuda"][key]), float(out["cpu"][key])
             assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
     assert kflash.flash_attention_bwd_seq_major.launches == 3 * cfg.num_layers
+
+
+def test_xlstm_card_equals_cpu(cuda):
+    """The smoke xlstm-125m at float32: a 24-token prefill and 4 decode
+    steps (the recurrent states stored back into the cache) within 1e-4 x
+    max(1, |cpu|) of the CPU's logits, then 3 train steps with loss and
+    grad_norm within 1e-4 relative; a 300-token prompt raises ValueError."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import OptConfig, init_opt, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("xlstm-125m"))
+    pol = Policy()
+    cpu = model.init_params(cfg, 0, pol, device="cpu")
+    sides = {"cpu": cpu, "cuda": tree_map(lambda t: t.to(cuda), cpu)}
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)))
+    logits, caches = {}, {}
+    for dev, p in sides.items():
+        logits[dev], caches[dev] = model.prefill(p, {"tokens": toks.to(dev)}, cfg, pol, 32)
+    for i in range(5):
+        a, b = logits["cuda"].cpu(), logits["cpu"]
+        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-4, i
+        if i == 4:
+            break
+        nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1)))
+        for dev, p in sides.items():
+            logits[dev], caches[dev] = model.decode_step(p, caches[dev], nxt.to(dev), cfg, pol)
+    with pytest.raises(ValueError, match="chunk contract"):
+        model.prefill(sides["cuda"], {"tokens": torch.zeros((1, 300), dtype=torch.int64,
+                                                            device=cuda)}, cfg, pol, 304)
+    opt = OptConfig(lr=1e-3, warmup=1)
+    step = make_train_step(cfg, pol, opt)
+    states = {dev: (p, init_opt(p, opt)) for dev, p in sides.items()}
+    for _ in range(3):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 65)))
+        out = {}
+        for dev, (p, st) in states.items():
+            d = t.to(dev)
+            p, st, m = step(p, st, {"tokens": d[:, :-1], "labels": d[:, 1:],
+                                    "mask": torch.ones((2, 64), device=dev)})
+            states[dev] = (p, st)
+            out[dev] = {k: v.cpu() for k, v in m.items()}
+        for key in ("loss", "grad_norm"):
+            a, b = float(out["cuda"][key]), float(out["cpu"][key])
+            assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+
+
+@pytest.mark.parametrize("arch,ep_shards,remat_policy", [
+    ("gemma-2b", 0, "nothing"), ("llama4-scout-17b-a16e", 4, "nothing"),
+    ("llama4-scout-17b-a16e", 4, "save_moe")])
+def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, remat_policy):
+    """Two bf16 train steps of a smoke config with and without remat from
+    the same parameters: metrics and parameters equal bit for bit; flash
+    forward launched twice a layer a step under remat, its backward once;
+    dispatch_count 2 a MoE layer a step, 4 under ``"nothing"``."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = reduce_for_smoke(get_config(arch))
+    bf16 = torch.bfloat16
+    base = dict(param_dtype=bf16, compute_dtype=bf16, ep_shards=ep_shards,
+                exchange_backend="dense" if ep_shards else None)
+    start = model.init_params(cfg, 0, Policy(**base), device=cuda)
+    opt = OptConfig(lr=1e-3, warmup=1)
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(2):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 65)), device=cuda)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:],
+                        "mask": torch.ones((2, 64), device=cuda)})
+    runs = []
+    for extra in ({}, dict(remat=True, remat_policy=remat_policy)):
+        params = tree_map(lambda t: t.clone(), start)
+        st = init_opt(params, opt)
+        step = make_train_step(cfg, Policy(**base, **extra), opt)
+        for fn in (kflash.flash_attention, kflash.flash_attention_bwd_seq_major, dispatch_count):
+            fn.launches = 0
+        metrics = []
+        for batch in batches:
+            params, st, m = step(params, st, batch)
+            metrics.append({k: v.cpu() for k, v in m.items()})
+        runs.append((metrics, leaves(params), kflash.flash_attention.launches,
+                     kflash.flash_attention_bwd_seq_major.launches, dispatch_count.launches))
+    (m0, p0, f0, b0, d0), (m1, p1, f1, b1, d1) = runs
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    moe_layers = sum(blk.ffn == "moe" for blk in cfg.pattern) * cfg.num_periods
+    assert (f0, f1, b0, b1) == (2 * cfg.num_layers, 4 * cfg.num_layers, 2 * cfg.num_layers,
+                                2 * cfg.num_layers)
+    rerun = 2 if remat_policy == "nothing" else 1
+    assert (d0, d1) == (2 * 2 * moe_layers, rerun * 2 * 2 * moe_layers)

@@ -31,7 +31,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import modules as tmod
 from repro_torch.models import transformer as ttr
 
-ARCHS = ["gemma-2b", "stablelm-1.6b", "deepseek-coder-33b", "gemma3-27b"]
+ARCHS = ["gemma-2b", "stablelm-1.6b", "deepseek-coder-33b", "gemma3-27b", "xlstm-125m"]
 JPOL = jmod.Policy(attn_q_chunk=16, attn_kv_chunk=16)
 TPOL = tmod.Policy(attn_q_chunk=16, attn_kv_chunk=16)
 
@@ -158,9 +158,10 @@ def test_rope_matches(pct, theta):
 
 
 def test_policy_rejects_unported_fields():
-    """The mesh and remat fields still raise; the MoE fields are ported and
-    construct (their parity is ``tests/test_torch_moe*.py``'s)."""
-    for kw in ({"mesh": object()}, {"remat": True}, {"remat_policy": "save_moe"}):
+    """The mesh field still raises; the MoE fields are ported and
+    construct (their parity is ``tests/test_torch_moe*.py``'s; remat's is
+    ``tests/test_torch_remat.py``'s)."""
+    for kw in ({"mesh": object()},):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmod.Policy(**kw)
     pol = tmod.Policy(moe_capacity_factor=1.5, exchange_backend="ragged", ep_shards=4)
@@ -273,11 +274,19 @@ def _ref_layers(cache, cfg):
 
 
 def _same_caches(tc, jc, cfg):
+    """Attention caches: k and v within 1e-4, slot positions and offsets
+    equal; a recurrent state (mLSTM, sLSTM): every leaf within 1e-4."""
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
     port = tc["layers"] + [tc[f"tail{j}"] for j in range(len(cfg.tail))]
     ref = _ref_layers(jc, cfg)
     assert len(port) == len(ref) == cfg.num_layers
     for t, j in zip(port, ref):
+        assert sorted(t) == sorted(j)
+        if "k" not in j:
+            for key in j:
+                np.testing.assert_allclose(_np(t[key]), np.asarray(j[key], np.float32),
+                                           rtol=1e-4, atol=1e-4)
+            continue
         np.testing.assert_allclose(_np(t["k"]), np.asarray(j["k"]), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(_np(t["v"]), np.asarray(j["v"]), rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(t["pos"].numpy(), np.asarray(j["pos"]))
@@ -352,8 +361,7 @@ def test_port_init_params_shapes_match_the_reference():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("xlstm-125m", "mLSTM"), ("jamba-1.5-large-398b", "Mamba"),
-    ("qwen2-vl-7b", "M-RoPE"), ("whisper-base", "enc-dec"),
+    ("jamba-1.5-large-398b", "Mamba"), ("qwen2-vl-7b", "M-RoPE"), ("whisper-base", "enc-dec"),
 ])
 def test_unported_families_raise(arch, match):
     cfg = tbase.reduce_for_smoke(treg.get_config(arch))
@@ -376,10 +384,10 @@ def test_moe_families_are_supported(arch):
 
 
 def test_training_is_not_ported():
-    """The parts of training still to port raise: activation
-    checkpointing (``remat``), the mesh and the enc-dec loss.  The loss and
-    the train step themselves run (``tests/test_torch_train.py``)."""
-    for field, value in (("remat", True), ("remat_policy", "save_moe"), ("mesh", object())):
+    """The parts of training still to port raise: the mesh and the enc-dec
+    loss.  The loss, the train step (``tests/test_torch_train.py``) and
+    activation checkpointing (``tests/test_torch_remat.py``) run."""
+    for field, value in (("mesh", object()),):
         with pytest.raises(NotImplementedError, match=field):
             tmod.Policy(**{field: value})
     whisper = tbase.reduce_for_smoke(treg.get_config("whisper-base"))

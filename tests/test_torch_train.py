@@ -48,10 +48,11 @@ from repro_torch.train.train_step import make_eval_step, make_train_step, moe_st
 JPOL = jmod.Policy(attn_q_chunk=16, attn_kv_chunk=16)
 TPOL = tmod.Policy(attn_q_chunk=16, attn_kv_chunk=16)
 RTOL, ATOL = 1e-4, 1e-6
-ARCHS = ["gemma-2b", "llama4-scout-17b-a16e"]
-# every arch the port runs: attn / local_attn mixers, dense or MoE FFNs
+ARCHS = ["gemma-2b", "llama4-scout-17b-a16e", "xlstm-125m"]
+# every arch the port runs: attn / local_attn / mlstm / slstm mixers, dense,
+# MoE or no FFNs
 LOSS_ARCHS = ["gemma-2b", "stablelm-1.6b", "deepseek-coder-33b", "gemma3-27b",
-              "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
+              "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "xlstm-125m"]
 
 
 def _cfgs(arch):
