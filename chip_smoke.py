@@ -120,12 +120,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     its bound, its plain version and ``scaled_dot_product_attention`` on
     the same inputs (k, v expanded to the 8 heads; timed only): each with
     CUDA events around one call (the ``ms`` of every kernel), and the
-    kernel and SDPA also as device time over 20 calls (``torch.profiler``,
-    no host time in it); the float32 kernel at 2048; the prefill wall at
-    those lengths and the kernel's share of it; at each length the
-    output without lse (serving's launch) equal bit for bit to a launch
-    that also writes lse (training's); a profile of a 1024-token prefill
-    and of 8 decode steps;
+    kernel and SDPA also as device time over 20 calls (:func:`device_ms`:
+    queued behind a spin kernel, no host time in it); the float32 kernel
+    at 2048; the prefill wall at those lengths and the kernel's share of
+    it; at each length the output without lse (serving's launch) equal
+    bit for bit to a launch that also writes lse (training's); a profile
+    of a 1024-token prefill and of 8 decode steps;
     phase 9's median prefill wall per request, decode wall per token and
     tokens per second.
 
@@ -336,6 +336,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     1), ``dispatch_count`` 2 a MoE layer a step, 4 under ``"nothing"``.
     The flash, flash-backward and dispatch_count rows gain
     ``launches_phase_21`` (a step, by run).
+22. The enc-dec family: whisper-base at its full published width and
+    depth (6 encoder and 6 decoder layers, d 512, 8 heads over 8 kv heads,
+    head_dim 64, d_ff 2,048, vocab 51,865 padded to 51,968, tied
+    embeddings; the audio frontend stubbed by seeded frame embeddings of
+    1,500 rows).  (a) Served in bf16 through ``model.prefill`` /
+    ``model.decode_step`` (``ServeEngine.admit`` passes no frames, as the
+    reference's): 16 utterances with 4-token prompts, routed by
+    ``DRScheduler(4)`` over phase 9's first 16 session keys, each
+    replica's utterances one batch, prefilled at ``max_len`` 448 and
+    decoded greedily for 60 tokens; finite logits, 18 flash launches a
+    prefill (6 encoder, 6 decoder self, 6 cross), none a decoded token;
+    the encoder's share of the prefill wall, the decode wall a token, the
+    device operations and idle share of a profiled prefill and of 8
+    decode steps; teacher-forced in float32 (4 + 60 against 64, 447 + 1
+    against 448) within 2e-3 x (1 + |logit|).  (b) 8 train steps of 16 x
+    (1,500 frames, 448 tokens), bf16 with float32 moments: finite loss
+    and grad norm, 18 flash forward and 18 backward launches a step (none
+    through the stats pass), walls, tokens/s, peak memory, one profiled
+    step; 8 steps on one batch at ``OptConfig(lr=1e-3, warmup=1)`` (the
+    last loss below the first); 2 steps from one state without and with
+    ``Policy(remat=True)``: bit-equal, flash forward 36 a step under
+    remat, backward 18, peaks.  (c) The float32 smoke config card against
+    CPU: prefill and 4 decode steps within 1e-4 x max(1, |cpu|), 3 train
+    steps' loss and grad norm within 1e-4 relative.  (d) Both flash
+    kernels at whisper's three shapes (B 16, G 8, P 1, hd 64: encoder
+    1,500 x 1,500 non-causal, decoder 448 x 448 causal, cross 448 over
+    1,500 non-causal) against their plain versions, bf16 and float32
+    (phase 10's and 19 (d)'s limits, a 5%-off gradient refused, dirty
+    outputs, two calls bit-equal, the forward's bits with and without
+    lse), timed beside the bound and SDPA (forward and backward).  The
+    flash and flash-backward rows gain ``launches_phase_22`` and
+    ``phase_22`` (each shape's errors and times).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -427,12 +459,41 @@ def cuda_ms(fn, *, warmup=3, reps=20) -> float:
     return statistics.median(times)
 
 
+# own_device_time's sessions, and those that kept none of the kernels
+# they timed and ran again
+PROFILER = {"sessions": 0, "empty": 0}
+
+
 def device_ms(fn, *, n=20) -> float:
-    """Device time of ``fn()`` in ms: the summed durations of all the card's
-    kernels, copies and memsets over ``n`` calls (``torch.profiler``)
-    divided by ``n``, after a warm-up; the host's launch time is not in
-    it."""
-    return own_device_time(fn, ("",), n=n)[0]
+    """Device time of ``fn()`` in ms: ``n`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``), CUDA events on the card around the
+    ``n`` calls, divided by ``n``.  The spin holds the stream until the
+    host has launched every call, so the host's launches are not in the
+    time: the event before the calls must still be pending when the last
+    call is queued, else the spin is doubled and the calls run again, and
+    a ``fn()`` whose launches outlast eight doublings (one that waits for
+    the card) raises.  The time is the stream's span: the card's kernels,
+    copies and memsets back to back, with the gaps between them.  Not the
+    profiler: its sessions now and then keep no device operation
+    (:func:`own_device_time`)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 23  # about 4 ms at the H100's clock
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        cycles *= 2
+    raise AssertionError(f"the launches of {n} calls outlasted a spin of {cycles // 2:,} cycles")
 
 
 def own_device_time(fn, names, *, flush=None, n=20):
@@ -442,28 +503,32 @@ def own_device_time(fn, names, *, flush=None, n=20):
     kernel's mean duration times its launches a call (its events over
     ``n``, rounded), so a session that loses a few events (seen: 18 of 20)
     does not bias the time.  ``flush()``, run before each call and not
-    counted, evicts the inputs from the L2 cache.  A profiling session now
-    and then records no device activity at all (seen on an H100 after a
-    dozen sessions in one process); such a session is run again,
-    up to three times."""
+    counted, evicts the inputs from the L2 cache.  The device operations
+    are read from the kineto results (:func:`device_ops`) of a session
+    that records the host too.  Now and then a session keeps the host's
+    launches and no device operation at all (seen on an H100: about one
+    in five late in a long run, none when its phase runs alone, and a
+    session run straight after such one mostly keeps them all); it is
+    run again, up to five times, and then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 if flush is not None:
                     flush()
                 fn()
             torch.cuda.synchronize()
+        PROFILER["sessions"] += 1
         total: dict[str, float] = {}  # ms and events by full kernel name
         seen: dict[str, int] = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and any(s in e.name for s in names):
-                total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-                seen[e.name] = seen.get(e.name, 0) + 1
+        for name, start, end in device_ops(prof):
+            if any(s in name for s in names):
+                total[name] = total.get(name, 0.0) + (end - start) / 1e3
+                seen[name] = seen.get(name, 0) + 1
         by_name: dict[str, float] = {}
         ops = 0
         for full, ms in total.items():
@@ -473,8 +538,10 @@ def own_device_time(fn, names, *, flush=None, n=20):
             ops += per_call
         if by_name:
             return sum(by_name.values()), by_name, ops
-        log(f"profiler: session {attempt + 1} recorded none of {names}; running it again")
-    raise AssertionError(f"the profiler saw none of {names} in three sessions")
+        PROFILER["empty"] += 1
+        log(f"profiler: session {attempt + 1} recorded none of {names}"
+            + ("; running it again" if attempt < 4 else ""))
+    raise AssertionError(f"the profiler saw none of {names} in five sessions")
 
 
 def l2_flush(dev):
@@ -1228,6 +1295,14 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("dispatch_count", "flash_attention", "flash_attention_bwd"):
             row.update(xl[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    wh = whisper_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            row.update(wh[row["name"]])
+    log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
+        f"recorded none of the kernels they timed and ran again")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2592,13 +2667,14 @@ def same_bits_with_lse(q, k, v, kw) -> bool:
     return torch.equal(plain, with_lse)
 
 
-def causal_flash_cost(g, p, s, hd, dtype):
-    """(bytes, FLOPs) causal flash attention over Sq = Sk = s needs: q, k,
-    v read once and the output written once; 4*hd FLOPs per visible (q, k)
-    pair, s(s+1)/2 of them."""
+def flash_cost(b, g, p, sq, sk, hd, causal, dtype):
+    """(bytes, FLOPs) of flash attention's forward: q, k, v read once and
+    the output written once; 4 * hd FLOPs per visible (q, k) pair and head
+    (q row i at i, k row j at j)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * g * p * s * hd + 2 * g * s * hd) * size
-    return nbytes, 4 * g * p * hd * (s * (s + 1) // 2)
+    nbytes = b * (2 * g * p * sq * hd + 2 * g * sk * hd) * size
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return nbytes, 4 * hd * pairs * b * g * p
 
 
 def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv_place=None,
@@ -2874,7 +2950,7 @@ def serve_phases(dev, card) -> list[dict]:
         v = torch.randn((1, sq, 256), generator=gen, device=dev).to(bf16)
         ke, ve = (x[:, None].expand(1, 8, sq, 256).contiguous() for x in (k, v))
         # ms: CUDA events around one call (as every kernel's ms); dev: the
-        # device's own time over 20 calls (torch.profiler), no host in it
+        # device's own time over 20 calls (device_ms), no host in it
         k_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
         kb_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, p_bf16=True))
         p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
@@ -2884,7 +2960,7 @@ def serve_phases(dev, card) -> list[dict]:
         assert same_bits_with_lse(q.permute(2, 0, 1, 3)[None], k.permute(1, 0, 2)[None],
                                   v.permute(1, 0, 2)[None], dict(causal=True)), sq
         l_dev = device_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
-        nbytes, flops = causal_flash_cost(1, 8, sq, 256, bf16)
+        nbytes, flops = flash_cost(1, 1, 8, sq, sq, 256, True, bf16)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[bf16]) * 1e3
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, sq)), device=dev)
         pre = []
@@ -3263,7 +3339,7 @@ def moe_phase(dev, card) -> dict:
     fk = lambda: kflash.flash_attention_seq_major(q, k, v, **kw)
     k_ms, p_ms, l_ms = cuda_ms(fk), cuda_ms(plain), cuda_ms(sdpa)
     k_dev, l_dev = device_ms(fk), device_ms(sdpa)
-    nbytes, flops = causal_flash_cost(g, pp, sq, hd, bf16)
+    nbytes, flops = flash_cost(1, g, pp, sq, sq, hd, True, bf16)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[bf16]) * 1e3
     out["flash_attention"] = {"launches_phase_18": path_launches["flash_attention"], "phase_18": {
         "shape": f"G={g} P={pp} Sq=Sk={sq} hd={hd} bf16 causal (Scout layer 0's prefill)",
@@ -3381,7 +3457,7 @@ def _profiled_step(fn):
             "names": sorted(by), "device_ops": len(ops)}
 
 
-def assert_bwd_kernels(tag, prof):
+def assert_bwd_kernels(tag, prof, phase=19):
     """The profiled bf16 train step ran the backward's tensor-core kernels
     (D, dkdv, dq) and neither the stats pass nor the float32 kernels."""
     names = prof["names"]
@@ -3390,7 +3466,7 @@ def assert_bwd_kernels(tag, prof):
     for never in ("flash_bwd_stats", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
         assert not any(never in n for n in names), (tag, never, names)
     ran = sorted({m for n in names for m in re.findall(r"flash_bwd_\w+?_kernel", n)})
-    log(f"phase 19 {tag}: the profiled step's backward kernels: {ran} (no flash_bwd_stats)")
+    log(f"phase {phase} {tag}: the profiled step's backward kernels: {ran} (no flash_bwd_stats)")
 
 
 def _log_profile(tag, prof, card):
@@ -4117,13 +4193,16 @@ TEACHER_TOL = 2e-3       # the reference's teacher-forced limit (tests/test_mode
 CARD_CPU_TOL = 1e-4      # smoke config, float32: x max(1, |cpu|)
 
 
-def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total) -> float:
+def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total, extra=None) -> float:
     """Largest excess over ``TEACHER_TOL * (1 + |full|)`` of the logits of
     ``prefix`` prompt tokens prefilled then ``total - prefix`` decoded
-    teacher-forced, against the ``total``-token prefill's last logits."""
+    teacher-forced, against the ``total``-token prefill's last logits;
+    ``extra`` joins both prefills' batches (an enc-dec model's frames)."""
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, total)), device=dev)
-    full, _ = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=total)
-    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix]}, cfg, pol, max_len=total)
+    extra = extra or {}
+    full, _ = model.prefill(params, {"tokens": toks, **extra}, cfg, pol, max_len=total)
+    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix], **extra}, cfg, pol,
+                                  max_len=total)
     for t in range(prefix, total):
         logits, cache = model.decode_step(params, cache, toks[:, t:t + 1], cfg, pol)
     a, b = logits[..., :cfg.vocab_size].double(), full[..., :cfg.vocab_size].double()
@@ -4132,7 +4211,69 @@ def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total) -> float:
     return float((a - b).abs().max())
 
 
-def _remat_runs(dev, cfg, base: dict, variants: dict, opt_cfg, batches, tag, card) -> dict:
+def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
+    """Phases 21 (c) and 22 (c): the float32 smoke config ``scfg``, its
+    parameters made on the CPU and copied to the card: a ``prompt``-token
+    prefill of 2 rows and 4 decode steps, logits within ``CARD_CPU_TOL`` x
+    max(1, |cpu|); 3 train steps of 2 x ``seq`` tokens, loss and grad norm
+    within ``CARD_CPU_TOL`` relative.  An enc-dec config's batches carry
+    frame embeddings from ``rng`` too."""
+    import repro_torch.models.model as model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import OptConfig, init_opt, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    spol = Policy()
+    cpu = model.init_params(scfg, 0, spol, device="cpu")
+    card_p = tree_map(lambda v: v.to(dev, copy=True), cpu)
+    where = {"cpu": torch.device("cpu"), "card": dev}
+    sides = {"cpu": cpu, "card": card_p}
+
+    def frames():
+        return rng.standard_normal((2, scfg.enc_len, scfg.d_model)).astype(np.float32)
+
+    def on(side, batch):
+        return {k: torch.as_tensor(v, device=where[side]) for k, v in batch.items()}
+
+    first = {"tokens": rng.integers(0, scfg.vocab_size, (2, prompt))}
+    if scfg.encdec:
+        first["enc_embeds"] = frames()
+    caches, logits = {}, {"cpu": [], "card": []}
+    for side, p in sides.items():
+        lg, caches[side] = model.prefill(p, on(side, first), scfg, spol, max_len=prompt + 8)
+        logits[side].append(lg.cpu())
+    for _ in range(4):
+        nxt = rng.integers(0, scfg.vocab_size, (2, 1))
+        for side, p in sides.items():
+            lg, caches[side] = model.decode_step(
+                p, caches[side], torch.as_tensor(nxt, device=where[side]), scfg, spol)
+            logits[side].append(lg.cpu())
+    worst = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                for a, b in zip(logits["card"], logits["cpu"]))
+    assert worst <= CARD_CPU_TOL, worst
+    sopt = OptConfig(lr=1e-3, warmup=1)
+    runs = {"cpu": [cpu, init_opt(cpu, sopt)], "card": [card_p, init_opt(card_p, sopt)]}
+    sstep = make_train_step(scfg, spol, sopt)
+    train_worst = 0.0
+    for i in range(3):
+        tk = rng.integers(0, scfg.vocab_size, (2, seq + 1))
+        extra = {"enc_embeds": frames()} if scfg.encdec else {}
+        out = {}
+        for side, (p, o) in runs.items():
+            p, o, m = sstep(p, o, {**_lm_batch(tk, where[side]), **on(side, extra)})
+            runs[side] = [p, o]
+            out[side] = {k: v.cpu() for k, v in m.items()}
+        for key in ("loss", "grad_norm"):
+            a, b = float(out["card"][key]), float(out["cpu"][key])
+            assert abs(a - b) <= CARD_CPU_TOL * abs(b), (i, key, a, b)
+            train_worst = max(train_worst, abs(a - b) / abs(b))
+    log(f"phase {phase}: {scfg.name} float32: prefill and 4 decode steps, logits within "
+        f"{worst:.3g} x max(1, |cpu|) (<= {CARD_CPU_TOL}); 3 train steps, loss and grad_norm "
+        f"within {train_worst:.3g} relative (<= {CARD_CPU_TOL})")
+
+
+def _remat_runs(dev, cfg, base: dict, variants: dict, opt_cfg, batches, tag, card,
+                phase=21) -> dict:
     """Train ``len(batches)`` steps from one state under each policy of
     ``variants`` (name -> extra ``Policy`` fields; the first is the
     reference run): the parameters are made once, kept as a host copy and
@@ -4191,7 +4332,7 @@ def _remat_runs(dev, cfg, base: dict, variants: dict, opt_cfg, batches, tag, car
             assert worst <= 1e-6, (tag, name, unequal, worst)
             run["unequal_tensors"], run["largest_rel_diff"] = unequal, worst
         out[name] = run
-        log(f"phase 21 ({tag}): {name}: {len(batches)} steps: losses {run['losses']}, grad_norm "
+        log(f"phase {phase} ({tag}): {name}: {len(batches)} steps: losses {run['losses']}, grad_norm "
             f"{run['grad_norms']}; step walls (ms) {[round(w, 1) for w in walls]}; peak memory "
             f"{peak:.2f} GB; launches a step {launches}"
             + ("" if name == next(iter(variants)) else
@@ -4220,7 +4361,7 @@ def xlstm_phase(dev, card) -> dict:
     from repro_torch.models.modules import Policy
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import DRScheduler
-    from repro_torch.train.optimizer import OptConfig, init_opt, leaves, tree_map
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves
     from repro_torch.train.train_step import make_train_step
 
     t_phase = time.perf_counter()
@@ -4408,47 +4549,8 @@ def xlstm_phase(dev, card) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (c) the smoke config, card against CPU ---------------------------
-    scfg = reduce_for_smoke(cfg)
-    spol = Policy()
-    cpu = model.init_params(scfg, 0, spol, device="cpu")
-    card_p = tree_map(lambda v: v.to(dev, copy=True), cpu)
-    where = {"cpu": torch.device("cpu"), "card": dev}
-    sides = {"cpu": cpu, "card": card_p}
-    toks = rng.integers(0, scfg.vocab_size, (2, 24))
-    caches, logits = {}, {"cpu": [], "card": []}
-    for side, p in sides.items():
-        lg, caches[side] = model.prefill(
-            p, {"tokens": torch.as_tensor(toks, device=where[side])}, scfg, spol, max_len=32)
-        logits[side].append(lg.cpu())
-    for _ in range(4):
-        nxt = rng.integers(0, scfg.vocab_size, (2, 1))
-        for side, p in sides.items():
-            lg, caches[side] = model.decode_step(
-                p, caches[side], torch.as_tensor(nxt, device=where[side]), scfg, spol)
-            logits[side].append(lg.cpu())
-    worst = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-                for a, b in zip(logits["card"], logits["cpu"]))
-    assert worst <= CARD_CPU_TOL, worst
-    sopt = OptConfig(lr=1e-3, warmup=1)
-    runs = {"cpu": [cpu, init_opt(cpu, sopt)], "card": [card_p, init_opt(card_p, sopt)]}
-    sstep = make_train_step(scfg, spol, sopt)
-    train_worst = 0.0
-    for i in range(3):
-        tk = rng.integers(0, scfg.vocab_size, (2, 65))
-        out = {}
-        for side, (p, o) in runs.items():
-            p, o, m = sstep(p, o, _lm_batch(tk, where[side]))
-            runs[side] = [p, o]
-            out[side] = {k: v.cpu() for k, v in m.items()}
-        for key in ("loss", "grad_norm"):
-            a, b = float(out["card"][key]), float(out["cpu"][key])
-            assert abs(a - b) <= CARD_CPU_TOL * abs(b), (i, key, a, b)
-            train_worst = max(train_worst, abs(a - b) / abs(b))
-    log(f"phase 21 (c): {scfg.name} float32: prefill and 4 decode steps, logits within "
-        f"{worst:.3g} x max(1, |cpu|) (<= {CARD_CPU_TOL}); 3 train steps, loss and grad_norm "
-        f"within {train_worst:.3g} relative (<= {CARD_CPU_TOL}); {time.perf_counter() - t_phase:.1f} "
-        f"s so far")
-    del runs, cpu, card_p, sides, caches
+    smoke_card_against_cpu(dev, reduce_for_smoke(cfg), rng, 24, 64, "21 (c)")
+    log(f"phase 21 (c): {time.perf_counter() - t_phase:.1f} s so far")
 
     # ---- (d) remat on gemma-2b, full width and depth ----------------------
     gemma = get_config("gemma-2b")
@@ -4511,6 +4613,396 @@ def xlstm_phase(dev, card) -> dict:
     return {"flash_attention": {"launches_phase_21": per_step("flash_attention")},
             "flash_attention_bwd": {"launches_phase_21": per_step("flash_attention_bwd")},
             "dispatch_count": {"launches_phase_21": per_step("dispatch_count")}}
+
+
+# phase 22: the enc-dec family, whisper-base at its full published width and depth
+WHISPER_UTTERANCES = 16
+WHISPER_REPLICAS = 4
+WHISPER_PROMPT = 4          # prompt tokens an utterance (the task and language tokens' count)
+WHISPER_NEW = 60            # greedy tokens decoded an utterance
+WHISPER_MAX_LEN = 448       # the decoder's context (whisper's n_text_ctx)
+WHISPER_BATCH = 16
+WHISPER_STEPS = 8
+# phase 22 (d): flash forward against its plain version (phase 10's limits)
+FWD_BF16_ABS = 8e-3
+FWD_F32_ABS = 2e-5
+
+
+def _whisper_batch(toks, frames, dev):
+    batch = _lm_batch(toks, dev)
+    batch["enc_embeds"] = frames
+    return batch
+
+
+def check_whisper_flash(dev, card, cfg) -> dict:
+    """Phase 22 (d): both flash kernels at whisper-base's three attention
+    shapes (B 16, G 8, P 1, hd 64): the encoder's 1,500 x 1,500 and the
+    decoder's 448 x 448 causal self-attention, the cross-attention's 448
+    q rows over 1,500 k rows; bf16 and float32 against the plain versions,
+    outputs handed out dirty, two calls bit-equal, the forward without lse
+    bit-equal to the launch that writes it; the backward with the forward's
+    lse and by the stats pass, each gradient on its own scale with a 5%-off
+    control refused; times beside the bound and SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, g, hd = WHISPER_BATCH, cfg.num_kv_heads, cfg.head_dim
+    p = cfg.num_heads // g
+    shapes = {"encoder": (cfg.enc_len, cfg.enc_len, False),
+              "decoder self": (WHISPER_MAX_LEN, WHISPER_MAX_LEN, True),
+              "cross": (WHISPER_MAX_LEN, cfg.enc_len, False)}
+    out = {}
+    for name, (sq, sk, causal) in shapes.items():
+        mask = dict(causal=causal, window=0, q_offset=0)
+        q = torch.randn((b, sq, g, p, hd), generator=gen, device=dev)
+        k = torch.randn((b, sk, g, hd), generator=gen, device=dev)
+        v = torch.randn((b, sk, g, hd), generator=gen, device=dev)
+        dout = torch.randn((b, sq, g * p * hd), generator=gen, device=dev)
+        shape = (f"B={b} G={g} P={p} Sq={sq} Sk={sk} hd={hd} "
+                 f"{'causal' if causal else 'non-causal'} ({name})")
+        row = {"fwd": {"shape": shape}, "bwd": {"shape": shape}}
+        for dtype in (torch.bfloat16, torch.float32):
+            tq, tk, tv, td = (t.to(dtype) for t in (q, k, v, dout))
+            bf = dtype == torch.bfloat16
+            dt = "bf16" if bf else "float32"
+            with dirty_outputs():
+                got = kflash.flash_attention_seq_major(tq, tk, tv, **mask)
+            again = kflash.flash_attention_seq_major(tq, tk, tv, **mask)
+            torch.cuda.synchronize()
+            want = kflash.flash_attention_seq_major_plain(tq, tk, tv, **mask)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            limit = FWD_BF16_ABS if bf else FWD_F32_ABS
+            assert torch.equal(got, again), (name, dt)
+            assert err <= limit, (name, dt, err)
+            row["fwd"][f"max_abs_err_{dt}"] = err
+            assert not bf or same_bits_with_lse(tq, tk, tv, mask), (name, dt)
+            log(f"phase 22 (d): flash_attention [{shape}, {dt}]: max |kernel - plain| "
+                f"{err:.3g} (<= {limit:g}); two calls bit-equal; outputs handed out dirty"
+                + ("; the output equal bit for bit with and without lse" if bf else ""))
+            modes = [("stats", None)]
+            if bf:
+                o, lse = kflash.flash_attention_seq_major(tq, tk, tv, return_lse=True, **mask)
+                modes.insert(0, ("lse", lse))
+            else:
+                o = got
+            blimit = BWD_EXCESS if bf else BWD_F32_REL
+            for mode, ml in modes:
+                r = bwd_errors(tq, tk, tv, o, td, mask, ml)
+                assert r["equal"], (name, dt, mode)
+                for grad, e, c in zip(("dq", "dk", "dv"), r["errs"], r["controls"]):
+                    assert e <= blimit, (name, dt, mode, grad, e)
+                    assert c > blimit, (name, dt, mode, grad, c)
+                row["bwd"][f"errors_{dt}_{mode}"] = {"checked": max(r["errs"]),
+                                                     "max_abs_err": r["abs_err"]}
+                log(f"phase 22 (d): flash_attention_bwd [{shape}, {dt}"
+                    + (f" {mode}" if bf else "") + "]: dq, dk, dv against the plain version, "
+                    f"{'excess over bf16 rounding' if bf else 'max |diff|'} / max |ref| "
+                    f"{[f'{x:.3g}' for x in r['errs']]} (<= {blimit:g}; the same gradients 5% "
+                    f"off read {[f'{x:.3g}' for x in r['controls']]}, refused); two calls "
+                    f"bit-equal; outputs handed out dirty")
+            del got, again, want, o
+        # times, bf16 (the models' type)
+        tq, tk, tv, td = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+        o, lse = kflash.flash_attention_seq_major(tq, tk, tv, return_lse=True, **mask)
+        fwd = lambda: kflash.flash_attention_seq_major(tq, tk, tv, **mask)
+        fwd_plain = lambda: kflash.flash_attention_seq_major_plain(tq, tk, tv, **mask)
+        bwd = lambda: kflash.flash_attention_bwd_seq_major(tq, tk, tv, o, td, lse=lse, **mask)
+        bwd_plain = lambda: kflash.flash_attention_bwd_seq_major_plain(tq, tk, tv, o, td, **mask)
+        qs = tq.reshape(b, sq, g * p, hd).transpose(1, 2).contiguous().requires_grad_()
+        ks, vs = (t.repeat_interleave(p, dim=2) if p > 1 else t for t in (tk, tv))  # P 1: as is
+        ks, vs = (t.transpose(1, 2).contiguous().requires_grad_() for t in (ks, vs))
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        so = sdpa()
+        sd = td.reshape(b, sq, g * p, hd).transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(so, (qs, ks, vs), sd, retain_graph=True)
+        nbytes, flops = flash_cost(b, g, p, sq, sk, hd, causal, torch.bfloat16)
+        bbytes, bflops = _bwd_cost(b, g, p, sq, sk, hd, causal, 0, torch.bfloat16)
+        peak = PEAK_FLOPS[torch.bfloat16]
+        for kind, (kern, plain, lib, nb, fl) in {
+                "fwd": (fwd, fwd_plain, sdpa, nbytes, flops),
+                "bwd": (bwd, bwd_plain, sdpa_bwd, bbytes, bflops)}.items():
+            k_ms, p_ms, l_ms = cuda_ms(kern), cuda_ms(plain, warmup=1, reps=5), cuda_ms(lib)
+            k_dev, l_dev = device_ms(kern), device_ms(lib)
+            bound = max(nb / HBM_BYTES_PER_S, fl / peak) * 1e3
+            row[kind].update({"ms": k_ms, "plain_ms": p_ms, "device_ms": k_dev, "bound_ms": bound,
+                         "bound_by": "operations" if fl / peak > nb / HBM_BYTES_PER_S
+                         else "bytes", "bytes": nb, "flops": fl, "library_ms": l_ms,
+                         "library_device_ms": l_dev})
+            log(f"phase 22 (d): flash_attention{'_bwd' if kind == 'bwd' else ''} at "
+                f"{shape} bf16: events around one call {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, SDPA{' backward' if kind == 'bwd' else ''} {l_ms:.4f} ms; "
+                f"device time {k_dev:.4f} ms ({fl / k_dev / 1e9:.1f} TFLOP/s, "
+                f"{100 * bound / k_dev:.2f}% of the bound {bound:.4f} ms by "
+                f"{row[kind]['bound_by']}: {fl:,} FLOP, {nb:,} bytes), SDPA {l_dev:.4f} ms "
+                f"(kernel / SDPA {k_dev / l_dev:.2f}); card {card}")
+        out[name] = row
+        del q, k, v, dout, tq, tk, tv, td, o, lse, qs, ks, vs, so, sd
+        torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase(dev, card) -> dict:
+    """Phase 22: the enc-dec family.  (a) whisper-base served at full
+    width and depth, (b) trained, with remat on and off, (c) its smoke
+    config card against CPU, (d) both flash kernels at its three attention
+    shapes against their plain versions.  Returns the phase-22 entries of
+    the flash and flash-backward rows."""
+    import repro_torch.models.model as model
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.generators import lm_token_stream
+    from repro_torch.models import encdec
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.scheduler import DRScheduler
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("whisper-base")
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+    n_layers = cfg.enc_layers + 2 * cfg.num_layers  # flash calls a forward
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    # ---- (a) serving at full width and depth ------------------------------
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    log(f"phase 22 (a): {cfg.name}: {cfg.enc_layers} encoder and {cfg.num_layers} decoder "
+        f"layers, d {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} kv heads, "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, enc_len "
+        f"{cfg.enc_len} (the audio frontend stubbed: seeded frame embeddings): {n_params:,} "
+        f"parameters bf16 (tied embeddings; the learned position table {encdec.MAX_DEC_POS} "
+        f"rows); made on the card in {time.perf_counter() - t:.1f} s")
+    keys9 = np.random.default_rng(0)  # phase 9's session keys
+    sessions = np.where(keys9.random(32) < 0.3, 7, keys9.integers(0, 1000, 32))
+    sessions = sessions[:WHISPER_UTTERANCES]
+    sched = DRScheduler(WHISPER_REPLICAS)
+    groups: list[list[int]] = [[] for _ in range(WHISPER_REPLICAS)]
+    for i, key in enumerate(sessions):
+        groups[sched.route(int(key), cost_tokens=WHISPER_NEW)].append(i)
+    frames = torch.randn((WHISPER_UTTERANCES, cfg.enc_len, cfg.d_model), generator=gen,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (WHISPER_UTTERANCES, WHISPER_PROMPT),
+                            generator=gen, device=dev)
+    batches = {r: {"tokens": prompts[idx], "enc_embeds": frames[idx]}
+               for r, idx in enumerate(groups) if idx}
+
+    def synced_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # untimed warm-up: a prefill and a decode step of each replica's batch, so
+    # no timed wall below is its shape's first call
+    for batch in batches.values():
+        _, cache = model.prefill(params, batch, cfg, pol, max_len=WHISPER_MAX_LEN)
+        model.decode_step(params, cache, batch["tokens"][:, -1:], cfg, pol)
+    del cache
+    # the encoder alone on each batch, warm, outside the timed serving below
+    enc_ms = {r: 1e3 * statistics.median(
+                  synced_s(lambda: encdec.encode(params, batch["enc_embeds"], cfg, pol))
+                  for _ in range(5))
+              for r, batch in batches.items()}
+    prefill_ms, decode_ms, outs, finite = {}, {}, {}, []
+    t = time.perf_counter()
+    for r, batch in batches.items():
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cfg, pol, max_len=WHISPER_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms[r] = (time.perf_counter() - t0) * 1e3
+        n_pre = _launch_counts()["flash_attention"]
+        assert n_pre == n_layers, (r, n_pre)
+        finite.append(bool(torch.isfinite(logits).all()))
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+        toks, walls = [nxt], []
+        for _ in range(WHISPER_NEW - 1):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, nxt[:, None], cfg, pol)
+            nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            finite.append(bool(torch.isfinite(logits).all()))
+            toks.append(nxt)
+        decode_ms[r] = statistics.median(walls) * 1e3
+        assert _launch_counts()["flash_attention"] == n_pre, "a decoded token ran flash"
+        outs[r] = torch.stack(toks, dim=1).cpu()
+        log(f"phase 22 (a): replica {r}: utterances {groups[r]} in one batch: {n_pre} flash "
+            f"launches in the prefill, 0 in {WHISPER_NEW - 1} decode steps")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    del cache
+    assert finite and all(finite), "non-finite logits"
+    assert sum(len(g) for g in groups) == WHISPER_UTTERANCES
+    for r, o in outs.items():
+        assert o.shape == (len(groups[r]), WHISPER_NEW), o.shape
+        assert int(o.min()) >= 0 and int(o.max()) < cfg.vocab_size
+    tokens = WHISPER_UTTERANCES * WHISPER_NEW
+    log(f"phase 22 (a): DRScheduler({WHISPER_REPLICAS}) over phase 9's first "
+        f"{WHISPER_UTTERANCES} session keys: replicas' batches {[len(g) for g in groups]}; "
+        f"{WHISPER_UTTERANCES} utterances of {cfg.enc_len} frames, {WHISPER_PROMPT}-token "
+        f"prompts, {WHISPER_NEW} greedy tokens each: {tokens} tokens in {serve_s:.2f} s "
+        f"({tokens / serve_s:.1f} tokens/s, after an untimed warm-up of each batch); routed "
+        f"{sched.routed}, imbalance {sched.imbalance():.2f}; all logits finite; card {card}")
+    for r in batches:
+        log(f"phase 22 (a): batch of {len(groups[r])}: prefill wall {prefill_ms[r]:.3f} ms, "
+            f"the encoder alone (median of 5, warm) {enc_ms[r]:.3f} ms = "
+            f"{100 * enc_ms[r] / prefill_ms[r]:.1f}% of it; decode wall a token median "
+            f"{decode_ms[r]:.3f} ms; card {card}")
+    big = max(range(WHISPER_REPLICAS), key=lambda r: len(groups[r]))
+    batch = batches[big]
+    prof_pre = _profiled_step(lambda: model.prefill(params, batch, cfg, pol,
+                                                    max_len=WHISPER_MAX_LEN))
+    _, cache = model.prefill(params, batch, cfg, pol, max_len=WHISPER_MAX_LEN)
+    one = torch.zeros((len(groups[big]), 1), dtype=torch.int64, device=dev)
+
+    def decode8():
+        for _ in range(8):
+            model.decode_step(params, cache, one, cfg, pol)
+
+    prof_dec = _profiled_step(decode8)
+    for label, pr, plain in (("a prefill", prof_pre, prefill_ms[big]),
+                             ("8 decode steps", prof_dec, 8 * decode_ms[big])):
+        log(f"phase 22 (a): profile of {label} (replica {big}, {len(groups[big])} utterances): "
+            f"wall {pr['wall_ms']:.2f} ms (profiled), {pr['device_ops']:,} device operations, "
+            f"device busy {pr['busy_ms']:.2f} ms, idle {100 * pr['idle']:.1f}% of the profiled "
+            f"wall, {100 * (1 - pr['busy_ms'] / plain):.1f}% of the unprofiled {plain:.2f} ms")
+        for name, ms in pr["top"]:
+            log(f"phase 22 (a):   {ms:9.3f} ms {100 * ms / pr['busy_ms']:5.1f}%  {name[:90]}")
+    del cache, batch
+    # teacher-forced at full width in float32
+    t = time.perf_counter()
+    f32 = Policy()
+    p32 = model.init_params(cfg, 0, f32, device=dev)
+    rng = np.random.default_rng(22)
+    one = {"enc_embeds": torch.randn((1, cfg.enc_len, cfg.d_model), generator=gen, device=dev)}
+    tf = {(p, n): _teacher_forced(model, p32, cfg, f32, dev, rng, p, n, one)
+          for p, n in ((WHISPER_PROMPT, 64), (WHISPER_MAX_LEN - 1, WHISPER_MAX_LEN))}
+    log(f"phase 22 (a): teacher-forced, float32 at full width: " + "; ".join(
+        f"{p} prefilled + {n - p} decoded against {n} prefilled: largest logit difference "
+        f"{d:.3g} (limit {TEACHER_TOL} x (1 + |logit|))" for (p, n), d in tf.items())
+        + f"; {time.perf_counter() - t:.1f} s; {time.perf_counter() - t_phase:.1f} s so far")
+    del p32, params, frames, batches
+    torch.cuda.empty_cache()
+
+    # ---- (b) training at full width and depth -----------------------------
+    params = model.init_params(cfg, 0, pol, device=dev)
+    opt_cfg = OptConfig()
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(cfg, pol, opt_cfg)
+    batches = [_whisper_batch(x, torch.randn((WHISPER_BATCH, cfg.enc_len, cfg.d_model),
+                                             generator=gen, device=dev), dev)
+               for x in lm_token_stream(WHISPER_STEPS, WHISPER_BATCH, WHISPER_MAX_LEN + 1,
+                                        cfg.vocab_size, seed=22)]
+    per_step = {"flash_attention": n_layers, "flash_attention_bwd": n_layers,
+                "flash_attention_bwd_stats": 0, "dispatch_count": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    walls, ms = [], []
+    for i, batch in enumerate(batches):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        m = {k: v.cpu() for k, v in m.items()}
+        walls.append((time.perf_counter() - t) * 1e3)
+        now = _launch_counts()
+        assert {k: now[k] - before[k] for k in now} == per_step, (i, now, before)
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+        ms.append(m)
+    train_launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = statistics.median(walls[1:])
+    dec_tokens = WHISPER_BATCH * WHISPER_MAX_LEN
+    log(f"phase 22 (b): {WHISPER_STEPS} steps of {WHISPER_BATCH} x ({cfg.enc_len} frames, "
+        f"{WHISPER_MAX_LEN} lm_token_stream tokens) through make_train_step (bf16 parameters, "
+        f"float32 moments): losses {[round(float(m['loss']), 4) for m in ms]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
+        f"{[round(w, 1) for w in walls]}: median of steps 2-{WHISPER_STEPS} {wall:.1f} ms, "
+        f"{dec_tokens / wall * 1e3:,.0f} decoder tokens/s "
+        f"({WHISPER_BATCH * cfg.enc_len / wall * 1e3:,.0f} frames/s); peak memory {peak:.2f} GB; "
+        f"launches {train_launches} ({n_layers} flash forward and {n_layers} backward a step, "
+        f"none through the stats pass); card {card}")
+    # three profiled steps: the profiler slows the host's launches, so each
+    # one's idle share is also given against the unprofiled median wall
+    profs = [_profiled_step(lambda: step(params, opt, batches[1])) for _ in range(3)]
+    for i, pr in enumerate(profs):
+        log(f"phase 22 (b): profiled step {i + 1} of 3: wall {pr['wall_ms']:.2f} ms (profiled), "
+            f"device busy {pr['busy_ms']:.2f} ms, idle {100 * pr['idle']:.1f}% of the profiled "
+            f"wall, {100 * (1 - pr['busy_ms'] / wall):.1f}% of the unprofiled median "
+            f"{wall:.1f} ms; {pr['device_ops']:,} device operations; card {card}")
+    prof = profs[0]
+    for name, t_ms in prof["top"]:
+        log(f"phase 22 (b):   {t_ms:9.3f} ms {100 * t_ms / prof['busy_ms']:5.1f}%  {name[:90]}")
+    assert_bwd_kernels("(b)", prof, phase=22)
+    del opt
+    torch.cuda.empty_cache()
+    over_cfg = OptConfig(lr=1e-3, warmup=1)
+    opt = init_opt(params, over_cfg)
+    over = make_train_step(cfg, pol, over_cfg)
+    losses = []
+    for _ in range(8):
+        params, opt, m = over(params, opt, batches[0])
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log(f"phase 22 (b): one batch repeated for 8 steps at OptConfig(lr=1e-3, warmup=1): losses "
+        f"{[round(v, 4) for v in losses]} (the last below the first); "
+        f"{time.perf_counter() - t_phase:.1f} s so far")
+    del params, opt, step, over
+    torch.cuda.empty_cache()
+    remat = _remat_runs(dev, cfg, dict(param_dtype=bf16, compute_dtype=bf16),
+                        {"no remat": {}, "remat": dict(remat=True)}, OptConfig(), batches[:2],
+                        "b", card, phase=22)
+    want = {"no remat": 1, "remat": 2}
+    for name, run in remat.items():
+        got = run["launches_a_step"]
+        assert got["flash_attention"] == want[name] * n_layers, (name, got)
+        assert got["flash_attention_bwd"] == n_layers, (name, got)
+        assert got["flash_attention_bwd_stats"] == 0, (name, got)
+        assert run.get("unequal_tensors", 0) == 0, (name, run)
+    log(f"phase 22 (b): 2 steps from one state without and with Policy(remat=True): losses, "
+        f"grad norms and all parameters equal bit for bit; peak memory "
+        f"{remat['no remat']['peak_gb']:.2f} / {remat['remat']['peak_gb']:.2f} GB; flash forward "
+        f"launches a step {remat['no remat']['launches_a_step']['flash_attention']:g} / "
+        f"{remat['remat']['launches_a_step']['flash_attention']:g}, backward "
+        f"{remat['remat']['launches_a_step']['flash_attention_bwd']:g}; step walls (ms) "
+        + " / ".join(f"{statistics.median(r['walls_ms']):.1f}" for r in remat.values())
+        + f"; card {card}")
+    del batches
+    torch.cuda.empty_cache()
+
+    # ---- (c) the smoke config, card against CPU ---------------------------
+    smoke_card_against_cpu(dev, reduce_for_smoke(cfg), np.random.default_rng(22), 12, 32,
+                           "22 (c)")
+    log(f"phase 22 (c): {time.perf_counter() - t_phase:.1f} s so far")
+
+    # ---- (d) the flash kernels at whisper's three shapes -------------------
+    checked = check_whisper_flash(dev, card, cfg)
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    per_step = {name: run["launches_a_step"] for name, run in remat.items()}
+    return {"flash_attention": {
+                "launches_phase_22": {"a prefill": n_layers, "a decoded token": 0,
+                                      "a train step": per_step["no remat"]["flash_attention"],
+                                      "a train step under remat":
+                                          per_step["remat"]["flash_attention"],
+                                      "(b) in all": train_launches["flash_attention"]},
+                "phase_22": {k: v["fwd"] for k, v in checked.items()}},
+            "flash_attention_bwd": {
+                "launches_phase_22": {"a train step": per_step["no remat"]["flash_attention_bwd"],
+                                      "a train step under remat":
+                                          per_step["remat"]["flash_attention_bwd"],
+                                      "(b) in all": train_launches["flash_attention_bwd"]},
+                "phase_22": {k: v["bwd"] for k, v in checked.items()}}}
 
 
 if __name__ == "__main__":

@@ -80,7 +80,12 @@ def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) ->
     (the reference keeps it so in every policy), its stacked experts ``wi
     [E, d, gate, f]`` and ``wo [E, f, d]`` and its ``shared`` FFN are cast
     like the rest; dense and MoE blocks may interleave (Maverick).  The
-    xLSTM blocks' ``mlstm`` and ``slstm`` dicts carry over as any other."""
+    xLSTM blocks' ``mlstm`` and ``slstm`` dicts carry over as any other.
+
+    An enc-dec tree (``repro.models.encdec.init_params``: ``embed``,
+    ``dec_pos``, stacked ``enc [enc_layers, ...]`` and ``dec [num_layers,
+    ...]``, ``enc_ln``, ``final_norm``) becomes the port's, with ``enc``
+    and ``dec`` as per-layer lists."""
     dev = resolve_device(device)
     return _layers_from_jax(tree, cfg, lambda a, name: _tensor(
         a, torch.float32 if name == "router" else pol.param_dtype, dev))
@@ -117,14 +122,19 @@ def _layers_from_jax(tree: dict, cfg: ArchConfig, convert) -> dict:
             return {k: conv(v, k) for k, v in node.items()}
         return convert(node, name)
 
+    def layer(node, i):
+        return {k: layer(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
+
+    if cfg.encdec:
+        enc, dec = conv(tree["enc"]), conv(tree["dec"])
+        return {"embed": conv(tree["embed"]), "dec_pos": conv(tree["dec_pos"]),
+                "enc": [layer(enc, i) for i in range(cfg.enc_layers)],
+                "dec": [layer(dec, i) for i in range(cfg.num_layers)],
+                "enc_ln": conv(tree["enc_ln"]), "final_norm": conv(tree["final_norm"])}
     out = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"])}
     if not cfg.tie_embeddings:
         out["lm_head"] = conv(tree["lm_head"])
     stacked = conv(tree["blocks"])
-
-    def layer(node, i):
-        return {k: layer(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
-
     out["layers"] = [layer(stacked[f"b{j}"], per)
                      for per in range(cfg.num_periods) for j in range(len(cfg.pattern))]
     for j in range(len(cfg.tail)):

@@ -40,7 +40,9 @@ no lse) a stats pass computes it first.  float32 runs the scalar kernels
 with their stats pass.  :func:`flash_attention_bwd_seq_major` takes the
 models' layout; :func:`flash_attention_bwd_plain` is the plain version (in
 the Pallas layout, and :func:`flash_attention_bwd_seq_major_plain` in the
-models'), :func:`flash_lse_plain` the plain lse.
+models'), :func:`flash_lse_plain` the plain lse;
+:func:`flash_attention_seq_major_plain` is the forward's plain version in
+the models' layout.
 :func:`flash_attention_seq_major_grad` is the forward as a
 ``torch.autograd.Function`` whose backward is that kernel on the card and
 the plain version on the CPU; ``flash_attention_bwd_seq_major.launches``
@@ -61,7 +63,8 @@ from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 __all__ = ["BWD_HEAD_DIMS", "MAX_HEAD_DIM", "FlashBwdLaunch", "FlashLaunch", "bwd_splits",
            "flash_attention", "flash_attention_bwd_plain", "flash_attention_bwd_seq_major",
            "flash_attention_bwd_seq_major_plain", "flash_attention_plain",
-           "flash_attention_seq_major", "flash_attention_seq_major_grad", "flash_lse_plain",
+           "flash_attention_seq_major", "flash_attention_seq_major_grad",
+           "flash_attention_seq_major_plain", "flash_lse_plain",
            "lse_rows", "pallas_views", "plan", "plan_bwd", "seq_major_views"]
 
 MAX_HEAD_DIM = 256
@@ -249,16 +252,15 @@ def flash_attention_seq_major(q, k, v, *, causal, window=0, q_offset=0, p_bf16=F
     CPU :func:`flash_lse_plain` computes it."""
     b, sq, g, p, hd = q.shape
     if q.device.type == "cpu":
-        qp = q.permute(0, 2, 3, 1, 4).reshape(b * g, p, sq, hd)
-        kp = k.permute(0, 2, 1, 3).reshape(b * g, -1, hd)
-        out = flash_attention_plain(qp, kp, v.permute(0, 2, 1, 3).reshape(b * g, -1, hd),
-                                    causal=causal, window=window, q_offset=q_offset,
-                                    p_bf16=p_bf16, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                    block_skip=block_skip)
-        out = out.reshape(b, g, p, sq, hd).permute(0, 3, 1, 2, 4).reshape(b, sq, g * p * hd)
+        out = flash_attention_seq_major_plain(q, k, v, causal=causal, window=window,
+                                              q_offset=q_offset, p_bf16=p_bf16,
+                                              q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                              block_skip=block_skip)
         if not return_lse:
             return out
-        lse = flash_lse_plain(qp, kp, causal=causal, window=window, q_offset=q_offset)
+        lse = flash_lse_plain(q.permute(0, 2, 3, 1, 4).reshape(b * g, p, sq, hd),
+                              k.permute(0, 2, 1, 3).reshape(b * g, -1, hd), causal=causal,
+                              window=window, q_offset=q_offset)
         buf = _lse_buffer(b, g, p, sq, q.device)
         buf.copy_(lse.reshape(b, g, p, sq))
         return out, buf
@@ -267,6 +269,19 @@ def flash_attention_seq_major(q, k, v, *, causal, window=0, q_offset=0, p_bf16=F
     _launch(*seq_major_views(q, k, v, out), causal=causal, window=window, q_offset=q_offset,
             p_bf16=p_bf16, lse=lse)
     return (out, lse) if return_lse else out
+
+
+def flash_attention_seq_major_plain(q, k, v, *, causal, window=0, q_offset=0, p_bf16=False,
+                                    q_chunk=256, kv_chunk=512, block_skip=True):
+    """:func:`flash_attention_plain` (any device) in the models' layout of
+    :func:`flash_attention_seq_major`: ``[B, Sq, G * P * hd]`` out."""
+    b, sq, g, p, hd = q.shape
+    out = flash_attention_plain(q.permute(0, 2, 3, 1, 4).reshape(b * g, p, sq, hd),
+                                k.permute(0, 2, 1, 3).reshape(b * g, -1, hd),
+                                v.permute(0, 2, 1, 3).reshape(b * g, -1, hd),
+                                causal=causal, window=window, q_offset=q_offset, p_bf16=p_bf16,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk, block_skip=block_skip)
+    return out.reshape(b, g, p, sq, hd).permute(0, 3, 1, 2, 4).reshape(b, sq, g * p * hd)
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,12 @@ arguments plus ``--device``).
 Runs the production loop: data pipeline -> train step -> DR
 expert-placement safe points -> checkpoints (atomic, resumable).
 ``--device`` defaults to ``cuda`` and raises without a card; ``--smoke``
-trains the ``reduce_for_smoke`` config.  The policy is the reference
-launcher's mesh-free one: a MoE model runs the dense oracle ``moe_ref``
-(stacked EP shards are ``Policy(ep_shards=N)`` in code, as
-``chip_smoke.py`` phase 19 trains Scout).
+trains the ``reduce_for_smoke`` config.  An enc-dec model (whisper-base)
+gets zero frame embeddings ``[batch, enc_len, d]``, as the reference's
+launcher gives it.  The policy is the reference launcher's mesh-free
+one: a MoE model runs the dense oracle ``moe_ref`` (stacked EP shards
+are ``Policy(ep_shards=N)`` in code, as ``chip_smoke.py`` phase 19 trains
+Scout).
 
 At each step boundary of a MoE model the ``PlacementController`` (over
 ``Policy.ep_shards or 1`` shards, the port's stand-in for the reference's
@@ -96,6 +98,9 @@ def main(argv: list[str] | None = None) -> None:
             "labels": toks[:, 1:],
             "mask": torch.ones((args.batch, args.seq), dtype=torch.float32, device=dev),
         }
+        if cfg.encdec:  # the stubbed audio frontend's frames, as the reference's launcher
+            batch["enc_embeds"] = torch.zeros((args.batch, cfg.enc_len, cfg.d_model),
+                                              dtype=torch.float32, device=dev)
         params, opt, metrics = step_fn(params, opt, batch, inv_place)
 
         # DR safe point: expert-placement update between steps

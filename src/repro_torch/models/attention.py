@@ -17,6 +17,11 @@ item 10).
 Caches are updated in place: ``decode_step`` writes the new token's k/v
 into the cache it is given, where the reference returns new arrays.  The
 cache's ``offset`` (the next write position) is a host ``int``.
+
+Cross-attention (the enc-dec decoder's, ``models/encdec.py``) is
+``attention_block`` with ``xkv=`` (k and v projected from the encoder's
+output, no RoPE) or with ``static_cache=True`` (fixed k/v precomputed from
+it, read and never written).
 """
 from __future__ import annotations
 
@@ -204,6 +209,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
+def physical_kv(k: torch.Tensor, v: torch.Tensor,
+                lay: HeadLayout) -> tuple[torch.Tensor, torch.Tensor]:
+    """k and v ``[B, S, hkv, hd]`` replicated to the physical kv slots
+    ``[B, S, hkv_p, hd]`` (the parameters stay real)."""
+    if lay.kv_map != tuple(range(lay.hkv)):
+        kv_map = torch.as_tensor(lay.kv_map, device=k.device)
+        k, v = k[:, :, kv_map], v[:, :, kv_map]
+    return k, v
+
+
 def attention_block(
     p: dict,
     x: torch.Tensor,          # [B, S, d]
@@ -218,36 +233,52 @@ def attention_block(
     rope_kind: str = "rope",
     norm_kind: str = "rmsnorm",
     cache: dict | None = None,   # {"k", "v", "pos", "offset"}
+    xkv: torch.Tensor | None = None,  # cross-attention source [B, Sk, d] (enc-dec)
+    static_cache: bool = False,  # cache holds fixed k/v (cross-attention): never written
 ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention for prefill (``S > 1``: flash, then the cache is
     filled) and decode (``S == 1``: the cache is appended to, then read).
-    Cross-attention (``xkv`` / ``static_cache``) is enc-dec and is not
-    ported (ROADMAP.md, queue 1 item 10)."""
-    b, s, d = x.shape
+
+    Cross-attention, as the reference's (``repro.models.attention``
+    :256-336): ``xkv`` projects k and v from the encoder's output (no RoPE
+    on either side); ``static_cache`` reads the fixed k/v of ``cache`` and
+    returns it unchanged: flash, non-causal, for ``S > 1``, and decode
+    attention at position ``2**30`` (every cached row visible) for ``S ==
+    1``."""
+    b, s = x.shape[:2]
     hd = p["wq"].shape[-1]
     cd = pol.compute_dtype
     if rope_kind == "mrope":
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, queue 1 item 10)")
+    rope = rope_kind == "rope" and xkv is None
 
     q = _project(x, p["wq"].to(cd))
     if "q_norm" in p:
         q = apply_norm(p["q_norm"], q, norm_kind)
-    if rope_kind == "rope":
+    if rope and not static_cache:
         q = apply_rope(q, pos, theta=theta, pct=rope_pct)
     q = pol.shard(q, "act_q")
     qg = q.reshape(b, s, lay.hkv_p, lay.qps, hd)
 
-    k = _project(x, p["wk"].to(cd))
-    v = _project(x, p["wv"].to(cd))
+    if static_cache:
+        if s > 1:
+            out = flash_attention(qg, cache["k"], cache["v"], causal=False,
+                                  q_chunk=pol.attn_q_chunk, kv_chunk=pol.attn_kv_chunk,
+                                  block_skip=pol.attn_block_skip, p_bf16=pol.attn_p_bf16)
+        else:
+            every = torch.full((b,), 2**30, dtype=torch.int32, device=x.device)
+            out = decode_attention(qg, cache["k"], cache["v"], cache["pos"], every)
+        return _out_proj(out, p, lay, pol), cache
+
+    src = x if xkv is None else xkv
+    k = _project(src, p["wk"].to(cd))
+    v = _project(src, p["wv"].to(cd))
     if "q_norm" in p:
         k = apply_norm(p["k_norm"], k, norm_kind)
-    if rope_kind == "rope":
+    if rope:
         k = apply_rope(k, pos, theta=theta, pct=rope_pct)
 
-    # replicate kv to the physical layout (params stay real)
-    if lay.kv_map != tuple(range(lay.hkv)):
-        kv_map = torch.as_tensor(lay.kv_map, device=k.device)
-        k, v = k[:, :, kv_map], v[:, :, kv_map]
+    k, v = physical_kv(k, v, lay)
     k = pol.shard(k, "act_kv")
     v = pol.shard(v, "act_kv")
 
@@ -263,9 +294,14 @@ def attention_block(
         out = decode_attention(qg, new_cache["k"], new_cache["v"], new_cache["pos"],
                                pos[:, 0], window=window)
 
-    out = pol.shard(out.reshape(b, s, lay.hq_p * hd), "act_q")
-    y = torch.matmul(out, p["wo"].to(cd).reshape(lay.hq_p * hd, d))
-    return y, new_cache
+    return _out_proj(out, p, lay, pol), new_cache
+
+
+def _out_proj(out: torch.Tensor, p: dict, lay: HeadLayout, pol: Policy) -> torch.Tensor:
+    """The heads' outputs ``[B, S, Hkv_p, qps, hd]`` through ``wo``."""
+    hq_hd = lay.hq_p * p["wq"].shape[-1]
+    out = pol.shard(out.reshape(*out.shape[:2], hq_hd), "act_q")
+    return torch.matmul(out, p["wo"].to(pol.compute_dtype).reshape(hq_hd, -1))
 
 
 # ---------------------------------------------------------------------------

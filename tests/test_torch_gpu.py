@@ -1290,6 +1290,10 @@ BWD_CASES = {
     # and a q_offset (q positions 33-332 over 333 keys; 64-320 over 321)
     "scout_ragged": (2, 5, 300, 333, 128, True, 100, 33),
     "gemma_ragged": (1, 8, 257, 321, 256, True, 96, 64),
+    # whisper-base's encoder (1,500 rows: a partial last tile) and its
+    # cross-attention (448 q rows over 1,500 k rows), non-causal
+    "whisper_encoder": (8, 1, 1500, 1500, 64, False, 0, 0),
+    "whisper_cross": (8, 1, 448, 1500, 64, False, 0, 0),
 }
 
 
@@ -1504,14 +1508,79 @@ def test_xlstm_card_equals_cpu(cuda):
             assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
 
 
+def test_whisper_card_equals_cpu(cuda):
+    """The smoke whisper-base at float32: a 12-token prefill over 32 frames
+    and 4 decode steps within 1e-4 x max(1, |cpu|) of the CPU's logits (4
+    flash launches a prefill: 2 encoder layers, the decoder's self and
+    cross; none a decoded token), then 3 train steps with loss and
+    grad_norm within 1e-4 relative (4 forward and 4 backward launches a
+    step)."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import OptConfig, init_opt, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("whisper-base"))
+    per = cfg.enc_layers + 2 * cfg.num_layers
+    pol = Policy()
+    cpu = model.init_params(cfg, 0, pol, device="cpu")
+    sides = {"cpu": cpu, "cuda": tree_map(lambda t: t.to(cuda), cpu)}
+    rng = np.random.default_rng(0)
+    frames = lambda: torch.as_tensor(rng.standard_normal((2, cfg.enc_len, cfg.d_model)),
+                                     dtype=torch.float32)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12))),
+             "enc_embeds": frames()}
+    kflash.flash_attention.launches = 0
+    logits, caches = {}, {}
+    for dev, p in sides.items():
+        logits[dev], caches[dev] = model.prefill(
+            p, {k: v.to(dev) for k, v in batch.items()}, cfg, pol, 20)
+    assert kflash.flash_attention.launches == per
+    for i in range(5):
+        a, b = logits["cuda"].cpu(), logits["cpu"]
+        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-4, i
+        if i == 4:
+            break
+        nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1)))
+        for dev, p in sides.items():
+            logits[dev], caches[dev] = model.decode_step(p, caches[dev], nxt.to(dev), cfg, pol)
+    assert kflash.flash_attention.launches == per
+    opt = OptConfig(lr=1e-3, warmup=1)
+    step = make_train_step(cfg, pol, opt)
+    states = {dev: (p, init_opt(p, opt)) for dev, p in sides.items()}
+    kflash.flash_attention.launches = kflash.flash_attention_bwd_seq_major.launches = 0
+    for _ in range(3):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33)))
+        f = frames()
+        out = {}
+        for dev, (p, st) in states.items():
+            d = t.to(dev)
+            p, st, m = step(p, st, {"tokens": d[:, :-1], "labels": d[:, 1:],
+                                    "mask": torch.ones((2, 32), device=dev),
+                                    "enc_embeds": f.to(dev)})
+            states[dev] = (p, st)
+            out[dev] = {k: v.cpu() for k, v in m.items()}
+        for key in ("loss", "grad_norm"):
+            a, b = float(out["cuda"][key]), float(out["cpu"][key])
+            assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+    assert kflash.flash_attention.launches == kflash.flash_attention_bwd_seq_major.launches
+    assert kflash.flash_attention.launches == 3 * per
+
+
 @pytest.mark.parametrize("arch,ep_shards,remat_policy", [
     ("gemma-2b", 0, "nothing"), ("llama4-scout-17b-a16e", 4, "nothing"),
-    ("llama4-scout-17b-a16e", 4, "save_moe")])
+    ("llama4-scout-17b-a16e", 4, "save_moe"), ("whisper-base", 0, "nothing")])
 def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, remat_policy):
     """Two bf16 train steps of a smoke config with and without remat from
     the same parameters: metrics and parameters equal bit for bit; flash
     forward launched twice a layer a step under remat, its backward once;
-    dispatch_count 2 a MoE layer a step, 4 under ``"nothing"``."""
+    dispatch_count 2 a MoE layer a step, 4 under ``"nothing"``.  whisper's
+    flash calls a forward are its encoder layers plus two a decoder layer
+    (self and cross)."""
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as kflash
@@ -1532,6 +1601,10 @@ def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, rem
         t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 65)), device=cuda)
         batches.append({"tokens": t[:, :-1], "labels": t[:, 1:],
                         "mask": torch.ones((2, 64), device=cuda)})
+        if cfg.encdec:
+            batches[-1]["enc_embeds"] = torch.as_tensor(
+                rng.standard_normal((2, cfg.enc_len, cfg.d_model)), dtype=torch.float32,
+                device=cuda)
     runs = []
     for extra in ({}, dict(remat=True, remat_policy=remat_policy)):
         params = tree_map(lambda t: t.clone(), start)
@@ -1550,7 +1623,7 @@ def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, rem
         assert all(torch.equal(a[k], b[k]) for k in a)
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
     moe_layers = sum(blk.ffn == "moe" for blk in cfg.pattern) * cfg.num_periods
-    assert (f0, f1, b0, b1) == (2 * cfg.num_layers, 4 * cfg.num_layers, 2 * cfg.num_layers,
-                                2 * cfg.num_layers)
+    per = cfg.enc_layers + 2 * cfg.num_layers if cfg.encdec else cfg.num_layers
+    assert (f0, f1, b0, b1) == (2 * per, 4 * per, 2 * per, 2 * per)
     rerun = 2 if remat_policy == "nothing" else 1
     assert (d0, d1) == (2 * 2 * moe_layers, rerun * 2 * 2 * moe_layers)

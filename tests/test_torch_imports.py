@@ -39,6 +39,7 @@ def test_import_with_jax_blocked():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "assert 'repro_torch.models.xlstm' in names\n"
+        "assert 'repro_torch.models.encdec' in names\n"
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"

@@ -361,12 +361,31 @@ def test_port_init_params_shapes_match_the_reference():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("jamba-1.5-large-398b", "Mamba"), ("qwen2-vl-7b", "M-RoPE"), ("whisper-base", "enc-dec"),
+    ("jamba-1.5-large-398b", "Mamba"), ("qwen2-vl-7b", "M-RoPE"),
 ])
 def test_unported_families_raise(arch, match):
     cfg = tbase.reduce_for_smoke(treg.get_config(arch))
     with pytest.raises(NotImplementedError, match=match):
         tmodel.init_params(cfg, 0, TPOL, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_init_params_shapes_match_the_reference(dtype):
+    """whisper-base's smoke config: the port's own init draws the
+    reference's tree (``enc`` / ``dec`` as per-layer lists) in the
+    policy's type, the same on every call."""
+    cfg = jbase.reduce_for_smoke(jreg.get_config("whisper-base"))
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                        torch.float32)
+    tparams = tmodel.init_params(_port_cfg(cfg), 0, tmod.Policy(param_dtype=td), device="cpu")
+    jparams = jmodel.init_params(cfg, jax.random.PRNGKey(0), jmod.Policy(param_dtype=jd))
+    carried = params_from_jax(jax.tree.map(np.asarray, jparams), _port_cfg(cfg),
+                              tmod.Policy(param_dtype=td), device="cpu")
+    shapes = lambda tree: [(tuple(t.shape), t.dtype) for t in _leaves(tree)]
+    assert shapes(tparams) == shapes(carried)
+    assert len(tparams["enc"]) == cfg.enc_layers and len(tparams["dec"]) == cfg.num_layers
+    again = tmodel.init_params(_port_cfg(cfg), 0, tmod.Policy(param_dtype=td), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(tparams), _leaves(again)))
 
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"])
@@ -384,15 +403,13 @@ def test_moe_families_are_supported(arch):
 
 
 def test_training_is_not_ported():
-    """The parts of training still to port raise: the mesh and the enc-dec
-    loss.  The loss, the train step (``tests/test_torch_train.py``) and
-    activation checkpointing (``tests/test_torch_remat.py``) run."""
+    """The part of training still to port raises: the mesh.  The loss, the
+    train step (``tests/test_torch_train.py``), activation checkpointing
+    (``tests/test_torch_remat.py``) and the enc-dec loss
+    (``tests/test_torch_encdec.py``) run."""
     for field, value in (("mesh", object()),):
         with pytest.raises(NotImplementedError, match=field):
             tmod.Policy(**{field: value})
-    whisper = tbase.reduce_for_smoke(treg.get_config("whisper-base"))
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        tmodel.loss_fn({}, {}, whisper, TPOL)
 
 
 def test_init_params_targets_the_card_by_default():
