@@ -1301,6 +1301,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("flash_attention", "flash_attention_bwd"):
             row.update(wh[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl = vlm_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            row.update(vl[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
         f"recorded none of the kernels they timed and ran again")
     log(card)
@@ -4212,12 +4218,13 @@ def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total, extra=None
 
 
 def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
-    """Phases 21 (c) and 22 (c): the float32 smoke config ``scfg``, its
-    parameters made on the CPU and copied to the card: a ``prompt``-token
-    prefill of 2 rows and 4 decode steps, logits within ``CARD_CPU_TOL`` x
-    max(1, |cpu|); 3 train steps of 2 x ``seq`` tokens, loss and grad norm
-    within ``CARD_CPU_TOL`` relative.  An enc-dec config's batches carry
-    frame embeddings from ``rng`` too."""
+    """Phases 21 (c), 22 (c) and 23 (c): the float32 smoke config ``scfg``,
+    its parameters made on the CPU and copied to the card: a
+    ``prompt``-token prefill of 2 rows and 4 decode steps, logits within
+    ``CARD_CPU_TOL`` x max(1, |cpu|); 3 train steps of 2 x ``seq`` tokens,
+    loss and grad norm within ``CARD_CPU_TOL`` relative.  An enc-dec
+    config's batches carry frame embeddings from ``rng`` too, a vision
+    config's patch embeddings."""
     import repro_torch.models.model as model
     from repro_torch.models.modules import Policy
     from repro_torch.train.optimizer import OptConfig, init_opt, tree_map
@@ -4232,12 +4239,17 @@ def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
     def frames():
         return rng.standard_normal((2, scfg.enc_len, scfg.d_model)).astype(np.float32)
 
+    def extras():
+        out = {"enc_embeds": frames()} if scfg.encdec else {}
+        if scfg.vision_tokens:
+            out["vision_embeds"] = rng.standard_normal(
+                (2, scfg.vision_tokens, scfg.d_model)).astype(np.float32)
+        return out
+
     def on(side, batch):
         return {k: torch.as_tensor(v, device=where[side]) for k, v in batch.items()}
 
-    first = {"tokens": rng.integers(0, scfg.vocab_size, (2, prompt))}
-    if scfg.encdec:
-        first["enc_embeds"] = frames()
+    first = {"tokens": rng.integers(0, scfg.vocab_size, (2, prompt)), **extras()}
     caches, logits = {}, {"cpu": [], "card": []}
     for side, p in sides.items():
         lg, caches[side] = model.prefill(p, on(side, first), scfg, spol, max_len=prompt + 8)
@@ -4257,7 +4269,7 @@ def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
     train_worst = 0.0
     for i in range(3):
         tk = rng.integers(0, scfg.vocab_size, (2, seq + 1))
-        extra = {"enc_embeds": frames()} if scfg.encdec else {}
+        extra = extras()
         out = {}
         for side, (p, o) in runs.items():
             p, o, m = sstep(p, o, {**_lm_batch(tk, where[side]), **on(side, extra)})
@@ -4267,7 +4279,8 @@ def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
             a, b = float(out["card"][key]), float(out["cpu"][key])
             assert abs(a - b) <= CARD_CPU_TOL * abs(b), (i, key, a, b)
             train_worst = max(train_worst, abs(a - b) / abs(b))
-    log(f"phase {phase}: {scfg.name} float32: prefill and 4 decode steps, logits within "
+    log(f"phase {phase}: {scfg.name} float32{' with patches' if scfg.vision_tokens else ''}: "
+        f"prefill and 4 decode steps, logits within "
         f"{worst:.3g} x max(1, |cpu|) (<= {CARD_CPU_TOL}); 3 train steps, loss and grad_norm "
         f"within {train_worst:.3g} relative (<= {CARD_CPU_TOL})")
 
@@ -4638,23 +4651,32 @@ def check_whisper_flash(dev, card, cfg) -> dict:
     """Phase 22 (d): both flash kernels at whisper-base's three attention
     shapes (B 16, G 8, P 1, hd 64): the encoder's 1,500 x 1,500 and the
     decoder's 448 x 448 causal self-attention, the cross-attention's 448
-    q rows over 1,500 k rows; bf16 and float32 against the plain versions,
-    outputs handed out dirty, two calls bit-equal, the forward without lse
-    bit-equal to the launch that writes it; the backward with the forward's
-    lse and by the stats pass, each gradient on its own scale with a 5%-off
-    control refused; times beside the bound and SDPA's."""
+    q rows over 1,500 k rows (see :func:`check_flash_shapes`)."""
+    b, g, hd = WHISPER_BATCH, cfg.num_kv_heads, cfg.head_dim
+    p = cfg.num_heads // g
+    shapes = {"encoder": (b, g, p, cfg.enc_len, cfg.enc_len, hd, False),
+              "decoder self": (b, g, p, WHISPER_MAX_LEN, WHISPER_MAX_LEN, hd, True),
+              "cross": (b, g, p, WHISPER_MAX_LEN, cfg.enc_len, hd, False)}
+    return check_flash_shapes(dev, card, shapes, "22 (d)", seed=22)
+
+
+def check_flash_shapes(dev, card, shapes, tag, *, seed) -> dict:
+    """Both flash kernels at each of ``shapes`` (name -> ``(B, G, P, Sq,
+    Sk, hd, causal)``), seeded inputs: bf16 and float32 against the plain
+    versions, outputs handed out dirty, two calls bit-equal, the forward
+    without lse bit-equal to the launch that writes it; the backward with
+    the forward's lse and by the stats pass, each gradient on its own scale
+    with a 5%-off control refused, at the head splits ``bwd_splits`` gives
+    the shape (logged); times beside the bound and SDPA's (k and v expanded
+    to the q heads).  Logged as phase ``tag``; returns each shape's
+    forward and backward rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
 
-    gen = torch.Generator(device=dev).manual_seed(22)
-    b, g, hd = WHISPER_BATCH, cfg.num_kv_heads, cfg.head_dim
-    p = cfg.num_heads // g
-    shapes = {"encoder": (cfg.enc_len, cfg.enc_len, False),
-              "decoder self": (WHISPER_MAX_LEN, WHISPER_MAX_LEN, True),
-              "cross": (WHISPER_MAX_LEN, cfg.enc_len, False)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, (sq, sk, causal) in shapes.items():
+    for name, (b, g, p, sq, sk, hd, causal) in shapes.items():
         mask = dict(causal=causal, window=0, q_offset=0)
         q = torch.randn((b, sq, g, p, hd), generator=gen, device=dev)
         k = torch.randn((b, sk, g, hd), generator=gen, device=dev)
@@ -4662,7 +4684,14 @@ def check_whisper_flash(dev, card, cfg) -> dict:
         dout = torch.randn((b, sq, g * p * hd), generator=gen, device=dev)
         shape = (f"B={b} G={g} P={p} Sq={sq} Sk={sk} hd={hd} "
                  f"{'causal' if causal else 'non-causal'} ({name})")
-        row = {"fwd": {"shape": shape}, "bwd": {"shape": shape}}
+        splits = kflash.bwd_splits(b, g, p, sk, kflash._sm_count(dev))
+        heads = [(i + 1) * p // splits - i * p // splits for i in range(splits)]
+        row = {"fwd": {"shape": shape}, "bwd": {"shape": shape, "bwd_splits_bf16": splits,
+                                                "heads_a_split": heads}}
+        log(f"phase {tag}: flash_attention_bwd at {shape}: bwd_splits gives the bf16 dk/dv "
+            f"kernel {splits} block(s) over the group's {p} heads, {heads} heads each "
+            f"({b * g * -(-sk // 64) * splits} blocks on {kflash._sm_count(dev)} SMs); float32 "
+            f"runs 1")
         for dtype in (torch.bfloat16, torch.float32):
             tq, tk, tv, td = (t.to(dtype) for t in (q, k, v, dout))
             bf = dtype == torch.bfloat16
@@ -4679,7 +4708,7 @@ def check_whisper_flash(dev, card, cfg) -> dict:
             assert err <= limit, (name, dt, err)
             row["fwd"][f"max_abs_err_{dt}"] = err
             assert not bf or same_bits_with_lse(tq, tk, tv, mask), (name, dt)
-            log(f"phase 22 (d): flash_attention [{shape}, {dt}]: max |kernel - plain| "
+            log(f"phase {tag}: flash_attention [{shape}, {dt}]: max |kernel - plain| "
                 f"{err:.3g} (<= {limit:g}); two calls bit-equal; outputs handed out dirty"
                 + ("; the output equal bit for bit with and without lse" if bf else ""))
             modes = [("stats", None)]
@@ -4697,7 +4726,7 @@ def check_whisper_flash(dev, card, cfg) -> dict:
                     assert c > blimit, (name, dt, mode, grad, c)
                 row["bwd"][f"errors_{dt}_{mode}"] = {"checked": max(r["errs"]),
                                                      "max_abs_err": r["abs_err"]}
-                log(f"phase 22 (d): flash_attention_bwd [{shape}, {dt}"
+                log(f"phase {tag}: flash_attention_bwd [{shape}, {dt}"
                     + (f" {mode}" if bf else "") + "]: dq, dk, dv against the plain version, "
                     f"{'excess over bf16 rounding' if bf else 'max |diff|'} / max |ref| "
                     f"{[f'{x:.3g}' for x in r['errs']]} (<= {blimit:g}; the same gradients 5% "
@@ -4731,7 +4760,7 @@ def check_whisper_flash(dev, card, cfg) -> dict:
                          "bound_by": "operations" if fl / peak > nb / HBM_BYTES_PER_S
                          else "bytes", "bytes": nb, "flops": fl, "library_ms": l_ms,
                          "library_device_ms": l_dev})
-            log(f"phase 22 (d): flash_attention{'_bwd' if kind == 'bwd' else ''} at "
+            log(f"phase {tag}: flash_attention{'_bwd' if kind == 'bwd' else ''} at "
                 f"{shape} bf16: events around one call {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms, SDPA{' backward' if kind == 'bwd' else ''} {l_ms:.4f} ms; "
                 f"device time {k_dev:.4f} ms ({fl / k_dev / 1e9:.1f} TFLOP/s, "
@@ -5003,6 +5032,306 @@ def whisper_phase(dev, card) -> dict:
                                           per_step["remat"]["flash_attention_bwd"],
                                       "(b) in all": train_launches["flash_attention_bwd"]},
                 "phase_22": {k: v["bwd"] for k, v in checked.items()}}}
+
+
+# phase 23: M-RoPE and vision tokens, qwen2-vl-7b at its full published width and depth
+VLM_REQUESTS, VLM_NEW, VLM_REPLICAS, VLM_SLOTS = 16, 16, 4, 4
+VLM_MAX_LEN = 2064
+VLM_PATCH_PROMPT = 1024     # the prompt model.prefill takes with 256 patches
+VLM_BATCH = 2               # training: 2 x 1,024 tokens under remat
+VLM_STEPS = 4
+VLM_OVERFIT_STEPS = 6
+# the one-batch check's learning rate: the first AdamW steps move each weight
+# by about lr (a 3,584-wide layer's init scale is 0.0167); at phases 19 and
+# 22's 1e-3 the loss went from 10.24 up to 20.52, at 1e-4 up to 15.36, while
+# (b)'s warm-up steps at 3e-6 to 1.5e-5 brought it from 12.57 to 10.24
+VLM_OVERFIT_LR = 1e-5
+
+
+def vlm_phase(dev, card) -> dict:
+    """Phase 23: qwen2-vl-7b (M-RoPE, 256 vision tokens).  (a) served in
+    bf16 at full width and depth, text only through DRScheduler x
+    ServeEngine, then through model.prefill / decode_step with seeded
+    patches, and the short-prompt contract; (b) trained under remat with
+    bf16 moments and seeded patches (zero patches' gradient norm is NaN at
+    this depth, as the reference's); (c) its smoke config with patches, card against CPU; (d)
+    both flash kernels at its grouping (G 4, P 7, hd 128) at B 1 and B 2
+    against their plain versions.  Returns the phase-23 entries of the
+    flash and flash-backward rows."""
+    import repro_torch.models.model as model
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.generators import lm_token_stream
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+    from repro_torch.train.optimizer import OptConfig, global_norm, init_opt, leaves
+    from repro_torch.train.train_step import make_train_step, trainable
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("qwen2-vl-7b")
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+    n_layers = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    # ---- (a) serving at full width and depth ------------------------------
+    n_cfg = cfg.param_count()
+    log(f"phase 23 (a): {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads (G {cfg.num_kv_heads}, P "
+        f"{cfg.num_heads // cfg.num_kv_heads}), head_dim {cfg.head_dim}, SwiGLU d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (untied lm_head), M-RoPE theta {cfg.rope_theta:g}, "
+        f"{cfg.vision_tokens} vision tokens (the frontend stubbed: patch embeddings); reckoned "
+        f"from the config: {n_cfg:,} parameters, {2 * n_cfg / 1e9:.2f} GB in bf16")
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    log(f"phase 23 (a): {n_params:,} parameters bf16 ({2 * n_params / 1e9:.2f} GB) made on the "
+        f"card from a seeded generator in {time.perf_counter() - t:.1f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(23)  # phase 9's mix: key 7 at 0.3, prompts of 256-2,048
+    sessions = np.where(rng.random(VLM_REQUESTS) < 0.3, 7, rng.integers(0, 1000, VLM_REQUESTS))
+    lens = rng.integers(256, 2049, VLM_REQUESTS)
+    sched = DRScheduler(VLM_REPLICAS)
+    engines = [ServeEngine(cfg, params, pol, slots=VLM_SLOTS, max_len=VLM_MAX_LEN, device=dev)
+               for _ in range(VLM_REPLICAS)]
+    queues: list[list] = [[] for _ in range(VLM_REPLICAS)]
+    for i in range(VLM_REQUESTS):
+        req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
+                      max_new_tokens=VLM_NEW, session_key=int(sessions[i]))
+        queues[sched.route(req.session_key, cost_tokens=VLM_NEW)].append(req)
+    # an untimed warm-up prefill and decode step, so no timed wall is a first call
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)), device=dev)
+    _, cache = model.prefill(params, {"tokens": warm}, cfg, pol, max_len=264)
+    model.decode_step(params, cache, warm[:, -1:], cfg, pol)
+    del cache
+    walls = {"prefill": [], "decode": []}
+    flash = {"prefill": [], "decode": []}
+    finite = []
+    orig = {"prefill": model.prefill, "decode": model.decode_step}
+
+    def timed(kind):
+        def call(*a, **k):
+            before = _launch_counts()["flash_attention"]
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](*a, **k)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            flash[kind].append(_launch_counts()["flash_attention"] - before)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+
+    _zero_launch_counts()
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    try:
+        t = time.perf_counter()
+        for r, (eng, q) in enumerate(zip(engines, queues)):
+            eng.run(q, max_ticks=200)
+            log(f"phase 23 (a): replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
+                f"{eng.steps} ticks")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    serve_launches = _launch_counts()["flash_attention"]
+    reqs = [r for q in queues for r in q]
+    assert len(reqs) == VLM_REQUESTS
+    for r in reqs:
+        assert len(r.out_tokens) == VLM_NEW and r.done, (r.rid, r.out_tokens)
+        assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
+    assert finite and all(finite), "non-finite logits"
+    assert set(flash["prefill"]) == {n_layers}, flash["prefill"]
+    assert set(flash["decode"]) == {0}, "a decoded token ran flash"
+    assert serve_launches == n_layers * VLM_REQUESTS, serve_launches
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    prefill_ms = statistics.median(walls["prefill"]) * 1e3
+    decode_ms = statistics.median(walls["decode"]) * 1e3
+    by_len = sorted(zip(lens.tolist(), (w * 1e3 for w in walls["prefill"])))
+    log(f"phase 23 (a): DRScheduler({VLM_REPLICAS}) x ServeEngine({VLM_SLOTS} slots), text only "
+        f"(the engine passes no patches, as the reference's): {VLM_REQUESTS} requests, prompts "
+        f"{int(lens.min())}-{int(lens.max())} tokens (mean {lens.mean():.1f}), {VLM_NEW} new "
+        f"each: {tokens} tokens in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); prefill "
+        f"wall a request median {prefill_ms:.2f} ms (shortest {by_len[0][0]} tokens "
+        f"{by_len[0][1]:.1f} ms, longest {by_len[-1][0]} tokens {by_len[-1][1]:.1f} ms), decode "
+        f"wall a token median {decode_ms:.2f} ms over {len(walls['decode'])} decode steps; "
+        f"flash launches {serve_launches} ({n_layers} a prefill, 0 a decoded token); routed "
+        f"{sched.routed}, imbalance {sched.imbalance():.2f}; all logits finite; card {card}")
+    del engines, queues, reqs
+    t = time.perf_counter()
+    prof = profile_serving(model, params, cfg, pol, rng, dev, 1040, phase="23 (a)", reps=1)
+    dec = prof["8 decode steps after it"]
+    log(f"phase 23 (a): {prof['prefill of 1024 tokens']['device_ops']:,} device operations a "
+        f"1,024-token prefill, {dec['device_ops'] / 8:,.0f} a decoded token; idle "
+        f"{100 * prof['prefill of 1024 tokens']['idle']:.1f}% / {100 * dec['idle']:.1f}%; the "
+        f"profile took {time.perf_counter() - t:.1f} s")
+    # model.prefill with seeded patches, then 16 greedy tokens
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, VLM_PATCH_PROMPT)), device=dev)
+    patches = model.vision_embeds(cfg, 1, pol, gen, device=dev)
+    max_len = VLM_PATCH_PROMPT + VLM_NEW
+    text, _ = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=max_len)
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": toks, "vision_embeds": patches}, cfg, pol,
+                                  max_len=max_len)
+    torch.cuda.synchronize()
+    patch_pre_ms = (time.perf_counter() - t0) * 1e3
+    assert _launch_counts()["flash_attention"] == n_layers, _launch_counts()
+    assert bool(torch.isfinite(logits).all())
+    moved = float((logits.float() - text.float()).abs().max())
+    assert moved > 0, "the patches did not reach the logits"
+    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+    out, dwalls = [int(nxt)], []
+    for _ in range(VLM_NEW - 1):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, nxt[:, None], cfg, pol)
+        nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        dwalls.append(time.perf_counter() - t0)
+        assert bool(torch.isfinite(logits).all())
+        out.append(int(nxt))
+    assert _launch_counts()["flash_attention"] == n_layers, "a decoded token ran flash"
+    assert all(0 <= x < cfg.vocab_size for x in out) and int(cache["pos"][0]) == max_len - 1
+    log(f"phase 23 (a): model.prefill of a {VLM_PATCH_PROMPT}-token prompt with "
+        f"{cfg.vision_tokens} seeded patch embeddings (model.vision_embeds, bf16) in its first "
+        f"rows: wall {patch_pre_ms:.2f} ms, {n_layers} flash launches; the last logits differ "
+        f"from the text-only prefill's by up to {moved:.3g}; {VLM_NEW} greedy tokens "
+        f"{out} (decode wall a token median {statistics.median(dwalls) * 1e3:.2f} ms, no flash "
+        f"launch); all logits finite; card {card}")
+    del cache, logits, text
+    short = toks[:, :128]
+    try:
+        model.prefill(params, {"tokens": short, "vision_embeds": patches}, cfg, pol,
+                      max_len=136)
+    except ValueError as e:
+        assert "cannot take 256 patch embeddings" in str(e), e
+        log(f"phase 23 (a): a 128-token prompt with 256 patches: model.prefill raised "
+            f"ValueError ({e})")
+    else:
+        raise AssertionError("a 128-token prompt took 256 patches: the contract is gone")
+    log(f"phase 23 (a): {time.perf_counter() - t_phase:.1f} s so far")
+    del params, patches, toks, short
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) training at full width and depth -----------------------------
+    tpol = Policy(param_dtype=bf16, compute_dtype=bf16, remat=True)
+    opt_cfg = OptConfig(moment_dtype=bf16)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    bf16_state, f32_state = 8 * n_cfg, 12 * n_cfg
+    log(f"phase 23 (b): reckoned state: weights {2 * n_cfg / 1e9:.1f} + grads "
+        f"{2 * n_cfg / 1e9:.1f} + two moments {4 * n_cfg / 1e9:.1f} GB = {bf16_state / 1e9:.1f} GB "
+        f"with bf16 moments; with float32 moments {f32_state / 1e9:.1f} GB, over the card's "
+        f"{total / 1e9:.1f} GB, so it cannot train with them; bf16 moments "
+        f"(OptConfig(moment_dtype=bfloat16)), no depth cut, Policy(remat=True) to hold the "
+        f"activations at one layer's")
+    assert f32_state > total > bf16_state, (f32_state, total, bf16_state)
+    params = model.init_params(cfg, 0, tpol, device=dev)
+    batches = [_lm_batch(x, dev) for x in lm_token_stream(VLM_STEPS, VLM_BATCH, TRAIN_SEQ + 1,
+                                                          cfg.vocab_size, seed=23)]
+    # zero patches, as launch/train.py builds them (and the reference's
+    # launcher): their rows stay exactly zero through every layer, and each
+    # RMSNorm's backward multiplies their gradient by eps**-0.5 = 1,000, so at
+    # 28 layers it overflows and the gradient norm is NaN, in both packages
+    # (tests/test_torch_vlm.py, ROADMAP.md queue 3).  Shown once, without an
+    # update; the steps below take seeded patches.
+    zero = {**batches[0], "vision_embeds": torch.zeros(
+        (VLM_BATCH, cfg.vision_tokens, cfg.d_model), device=dev)}
+    flat = leaves(trainable(params))
+    loss, _ = model.loss_fn(params, zero, cfg, tpol)
+    gnorm = global_norm(torch.autograd.grad(loss, flat))
+    assert bool(torch.isfinite(loss)) and not bool(torch.isfinite(gnorm)), (loss, gnorm)
+    log(f"phase 23 (b): zero patches (the launchers' stub) at full depth: loss "
+        f"{float(loss.detach()):.4f}, gradient norm {float(gnorm)} (the zero rows' gradient overflows "
+        f"through every RMSNorm backward, as in the reference); the steps take seeded patches")
+    del flat, loss, gnorm, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    for batch in batches:
+        batch["vision_embeds"] = model.vision_embeds(cfg, VLM_BATCH, tpol, gen, device=dev)
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(cfg, tpol, opt_cfg)
+    per_step = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
+                "flash_attention_bwd_stats": 0, "dispatch_count": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    walls, ms = [], []
+    for i, batch in enumerate(batches):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        m = {k: v.cpu() for k, v in m.items()}
+        walls.append((time.perf_counter() - t) * 1e3)
+        now = _launch_counts()
+        assert {k: now[k] - before[k] for k in now} == per_step, (i, now, before)
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+        ms.append(m)
+    train_launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = statistics.median(walls[1:])
+    tok = VLM_BATCH * TRAIN_SEQ
+    log(f"phase 23 (b): {VLM_STEPS} steps of {VLM_BATCH} x {TRAIN_SEQ} lm_token_stream tokens "
+        f"with seeded patches through make_train_step (bf16 parameters and moments, "
+        f"Policy(remat=True)): losses {[round(float(m['loss']), 4) for m in ms]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
+        f"{[round(w, 1) for w in walls]}: median of steps 2-{VLM_STEPS} {wall:.1f} ms, "
+        f"{tok / wall * 1e3:,.0f} tokens/s; peak memory {peak:.2f} GB of {total / 1e9:.1f}; "
+        f"launches {train_launches} ({2 * n_layers} flash forward (each layer's again in the "
+        f"recomputation) and {n_layers} backward a step, none through the stats pass); "
+        f"card {card}")
+    prof = _profiled_step(lambda: step(params, opt, batches[1]))
+    log(f"phase 23 (b): one profiled step: wall {prof['wall_ms']:.2f} ms (profiled), device busy "
+        f"{prof['busy_ms']:.2f} ms, idle {100 * prof['idle']:.1f}% of the profiled wall, "
+        f"{100 * (1 - prof['busy_ms'] / wall):.1f}% of the unprofiled median {wall:.1f} ms; "
+        f"{prof['device_ops']:,} device operations; card {card}")
+    for name, t_ms in prof["top"]:
+        log(f"phase 23 (b):   {t_ms:9.3f} ms {100 * t_ms / prof['busy_ms']:5.1f}%  {name[:90]}")
+    assert_bwd_kernels("(b)", prof, phase=23)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    over_cfg = OptConfig(lr=VLM_OVERFIT_LR, warmup=1, moment_dtype=bf16)
+    opt = init_opt(params, over_cfg)
+    over = make_train_step(cfg, tpol, over_cfg)
+    losses = []
+    for _ in range(VLM_OVERFIT_STEPS):
+        params, opt, m = over(params, opt, batches[0])
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log(f"phase 23 (b): one batch repeated for {VLM_OVERFIT_STEPS} steps at "
+        f"OptConfig(lr={VLM_OVERFIT_LR:g}, warmup=1, bf16 moments): losses {[round(v, 4) for v in losses]} (the last below the "
+        f"first); {time.perf_counter() - t_phase:.1f} s so far")
+    del params, opt, step, over, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the smoke config with patches, card against CPU ---------------
+    smoke_card_against_cpu(dev, reduce_for_smoke(cfg), np.random.default_rng(23), 12, 32,
+                           "23 (c)")
+    log(f"phase 23 (c): {time.perf_counter() - t_phase:.1f} s so far")
+
+    # ---- (d) the flash kernels at qwen2-vl's grouping ----------------------
+    g, hd = cfg.num_kv_heads, cfg.head_dim
+    p = cfg.num_heads // g
+    checked = check_flash_shapes(
+        dev, card, {f"B {b}": (b, g, p, TRAIN_SEQ, TRAIN_SEQ, hd, True) for b in (1, 2)},
+        "23 (d)", seed=23)
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {"flash_attention": {
+                "launches_phase_23": {"a prefill": n_layers, "a decoded token": 0,
+                                      "(a) serving in all": serve_launches,
+                                      "a train step under remat": 2 * n_layers,
+                                      "(b) in all": train_launches["flash_attention"]},
+                "phase_23": {k: v["fwd"] for k, v in checked.items()}},
+            "flash_attention_bwd": {
+                "launches_phase_23": {"a train step under remat": n_layers,
+                                      "(b) in all": train_launches["flash_attention_bwd"]},
+                "phase_23": {k: v["bwd"] for k, v in checked.items()}}}
 
 
 if __name__ == "__main__":

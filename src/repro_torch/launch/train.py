@@ -8,8 +8,18 @@ Runs the production loop: data pipeline -> train step -> DR
 expert-placement safe points -> checkpoints (atomic, resumable).
 ``--device`` defaults to ``cuda`` and raises without a card; ``--smoke``
 trains the ``reduce_for_smoke`` config.  An enc-dec model (whisper-base)
-gets zero frame embeddings ``[batch, enc_len, d]``, as the reference's
-launcher gives it.  The policy is the reference launcher's mesh-free
+gets zero frame embeddings ``[batch, enc_len, d]``, and a model with vision
+tokens (qwen2-vl) zero patch embeddings ``[batch, vision_tokens, d]``, as
+the reference's launcher gives them.  The patches replace each sequence's
+first ``vision_tokens`` rows, so qwen2-vl-7b's full config needs ``--seq``
+of at least 256 (the default 128 raises ``ValueError``; the reference's
+launcher fails there too); its smoke config has 8 vision tokens.  Zero
+patches keep their rows exactly zero through every layer, and each
+RMSNorm's backward multiplies a zero row's gradient by ``eps**-0.5``: from
+about 14 layers on the gradient overflows and the gradient norm is NaN,
+in both packages (ROADMAP.md, queue 3).  The full config trains on seeded
+patches (``model.vision_embeds``) in code, as ``chip_smoke.py`` phase 23
+does.  The policy is the reference launcher's mesh-free
 one: a MoE model runs the dense oracle ``moe_ref`` (stacked EP shards
 are ``Policy(ep_shards=N)`` in code, as ``chip_smoke.py`` phase 19 trains
 Scout).
@@ -101,6 +111,9 @@ def main(argv: list[str] | None = None) -> None:
         if cfg.encdec:  # the stubbed audio frontend's frames, as the reference's launcher
             batch["enc_embeds"] = torch.zeros((args.batch, cfg.enc_len, cfg.d_model),
                                               dtype=torch.float32, device=dev)
+        if cfg.vision_tokens:  # the stubbed vision frontend's patches, as the reference's
+            batch["vision_embeds"] = torch.zeros((args.batch, cfg.vision_tokens, cfg.d_model),
+                                                 dtype=torch.float32, device=dev)
         params, opt, metrics = step_fn(params, opt, batch, inv_place)
 
         # DR safe point: expert-placement update between steps

@@ -11,8 +11,11 @@ The head layout is the reference's (``head_layout``): q heads padded to
 hd]``) and hands it to the kernel as strided views, with no copy: on the
 card the CUDA kernel (``repro_torch.kernels.flash_attention``), on the CPU
 its plain version.  Decode attention is plain PyTorch: it was never a
-Pallas kernel.  M-RoPE raises ``NotImplementedError`` (ROADMAP.md, queue 1
-item 10).
+Pallas kernel.
+
+M-RoPE (``rope_kind="mrope"``, qwen2-vl) splits the rotary frequencies
+into (t, h, w) sections, each rotated by its own position stream of
+``pos [3, B, S]``; it is plain PyTorch, as the reference's is plain jnp.
 
 Caches are updated in place: ``decode_step`` writes the new token's k/v
 into the cache it is given, where the reference returns new arrays.  The
@@ -105,14 +108,20 @@ def _rope_freqs_on(hd_rot: int, theta: float, device: torch.device) -> torch.Ten
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, *, theta: float, pct: float = 1.0,
                mrope_sections: tuple | None = None) -> torch.Tensor:
-    """x ``[B, S, H, hd]``; pos int ``[B, S]``.  Angles are float32; the
-    rotation runs in x's dtype, as the reference's."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, queue 1 item 10)")
+    """x ``[B, S, H, hd]``; pos int ``[B, S]``, or ``[3, B, S]`` for M-RoPE
+    (``mrope_sections``: the (t, h, w) section sizes, summing to
+    ``hd_rot / 2``; frequency section ``i`` is rotated by ``pos[i]``).
+    Angles are float32; the rotation runs in x's dtype, as the
+    reference's."""
     hd = x.shape[-1]
     hd_rot = int(hd * pct) // 2 * 2
     freqs = _rope_freqs_on(hd_rot, float(theta), x.device)
-    angles = pos.to(torch.float32)[..., None] * freqs        # [B, S, hd_rot/2]
+    if mrope_sections is None:
+        angles = pos.to(torch.float32)[..., None] * freqs    # [B, S, hd_rot/2]
+    else:
+        bounds = np.cumsum((0,) + tuple(mrope_sections)).tolist()
+        angles = torch.cat([pos[i].to(torch.float32)[..., None] * freqs[lo:hi]
+                            for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))], dim=-1)
     dt = x.dtype
     sin = torch.sin(angles).to(dt)[:, :, None, :]
     cos = torch.cos(angles).to(dt)[:, :, None, :]
@@ -225,12 +234,13 @@ def attention_block(
     lay: HeadLayout,
     pol: Policy,
     *,
-    pos: torch.Tensor,        # [B, S]
+    pos: torch.Tensor,        # [B, S] (or [3, B, S] for mrope)
     causal: bool = True,
     window: int = 0,
     theta: float = 10_000.0,
     rope_pct: float = 1.0,
     rope_kind: str = "rope",
+    mrope_sections: tuple | None = None,
     norm_kind: str = "rmsnorm",
     cache: dict | None = None,   # {"k", "v", "pos", "offset"}
     xkv: torch.Tensor | None = None,  # cross-attention source [B, Sk, d] (enc-dec)
@@ -244,20 +254,24 @@ def attention_block(
     on either side); ``static_cache`` reads the fixed k/v of ``cache`` and
     returns it unchanged: flash, non-causal, for ``S > 1``, and decode
     attention at position ``2**30`` (every cached row visible) for ``S ==
-    1``."""
+    1``.
+
+    ``rope_kind="mrope"`` rotates q and k by ``mrope_sections`` with ``pos
+    [3, B, S]``; decode reads its scalar position from ``pos[0]``."""
     b, s = x.shape[:2]
     hd = p["wq"].shape[-1]
     cd = pol.compute_dtype
-    if rope_kind == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, queue 1 item 10)")
-    rope = rope_kind == "rope" and xkv is None
+    rope = rope_kind in ("rope", "mrope") and xkv is None
+    rot = dict(theta=theta, pct=rope_pct,
+               mrope_sections=mrope_sections if rope_kind == "mrope" else None)
 
     q = _project(x, p["wq"].to(cd))
     if "q_norm" in p:
         q = apply_norm(p["q_norm"], q, norm_kind)
     if rope and not static_cache:
-        q = apply_rope(q, pos, theta=theta, pct=rope_pct)
+        q = apply_rope(q, pos, **rot)
     q = pol.shard(q, "act_q")
+    pos1 = pos if pos.ndim <= 2 else pos[0]  # [B, S] scalar positions
     qg = q.reshape(b, s, lay.hkv_p, lay.qps, hd)
 
     if static_cache:
@@ -276,7 +290,7 @@ def attention_block(
     if "q_norm" in p:
         k = apply_norm(p["k_norm"], k, norm_kind)
     if rope:
-        k = apply_rope(k, pos, theta=theta, pct=rope_pct)
+        k = apply_rope(k, pos, **rot)
 
     k, v = physical_kv(k, v, lay)
     k = pol.shard(k, "act_kv")
@@ -292,7 +306,7 @@ def attention_block(
     else:
         new_cache = _cache_append(cache, k, v, window)
         out = decode_attention(qg, new_cache["k"], new_cache["v"], new_cache["pos"],
-                               pos[:, 0], window=window)
+                               pos1[:, 0], window=window)
 
     return _out_proj(out, p, lay, pol), new_cache
 

@@ -7,7 +7,10 @@ decoder-only families to ``models/transformer.py``, the enc-dec family
 ``loss_fn``, ``prefill``, ``decode_step`` and ``init_cache`` run where
 their inputs lie.  An enc-dec batch carries ``enc_embeds [B, enc_len,
 d]`` beside its tokens, and its caches come from ``prefill`` alone:
-``init_cache`` raises ``ValueError``, as the reference's does.
+``init_cache`` raises ``ValueError``, as the reference's does.  A model
+with vision tokens (qwen2-vl) may carry ``vision_embeds [B,
+vision_tokens, d]``, its stubbed frontend's patches, as the reference's
+``input_specs`` lays them out; ``vision_embeds`` draws seeded ones.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.modules import Policy
 
-__all__ = ["decode_step", "init_cache", "init_params", "is_encdec", "loss_fn", "prefill"]
+__all__ = ["decode_step", "init_cache", "init_params", "is_encdec", "loss_fn", "prefill",
+           "vision_embeds"]
 
 
 def is_encdec(cfg: ArchConfig) -> bool:
@@ -57,3 +61,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *, device
     if is_encdec(cfg):
         raise ValueError("enc-dec caches are produced by prefill()")
     return transformer.init_cache(cfg, batch, max_len, pol, device=resolve_device(device))
+
+
+def vision_embeds(cfg: ArchConfig, batch: int, pol: Policy, gen: torch.Generator, *,
+                  device) -> torch.Tensor:
+    """Seeded patch embeddings ``[batch, cfg.vision_tokens, d]`` in
+    ``pol.compute_dtype`` on ``device``: standard normal float32 draws from
+    ``gen`` (a generator on ``device``), then cast, so the float32 and bf16
+    policies see the same patches."""
+    if not cfg.vision_tokens:
+        raise ValueError(f"{cfg.name} has no vision tokens")
+    x = torch.randn((batch, cfg.vision_tokens, cfg.d_model), generator=gen,
+                    device=torch.device(device))
+    return x.to(pol.compute_dtype)

@@ -26,8 +26,14 @@ MoE layers' auxiliary loss.  With ``Policy.remat`` each period's blocks run
 under ``torch.utils.checkpoint`` (non-reentrant) in training, never the
 tail's, as in the reference; see :func:`backbone`.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``mamba`` mixer, M-RoPE and vision tokens.
+M-RoPE (qwen2-vl) runs on the reference's text stub: the three position
+streams ``[3, B, S]`` are the same ``offset + arange(S)``.  Vision tokens
+are its stubbed frontend: a batch's ``vision_embeds [B, V, d]`` replace
+the prompt's first ``V`` rows, which needs ``S >= V`` (``ValueError``; the
+reference fails there with a shape error).
+
+Not ported, raising ``NotImplementedError`` with its ROADMAP item: the
+``mamba`` mixer.
 """
 from __future__ import annotations
 
@@ -82,10 +88,6 @@ def check_supported(cfg: ArchConfig) -> None:
     for blk in cfg.pattern + cfg.tail:
         if blk.mixer in _UNPORTED_MIXERS:
             raise _not_ported(_UNPORTED_MIXERS[blk.mixer], 10)
-    if cfg.rope_kind == "mrope":
-        raise _not_ported("M-RoPE", 10)
-    if cfg.vision_tokens:
-        raise _not_ported("vision tokens", 10)
 
 
 def layers(cfg: ArchConfig) -> list[Block]:
@@ -201,8 +203,9 @@ def _apply_mixer(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: Hea
         y, new_cache = attention_block(
             p["attn"], h, lay, pol, pos=pos, causal=True, window=cfg.window if local else 0,
             theta=cfg.rope_local_theta if (local and cfg.rope_local_theta) else cfg.rope_theta,
-            rope_pct=cfg.rope_pct, rope_kind=cfg.rope_kind, norm_kind=cfg.norm_kind,
-            cache=cache)
+            rope_pct=cfg.rope_pct, rope_kind=cfg.rope_kind,
+            mrope_sections=_mrope_sections(cfg) if cfg.rope_kind == "mrope" else None,
+            norm_kind=cfg.norm_kind, cache=cache)
     return pol.shard(x + y, "act_btd"), new_cache
 
 
@@ -268,15 +271,29 @@ def _remat_period(x: torch.Tensor, first: int, params: dict, cfg: ArchConfig, la
     return x, stats
 
 
+def _mrope_sections(cfg: ArchConfig) -> tuple:
+    """M-RoPE's (t, h, w) split of the ``hd_rot / 2`` rotary frequencies:
+    a quarter to t, the rest halved between h and w ((16, 24, 24) at hd
+    128)."""
+    half = int(cfg.head_dim * cfg.rope_pct) // 2
+    t = half // 4
+    rest = half - t
+    return (t, rest // 2, rest - rest // 2)
+
+
 def _positions(cfg: ArchConfig, b: int, s: int, offset, device=None) -> torch.Tensor:
     """int32 ``[B, S]`` positions ``offset + arange(S)`` (offset an int or
-    an int ``[B]`` tensor)."""
+    an int ``[B]`` tensor); ``[3, B, S]`` for M-RoPE, the three streams
+    equal (the reference's text stub, t = h = w)."""
     pos = torch.arange(s, dtype=torch.int32, device=device)[None, :]
     if isinstance(offset, torch.Tensor):
         pos = pos + offset.to(torch.int32)[:, None]
     else:
         pos = pos + offset
-    return pos.expand(b, s)
+    pos = pos.expand(b, s)
+    if cfg.rope_kind == "mrope":
+        return pos[None].expand(3, b, s)
+    return pos
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos,
@@ -332,9 +349,19 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos
 
 
 def _embed_inputs(params, batch: dict, cfg: ArchConfig, pol: Policy) -> torch.Tensor:
-    if cfg.vision_tokens:
-        raise _not_ported("vision tokens", 10)
+    """The tokens' embeddings ``[B, S, d]``; with ``vision_embeds [B, V,
+    d]`` in the batch (a model with vision tokens), the patches, cast to
+    the compute dtype, replace the first ``V`` rows (the reference's stub).
+    Raises ``ValueError`` when ``S < V``: the reference's concatenation
+    then has ``V`` rows against ``S`` positions and fails."""
     x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale, d=cfg.d_model, pol=pol)
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        v = batch["vision_embeds"].to(pol.compute_dtype)
+        if x.shape[1] < v.shape[1]:
+            raise ValueError(f"a prompt of {x.shape[1]} tokens cannot take {v.shape[1]} patch "
+                             f"embeddings: the patches replace the prompt's first rows, so it "
+                             f"needs at least {v.shape[1]} tokens")
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
     return pol.shard(x, "act_btd")
 
 

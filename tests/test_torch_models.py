@@ -153,8 +153,14 @@ def test_rope_matches(pct, theta):
     want = jatt.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=theta, pct=pct)
     got = tatt.apply_rope(_t(x), _t(pos), theta=theta, pct=pct)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tatt.apply_rope(_t(x), _t(pos), theta=theta, mrope_sections=(2, 3, 3))
+    # M-RoPE: distinct (t, h, w) streams over sections of the hd_rot / 2 frequencies
+    half = int(32 * pct) // 2
+    secs = (half // 4, (half - half // 4) // 2, half - half // 4 - (half - half // 4) // 2)
+    pos3 = rng.integers(0, 3000, (3, 2, 9)).astype(np.int32)
+    want = jatt.apply_rope(jnp.asarray(x), jnp.asarray(pos3), theta=theta, pct=pct,
+                           mrope_sections=secs)
+    got = tatt.apply_rope(_t(x), _t(pos3), theta=theta, pct=pct, mrope_sections=secs)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_policy_rejects_unported_fields():
@@ -361,7 +367,7 @@ def test_port_init_params_shapes_match_the_reference():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("jamba-1.5-large-398b", "Mamba"), ("qwen2-vl-7b", "M-RoPE"),
+    ("jamba-1.5-large-398b", "Mamba"),
 ])
 def test_unported_families_raise(arch, match):
     cfg = tbase.reduce_for_smoke(treg.get_config(arch))

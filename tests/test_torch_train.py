@@ -53,7 +53,7 @@ ARCHS = ["gemma-2b", "llama4-scout-17b-a16e", "xlstm-125m", "whisper-base"]
 # MoE or no FFNs, and the enc-dec family
 LOSS_ARCHS = ["gemma-2b", "stablelm-1.6b", "deepseek-coder-33b", "gemma3-27b",
               "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "xlstm-125m",
-              "whisper-base"]
+              "whisper-base", "qwen2-vl-7b"]
 
 
 def _cfgs(arch):
@@ -74,11 +74,15 @@ def _batch_np(vocab, seed, b=2, s=32):
 
 def _arch_batch_np(cfg, seed, b=2, s=32):
     """``_batch_np`` plus an enc-dec model's frame embeddings ``enc_embeds
-    [B, enc_len, d]``."""
+    [B, enc_len, d]`` or a vision model's patch embeddings ``vision_embeds
+    [B, vision_tokens, d]``."""
     nb = _batch_np(cfg.vocab_size, seed, b, s)
+    rng = np.random.default_rng(seed + 1000)
     if cfg.encdec:
-        rng = np.random.default_rng(seed + 1000)
         nb["enc_embeds"] = rng.standard_normal((b, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    if cfg.vision_tokens:
+        nb["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
     return nb
 
 
