@@ -368,6 +368,37 @@ Phases, in order; any failure raises and the script exits non-zero:
     lse), timed beside the bound and SDPA (forward and backward).  The
     flash and flash-backward rows gain ``launches_phase_22`` and
     ``phase_22`` (each shape's errors and times).
+23. M-RoPE and vision tokens: qwen2-vl-7b at full width and depth, bf16.
+    (a) Served text only through ``DRScheduler(4)`` x ``ServeEngine(4
+    slots)`` (28 flash launches a prefill, none a token), a 1,024-token
+    prompt with 256 seeded patches, a 128-token one refused; (b) trained
+    2 x 1,024 under remat with bf16 moments; (c) the smoke config with
+    patches card against CPU; (d) both flash kernels at G 4, P 7, hd 128.
+    The flash rows gain ``launches_phase_23`` and ``phase_23``.
+24. The Mamba mixer and the hybrid family: jamba-1.5-large at its
+    published widths (d 8,192, Mamba d_inner 16,384 d_state 16, 64 q / 8
+    kv heads, d_ff 24,576, 16 experts top-2 without a shared expert).
+    (a) The period's first four layers ((Mamba, dense), (Mamba, MoE),
+    (Mamba, dense), (attention, MoE); 23 B parameters, bf16) at 4 stacked
+    EP shards, served through ``DRScheduler(4)`` x ``ServeEngine(4
+    slots)``: 16 requests of 256-2,048 tokens (the chunk contract), 16
+    new each; finite logits, 1 flash and 4 ``dispatch_count`` launches a
+    prefill, 0 and 2 a token; a 300-token prompt refused (``ValueError``);
+    walls by prompt length, a profiled prefill and 8 decode steps.  (b)
+    One Mamba mixer alone at ``[2, 1,024]`` bf16: forward and backward
+    walls and busy time, device operations a chunk, the chunk loop's
+    share, the peak, a decoded token's operations.  (c) Teacher-forced in
+    float32 on one (Mamba, dense) layer (255 + 1 against 256, 256 + 256
+    against 512) within 2e-3 x (1 + |logit|).  (d) Two (Mamba, dense)
+    layers trained at 2 x 1,024 under remat (bf16 parameters, float32
+    moments): finite loss and grad norm, walls, tokens/s, peak, a profiled
+    step; 8 steps on one batch at the first rate of ``JAMBA_OVERFIT_LRS``
+    where the loss falls.  (e) The float32 smoke config card against CPU
+    at 0 and 4 shards, and remat (``"nothing"``, ``"save_moe"``) bit-equal
+    to the steps without it.  (f) Both flash kernels at G 8, P 8, hd 128,
+    1,024 causal, B 1 and B 2 (as 23 (d)), and ``dispatch_count`` on (a)'s
+    top-2 hop inputs, timed.  The flash, flash-backward and dispatch_count
+    rows gain ``launches_phase_24`` and ``phase_24``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -542,6 +573,31 @@ def own_device_time(fn, names, *, flush=None, n=20):
         log(f"profiler: session {attempt + 1} recorded none of {names}"
             + ("; running it again" if attempt < 4 else ""))
     raise AssertionError(f"the profiler saw none of {names} in five sessions")
+
+
+def device_op_count(fn, *, tries=6) -> int:
+    """The device operations (kernels, copies, memsets) of one ``fn()``
+    call, counted in ``torch.profiler`` sessions of one call each.  A
+    session may keep none of them, or only a few (:func:`own_device_time`),
+    so the count is taken when two sessions agree; after ``tries``
+    sessions without two that agree this raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        PROFILER["sessions"] += 1
+        n = len(device_ops(prof))
+        if not n:
+            PROFILER["empty"] += 1
+        elif n in seen:
+            return n
+        seen.append(n)
+    raise AssertionError(f"no two of {tries} profiler sessions kept the same device "
+                         f"operations: {seen}")
 
 
 def l2_flush(dev):
@@ -1307,6 +1363,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("flash_attention", "flash_attention_bwd"):
             row.update(vl[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    jb = jamba_phase(dev, card)
+    for row in kernels:
+        if row["name"] in ("dispatch_count", "flash_attention", "flash_attention_bwd"):
+            row.update(jb[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
         f"recorded none of the kernels they timed and ran again")
     log(card)
@@ -2715,12 +2777,21 @@ def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv
             work(state)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
-        state = setup()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            work(state)
+        for attempt in range(5):  # a session that kept no device operation runs again
+            state = setup()
             torch.cuda.synchronize()
-        kern = device_ops(prof)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                work(state)
+                torch.cuda.synchronize()
+            PROFILER["sessions"] += 1
+            kern = device_ops(prof)
+            if kern:
+                break
+            PROFILER["empty"] += 1
+            log(f"phase {phase}: profile, {name}: session {attempt + 1} kept no device operation")
+        else:
+            raise AssertionError(f"phase {phase}: five profiler sessions of {name} kept no "
+                                 f"device operation")
         busy: dict[str, float] = {}
         for kname, a, b in kern:
             busy[kname] = busy.get(kname, 0.0) + (b - a) / 1e3
@@ -2740,6 +2811,45 @@ def profile_serving(model, params, cfg, pol, rng, dev, max_len, *, phase=12, inv
         out[name] = {"wall_ms": wall, "device_ops": len(kern), "busy_ms": total,
                      "idle": 1 - total / wall}
     return out
+
+
+def _timed_serving(model, engines, queues, tag) -> dict:
+    """Run each replica's queue through its engine with ``model.prefill``
+    and ``model.decode_step`` wrapped: ``{"prefill": [...], "decode": [...],
+    "serve_s": s}``, one record a call with its wall (synchronized), its
+    tokens, its flash and ``dispatch_count`` launches, and whether its
+    logits are finite (the serving phases 9, 21, 23 and 24)."""
+    rec = {"prefill": [], "decode": []}
+    orig = {"prefill": model.prefill, "decode": model.decode_step}
+
+    def timed(kind):
+        def call(*a, **k):
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](*a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            now = _launch_counts()
+            rec[kind].append({
+                "wall": wall, "len": a[1]["tokens"].shape[1] if kind == "prefill" else 1,
+                "flash": now["flash_attention"] - before["flash_attention"],
+                "dispatch": now["dispatch_count"] - before["dispatch_count"],
+                "finite": bool(torch.isfinite(logits).all())})
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    try:
+        t = time.perf_counter()
+        for r, (eng, q) in enumerate(zip(engines, queues)):
+            eng.run(q, max_ticks=200)
+            log(f"phase {tag}: replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
+                f"{eng.steps} ticks")
+        torch.cuda.synchronize()
+        rec["serve_s"] = time.perf_counter() - t
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    return rec
 
 
 def serve_phases(dev, card) -> list[dict]:
@@ -2778,21 +2888,6 @@ def serve_phases(dev, card) -> list[dict]:
                       max_new_tokens=max_new, session_key=int(sessions[i]))
         queues[sched.route(req.session_key, cost_tokens=max_new)].append(req)
 
-    # time each prefill and decode step the engines make, and check their logits
-    walls = {"prefill": [], "decode": []}
-    finite = []
-    orig = {"prefill": model.prefill, "decode": model.decode_step}
-
-    def timed(kind):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            logits, cache = orig[kind](*a, **k)
-            torch.cuda.synchronize()
-            walls[kind].append(time.perf_counter() - t0)
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits, cache
-        return call
-
     first_flash = []  # the first prefill's layer-0 flash inputs
     orig_flash = kflash.flash_attention_seq_major
 
@@ -2801,34 +2896,29 @@ def serve_phases(dev, card) -> list[dict]:
             first_flash.append((q.clone(), k.clone(), v.clone(), kw))
         return orig_flash(q, k, v, **kw)
 
-    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    # time each prefill and decode step the engines make, and check their logits
     kflash.flash_attention_seq_major = flash_capture
     try:
         flash_attention.launches = 0
-        t = time.perf_counter()
-        for r, (eng, q) in enumerate(zip(engines, queues)):
-            eng.run(q, max_ticks=200)
-            log(f"phase 9: replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
-                f"{eng.steps} ticks")
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t
+        rec = _timed_serving(model, engines, queues, "9")
         launches = flash_attention.launches
     finally:
-        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
         kflash.flash_attention_seq_major = orig_flash
+    serve_s = rec["serve_s"]
     info = sched.checkpoint(sessions)
     reqs = [r for q in queues for r in q]
     assert len(reqs) == n_req
     for r in reqs:
         assert len(r.out_tokens) == max_new and r.done, (r.rid, r.out_tokens)
         assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
-    assert finite and all(finite), "non-finite logits"
+    calls = rec["prefill"] + rec["decode"]
+    assert calls and all(c["finite"] for c in calls), "non-finite logits"
     assert launches == cfg.num_layers * n_req, launches
     assert set(info) == {"repartitioned", "resized", "num_replicas", "imbalance",
                          "moved_sessions", "reason", "backend", "overlapped"}, info
     tokens = sum(len(r.out_tokens) for r in reqs)
-    prefill_ms = statistics.median(walls["prefill"]) * 1e3
-    decode_ms = statistics.median(walls["decode"]) * 1e3
+    prefill_ms = statistics.median(c["wall"] for c in rec["prefill"]) * 1e3
+    decode_ms = statistics.median(c["wall"] for c in rec["decode"]) * 1e3
     log(f"phase 9: routed={sched.routed} imbalance={sched.imbalance():.2f}; prompts "
         f"{int(lens.min())}-{int(lens.max())} tokens (mean {lens.mean():.1f}); {tokens} tokens "
         f"in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); flash launches {launches} "
@@ -2995,8 +3085,8 @@ def serve_phases(dev, card) -> list[dict]:
         f"({flops / f32_dev / 1e9:.1f} TFLOP/s)")
     profile_serving(model, params, cfg, pol, rng, dev, max_len)
     log(f"phase 12: phase 9 medians: prefill {prefill_ms:.2f} ms per request "
-        f"({len(walls['prefill'])} prefills), decode {decode_ms:.2f} ms per token "
-        f"({len(walls['decode'])} steps, one slot each); {tokens / serve_s:.1f} tokens/s; "
+        f"({len(rec['prefill'])} prefills), decode {decode_ms:.2f} ms per token "
+        f"({len(rec['decode'])} steps, one slot each); {tokens / serve_s:.1f} tokens/s; "
         f"card {card}")
     k_ms, p_ms, l_ms, k_dev, l_dev, bound_ms, nbytes, flops = rows[2048]
     return [{
@@ -4217,20 +4307,20 @@ def _teacher_forced(model, params, cfg, pol, dev, rng, prefix, total, extra=None
     return float((a - b).abs().max())
 
 
-def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
-    """Phases 21 (c), 22 (c) and 23 (c): the float32 smoke config ``scfg``,
-    its parameters made on the CPU and copied to the card: a
-    ``prompt``-token prefill of 2 rows and 4 decode steps, logits within
-    ``CARD_CPU_TOL`` x max(1, |cpu|); 3 train steps of 2 x ``seq`` tokens,
-    loss and grad norm within ``CARD_CPU_TOL`` relative.  An enc-dec
-    config's batches carry frame embeddings from ``rng`` too, a vision
-    config's patch embeddings."""
+def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase, spol=None) -> None:
+    """Phases 21 (c), 22 (c), 23 (c) and 24 (e): the float32 smoke config
+    ``scfg`` under ``spol`` (default ``Policy()``), its parameters made on
+    the CPU and copied to the card: a ``prompt``-token prefill of 2 rows
+    and 4 decode steps, logits within ``CARD_CPU_TOL`` x max(1, |cpu|); 3
+    train steps of 2 x ``seq`` tokens, loss and grad norm within
+    ``CARD_CPU_TOL`` relative.  An enc-dec config's batches carry frame
+    embeddings from ``rng`` too, a vision config's patch embeddings."""
     import repro_torch.models.model as model
     from repro_torch.models.modules import Policy
     from repro_torch.train.optimizer import OptConfig, init_opt, tree_map
     from repro_torch.train.train_step import make_train_step
 
-    spol = Policy()
+    spol = spol or Policy()
     cpu = model.init_params(scfg, 0, spol, device="cpu")
     card_p = tree_map(lambda v: v.to(dev, copy=True), cpu)
     where = {"cpu": torch.device("cpu"), "card": dev}
@@ -4279,7 +4369,8 @@ def smoke_card_against_cpu(dev, scfg, rng, prompt, seq, phase) -> None:
             a, b = float(out["card"][key]), float(out["cpu"][key])
             assert abs(a - b) <= CARD_CPU_TOL * abs(b), (i, key, a, b)
             train_worst = max(train_worst, abs(a - b) / abs(b))
-    log(f"phase {phase}: {scfg.name} float32{' with patches' if scfg.vision_tokens else ''}: "
+    log(f"phase {phase}: {scfg.name} float32{' with patches' if scfg.vision_tokens else ''}"
+        + (f" at {spol.ep_shards} stacked EP shards" if spol.ep_shards else "") + ": "
         f"prefill and 4 decode steps, logits within "
         f"{worst:.3g} x max(1, |cpu|) (<= {CARD_CPU_TOL}); 3 train steps, loss and grad_norm "
         f"within {train_worst:.3g} relative (<= {CARD_CPU_TOL})")
@@ -4404,43 +4495,21 @@ def xlstm_phase(dev, card) -> dict:
         req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
                       max_new_tokens=XLSTM_NEW, session_key=int(sessions[i]))
         queues[sched.route(req.session_key, cost_tokens=XLSTM_NEW)].append(req)
-    walls = {"prefill": [], "decode": []}
-    by_len: dict[int, list] = {}
-    finite = []
-    orig = {"prefill": model.prefill, "decode": model.decode_step}
-
-    def timed(kind):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            logits, cache = orig[kind](*a, **k)
-            torch.cuda.synchronize()
-            walls[kind].append(time.perf_counter() - t0)
-            if kind == "prefill":
-                by_len.setdefault(a[1]["tokens"].shape[1], []).append(walls[kind][-1])
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits, cache
-        return call
-
-    model.prefill, model.decode_step = timed("prefill"), timed("decode")
-    try:
-        t = time.perf_counter()
-        for r, (eng, q) in enumerate(zip(engines, queues)):
-            eng.run(q, max_ticks=200)
-            log(f"phase 21 (a): replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
-                f"{eng.steps} ticks")
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t
-    finally:
-        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    rec = _timed_serving(model, engines, queues, "21 (a)")
+    serve_s = rec["serve_s"]
     reqs = [r for q in queues for r in q]
     assert len(reqs) == XLSTM_REQUESTS
     for r in reqs:
         assert len(r.out_tokens) == XLSTM_NEW and r.done, (r.rid, r.out_tokens)
         assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
-    assert finite and all(finite), "non-finite logits"
+    calls = rec["prefill"] + rec["decode"]
+    assert calls and all(c["finite"] for c in calls), "non-finite logits"
     tokens = sum(len(r.out_tokens) for r in reqs)
-    prefill_ms = statistics.median(walls["prefill"]) * 1e3
-    decode_ms = statistics.median(walls["decode"]) * 1e3
+    by_len: dict[int, list] = {}
+    for c in rec["prefill"]:
+        by_len.setdefault(c["len"], []).append(c["wall"])
+    prefill_ms = statistics.median(c["wall"] for c in rec["prefill"]) * 1e3
+    decode_ms = statistics.median(c["wall"] for c in rec["decode"]) * 1e3
     log(f"phase 21 (a): DRScheduler({XLSTM_REPLICAS}) x ServeEngine({XLSTM_SLOTS} slots): "
         f"{XLSTM_REQUESTS} requests served, prompts {sorted(lens.tolist())} tokens, "
         f"{XLSTM_NEW} new each: {tokens} tokens in {serve_s:.2f} s ({tokens / serve_s:.1f} "
@@ -5106,56 +5175,31 @@ def vlm_phase(dev, card) -> dict:
     _, cache = model.prefill(params, {"tokens": warm}, cfg, pol, max_len=264)
     model.decode_step(params, cache, warm[:, -1:], cfg, pol)
     del cache
-    walls = {"prefill": [], "decode": []}
-    flash = {"prefill": [], "decode": []}
-    finite = []
-    orig = {"prefill": model.prefill, "decode": model.decode_step}
-
-    def timed(kind):
-        def call(*a, **k):
-            before = _launch_counts()["flash_attention"]
-            t0 = time.perf_counter()
-            logits, cache = orig[kind](*a, **k)
-            torch.cuda.synchronize()
-            walls[kind].append(time.perf_counter() - t0)
-            flash[kind].append(_launch_counts()["flash_attention"] - before)
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits, cache
-        return call
-
     _zero_launch_counts()
-    model.prefill, model.decode_step = timed("prefill"), timed("decode")
-    try:
-        t = time.perf_counter()
-        for r, (eng, q) in enumerate(zip(engines, queues)):
-            eng.run(q, max_ticks=200)
-            log(f"phase 23 (a): replica {r}: {len(q)} requests, {eng.tokens_out} tokens, "
-                f"{eng.steps} ticks")
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t
-    finally:
-        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+    rec = _timed_serving(model, engines, queues, "23 (a)")
+    serve_s = rec["serve_s"]
     serve_launches = _launch_counts()["flash_attention"]
     reqs = [r for q in queues for r in q]
     assert len(reqs) == VLM_REQUESTS
     for r in reqs:
         assert len(r.out_tokens) == VLM_NEW and r.done, (r.rid, r.out_tokens)
         assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
-    assert finite and all(finite), "non-finite logits"
-    assert set(flash["prefill"]) == {n_layers}, flash["prefill"]
-    assert set(flash["decode"]) == {0}, "a decoded token ran flash"
+    calls = rec["prefill"] + rec["decode"]
+    assert calls and all(c["finite"] for c in calls), "non-finite logits"
+    assert {c["flash"] for c in rec["prefill"]} == {n_layers}, rec["prefill"]
+    assert {c["flash"] for c in rec["decode"]} == {0}, "a decoded token ran flash"
     assert serve_launches == n_layers * VLM_REQUESTS, serve_launches
     tokens = sum(len(r.out_tokens) for r in reqs)
-    prefill_ms = statistics.median(walls["prefill"]) * 1e3
-    decode_ms = statistics.median(walls["decode"]) * 1e3
-    by_len = sorted(zip(lens.tolist(), (w * 1e3 for w in walls["prefill"])))
+    prefill_ms = statistics.median(c["wall"] for c in rec["prefill"]) * 1e3
+    decode_ms = statistics.median(c["wall"] for c in rec["decode"]) * 1e3
+    by_len = sorted((c["len"], c["wall"] * 1e3) for c in rec["prefill"])
     log(f"phase 23 (a): DRScheduler({VLM_REPLICAS}) x ServeEngine({VLM_SLOTS} slots), text only "
         f"(the engine passes no patches, as the reference's): {VLM_REQUESTS} requests, prompts "
         f"{int(lens.min())}-{int(lens.max())} tokens (mean {lens.mean():.1f}), {VLM_NEW} new "
         f"each: {tokens} tokens in {serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s); prefill "
         f"wall a request median {prefill_ms:.2f} ms (shortest {by_len[0][0]} tokens "
         f"{by_len[0][1]:.1f} ms, longest {by_len[-1][0]} tokens {by_len[-1][1]:.1f} ms), decode "
-        f"wall a token median {decode_ms:.2f} ms over {len(walls['decode'])} decode steps; "
+        f"wall a token median {decode_ms:.2f} ms over {len(rec['decode'])} decode steps; "
         f"flash launches {serve_launches} ({n_layers} a prefill, 0 a decoded token); routed "
         f"{sched.routed}, imbalance {sched.imbalance():.2f}; all logits finite; card {card}")
     del engines, queues, reqs
@@ -5332,6 +5376,436 @@ def vlm_phase(dev, card) -> dict:
                 "launches_phase_23": {"a train step under remat": n_layers,
                                       "(b) in all": train_launches["flash_attention_bwd"]},
                 "phase_23": {k: v["bwd"] for k, v in checked.items()}}}
+
+
+
+# phase 24: the Mamba mixer and the hybrid family, jamba-1.5-large at full width
+JAMBA_SERVE_LAYERS = 4      # the period's first four: (M, dense), (M, MoE), (M, dense), (A, MoE)
+JAMBA_TRAIN_LAYERS = 2      # (M, dense) twice: one MoE FFN alone is 9.66 B parameters
+JAMBA_PROMPTS = (256, 512, 1024, 2048)   # the chunk contract: <= 256 or a multiple of 256
+JAMBA_REQUESTS, JAMBA_NEW, JAMBA_REPLICAS, JAMBA_SLOTS = 16, 16, 4, 4
+JAMBA_MAX_LEN = 2064
+JAMBA_BATCH = 2
+JAMBA_STEPS = 3
+JAMBA_PEAK_LIMIT = 75e9     # (d)'s training peak must stay under it
+JAMBA_OVERFIT_STEPS = 8
+JAMBA_OVERFIT_LRS = (1e-5, 1e-6, 1e-4)   # tried in turn until the loss falls
+
+
+def _mixer_param_counts(cfg) -> tuple[int, int]:
+    """One Mamba mixer's parameters as ``init_mamba`` makes them, and as
+    ``ArchConfig.param_count`` reckons them."""
+    d, di, ds, k = cfg.d_model, cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state, cfg.mamba_conv
+    r = -(-d // 16)
+    made = 2 * d * di + k * di + di + di * (r + 2 * ds) + r * di + di + di * ds + di + di * d
+    return made, 2 * d * di + di * k + di * (2 * ds + 2) + di * d
+
+
+def mamba_alone(dev, card, cfg) -> dict:
+    """Phase 24 (b): one Mamba mixer at jamba's width (d 8,192, d_inner
+    16,384, d_state 16, bf16) on ``[2, 1,024]``: forward and backward walls,
+    device times (:func:`cuda_ms`), the host's time to queue them, device
+    operations (:func:`device_op_count`) and a chunk's, the chunk loop's
+    share of the no-grad forward's device time, the peak memory of a forward
+    and backward, and a decoded token's device time and operations."""
+    from repro_torch.models import ssm
+    from repro_torch.models.modules import Policy
+
+    bf16 = torch.bfloat16
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    p = ssm.init_mamba(gen, cfg.d_model, expand=cfg.mamba_expand, d_state=cfg.mamba_d_state,
+                       d_conv=cfg.mamba_conv, dtype=bf16)
+    for v in p.values():
+        v.requires_grad_(True)
+    b, s, ds = JAMBA_BATCH, TRAIN_SEQ, cfg.mamba_d_state
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(bf16).requires_grad_()
+    cot = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(bf16)
+    wrt = [x, *p.values()]
+
+    def fwd():
+        return ssm.mamba_forward(p, x, pol, d_state=ds, chunk=min(256, s))[0]
+
+    walls = {"forward": [], "backward": []}
+    for _ in range(4):  # the first warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = fwd()
+        torch.cuda.synchronize()
+        walls["forward"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        torch.autograd.grad(y, wrt, cot)
+        torch.cuda.synchronize()
+        walls["backward"].append((time.perf_counter() - t) * 1e3)
+        del y
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.autograd.grad(fwd(), wrt, cot)
+    torch.cuda.synchronize()
+    gc.collect()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    y = fwd()
+    bwd = lambda: torch.autograd.grad(y, wrt, cot, retain_graph=True)  # noqa: E731
+    # device_ms's spin could not hold five forwards' launches (eight
+    # doublings to 2^30 cycles; five calls queue 1,920 or more), so events
+    # around one call each; and the host's time to queue one call, the
+    # card not waited for
+    queue_ms = {}
+    for name, fn in (("forward", fwd), ("backward", bwd)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        queue_ms[name] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+    f_ms, b_ms = cuda_ms(fwd, warmup=1, reps=5), cuda_ms(bwd, warmup=1, reps=5)
+    f_ops, b_ops = device_op_count(fwd), device_op_count(bwd)
+    del y, bwd
+    # the chunk loop alone on the forward's own inputs, without autograd
+    with torch.no_grad():
+        xm, z = ssm._ssm_inputs(p, x, pol, ds)
+        xc, _ = ssm._conv_causal(xm, p["conv_w"], p["conv_b"], None)
+        dt, bm, cm = ssm._dt_b_c(p, xc, ds, bf16)
+        a = -torch.exp(p["a_log"].float())
+        h0 = torch.zeros((b, xc.shape[-1], ds), dtype=torch.float32, device=dev)
+
+        def chunks():
+            h = h0
+            for j in range(0, s, 256):
+                h, _ = ssm._chunk(h, xc[:, j:j + 256], dt[:, j:j + 256], bm[:, j:j + 256],
+                                  cm[:, j:j + 256], a)
+
+        c_ms, nf_ms = cuda_ms(chunks, warmup=1, reps=5), cuda_ms(fwd, warmup=1, reps=5)
+        c_ops = device_op_count(chunks)
+        state = {"conv": torch.zeros((1, cfg.mamba_conv - 1, xc.shape[-1]), dtype=bf16,
+                                     device=dev), "ssm": h0[:1].clone()}
+        one = x[:1, :1].detach()
+        dec = lambda: ssm.mamba_decode(p, one, pol, d_state=ds, state=state)  # noqa: E731
+        d_ms, d_ops = cuda_ms(dec), device_op_count(dec)
+    n_chunks = s // 256
+    out = {"forward_wall_ms": statistics.median(walls["forward"][1:]),
+           "backward_wall_ms": statistics.median(walls["backward"][1:]),
+           "forward_device_ms": f_ms, "backward_device_ms": b_ms,
+           "forward_ops": f_ops, "backward_ops": b_ops, "ops_a_chunk": c_ops / n_chunks,
+           "scan_share": c_ms / nf_ms, "peak_gb": peak, "decode_ops": d_ops,
+           "decode_device_ms": d_ms, "queue_ms": queue_ms}
+    log(f"phase 24 (b): one Mamba mixer (d {cfg.d_model}, d_inner {xc.shape[-1]}, d_state {ds}, "
+        f"dt_rank {p['dt_proj'].shape[0]}, bf16) on [{b}, {s}] ({n_chunks} chunks of 256): "
+        f"forward wall {out['forward_wall_ms']:.2f} ms (median of 3), device time "
+        f"{f_ms:.2f} ms, {f_ops:,} device operations, queued by the host in "
+        f"{queue_ms['forward']:.2f} ms; backward wall {out['backward_wall_ms']:.2f} ms, device "
+        f"time {b_ms:.2f} ms, {b_ops:,} operations, queued in {queue_ms['backward']:.2f} ms; "
+        f"the chunk loop (conv, projections and SiLU gate excluded) {c_ms:.2f} ms of the "
+        f"no-grad forward's {nf_ms:.2f} ({100 * out['scan_share']:.1f}%), "
+        f"{out['ops_a_chunk']:.0f} device operations a chunk; peak memory above the inputs "
+        f"{peak:.2f} GB; a decoded token (B 1) {d_ops} device operations, device time "
+        f"{d_ms:.3f} ms (device times: CUDA events around one call, the median of 5, a "
+        f"token's of 20; operations: two profiler sessions that agree); card {card}")
+    return out
+
+
+def jamba_phase(dev, card) -> dict:
+    """Phase 24: the Mamba mixer and the hybrid family.  (a) jamba-1.5-large
+    served in bf16 at full width over the period's first four layers
+    (every block kind) at 4 stacked EP shards, (b) one Mamba mixer alone,
+    (c) teacher-forced in float32 on one (Mamba, dense) layer, (d) trained
+    over two (Mamba, dense) layers under remat, (e) the smoke config card
+    against CPU at 0 and 4 shards and remat bit-equal, (f) both flash
+    kernels at G 8, P 8, hd 128 and ``dispatch_count`` on (a)'s top-2 hop
+    inputs.  Returns the phase-24 entries of the flash, flash-backward and
+    dispatch_count rows."""
+    import repro_torch.models.model as model
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.generators import lm_token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+    from repro_torch.models.modules import Policy
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+    from repro_torch.train.optimizer import OptConfig, init_opt, leaves
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_SERVE_LAYERS,
+                              pattern=full.pattern[:JAMBA_SERVE_LAYERS])
+    pol = Policy(param_dtype=bf16, compute_dtype=bf16, ep_shards=EP_SHARDS,
+                 exchange_backend="dense")
+    kinds = [f"({blk.mixer}, {blk.ffn})" for blk in cfg.pattern]
+    moe_layers = sum(blk.ffn == "moe" for blk in cfg.pattern)
+    attn_layers = sum(blk.mixer == "attn" for blk in cfg.pattern)
+
+    # ---- (a) serving at full width, cut in depth ---------------------------
+    log(f"phase 24 (a): {full.name}: cut to its period's first {JAMBA_SERVE_LAYERS} of "
+        f"{full.num_layers} layers, {', '.join(kinds)} (every block kind at its published "
+        f"width): d {cfg.d_model}, Mamba d_inner {cfg.mamba_expand * cfg.d_model} d_state "
+        f"{cfg.mamba_d_state} conv {cfg.mamba_conv}, {cfg.num_heads} q heads over "
+        f"{cfg.num_kv_heads} kv heads, hd {cfg.head_dim}, SwiGLU d_ff {cfg.d_ff}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} without a shared expert (d_ff_expert "
+        f"{cfg.moe.d_ff_expert}), vocab {cfg.vocab_size} untied")
+    t = time.perf_counter()
+    params = model.init_params(cfg, 0, pol, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    made, reckoned = _mixer_param_counts(cfg)
+    n_mamba = sum(blk.mixer == "mamba" for blk in cfg.pattern)
+    mixer_real = sum(v.numel() for v in params["layers"][0]["mamba"].values())
+    assert mixer_real == made, (mixer_real, made)
+    log(f"phase 24 (a): {n_params:,} parameters bf16 ({2 * n_params / 1e9:.2f} GB) made on the "
+        f"card in {time.perf_counter() - t:.1f} s; the config's param_count() of the cut "
+        f"{cfg.param_count():,} ({n_params - cfg.param_count():+,}): a Mamba mixer holds "
+        f"{made:,} where the formula reckons {reckoned:,} ({made - reckoned:+,}: x_proj's dt "
+        f"columns, dt_proj, a_log and conv_b), x {n_mamba} mixers = "
+        f"{n_mamba * (made - reckoned):+,}; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; {EP_SHARDS} stacked EP shards of "
+        f"{cfg.moe.num_experts // EP_SHARDS} experts, dense transport")
+    rng = np.random.default_rng(24)  # phase 9's session mix: key 7 at 0.3
+    sessions = np.where(rng.random(JAMBA_REQUESTS) < 0.3, 7,
+                        rng.integers(0, 1000, JAMBA_REQUESTS))
+    lens = rng.choice(JAMBA_PROMPTS, JAMBA_REQUESTS)
+    sched = DRScheduler(JAMBA_REPLICAS)
+    engines = [ServeEngine(cfg, params, pol, slots=JAMBA_SLOTS, max_len=JAMBA_MAX_LEN, device=dev)
+               for _ in range(JAMBA_REPLICAS)]
+    queues: list[list] = [[] for _ in range(JAMBA_REPLICAS)]
+    for i in range(JAMBA_REQUESTS):
+        req = Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lens[i]).astype(np.int32),
+                      max_new_tokens=JAMBA_NEW, session_key=int(sessions[i]))
+        queues[sched.route(req.session_key, cost_tokens=JAMBA_NEW)].append(req)
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)), device=dev)
+    _, cache = model.prefill(params, {"tokens": warm}, cfg, pol, max_len=264)
+    model.decode_step(params, cache, warm[:, -1:], cfg, pol)  # untimed warm-up
+    del cache
+    _zero_launch_counts()
+    rec = _timed_serving(model, engines, queues, "24 (a)")
+    serve_launches = _launch_counts()
+    reqs = [r for q in queues for r in q]
+    assert len(reqs) == JAMBA_REQUESTS
+    for r in reqs:
+        assert len(r.out_tokens) == JAMBA_NEW and r.done, (r.rid, r.out_tokens)
+        assert all(0 <= x < cfg.vocab_size for x in r.out_tokens), (r.rid, r.out_tokens)
+    calls = rec["prefill"] + rec["decode"]
+    assert calls and all(c["finite"] for c in calls), "non-finite logits"
+    assert {c["flash"] for c in rec["prefill"]} == {attn_layers}, rec["prefill"]
+    assert {c["flash"] for c in rec["decode"]} == {0}, "a decoded token ran flash"
+    assert {c["dispatch"] for c in rec["prefill"]} == {2 * moe_layers}, rec["prefill"]
+    assert {c["dispatch"] for c in rec["decode"]} == {moe_layers}, rec["decode"]
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    by_len: dict[int, list] = {}
+    for c in rec["prefill"]:
+        by_len.setdefault(c["len"], []).append(c["wall"] * 1e3)
+    decode_ms = statistics.median(c["wall"] for c in rec["decode"]) * 1e3
+    log(f"phase 24 (a): DRScheduler({JAMBA_REPLICAS}) x ServeEngine({JAMBA_SLOTS} slots): "
+        f"{JAMBA_REQUESTS} requests served, prompts {sorted(lens.tolist())} tokens, "
+        f"{JAMBA_NEW} new each: {tokens} tokens in {rec['serve_s']:.2f} s "
+        f"({tokens / rec['serve_s']:.1f} tokens/s); prefill wall by prompt length (median ms): "
+        + ", ".join(f"{n}: {statistics.median(w):.1f} (x{len(w)})" for n, w in sorted(by_len.items()))
+        + f"; decode wall a token median {decode_ms:.2f} ms over {len(rec['decode'])} steps; "
+        f"launches a prefill: flash {attn_layers}, dispatch_count {2 * moe_layers} (moe_apply: "
+        f"two hops a MoE layer); a decoded token: flash 0, dispatch_count {moe_layers} "
+        f"(moe_apply_replicated); in all {serve_launches}; routed {sched.routed}, imbalance "
+        f"{sched.imbalance():.2f}; all logits finite; card {card}")
+    del engines, queues, reqs
+    bad = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 300)), device=dev)
+    try:
+        model.prefill(params, {"tokens": bad}, cfg, pol, max_len=304)
+    except ValueError as e:
+        assert "chunk contract" in str(e), e
+        log(f"phase 24 (a): a 300-token prompt: model.prefill raised ValueError ({e})")
+    else:
+        raise AssertionError("a 300-token prompt was prefilled: the chunk contract is gone")
+    t = time.perf_counter()
+    prof = profile_serving(model, params, cfg, pol, rng, dev, 1040, phase="24 (a)", reps=1,
+                           names=("dispatch_rank_kernel", "flash"))
+    pre, dec = prof["prefill of 1024 tokens"], prof["8 decode steps after it"]
+    log(f"phase 24 (a): {pre['device_ops']:,} device operations a 1,024-token prefill "
+        f"(busy {pre['busy_ms']:.2f} ms, idle {100 * pre['idle']:.1f}%), "
+        f"{dec['device_ops'] / 8:,.0f} a decoded token (busy {dec['busy_ms'] / 8:.2f} ms a "
+        f"token, idle {100 * dec['idle']:.1f}%); the profile took "
+        f"{time.perf_counter() - t:.1f} s; card {card}")
+    # the top-2 hops' dispatch_count inputs of a 1,024-token prefill and a
+    # decoded token, for (f)
+    hops = []
+    orig_slots = ops.dispatch_slots
+
+    def slots_capture(dest, valid=None, *, num_parts):
+        hops.append((dest.clone(), None if valid is None else valid.clone(), num_parts))
+        return orig_slots(dest, valid, num_parts=num_parts)
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 1024)), device=dev)
+    ops.dispatch_slots = slots_capture
+    try:
+        _, cache = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=1040)
+        hops = hops[:2]
+        model.decode_step(params, cache, toks[:, -1:], cfg, pol)
+        hops = hops[:3]
+    finally:
+        ops.dispatch_slots = orig_slots
+    del cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 24 (a): {time.perf_counter() - t_phase:.1f} s so far; memory allocated after "
+        f"freeing the cut {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # ---- (b) one Mamba mixer alone at full width ---------------------------
+    mamba_alone(dev, card, full)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) teacher-forced in float32 on one (Mamba, dense) layer ---------
+    t = time.perf_counter()
+    one = dataclasses.replace(full, num_layers=1, pattern=full.pattern[:1])
+    f32 = Policy()
+    p32 = model.init_params(one, 0, f32, device=dev)
+    n32 = sum(x.numel() for x in leaves(p32))
+    tf = {(pf, n): _teacher_forced(model, p32, one, f32, dev, rng, pf, n)
+          for pf, n in ((255, 256), (256, 512))}
+    log(f"phase 24 (c): teacher-forced, float32 at full width on one (mamba, dense) layer "
+        f"({n32:,} parameters, {4 * n32 / 1e9:.1f} GB): " + "; ".join(
+            f"{pf} prefilled + {n - pf} decoded against {n} prefilled: largest logit difference "
+            f"{d:.3g} (limit {TEACHER_TOL} x (1 + |logit|))" for (pf, n), d in tf.items())
+        + f"; {time.perf_counter() - t:.1f} s")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) training two (Mamba, dense) layers at full width --------------
+    tcfg = dataclasses.replace(full, num_layers=JAMBA_TRAIN_LAYERS, pattern=full.pattern[:1])
+    tpol = Policy(param_dtype=bf16, compute_dtype=bf16, remat=True)
+    opt_cfg = OptConfig()
+    params = model.init_params(tcfg, 0, tpol, device=dev)
+    n_train = sum(x.numel() for x in leaves(params))
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(tcfg, tpol, opt_cfg)
+    stream = list(lm_token_stream(JAMBA_STEPS, JAMBA_BATCH, TRAIN_SEQ + 1, tcfg.vocab_size,
+                                  seed=24))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    walls, ms = [], []
+    for toks in stream:
+        batch = _lm_batch(toks, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        m = {k: v.cpu() for k, v in m.items()}
+        walls.append((time.perf_counter() - t) * 1e3)
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"])), m
+        ms.append(m)
+    train_launches = _launch_counts()
+    # the training cut holds no attention layer: neither flash kernel runs
+    assert train_launches["flash_attention"] == train_launches["flash_attention_bwd"] == 0, \
+        train_launches
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert peak < JAMBA_PEAK_LIMIT / 1e9, f"(d)'s training peak {peak:.2f} GB"
+    wall = statistics.median(walls[1:])
+    tok = JAMBA_BATCH * TRAIN_SEQ
+    log(f"phase 24 (d): {tcfg.name} cut to {JAMBA_TRAIN_LAYERS} (mamba, dense) layers at full "
+        f"width ({n_train:,} parameters bf16, float32 moments, Policy(remat=True)): "
+        f"{JAMBA_STEPS} steps of {JAMBA_BATCH} x {TRAIN_SEQ} lm_token_stream tokens: losses "
+        f"{[round(float(m['loss']), 4) for m in ms]}, grad_norm "
+        f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
+        f"{[round(w, 1) for w in walls]}: median of steps 2-{JAMBA_STEPS} {wall:.1f} ms, "
+        f"{tok / wall * 1e3:,.0f} tokens/s; peak memory {peak:.2f} GB (limit "
+        f"{JAMBA_PEAK_LIMIT / 1e9:.0f}); launches in the {JAMBA_STEPS} steps {train_launches} "
+        f"(no attention layer, so no flash forward or backward); card {card}")
+    prof = _profiled_step(lambda: step(params, opt, _lm_batch(stream[1], dev)))
+    log(f"phase 24 (d): one profiled step: wall {prof['wall_ms']:.2f} ms (profiled), device "
+        f"busy {prof['busy_ms']:.2f} ms, idle {100 * prof['idle']:.1f}%, "
+        f"{prof['device_ops']:,} device operations; card {card}")
+    for name, t_ms in prof["top"]:
+        log(f"phase 24 (d):   {t_ms:9.3f} ms {100 * t_ms / prof['busy_ms']:5.1f}%  {name[:90]}")
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = [v.detach().to("cpu", copy=True) for v in leaves(params)]
+    one_batch = _lm_batch(stream[0], dev)
+    tried = {}
+    for lr in JAMBA_OVERFIT_LRS:
+        with torch.no_grad():
+            for v, h in zip(leaves(params), start):
+                v.copy_(h)
+        over_cfg = OptConfig(lr=lr, warmup=1)
+        opt = init_opt(params, over_cfg)
+        over = make_train_step(tcfg, tpol, over_cfg)
+        losses = []
+        for _ in range(JAMBA_OVERFIT_STEPS):
+            params, opt, m = over(params, opt, one_batch)
+            losses.append(float(m["loss"]))
+        tried[lr] = losses
+        del opt, over
+        if all(np.isfinite(losses)) and losses[-1] < losses[0]:
+            break
+    log(f"phase 24 (d): one batch of {JAMBA_BATCH} x {TRAIN_SEQ} repeated for "
+        f"{JAMBA_OVERFIT_STEPS} steps from (d)'s parameters, fresh moments, "
+        f"OptConfig(lr, warmup=1), the rates in turn: " + "; ".join(
+            f"lr {lr:g}: {[round(v, 4) for v in ls]}" for lr, ls in tried.items())
+        + f"; {time.perf_counter() - t_phase:.1f} s so far")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], tried
+    del params, start, one_batch, step, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the smoke config, card against CPU; remat bit-equal -----------
+    scfg = reduce_for_smoke(full)
+    for shards in (0, EP_SHARDS):
+        spol = Policy(ep_shards=shards, exchange_backend="dense" if shards else None)
+        smoke_card_against_cpu(dev, scfg, rng, 12, 32, "24 (e)", spol)
+    sb = [_lm_batch(x, dev) for x in lm_token_stream(2, 2, 33, scfg.vocab_size, seed=241)]
+    remat = _remat_runs(dev, scfg, dict(ep_shards=EP_SHARDS, exchange_backend="dense"),
+                        {"no remat": {}, "nothing": dict(remat=True, remat_policy="nothing"),
+                         "save_moe": dict(remat=True, remat_policy="save_moe")},
+                        OptConfig(lr=1e-3, warmup=1), sb, "e", card, phase=24)
+    log(f"phase 24 (e): {time.perf_counter() - t_phase:.1f} s so far")
+
+    # ---- (f) the kernels at jamba's shapes --------------------------------
+    g, hd = full.num_kv_heads, full.head_dim
+    pp = full.num_heads // g
+    checked = check_flash_shapes(
+        dev, card, {f"B {b}": (b, g, pp, TRAIN_SEQ, TRAIN_SEQ, hd, True) for b in (1, 2)},
+        "24 (f)", seed=24)
+    dc_rows = {}
+    for name, (dest, valid, parts) in zip(("hop 1", "hop 2", "decode"), hops):
+        valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+        dest = dest.to(torch.int32).contiguous()
+        got = dispatch_count(dest, valid, num_parts=parts)
+        want = dispatch_count_plain(dest, valid, num_parts=parts)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        w, n = dest.shape
+        nbytes = w * n * (4 + 1) + w * n * 4 + w * parts * 4
+        fn = lambda: dispatch_count(dest, valid, num_parts=parts)
+        k_ms, d_ms = cuda_ms(fn), device_ms(fn)
+        p_ms = cuda_ms(lambda: dispatch_count_plain(dest, valid, num_parts=parts))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        dc_rows[name] = {"shape": f"W={w} n={n} L={parts}", "ms": k_ms, "plain_ms": p_ms,
+                         "device_ms": d_ms, "bound_ms": bound, "bound_by": "bytes",
+                         "bytes": nbytes, "valid": int(valid.sum()), "library_ms": None}
+        log(f"phase 24 (f): dispatch_count [{name}, top-2] W={w} n={n} L={parts} "
+            f"({int(valid.sum())} valid): bit-equal to its plain version; {k_ms:.4f} ms by events "
+            f"around one call, device time {d_ms:.4f} ms (20 calls behind a spin), plain "
+            f"{p_ms:.4f} ms, bound {bound:.6f} ms by bytes ({nbytes} bytes); card {card}")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    trained = f"(d) {JAMBA_STEPS} train steps (no attention layer)"
+    launches = {"a prefill": attn_layers, "a decoded token": 0,
+                "(a) serving in all": serve_launches["flash_attention"],
+                trained: train_launches["flash_attention"]}
+    return {"flash_attention": {"launches_phase_24": launches,
+                                "phase_24": {k: v["fwd"] for k, v in checked.items()}},
+            "flash_attention_bwd": {
+                "launches_phase_24": {trained: train_launches["flash_attention_bwd"]},
+                "phase_24": {k: v["bwd"] for k, v in checked.items()}},
+            "dispatch_count": {
+                "launches_phase_24": {
+                    "a prefill": 2 * moe_layers, "a decoded token": moe_layers,
+                    "(a) serving in all": serve_launches["dispatch_count"],
+                    "(e) a smoke step at 4 shards, by run": {
+                        k: v["launches_a_step"]["dispatch_count"] for k, v in remat.items()}},
+                "phase_24": dc_rows}}
 
 
 if __name__ == "__main__":

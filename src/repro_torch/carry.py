@@ -23,7 +23,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.drm import DRConfig
 from repro_torch.core.streaming import StreamingJob
 from repro_torch.models.modules import Policy
-from repro_torch.models.transformer import check_supported
 from repro_torch.train.optimizer import OptState
 
 __all__ = ["job_from_reference_snapshot", "opt_from_jax", "params_from_jax"]
@@ -80,7 +79,9 @@ def params_from_jax(tree: dict, cfg: ArchConfig, pol: Policy, *, device=None) ->
     (the reference keeps it so in every policy), its stacked experts ``wi
     [E, d, gate, f]`` and ``wo [E, f, d]`` and its ``shared`` FFN are cast
     like the rest; dense and MoE blocks may interleave (Maverick).  The
-    xLSTM blocks' ``mlstm`` and ``slstm`` dicts carry over as any other.
+    xLSTM blocks' ``mlstm`` and ``slstm`` dicts and the Mamba blocks'
+    ``mamba`` dicts carry over as any other (Mamba's ``a_log``, ``dt_bias``
+    and ``d_skip`` in ``pol.param_dtype``, as the reference inits them).
 
     An enc-dec tree (``repro.models.encdec.init_params``: ``embed``,
     ``dec_pos``, stacked ``enc [enc_layers, ...]`` and ``dec [num_layers,
@@ -115,8 +116,6 @@ def _dtype_of(a) -> torch.dtype:
 def _layers_from_jax(tree: dict, cfg: ArchConfig, convert) -> dict:
     """The reference's ``[periods, ...]``-stacked tree as the port's
     per-layer tree, each array through ``convert(array, key)``."""
-    check_supported(cfg)
-
     def conv(node, name=""):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}

@@ -96,9 +96,12 @@ class Policy:
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    """``scale * N(0, 1)`` drawn in float32 on ``gen``'s device, then cast."""
+    """``scale * N(0, 1)`` drawn in float32 on ``gen``'s device, then cast.
+    The draw is scaled in place: one of jamba's stacked expert weights is
+    25.8 GB in float32, and a second such copy does not fit beside its
+    model on an 80 GB card."""
     x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

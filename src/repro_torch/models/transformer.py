@@ -1,6 +1,7 @@
 """Decoder-only LM assembled from the config's block pattern, for training
-and serving (a port of ``repro.models.transformer`` for the ``attn``,
-``local_attn``, ``mlstm`` and ``slstm`` mixers with dense, MoE or no FFNs).
+and serving (a port of ``repro.models.transformer``: the ``attn``,
+``local_attn``, ``mamba``, ``mlstm`` and ``slstm`` mixers with dense, MoE
+or no FFNs).
 
 The reference scans over *periods* with weights stacked ``[periods,
 ...]``; eager PyTorch needs no scan, so parameters and caches hold one
@@ -16,9 +17,12 @@ splits over the shards and is longer than one token, else
 ``None``: the identity) is the KIP placement the expert weights are laid
 out by.
 
-The xLSTM mixers (``models/xlstm.py``) return a new state dict, where
-attention updates its cache in place; ``backbone`` stores every layer's
-returned cache back into ``cache["layers"][i]`` (``cache["tail{j}"]``).
+The recurrent mixers (Mamba, ``models/ssm.py``; the xLSTM's,
+``models/xlstm.py``) return a new state dict, where attention updates its
+cache in place; ``backbone`` stores every layer's returned cache back into
+``cache["layers"][i]`` (``cache["tail{j}"]``).  Mamba and the mLSTM cut a
+sequence into chunks of ``min(256, S)``, so a prompt longer than 256
+tokens must be a multiple of 256 (``ValueError``).
 
 ``loss_fn`` is the training loss: the backbone under autograd (the flash
 kernel's backward on the card), then ``chunked_softmax_xent``, plus the
@@ -31,9 +35,6 @@ streams ``[3, B, S]`` are the same ``offset + arange(S)``.  Vision tokens
 are its stubbed frontend: a batch's ``vision_embeds [B, V, d]`` replace
 the prompt's first ``V`` rows, which needs ``S >= V`` (``ValueError``; the
 reference fails there with a shape error).
-
-Not ported, raising ``NotImplementedError`` with its ROADMAP item: the
-``mamba`` mixer.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ from repro_torch.models.modules import (
     pad_vocab,
     unembed_logits,
 )
+from repro_torch.models.ssm import init_mamba, init_mamba_state, mamba_forward
 from repro_torch.models.xlstm import (
     init_mlstm,
     init_mlstm_state,
@@ -75,20 +77,6 @@ from repro_torch.models.xlstm import (
 from repro_torch.moe.layer import init_moe, moe_apply, moe_apply_replicated, moe_ref
 
 __all__ = ["backbone", "decode_step", "init_cache", "init_params", "loss_fn", "prefill"]
-
-_UNPORTED_MIXERS = {"mamba": "the Mamba mixer (models/ssm.py)"}
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 item {item})")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for any part of ``cfg`` this port does not run yet."""
-    for blk in cfg.pattern + cfg.tail:
-        if blk.mixer in _UNPORTED_MIXERS:
-            raise _not_ported(_UNPORTED_MIXERS[blk.mixer], 10)
-
 
 def layers(cfg: ArchConfig) -> list[Block]:
     """The periodic blocks in execution order (``params["layers"]``)."""
@@ -104,7 +92,10 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayo
                 pol: Policy) -> dict:
     dt, dev = pol.param_dtype, gen.device
     p: dict[str, Any] = {"ln1": init_norm(cfg.norm_kind, cfg.d_model, dt, dev)}
-    if blk.mixer == "mlstm":
+    if blk.mixer == "mamba":
+        p["mamba"] = init_mamba(gen, cfg.d_model, expand=cfg.mamba_expand,
+                                d_state=cfg.mamba_d_state, d_conv=cfg.mamba_conv, dtype=dt)
+    elif blk.mixer == "mlstm":
         p["mlstm"] = init_mlstm(gen, cfg.d_model, cfg.num_heads, _heads_p(cfg, pol), dtype=dt)
     elif blk.mixer == "slstm":
         p["slstm"] = init_slstm(gen, cfg.d_model, cfg.num_heads, _heads_p(cfg, pol), dtype=dt)
@@ -128,7 +119,6 @@ def _heads_p(cfg: ArchConfig, pol: Policy) -> int:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
     """Random parameters drawn from ``gen`` on its device."""
-    check_supported(cfg)
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
     params: dict[str, Any] = {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, pol.param_dtype),
@@ -151,12 +141,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *,
                device=None) -> dict:
     """Decode caches, one per layer (a ring cache for ``local_attn``, the
-    recurrent state for ``mlstm`` and ``slstm``)."""
-    check_supported(cfg)
+    recurrent state for ``mamba``, ``mlstm`` and ``slstm``)."""
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
     hp = _heads_p(cfg, pol)
 
     def one(blk: Block) -> dict:
+        if blk.mixer == "mamba":
+            return init_mamba_state(batch, cfg.d_model, expand=cfg.mamba_expand,
+                                    d_state=cfg.mamba_d_state, d_conv=cfg.mamba_conv,
+                                    dtype=pol.compute_dtype, device=device)
         if blk.mixer == "mlstm":
             di = 2 * cfg.d_model
             return init_mlstm_state(batch, hp, di // cfg.num_heads, di, dtype=pol.compute_dtype,
@@ -194,7 +187,10 @@ def _apply_mixer(blk: Block, p: dict, x: torch.Tensor, cfg: ArchConfig, lay: Hea
     """The block's first half, ``x + mixer(norm(x))``.  Returns ``(x,
     new_cache)``."""
     h = apply_norm(p["ln1"], x, cfg.norm_kind)
-    if blk.mixer == "mlstm":
+    if blk.mixer == "mamba":
+        y, new_cache = mamba_forward(p["mamba"], h, pol, d_state=cfg.mamba_d_state,
+                                     chunk=min(256, h.shape[1]), state=cache)
+    elif blk.mixer == "mlstm":
         y, new_cache = mlstm_forward(p["mlstm"], h, pol, chunk=min(256, h.shape[1]), state=cache)
     elif blk.mixer == "slstm":
         y, new_cache = slstm_forward(p["slstm"], h, pol, state=cache)
@@ -302,7 +298,8 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos
 
     Returns ``(x, cache, moe_counts, overflow, aux_loss)`` as the reference
     does: ``moe_counts`` f32[E] summed over the periodic MoE layers (``None``
-    without MoE), their dropped pairs summed, and their aux losses summed
+    without MoE; empty where a MoE config's periodic blocks hold no MoE
+    FFN), their dropped pairs summed, and their aux losses summed
     over the number of periods (the mean over periods of each period's
     sum; the tail's MoE stats are not counted, as in the reference).  Each
     layer's returned cache is stored back in ``cache`` (the attention
@@ -335,10 +332,15 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, pol: Policy, *, pos
         if cache is not None:
             cache[f"tail{j}"] = nc
     x = apply_norm(params["final_norm"], x, cfg.norm_kind)
-    if cfg.moe is None:
-        # filled on the device: an upload of a host scalar would wait for the stream
+    if cfg.moe is None or not stats:
+        # filled on the device: an upload of a host scalar would wait for the stream.
+        # A MoE config whose periodic blocks hold no MoE FFN (a depth cut of
+        # jamba's period) counts no expert: empty counts, as the reference's
+        # sum over [periods, 0]
         zeros = torch.zeros(2, dtype=torch.float32, device=x.device)
-        return x, cache, None, zeros[0], zeros[1]
+        counts = None if cfg.moe is None else torch.zeros(0, dtype=torch.float32,
+                                                          device=x.device)
+        return x, cache, counts, zeros[0], zeros[1]
     counts, overflow, aux = (torch.stack(s) for s in zip(*stats))
     return x, cache, counts.sum(dim=0), overflow.sum(), aux.sum() / cfg.num_periods
 

@@ -1573,14 +1573,16 @@ def test_whisper_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("arch,ep_shards,remat_policy", [
     ("gemma-2b", 0, "nothing"), ("llama4-scout-17b-a16e", 4, "nothing"),
-    ("llama4-scout-17b-a16e", 4, "save_moe"), ("whisper-base", 0, "nothing")])
+    ("llama4-scout-17b-a16e", 4, "save_moe"), ("whisper-base", 0, "nothing"),
+    ("jamba-1.5-large-398b", 4, "nothing")])
 def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, remat_policy):
     """Two bf16 train steps of a smoke config with and without remat from
-    the same parameters: metrics and parameters equal bit for bit; flash
-    forward launched twice a layer a step under remat, its backward once;
-    dispatch_count 2 a MoE layer a step, 4 under ``"nothing"``.  whisper's
-    flash calls a forward are its encoder layers plus two a decoder layer
-    (self and cross)."""
+    the same parameters: finite losses and gradient norms, metrics and
+    parameters equal bit for bit; flash forward launched twice an attention
+    layer a step under remat, its backward once; dispatch_count 2 a MoE
+    layer a step, 4 under ``"nothing"``.  whisper's flash calls a forward
+    are its encoder layers plus two a decoder layer (self and cross);
+    jamba's period holds one attention layer among seven Mamba mixers."""
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as kflash
@@ -1620,10 +1622,72 @@ def test_remat_on_the_card_equals_the_step_without_it(cuda, arch, ep_shards, rem
                      kflash.flash_attention_bwd_seq_major.launches, dispatch_count.launches))
     (m0, p0, f0, b0, d0), (m1, p1, f1, b1, d1) = runs
     for a, b in zip(m0, m1):
+        assert all(torch.isfinite(a[k]).all() for k in ("loss", "grad_norm"))
         assert all(torch.equal(a[k], b[k]) for k in a)
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
     moe_layers = sum(blk.ffn == "moe" for blk in cfg.pattern) * cfg.num_periods
-    per = cfg.enc_layers + 2 * cfg.num_layers if cfg.encdec else cfg.num_layers
+    attn_layers = sum(blk.mixer == "attn" for blk in cfg.pattern) * cfg.num_periods
+    per = cfg.enc_layers + 2 * cfg.num_layers if cfg.encdec else attn_layers
     assert (f0, f1, b0, b1) == (2 * per, 4 * per, 2 * per, 2 * per)
     rerun = 2 if remat_policy == "nothing" else 1
     assert (d0, d1) == (2 * 2 * moe_layers, rerun * 2 * 2 * moe_layers)
+
+
+@pytest.mark.parametrize("ep_shards", [0, 4])
+def test_jamba_card_equals_cpu(cuda, ep_shards):
+    """The smoke jamba-1.5-large (one period: seven Mamba mixers, one
+    attention, four top-2 MoE FFNs) at float32: the Mamba mixer of layer 0
+    alone, forward and backward on 2 x 512 tokens (two chunks), within
+    1e-4 x max(1, |cpu|); a 12-token prefill and 4 decode steps within
+    1e-4 x max(1, |cpu|) of the CPU's logits (one flash launch a prefill,
+    none a token; at 4 shards 2 dispatch_count launches a MoE layer a
+    prefill, 1 a token); a 300-token prompt raises ValueError.  Remat on
+    the card: ``test_remat_on_the_card_equals_the_step_without_it``."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import model, ssm
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("jamba-1.5-large-398b"))
+    pol = Policy(ep_shards=ep_shards, exchange_backend="dense" if ep_shards else None)
+    cpu = model.init_params(cfg, 0, pol, device="cpu")
+    sides = {"cpu": cpu, "cuda": tree_map(lambda t: t.to(cuda), cpu)}
+    rng = np.random.default_rng(2)
+
+    def rel(a, b):
+        return float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
+
+    x = torch.as_tensor(rng.standard_normal((2, 512, cfg.d_model)), dtype=torch.float32)
+    cot = torch.as_tensor(rng.standard_normal((2, 512, cfg.d_model)), dtype=torch.float32)
+    out = {}
+    for dev, p in sides.items():
+        mp = {k: v.detach().requires_grad_() for k, v in p["layers"][0]["mamba"].items()}
+        xd = x.to(dev).requires_grad_()
+        y, st = ssm.mamba_forward(mp, xd, pol, d_state=cfg.mamba_d_state)
+        grads = torch.autograd.grad((y * cot.to(dev)).sum(), [xd, *mp.values()])
+        out[dev] = [y, st["ssm"], st["conv"], *grads]
+    for a, b in zip(out["cuda"], out["cpu"], strict=True):
+        assert rel(a, b) <= 1e-4
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)))
+    logits, caches = {}, {}
+    kflash.flash_attention.launches = dispatch_count.launches = 0
+    for dev, p in sides.items():
+        logits[dev], caches[dev] = model.prefill(p, {"tokens": toks.to(dev)}, cfg, pol, 24)
+    moe_layers = sum(blk.ffn == "moe" for blk in cfg.pattern)
+    assert kflash.flash_attention.launches == 1
+    assert dispatch_count.launches == (2 * moe_layers if ep_shards else 0)
+    for i in range(5):
+        assert rel(logits["cuda"], logits["cpu"]) <= 1e-4, i
+        if i == 4:
+            break
+        nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1)))
+        for dev, p in sides.items():
+            logits[dev], caches[dev] = model.decode_step(p, caches[dev], nxt.to(dev), cfg, pol)
+    assert kflash.flash_attention.launches == 1
+    assert dispatch_count.launches == ((2 + 4) * moe_layers if ep_shards else 0)
+    with pytest.raises(ValueError, match="chunk contract"):
+        model.prefill(sides["cuda"], {"tokens": torch.zeros((1, 300), dtype=torch.int64,
+                                                            device=cuda)}, cfg, pol, 304)

@@ -40,6 +40,7 @@ def test_import_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "assert 'repro_torch.models.xlstm' in names\n"
         "assert 'repro_torch.models.encdec' in names\n"
+        "assert 'repro_torch.models.ssm' in names\n"
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
@@ -321,3 +322,23 @@ def test_scan_covers_the_baseline_modules():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split() == ["8", "4", "True"]
+
+
+def test_scan_covers_the_ssm_module():
+    """The scan reaches the Mamba mixer, which imports with jax blocked and
+    runs a chunked forward on the CPU."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "src/repro_torch/models/ssm.py" in names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import torch\n"
+            "from repro_torch.models.modules import Policy\n"
+            "from repro_torch.models.ssm import init_mamba, mamba_forward\n"
+            "p = init_mamba(torch.Generator().manual_seed(0), 16, expand=2, d_state=4, d_conv=4)\n"
+            "y, st = mamba_forward(p, torch.ones((1, 8, 16)), Policy(), d_state=4, chunk=4)\n"
+            "print(tuple(y.shape), tuple(st['ssm'].shape), tuple(st['conv'].shape))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO / "src",
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split("\n")[0] == "(1, 8, 16) (1, 32, 4) (1, 3, 32)"
