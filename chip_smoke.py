@@ -399,6 +399,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     1,024 causal, B 1 and B 2 (as 23 (d)), and ``dispatch_count`` on (a)'s
     top-2 hop inputs, timed.  The flash, flash-backward and dispatch_count
     rows gain ``launches_phase_24`` and ``phase_24``.
+25. The ``torch.distributed`` transport, one worker a process, at phase
+    2's deployment.  The parent saves phase 2's batches under the
+    git-ignored ``build/phase25/`` and spawns the ranks (the spawn start
+    method, a ``file://`` store there; the kernels were built by phase 1,
+    so the ranks load that library); each rank saves its metrics, the
+    gathered state and its launch counts beside the store, and the parent
+    compares.  (a) 8 gloo processes sharing the card, ``StreamingJob(
+    group=...)`` with phase 2's job and batches by the serial, depth-1 and
+    depth-2 drivers: every metric but the walls and ``overlap_fraction``
+    equal to phase 2's run by the same driver, the gathered state equal,
+    no overflow, phase 2's 64 exact counts, every rank's ``DecisionLog``
+    equal, both route kernels launched on every rank; rank 0's
+    ``route_bucketize`` at ``[1, 524,288]``, L 8, against its plain
+    version; the walls a batch (max over ranks) beside phase 2's, one
+    dense ship (``a2a_finish``) beside phase 2's stacked transpose, the
+    bytes handed to gloo, the card's memory with all 8 up, rank 0's idle
+    share, and 0 host syncs at depth 2 with the policies off.  (b) Native
+    ragged, ragged with ``REPRO_DISABLE_NATIVE_RAGGED=1`` and hierarchical
+    with ``lanes_per_host=4``, 4 batches, serial: each equal to the
+    stacked run of its backend on the card; shipped rows and bytes, the
+    ship's wall, the native ship's compaction and scatter; the topology
+    ``exchange_topology_of(group=)`` reads (one host).  (c) A one-rank
+    nccl group (NCCL refuses two ranks on one card), W=1, dense and native
+    ragged, 4 batches: equal to the stacked W=1 run.  The route kernels'
+    and ``dispatch_count``'s rows gain ``launches_phase_25``.  Alone:
+    build the library, run phase 2's three drivers (``drive``) for the
+    ``phase2`` dict and ``exact`` pairs, then ``chip_smoke.dist_phase(
+    dev, card, batches, phase2, exact)`` from a script under ``build/``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -409,6 +437,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1004,6 +1033,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     pick = np.concatenate([[int(torch.argmax(counts))],
                            rng.choice(len(uniq), 63, replace=False)])
+    exact = [(int(uniq[i]), float(counts[i])) for i in pick]  # for phase 25
     # warm-up, untimed: the caching allocators' device blocks and pinned
     # blocks, so that no timed run pays for them first
     for extra in DRIVERS.values():
@@ -1369,6 +1399,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in ("dispatch_count", "flash_attention", "flash_attention_bwd"):
             row.update(jb[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = dist_phase(dev, card, batches, phase2, exact)
+    for row in kernels:
+        if row["name"] in dp:
+            row.update(dp[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
         f"recorded none of the kernels they timed and ran again")
     log(card)
@@ -5806,6 +5842,453 @@ def jamba_phase(dev, card) -> dict:
                     "(e) a smoke step at 4 shards, by run": {
                         k: v["launches_a_step"]["dispatch_count"] for k, v in remat.items()}},
                 "phase_24": dc_rows}}
+
+
+# phase 25: the torch.distributed transport, one worker a process, at phase
+# 2's deployment: 8 gloo ranks sharing the card, then a one-rank nccl group
+# (NCCL refuses two ranks on one card: dist_probe.py)
+DIST_DIR = Path(__file__).resolve().parent / "build" / "phase25"
+DIST_WORLD = 8
+DIST_JOB = dict(num_partitions=32, state_capacity=262_144, capacity_factor=2.0)
+DIST_DR = dict(imbalance_trigger=1.2, migration_cost_weight=0.2)
+DIST_BATCHES_B = 4          # (b) and (c): the first 4 of phase 2's batches
+NCCL_STATE = 1 << 20        # (c) at W=1: every key of 4 batches on one worker
+DIST_SKIP = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+
+
+def _dist_kernels():
+    from repro_torch.kernels.dispatch_count import dispatch_count
+    from repro_torch.kernels.lookup_dispatch import lookup_dispatch
+    from repro_torch.kernels.route_bucketize import route_bucketize
+    return route_bucketize, lookup_dispatch, dispatch_count
+
+
+def _dist_drive(g, job, name, batches) -> dict:
+    """One rank's run of ``batches`` (as ``drive``): launches and the audit
+    set to 0 just before, the wall of the run and one drain per batch, the
+    telemetry's phase walls, the bytes handed to the group, the metrics."""
+    from repro_torch import compat
+
+    kernels = _dist_kernels()
+    walls = phase_walls(job)
+    traffic = dict(g.traffic)
+    g.barrier()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    compat.reset_host_sync_count()
+    t = time.perf_counter()
+    ms = feed(job, name, batches)
+    job._drain_inflight()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / len(batches) * 1e3
+    return dict(
+        metrics=[dataclasses.asdict(m) for m in ms], wall_ms=wall_ms,
+        syncs=compat.host_sync_count(), walls=dict(walls),
+        launches={k.__name__: k.launches for k in kernels},
+        traffic={k: g.traffic[k] - traffic[k] for k in traffic})
+
+
+def _dist_record(g, job, rec: dict, keep_state: bool) -> dict:
+    """The gathered final state (kept by rank 0) and this rank's decisions."""
+    keys, vals = job.state_keys.cpu().numpy(), job.state_vals.cpu().numpy()
+    if keep_state:
+        rec["keys"], rec["vals"] = keys, vals
+    rec["decisions"] = [(d.tick, d.kind, d.taken, d.reason, d.imbalance,
+                         sorted(d.detail.items())) for d in job.drm.decisions.records]
+    return rec
+
+
+def _dist_ship_ms(g, job, batch, reps=5) -> tuple[list, int]:
+    """Walls (ms) of the shuffle's ``a2a_finish`` alone on one started
+    batch, synchronized, the ranks lined up by a barrier before each; and
+    the bytes one ship hands the group."""
+    step = job._shuffle
+    pending, _ = step.start(job._tables(), *job._upload(batch, None), None)
+    torch.cuda.synchronize()
+    before = sum(g.traffic.values())
+    out = []
+    for _ in range(reps):
+        g.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.exchange.finish(pending)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out, (sum(g.traffic.values()) - before) // reps
+
+
+def _ragged_plain_ms(job, batch) -> dict:
+    """Events ms of the native ragged ship's two plain torch steps on one
+    started batch's send set, without the collective: the compaction of
+    each lane's counted rows, and the scatter of as many rows into receive
+    buffers filled with each payload's fill."""
+    from repro_torch.compat import host_fetch
+
+    pending, _ = job._shuffle.start(job._tables(), *job._upload(batch, None), None)
+    b = pending.buffers
+    counts = b.lane_counts[0]
+    slots = torch.arange(b.valid.shape[2], device=counts.device, dtype=torch.int32)
+    live = slots[None, :] < counts[:, None]
+    rows = [p[0][live] for p in b.payloads]
+
+    def compact():
+        m = slots[None, :] < counts[:, None]
+        return [p[0][m] for p in b.payloads]
+
+    def scatter():
+        m = slots[None, :] < counts[:, None]
+        for p, f, r in zip(b.payloads, b.fills, rows):
+            full = torch.full_like(p[0], f)
+            full[m] = r
+        return m
+
+    n = int(host_fetch(counts.sum()))
+    return {"rows": n, "compact_ms": cuda_ms(compact), "scatter_ms": cuda_ms(scatter)}
+
+
+def _route_check(job, batch, lanes) -> dict:
+    """This rank's ``route_bucketize`` on its chunk of ``batch`` (``[1,
+    n]``) under the job's partitioner, splits on, against its plain
+    version: equal bit for bit?"""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.route_bucketize import route_bucketize, route_bucketize_plain
+
+    k, v, valid = job._upload(batch, None)
+    part, tables = job.drm.partitioner, job._tables()
+    hk, hp, hr = ops.pad_heavy_tables(tables, num_partitions=job.num_partitions,
+                                      pad_empty=True)
+    args = (k, valid, v, hk, hp, tables.host_to_part, hr)
+    kw = dict(seed=part.seed, num_hosts=part.num_hosts, num_lanes=lanes,
+              capacity=job._shuffle_spec.capacity, key_fill=SENT,
+              num_partitions=job.num_partitions)
+    got, want = route_bucketize(*args, **kw), route_bucketize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return dict(shape=tuple(k.shape), lanes=lanes, capacity=kw["capacity"],
+                heavy=part.num_heavy, equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+                max_abs_err=max_abs_err(got, want))
+
+
+def dist_rank(rank: int, world: int, plan: dict) -> None:
+    """Phase 25's rank ``rank`` of ``world``: joins the ``plan["backend"]``
+    group through a ``file://`` store in the git-ignored build directory,
+    loads the library the parent built, runs the jobs of ``plan["part"]``
+    over phase 2's batches (saved by the parent) and saves what it saw
+    beside the store; the parent compares.  A failure raises, and the
+    parent re-raises it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.exchange.dist import WorkerGroup
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import exchange_topology_of
+
+    build.library()
+    g = WorkerGroup.init(backend=plan["backend"], rank=rank, world_size=world,
+                         init_method=f"file://{plan['store']}", device="cuda")
+    batches = np.load(plan["batches"], mmap_mode="r")
+    batches = [np.array(b) for b in batches[: plan["num_batches"]]]
+    out = {"rank": rank, "jobs": {}}
+
+    def job_of(backend="dense", topology=None, **extra):
+        return StreamingJob(group=g, dr=DRConfig(**DIST_DR, **extra), exchange_backend=backend,
+                            topology=topology, **plan["job"])
+
+    if plan["part"] == "ab":
+        # warm-up, untimed: the first collectives and the caching allocators
+        job_of(overlap_exchange=False).run(batches[:1])
+        for name, extra in DRIVERS.items():
+            job = job_of(**extra)
+            rec = _dist_drive(g, job, name, batches)
+            out["jobs"][f"(a) {name}"] = _dist_record(g, job, rec, rank == 0)
+            if name == "serial":
+                g.barrier()
+                if rank == 0:
+                    out["memory"] = dict(
+                        smi=subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                                            "--format=csv,noheader"], capture_output=True,
+                                           text=True).stdout.strip(),
+                        mem_get_info=torch.cuda.mem_get_info())
+                    out["route check"] = _route_check(job, batches[0], world)
+                rec["ship_ms"], rec["ship_bytes"] = _dist_ship_ms(g, job, batches[-1])
+            if name == "depth 1":
+                # the card's idle share over 2 steady batches, seen from rank 0
+                job.dr_enabled = False
+                if rank == 0:
+                    out["idle"] = device_idle_share(job, batches[:2])
+                else:
+                    job.run(batches[:2])
+                    job.state_keys
+            if name == "depth 2":
+                # the audit's contract at depth 2: no sync outside a safe
+                # point once no action drains the pipeline
+                job.dr_enabled = False
+                rec["steady"] = _dist_drive(g, job, name, batches[:3])
+            del job
+        # (b) the other backends, serial, 4 batches
+        out["topology"] = exchange_topology_of(group=g)
+        for name, backend, masked, g_host in (
+                ("ragged, native", "ragged", False, None),
+                ("ragged, REPRO_DISABLE_NATIVE_RAGGED=1", "ragged", True, None),
+                ("hierarchical, lanes_per_host=4", "hierarchical", False, 4)):
+            if masked:
+                os.environ["REPRO_DISABLE_NATIVE_RAGGED"] = "1"
+            topo = None if g_host is None else exchange_topology_of(group=g, lanes_per_host=g_host)
+            job = job_of(backend, topo, overlap_exchange=False)
+            rec = _dist_drive(g, job, "serial", batches[:DIST_BATCHES_B])
+            rec["ship_ms"], rec["ship_bytes"] = _dist_ship_ms(g, job, batches[DIST_BATCHES_B - 1])
+            if name == "ragged, native":  # its start phase is collective: every rank
+                out["ragged plain"] = _ragged_plain_ms(job, batches[DIST_BATCHES_B - 1])
+            out["jobs"][f"(b) {name}"] = _dist_record(g, job, rec, rank == 0)
+            if backend == "ragged":
+                # depth 2, policies off, 3 batches: the host syncs outside a
+                # safe point this ship costs (the native one fetches its
+                # split sizes)
+                del job
+                job = job_of(backend, None, pipeline_depth=2)
+                job.dr_enabled = False
+                rec["depth 2"] = _dist_drive(g, job, "depth 2", batches[:3])
+            os.environ.pop("REPRO_DISABLE_NATIVE_RAGGED", None)
+            del job
+    else:
+        for backend in ("dense", "ragged"):
+            job = job_of(backend, overlap_exchange=False)
+            rec = _dist_drive(g, job, "serial", batches)
+            rec["ship_ms"], rec["ship_bytes"] = _dist_ship_ms(g, job, batches[-1])
+            out["jobs"][f"(c) {backend}"] = _dist_record(g, job, rec, rank == 0)
+            del job
+    g.close()
+    torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
+
+
+def spawn_ranks(world: int, plan: dict, timeout_s: float = 600.0) -> list[dict]:
+    """Spawn ``world`` ranks of :func:`dist_rank` (the spawn start method),
+    wait for them, and return what each saved.  A rank that raises makes
+    this raise; a run past ``timeout_s`` kills them and raises."""
+    import torch.multiprocessing as mp
+
+    store = Path(plan["store"])
+    store.unlink(missing_ok=True)
+    ctx = mp.start_processes(dist_rank, args=(world, plan), nprocs=world, start_method="spawn",
+                             join=False)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 25: {world} ranks did not finish in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(store.with_name(f"{store.name}.rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _same_metrics(want, got: list[dict], tag) -> None:
+    """``got`` (dicts) equal to ``want`` (BatchMetrics) but the walls."""
+    assert len(want) == len(got), (tag, len(want), len(got))
+    for a, b in zip(want, got):
+        da = {k: v for k, v in dataclasses.asdict(a).items() if k not in DIST_SKIP}
+        db = {k: v for k, v in b.items() if k not in DIST_SKIP}
+        diff = {k: (da[k], db[k]) for k in da if da[k] != db[k]}
+        assert not diff, (tag, a.batch, diff)
+
+
+def _same_state(rec, keys, vals, tag) -> None:
+    assert torch.equal(torch.from_numpy(rec["keys"]), keys.cpu()), (tag, "keys")
+    assert torch.equal(torch.from_numpy(rec["vals"]), vals.cpu()), (tag, "vals")
+
+
+def _ranks_agree(ranks, job) -> None:
+    """Every rank logged the same decisions and the same metrics but the
+    walls."""
+    first = ranks[0]["jobs"][job]
+    for r in ranks[1:]:
+        rec = r["jobs"][job]
+        assert rec["decisions"] == first["decisions"], (job, r["rank"])
+        for a, b in zip(first["metrics"], rec["metrics"], strict=True):
+            assert ({k: v for k, v in a.items() if k not in DIST_SKIP}
+                    == {k: v for k, v in b.items() if k not in DIST_SKIP}), (job, r["rank"])
+
+
+def dist_phase(dev, card, batches, phase2, exact) -> dict:
+    """Phase 25: phase 2's deployment over 8 gloo processes sharing the
+    card, one worker each, by the three drivers, then the other backends,
+    then a one-rank nccl group.  Returns the route kernels' and
+    dispatch_count's ``launches_phase_25``."""
+    import shutil
+
+    from repro_torch.core.drm import DRConfig
+    from repro_torch.core.streaming import StreamingJob
+    from repro_torch.exchange import ExchangeTopology
+    from repro_torch.exchange.backends import _transposed
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    np.save(DIST_DIR / "batches.npy", np.stack(batches))
+    names = ("route_bucketize", "lookup_dispatch", "dispatch_count")
+    launches = {k: {} for k in names}
+
+    # the stacked runs (b) and (c) are held to, on the card
+    stacked = {}
+    for name, backend, topo, w, state in (
+            ("ragged", "ragged", None, DIST_WORLD, DIST_JOB["state_capacity"]),
+            ("hierarchical", "hierarchical", ExchangeTopology(8, 4), DIST_WORLD,
+             DIST_JOB["state_capacity"]),
+            ("W=1 dense", "dense", None, 1, NCCL_STATE),
+            ("W=1 ragged", "ragged", None, 1, NCCL_STATE)):
+        job = StreamingJob(device="cuda", num_workers=w, exchange_backend=backend, topology=topo,
+                           dr=DRConfig(**DIST_DR, overlap_exchange=False),
+                           **{**DIST_JOB, "state_capacity": state})
+        job.run(batches[:DIST_BATCHES_B])
+        stacked[name] = (job.metrics, job.state_keys.cpu(), job.state_vals.cpu())
+        del job
+    # phase 2's flat transpose of one batch's send set, for the ship walls
+    job = StreamingJob(device="cuda", num_workers=DIST_WORLD,
+                       dr=DRConfig(**DIST_DR, overlap_exchange=False), **DIST_JOB)
+    job.process_batch(batches[0])
+    pending, _ = job._shuffle.start(job._tables(), *job._upload(batches[-1], None), None)
+    send = (pending.buffers.valid, *pending.buffers.payloads)
+    transpose_ms = cuda_ms(lambda: [_transposed(t) for t in send])
+    send_bytes = sum(t.numel() * t.element_size() for t in send)
+    del job, pending, send
+    torch.cuda.empty_cache()
+    log(f"phase 25: stacked runs for (b) and (c) and phase 2's transpose in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (a) and (b): 8 gloo ranks on the one card ----------------------
+    t = time.perf_counter()
+    ranks = spawn_ranks(DIST_WORLD, dict(
+        backend="gloo", part="ab", store=str(DIST_DIR / "gloo8"), job=DIST_JOB,
+        batches=str(DIST_DIR / "batches.npy"), num_batches=len(batches)))
+    log(f"phase 25: 8 gloo ranks spawned, ran (a) and (b) and joined in "
+        f"{time.perf_counter() - t:.1f} s (gloo takes the CUDA tensors and stages them "
+        f"through host memory inside each collective); card memory in use with all 8 up "
+        f"{ranks[0]['memory']['smi']} (nvidia-smi memory.used, memory.total); "
+        f"topology read by exchange_topology_of(group=) with no override: "
+        f"{ranks[0]['topology']}")
+    assert ranks[0]["topology"].lanes_per_host == DIST_WORLD, ranks[0]["topology"]
+    rc = ranks[0]["route check"]
+    assert rc["equal"], rc
+    log(f"phase 25 (a): rank 0's route_bucketize at {rc['shape']}, L {rc['lanes']}, cap "
+        f"{rc['capacity']:,}, {rc['heavy']} heavy keys, splits on: equal to its plain version "
+        f"bit for bit (max abs err {rc['max_abs_err']})")
+    for name in DRIVERS:
+        job = f"(a) {name}"
+        rec = ranks[0]["jobs"][job]
+        _same_metrics(phase2[name]["ms"], rec["metrics"], job)
+        _same_state(rec, *phase2[name]["final"], job)
+        _ranks_agree(ranks, job)
+        ms = rec["metrics"]
+        assert all(m["overflow"] == 0 for m in ms), job
+        for key, want in exact:
+            got = float(rec["vals"][rec["keys"] == key].sum())
+            assert got == want, (job, key, got, want)
+        per_rank = [r["jobs"][job]["launches"] for r in ranks]
+        assert all(x["route_bucketize"] > 0 and x["lookup_dispatch"] > 0 for x in per_rank), \
+            (job, per_rank)
+        for k in names:
+            launches[k][job] = [x[k] for x in per_rank]
+        wall_max = [max(r["jobs"][job]["metrics"][i]["wall_time_s"] for r in ranks) * 1e3
+                    for i in range(len(ms))]
+        run_ms = max(r["jobs"][job]["wall_ms"] for r in ranks)
+        walls = {k: max(r["jobs"][job]["walls"][k] for r in ranks) * 1e3
+                 for k in ("count", "ship", "hidden")}
+        syncs = [r["jobs"][job]["syncs"] for r in ranks]
+        sent = sum(r["jobs"][job]["traffic"]["all_to_all"] for r in ranks) / len(ms)
+        log(f"phase 25 (a): {name}, 8 processes x 1 worker, gloo: every metric but the walls "
+            f"equal to phase 2's {name} run, state equal, 64 exact counts, no overflow, every "
+            f"rank's DecisionLog equal; repartitions at "
+            f"{[m['batch'] for m in ms if m['repartitioned']]}; wall per batch {run_ms:.2f} "
+            f"ms (run + one drain / {len(ms)}, max over ranks; phase 2: "
+            f"{phase2[name]['wall_ms']:.2f} ms); host walls a batch, max over ranks "
+            f"{[round(x, 2) for x in wall_max]} ms; telemetry walls, max over ranks: count "
+            f"{walls['count']:.2f} ms, ship {walls['ship']:.2f} ms, hidden "
+            f"{walls['hidden']:.2f} ms; all_to_all bytes a batch, all ranks {sent:,.0f}; "
+            f"host syncs outside safe points by rank {syncs}; launches a rank "
+            f"{ {k: launches[k][job] for k in names} }")
+        if name == "serial":
+            ship = [max(r["jobs"][job]["ship_ms"][i] for r in ranks) for i in range(5)]
+            log(f"phase 25 (a): the dense ship (a2a_finish) of one batch: mask, keys, values "
+                f"and partitions, {rec['ship_bytes']:,} bytes a rank through gloo ("
+                f"{rec['ship_bytes'] * DIST_WORLD:,} in all), synchronized walls, max over "
+                f"ranks, {[round(x, 2) for x in ship]} ms; phase 2's stacked transpose of the "
+                f"same {send_bytes:,} bytes {transpose_ms:.4f} ms (events)")
+        if name == "depth 2":
+            steady = [r["jobs"][job]["steady"] for r in ranks]
+            assert all(s["syncs"] == 0 for s in steady), [s["syncs"] for s in steady]
+            assert all(all(m["pipelined"] for m in s["metrics"][1:]) for s in steady)
+            log(f"phase 25 (a): depth 2, policies off, 3 more batches: 0 host syncs outside "
+                f"safe points on every rank, every batch after the first pipelined; wall per "
+                f"batch {max(s['wall_ms'] for s in steady):.2f} ms (max over ranks)")
+    idle = ranks[0]["idle"]
+    log(f"phase 25 (a): depth 1, policies off, 2 batches and a drain under the profiler on rank "
+        f"0: wall {idle['wall_ms']:.2f} ms, rank 0's device busy {idle['busy_ms']:.2f} ms, idle "
+        f"{100 * idle['idle']:.1f}% (seen from one rank: the other 7 share the card); card "
+        f"{card}")
+    for name, ref in (("ragged, native", "ragged"),
+                      ("ragged, REPRO_DISABLE_NATIVE_RAGGED=1", "ragged"),
+                      ("hierarchical, lanes_per_host=4", "hierarchical")):
+        job = f"(b) {name}"
+        rec = ranks[0]["jobs"][job]
+        ms, keys, vals = stacked[ref]
+        _same_metrics(ms, rec["metrics"], job)
+        _same_state(rec, keys, vals, job)
+        _ranks_agree(ranks, job)
+        for k in names:
+            launches[k][job] = [r["jobs"][job]["launches"][k] for r in ranks]
+        traffic = {k: sum(r["jobs"][job]["traffic"][k] for r in ranks) / DIST_BATCHES_B
+                   for k in ("all_to_all", "all_to_all_uneven")}
+        ship = [max(r["jobs"][job]["ship_ms"][i] for r in ranks) for i in range(5)]
+        log(f"phase 25 (b): {name}, serial, {DIST_BATCHES_B} batches: every metric but the "
+            f"walls and the state equal to the stacked {ref} run on the card; shipped rows a "
+            f"worker {[m['shipped_rows'] for m in rec['metrics']]} (padded "
+            f"{[m['padded_rows'] for m in rec['metrics']]}), by class "
+            f"{[m['shipped_rows_by_class'] for m in rec['metrics']]}; bytes a batch, all "
+            f"ranks: dense all_to_all {traffic['all_to_all']:,.0f}, uneven all_to_all "
+            f"{traffic['all_to_all_uneven']:,.0f}; one ship {ranks[0]['jobs'][job]['ship_bytes']:,} "
+            f"bytes a rank, walls (max over ranks) {[round(x, 2) for x in ship]} ms; wall per "
+            f"batch {max(r['jobs'][job]['wall_ms'] for r in ranks):.2f} ms")
+        if ref == "ragged":
+            deep = [r["jobs"][job]["depth 2"] for r in ranks]
+            syncs = [d["syncs"] for d in deep]
+            if "DISABLE" in name:  # the masked ship keeps depth 2's contract
+                assert all(x == 0 for x in syncs), (job, syncs)
+            log(f"phase 25 (b): {name}, depth 2, policies off, 3 batches: host syncs outside "
+                f"safe points by rank {syncs}; pipelined "
+                f"{[m['pipelined'] for m in deep[0]['metrics']]}; wall per batch "
+                f"{max(d['wall_ms'] for d in deep):.2f} ms (max over ranks)")
+    rp = ranks[0]["ragged plain"]
+    log(f"phase 25 (b): the native ragged ship's plain steps on rank 0 ({rp['rows']:,} counted "
+        f"rows of one batch): compaction {rp['compact_ms']:.4f} ms, scatter into filled receive "
+        f"buffers {rp['scatter_ms']:.4f} ms (events); card {card}")
+    del ranks
+
+    # ---- (c) a one-rank nccl group -------------------------------------
+    t = time.perf_counter()
+    ranks = spawn_ranks(1, dict(
+        backend="nccl", part="c", store=str(DIST_DIR / "nccl1"),
+        job={**DIST_JOB, "state_capacity": NCCL_STATE},
+        batches=str(DIST_DIR / "batches.npy"), num_batches=DIST_BATCHES_B))
+    for backend in ("dense", "ragged"):
+        job = f"(c) {backend}"
+        rec = ranks[0]["jobs"][job]
+        ms, keys, vals = stacked[f"W=1 {backend}"]
+        _same_metrics(ms, rec["metrics"], job)
+        _same_state(rec, keys, vals, job)
+        for k in names:
+            launches[k][job] = [rec["launches"][k]]
+        log(f"phase 25 (c): {backend}, one nccl rank, W=1, {DIST_BATCHES_B} batches: every "
+            f"metric but the walls and the state equal to the stacked W=1 run on the card; "
+            f"wall per batch {rec['wall_ms']:.2f} ms; one ship {rec['ship_bytes']:,} bytes, "
+            f"walls {[round(x, 2) for x in rec['ship_ms']]} ms; launches "
+            f"{ {k: rec['launches'][k] for k in names} }")
+    log(f"phase 25 (c): joined in {time.perf_counter() - t:.1f} s")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {k: {"launches_phase_25": launches[k]} for k in names}
 
 
 if __name__ == "__main__":

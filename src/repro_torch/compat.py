@@ -22,6 +22,11 @@ stream either.
 
 :func:`overlap_enabled` reads the reference's ``REPRO_DISABLE_OVERLAP``
 switch; the serving scheduler reports it at each checkpoint.
+:func:`has_ragged_all_to_all` reads its ``REPRO_DISABLE_NATIVE_RAGGED``
+switch: the process-group transport (:mod:`repro_torch.exchange.dist`)
+ships the ragged exchange's counted rows through the uneven
+``all_to_all_single`` unless the switch forces the masked dense ship, which
+gives the same receive tensors bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 __all__ = [
     "copy_to_host",
+    "has_ragged_all_to_all",
     "host_fetch",
     "host_sync_count",
     "host_wait",
@@ -95,6 +101,16 @@ def overlap_enabled() -> bool:
     """True unless ``REPRO_DISABLE_OVERLAP`` forces the serial exchange path
     (``0``/``false``/unset leave the overlap on), as the reference's."""
     disabled = os.environ.get("REPRO_DISABLE_OVERLAP", "")
+    return disabled.lower() in ("", "0", "false")
+
+
+def has_ragged_all_to_all() -> bool:
+    """True unless ``REPRO_DISABLE_NATIVE_RAGGED`` forces the ragged
+    exchange's masked dense ship (``0``/``false``/unset leave the native
+    uneven collective on), as the reference's switch.  ``torch.distributed``
+    always has the uneven ``all_to_all_single``; stacked workers never ship
+    natively (their exchange is a transpose on one device)."""
+    disabled = os.environ.get("REPRO_DISABLE_NATIVE_RAGGED", "")
     return disabled.lower() in ("", "0", "false")
 
 

@@ -27,6 +27,16 @@ of send buffers: a set drained at ``finish`` becomes the next ``start``'s
 buffers (written in place), so at pipeline depth 2 one set is in flight
 while the other is filled; values equal the fresh path's.
 
+Over a process group (``group=``, a :class:`~repro_torch.exchange.dist.
+WorkerGroup`) each rank holds one worker, ``[1, n]``: it routes its own
+keys through the same kernels on its device, and the figures the
+reference sums with ``psum`` over the mesh (the loads, ``overflow``,
+``lane_overflow``, the shipped rows and their classes; the migration's
+moved and live rows too) are summed over the group, in one
+``all_reduce``; the DRW histograms are all-gathered into the ``[W, K]``
+the DR master reads, in rank order.  The start phase's outputs are then
+the stacked step's, for all W workers.
+
 Each host entry point (the fused ``step`` and ``migrate`` and both
 ``start`` halves) first calls :func:`~repro_torch.exchange.maybe_inject`
 on the step's backend: an installed
@@ -170,7 +180,8 @@ def _summed_by_class(started, like: torch.Tensor) -> torch.Tensor:
 
 def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
                       hist_k: int = 64, num_hosts: int, seed: int = 0,
-                      backend=None, topology: ExchangeTopology | None = None):
+                      backend=None, topology: ExchangeTopology | None = None,
+                      group=None):
     """Build the shuffle step for a fixed worker count and lane capacity.
 
     ``step(tables, keys[W, n], vals[W, n, D], valid[W, n], part_loads=None)
@@ -181,9 +192,11 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
     previous batch's loads) turns the route kernel's split-key replica pick
     into the two-choice least-load pick; ``None`` is the hash pick, as
     equal loads are.  ``topology`` rides the spec: the start phase then
-    splits the shipped rows by distance class."""
+    splits the shipped rows by distance class.  ``group`` binds the spec to
+    a process group (``num_workers`` is then its world size and the inputs
+    this rank's ``[1, n]``); the start phase's outputs are global."""
     ex = make_exchange(ExchangeSpec(num_lanes=num_workers, capacity=capacity,
-                                    axis="data", topology=topology), backend)
+                                    axis="data", topology=topology, group=group), backend)
 
     def _start(tables: PartitionerTables, keys, vals, valid, bufs, part_loads):
         part, buffers = route_bucketize(
@@ -196,9 +209,14 @@ def make_shuffle_step(*, num_workers: int, num_partitions: int, capacity: int,
         loads = torch.zeros(num_partitions, dtype=torch.int64, device=keys.device)
         loads.index_add_(0, dest.reshape(-1), valid.reshape(-1).to(torch.int64))
         send = started.send
-        return pending, ShuffleStart(
-            loads, hk, hc, send.overflow.sum(), send.lane_overflow.sum(dim=0),
-            started.shipped_rows.sum(), _summed_by_class(started, keys))
+        out = (loads, send.overflow.sum(), send.lane_overflow.sum(dim=0),
+               started.shipped_rows.sum(), _summed_by_class(started, keys))
+        if group is not None:
+            out = group.sum(*out)
+            hk, hc = group.gather_rows(hk, hc)
+        loads, overflow, lane_overflow, shipped, by_class = out
+        return pending, ShuffleStart(loads, hk, hc, overflow, lane_overflow, shipped,
+                                     by_class)
 
     def _finish(pending: PendingExchange):
         res = ex.finish(pending)
@@ -237,15 +255,20 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
     ships rows whose worker changed; rows on lane ``me`` stay put, so that
     lane's count is zeroed before the bucketize.  ``lane_capacity`` bounds
     the per-(src, dst) rows (default: the full state table); ``spec``
-    replaces the derived spec whole (a topology rides it there)."""
+    replaces the derived spec whole (a topology or a group rides it there;
+    over a group each rank migrates its own ``[1, S]`` table, and the counts
+    come back summed over the group)."""
     if spec is None:
         cap = state_capacity if lane_capacity is None else min(lane_capacity, state_capacity)
         spec = ExchangeSpec(num_lanes=num_workers, capacity=cap, axis="data")
+    group = spec.group
     ex = make_exchange(spec, backend)
 
     def _start(new_tables: PartitionerTables, state_keys, state_vals, bufs):
         dev = state_keys.device
-        me = torch.arange(num_workers, device=dev, dtype=torch.int32)[:, None]
+        first = 0 if group is None else group.rank  # this process's first worker
+        me = torch.arange(first, first + state_keys.shape[0], device=dev,
+                          dtype=torch.int32)[:, None]
         valid = state_keys != _SENT
         part, slot, counts = route_dispatch(
             new_tables, state_keys, valid, num_hosts=num_hosts, seed=seed,
@@ -253,7 +276,8 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
         dest = torch.where(valid, part % num_workers, me)
         moving = valid & (dest != me)
         counts = counts.clone()
-        counts.diagonal().zero_()
+        # rows bound for their own worker stay put: no lane to self
+        counts.scatter_(1, me.long(), 0)
         pending = ex.start(
             torch.where(moving, dest, me), moving,
             [Payload(torch.where(moving, state_keys, _SENT), _SENT),
@@ -261,11 +285,13 @@ def make_migrate_step(*, num_workers: int, state_capacity: int, num_hosts: int,
             slot=slot, counts=counts, buffers=bufs)
         started = pending.buffers
         send = started.send
+        counted = (moving.sum(), valid.sum(), send.overflow.sum(),
+                   send.lane_overflow.sum(dim=0), started.shipped_rows.sum(),
+                   _summed_by_class(started, state_keys))
+        if group is not None:
+            counted = group.sum(*counted)
         return pending, MigrateStart(
-            torch.where(moving, _SENT, state_keys), state_vals, valid & ~moving,
-            moving.sum(), valid.sum(), send.overflow.sum(),
-            send.lane_overflow.sum(dim=0), started.shipped_rows.sum(),
-            _summed_by_class(started, state_keys))
+            torch.where(moving, _SENT, state_keys), state_vals, valid & ~moving, *counted)
 
     def _finish(pending: PendingExchange):
         res = ex.finish(pending)

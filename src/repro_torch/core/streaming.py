@@ -24,7 +24,8 @@ oldest quarantined lane and spreads the state back.
 
 A port of ``repro.core.streaming.StreamingJob``'s three drivers.  The W
 workers are stacked on one device (``num_workers``, default 1 — what the
-reference's default mesh gives on one device).
+reference's default mesh gives on one device), or run one a process over a
+``torch.distributed`` process group (``group=``, below).
 
 * **Serial** (``DRConfig(overlap_exchange=False)``, or
   ``REPRO_DISABLE_OVERLAP=1``): the fused shuffle step, the merge, then the
@@ -94,10 +95,30 @@ snapped one of the new worker count); ``BatchMetrics.shipped_rows_by_class``
 splits the batch's shipped rows by distance class, and the DR master
 prices plans by locality.  A snapshot carries the topology; restoring a
 flat one keeps the topology the job was built with.
+
+**One worker a process.**  ``StreamingJob(group=WorkerGroup)`` runs this
+process's worker of ``num_workers`` = the group's world size, as the
+reference runs one on each device of its mesh: every spec the job builds
+is bound to the group (:mod:`repro_torch.exchange.dist`), its state is
+``[1, S]``, and every rank is given the same global batch, of which it
+uploads its contiguous chunk, the one ``shard_map`` gives it.  The shuffle
+and migrate steps sum the global figures over the group, and reads that
+need the whole state (``state_keys``, ``state_vals``, ``state_count``,
+``snapshot`` and the migration planner's keys) gather it and return the
+stacked layout.  Each rank decides for itself, so the decisions must
+agree: every wall that reaches the policies is the max over the group
+(one ``all_reduce`` at each safe point), and a digest of each decision
+and of the partitioner after it is compared across the ranks, which
+raises on a mismatch.  All three drivers run.  A ``FaultPlan``
+(:class:`~repro_torch.exchange.FaultyBackend`) and the health actions that
+change the set of workers (Quarantine, Evict, Recover) raise
+``NotImplementedError``: losing a process needs a rebuilt group (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
 from typing import Iterable
@@ -148,6 +169,7 @@ from repro_torch.exchange import (
     WorkerLostError,
     resolve_backend,
 )
+from repro_torch.exchange.backends import BACKEND_NAMES
 from repro_torch.exchange.spec import DISTANCE_CLASSES
 
 __all__ = ["BatchMetrics", "RecoveryStats", "StreamingJob"]
@@ -266,13 +288,17 @@ class StreamingJob:
     :func:`repro_torch.launch.mesh.exchange_topology_of`) rides every spec
     the job builds, at the live worker count: the shipped rows are split by
     distance class, and the DR master prices plans by locality.
+    ``group`` (a :class:`~repro_torch.exchange.dist.WorkerGroup`) runs this
+    process's worker of the group's (see the module docstring);
+    ``num_workers`` defaults to its world size and ``device`` to its
+    device.
     """
 
     def __init__(
         self,
         *,
         num_partitions: int | None = None,
-        num_workers: int = 1,
+        num_workers: int | None = None,
         device=None,
         capacity_factor: float = 2.0,
         state_capacity: int = 4096,
@@ -285,8 +311,29 @@ class StreamingJob:
         seed: int = 0,
         exchange_backend=None,
         topology=None,
+        group=None,
     ):
-        self.device = resolve_device(device)
+        self.group = group
+        if group is None:
+            self.device = resolve_device(device)
+            num_workers = 1 if num_workers is None else num_workers
+        else:
+            self.device = resolve_device(group.device if device is None else device)
+            if num_workers is None:
+                num_workers = group.world_size
+            if int(num_workers) != group.world_size:
+                raise ValueError(f"a job over {group.world_size} ranks has as many "
+                                 f"workers, not {num_workers}")
+            cfg = dr or DRConfig()
+            if isinstance(exchange_backend, FaultyBackend):
+                raise NotImplementedError(
+                    "a FaultPlan over a process group is not ported: losing a process "
+                    "needs a rebuilt group (ROADMAP.md, queue 1)")
+            if cfg.health_enabled:
+                raise NotImplementedError(
+                    "health actions over a process group (Quarantine, Evict, Recover) "
+                    "change the set of workers, which needs a rebuilt group (ROADMAP.md, "
+                    "queue 1)")
         self.num_workers = int(num_workers)
         self.num_partitions = num_partitions or self.num_workers
         if self.num_partitions < self.num_workers:
@@ -342,14 +389,17 @@ class StreamingJob:
         self._replay: list[tuple[np.ndarray, np.ndarray | None]] = []
         self.recoveries: list[RecoveryStats] = []
         self.state_keys, self.state_vals = empty_state(
-            state_capacity, payload_dim, num_workers=self.num_workers, device=self.device)
+            state_capacity, payload_dim, num_workers=self._local_workers, device=self.device)
         self.metrics: list[BatchMetrics] = []
 
     # -- keyed state access (drains any in-flight exchange first) ----------
+    # Over a process group the getters gather every rank's row into the
+    # stacked [W, ...] layout (every rank calls them together); the setters
+    # take this process's rows.
     @property
     def state_keys(self) -> torch.Tensor:
         self._drain_inflight()
-        return self._sk
+        return self._stacked(self._sk)
 
     @state_keys.setter
     def state_keys(self, v):
@@ -358,11 +408,66 @@ class StreamingJob:
     @property
     def state_vals(self) -> torch.Tensor:
         self._drain_inflight()
-        return self._sv
+        return self._stacked(self._sv)
 
     @state_vals.setter
     def state_vals(self, v):
         self._sv = v
+
+    @property
+    def _local_workers(self) -> int:
+        """Workers this process holds: all of them stacked, or its own one."""
+        return self.num_workers if self.group is None else 1
+
+    def _stacked(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of this process's workers as the ``[W, ...]`` of all of
+        them: itself when stacked, gathered in rank order over a group."""
+        return t if self.group is None else self.group.gather_rows(t)[0]
+
+    def _total(self, t: torch.Tensor) -> int:
+        """A count over this process's workers, summed over the group."""
+        if self.group is not None:
+            t = self.group.sum(t)[0]
+        return int(host_fetch(t))
+
+    def _agree_walls(self, signals):
+        """``signals`` with every wall the policies read (the window's and
+        its phase walls, and the per-backend wall EWMAs, written back to the
+        telemetry) at its max over the group, so that every rank decides on
+        the same numbers; unchanged when stacked."""
+        if self.group is None:
+            return signals
+        tel = self.telemetry
+        names = BACKEND_NAMES
+        fields = ("window_wall_s", "exchange_wall_s", "exchange_count_wall_s",
+                  "exchange_ship_wall_s", "exchange_hidden_wall_s")
+        vec = self.group.host_max([getattr(signals, f) for f in fields]
+                                  + [tel.wall_ewma.get(n, -1.0) for n in names])
+        tel.wall_ewma = {n: float(v) for n, v in zip(names, vec[len(fields):]) if v >= 0.0}
+        return dataclasses.replace(
+            signals, **{f: float(v) for f, v in zip(fields, vec)},
+            backend_wall_ewma=dict(tel.wall_ewma) if tel.wall_ewma else None)
+
+    def _check_agreement(self) -> None:
+        """Compare a digest of the decision just logged, and of the
+        partitioner after it, across the group; a rank that decided
+        otherwise raises on every rank.  Nothing to compare when stacked."""
+        if self.group is None:
+            return
+        d = self.drm.decisions.records[-1]
+        part = self.drm.partitioner
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr((d.tick, d.kind, d.taken, d.reason, d.imbalance,
+                       sorted(d.detail.items()), part.num_partitions, part.seed,
+                       self.drm.exchange_backend.name)).encode())
+        for a in (part.heavy_keys, part.heavy_parts, part.host_to_part, part.heavy_repl):
+            if a is not None:
+                h.update(np.ascontiguousarray(a).tobytes())
+        digests = self.group.host_gather(np.frombuffer(h.digest(), np.int64))
+        if not (digests == digests[0]).all():
+            raise RuntimeError(f"the ranks decided differently at tick {d.tick}: rank "
+                               f"{self.group.rank} took {d.kind} ({d.reason}); digests "
+                               f"{digests.ravel().tolist()}")
 
     def _overlap_active(self) -> bool:
         return self.drm.config.overlap_exchange and overlap_enabled()
@@ -428,7 +533,7 @@ class StreamingJob:
         self._hidden_since = None
         self._consume_inflight()
         with safe_point():  # a drain is a safe point: the wait is sanctioned
-            rows = int(host_fetch(state_size(self._sk).sum()))  # waits for the merge
+            rows = self._total(state_size(self._sk).sum())  # waits for the merge
         self.telemetry.record_exchange(ExchangeStats(
             rows=0, ship_wall_s=time.perf_counter() - t, hidden_wall_s=hidden))
         self._last_state_rows = rows
@@ -444,12 +549,14 @@ class StreamingJob:
             return
         self._shuffle_sig = sig
         self._shuffle_spec = ExchangeSpec(num_lanes=self.num_workers, capacity=cap,
-                                          axis="data", topology=self.exchange_topology)
+                                          axis="data", topology=self.exchange_topology,
+                                          group=self.group)
         self._shuffle = make_shuffle_step(
             num_workers=self.num_workers, num_partitions=self.num_partitions,
             capacity=cap, hist_k=self.hist_k,
             num_hosts=self.drm.partitioner.num_hosts, seed=self.seed,
-            backend=self.exchange_backend, topology=self.exchange_topology)
+            backend=self.exchange_backend, topology=self.exchange_topology,
+            group=self.group)
 
     def _migrate_step(self, lane_capacity: int):
         """Migrate step with lanes >= ``lane_capacity`` rows, rounded up to a
@@ -464,7 +571,7 @@ class StreamingJob:
                 num_workers=self.num_workers, state_capacity=self.state_capacity,
                 num_hosts=self.drm.partitioner.num_hosts, seed=self.seed,
                 spec=ExchangeSpec(num_lanes=self.num_workers, capacity=cap, axis="data",
-                                  topology=self.exchange_topology),
+                                  topology=self.exchange_topology, group=self.group),
                 backend=self.exchange_backend)
         return self._migrate_steps[cap], cap
 
@@ -480,10 +587,15 @@ class StreamingJob:
         """``(keys int32[W, n], vals f32[W, n, ...], valid bool[W, n])`` on
         the device: the batch padded with sentinel keys to a multiple of
         ``num_workers``, worker ``i`` taking the ``i``-th contiguous chunk,
-        as ``shard_map`` splits it in the reference.  Without ``values`` the
+        as ``shard_map`` splits it in the reference (over a group this
+        process uploads its own chunk, ``[1, n]``).  Without ``values`` the
         payload is all ones, made on the device."""
-        w = self.num_workers
-        local_n = -(-len(keys) // w)
+        local_n = -(-len(keys) // self.num_workers)
+        if self.group is not None:
+            lo = self.group.rank * local_n
+            keys = keys[lo: lo + local_n]
+            values = None if values is None else values[lo: lo + local_n]
+        w = self._local_workers
         parts = [(keys, _SENT, torch.int32)]
         if values is not None:
             parts.append((values, 0.0, torch.float32))
@@ -652,8 +764,14 @@ class StreamingJob:
             # planner reads the real keys after the pre-action drain)
             state_rows=self._last_state_rows if overlap else self._state_rows(),
             at_safe_point=at_checkpoint)
+        if at_checkpoint:
+            # only a safe point decides (and logs): off one, the walls are
+            # not read and there is no new decision to compare
+            signals = self._agree_walls(signals)
         action = self.drm.evaluate(signals, requested_resize=requested,
                                    policies_enabled=self.dr_enabled)
+        if at_checkpoint:
+            self._check_agreement()
 
         # execute the action (state only moves here, at the safe point).  A
         # taken action first drains the in-flight ship + merge (a migration
@@ -756,8 +874,9 @@ class StreamingJob:
 
     def _state_rows(self) -> int:
         """Live keyed-state rows across all workers (drains first)."""
+        self._drain_inflight()
         with safe_point():
-            self._last_state_rows = int(host_fetch(state_size(self.state_keys).sum()))
+            self._last_state_rows = self._total(state_size(self._sk).sum())
         return self._last_state_rows
 
     def _migrate_state(self, old_part: Partitioner, *, full_lanes: bool = False):
@@ -888,7 +1007,9 @@ class StreamingJob:
         built for the old count: the shuffle and migrate steps, the
         in-flight and staged stages, and the least-load vector.  The
         partitioner stays: the partitions re-fold onto the new count
-        through the modulo placement."""
+        through the modulo placement.  Over a process group the workers are
+        the ranks, and changing them needs a rebuilt group: raises."""
+        self._refuse_worker_change()
         self.num_workers = int(n)
         self._shuffle = None
         self._shuffle_sig = None
@@ -898,15 +1019,23 @@ class StreamingJob:
         self._hidden_since = None
         self._staged = None
 
+    def _refuse_worker_change(self) -> None:
+        if self.group is not None:
+            raise NotImplementedError(
+                "changing the set of workers over a process group (Quarantine, Evict, "
+                "Recover) needs a rebuilt group (ROADMAP.md, queue 1)")
+
     def _fetch_state(self) -> tuple[np.ndarray, np.ndarray]:
-        """The state tables on the host (the pre-action drain is done)."""
+        """The state tables on the host, stacked (the pre-action drain is
+        done)."""
         with safe_point():
-            return host_fetch(self._sk), host_fetch(self._sv)
+            return host_fetch(self._stacked(self._sk)), host_fetch(self._stacked(self._sv))
 
     def _apply_lane_removal(self, lane: int, *, park: bool) -> None:
         """Execute a Quarantine (``park=True``) or an Evict at a safe point:
         fetch the state, remove row ``lane`` from the stack and fold its
         rows onto the survivors."""
+        self._refuse_worker_change()
         sk, sv = self._fetch_state()
         orig = self._lane_ids.pop(lane)
         if park:
@@ -920,6 +1049,7 @@ class StreamingJob:
     def _apply_recover(self) -> None:
         """Execute a Recover at a safe point: re-admit the oldest parked lane
         as the last row and spread the state back over the grown stack."""
+        self._refuse_worker_change()
         if not self._parked:
             # a restored ledger can outlive the parked list (the snapshot
             # predates the quarantine): reconcile, and run on unchanged
@@ -1001,7 +1131,8 @@ class StreamingJob:
         at a safe point: duplicate keys merge (split partials from different
         workers meet here, and the reduce is a sum), every key goes to its
         home partition's worker, and each worker keeps at most
-        ``state_capacity`` rows; the rest count as migration overflow."""
+        ``state_capacity`` rows; the rest count as migration overflow.  Over
+        a process group this process keeps its own worker's row."""
         w, cap = self.num_workers, self.state_capacity
         keys = np.asarray(sk).reshape(-1)
         vals = np.asarray(sv).reshape(-1, np.asarray(sv).shape[-1])
@@ -1021,9 +1152,12 @@ class StreamingJob:
                 rows = rows[:cap]
             new_k[worker, : len(rows)] = uniq[rows]
             new_v[worker, : len(rows)] = acc[rows]
+        self._last_state_rows = int((new_k != _SENT).sum())
+        if self.group is not None:
+            r = self.group.rank
+            new_k, new_v = new_k[r: r + 1], new_v[r: r + 1]
         self.state_keys = torch.from_numpy(new_k).to(self.device)
         self.state_vals = torch.from_numpy(new_v).to(self.device)
-        self._last_state_rows = int((new_k != _SENT).sum())
         if overflow:
             self.telemetry.record_overflow(migration=overflow)
 
@@ -1051,8 +1185,11 @@ class StreamingJob:
         if snap_keys.shape[0] != self.num_workers:
             self._adopt_state(snap_keys, np.asarray(snap["state_vals"]))
         else:
-            self.state_keys = torch.tensor(snap_keys, dtype=torch.int32, device=self.device)
-            self.state_vals = torch.tensor(np.asarray(snap["state_vals"]),
+            rows = (slice(None) if self.group is None
+                    else slice(self.group.rank, self.group.rank + 1))
+            self.state_keys = torch.tensor(snap_keys[rows], dtype=torch.int32,
+                                           device=self.device)
+            self.state_vals = torch.tensor(np.asarray(snap["state_vals"])[rows],
                                            dtype=torch.float32, device=self.device)
             self.state_capacity = int(snap_keys.shape[1])
         self.payload_dim = int(self._sv.shape[2])

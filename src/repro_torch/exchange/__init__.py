@@ -1,7 +1,8 @@
-"""Exchange plane for stacked workers — routed all-to-all for the shuffle
-and state migration, split spec + backend.  See
-:mod:`repro_torch.exchange.plane` (binding), :mod:`repro_torch.exchange.spec`
-(shapes), :mod:`repro_torch.exchange.backends` (transports) and
+"""Exchange plane — routed all-to-all for the shuffle and state migration,
+split spec + backend, for workers stacked on one device or one a process.
+See :mod:`repro_torch.exchange.plane` (binding),
+:mod:`repro_torch.exchange.spec` (shapes), :mod:`repro_torch.exchange.backends`
+(transports), :mod:`repro_torch.exchange.dist` (the process group) and
 :mod:`repro_torch.exchange.faults` (the fault seam)."""
 from repro_torch.exchange.backends import (
     DenseBackend,
@@ -11,6 +12,7 @@ from repro_torch.exchange.backends import (
     RaggedBackend,
     resolve_backend,
 )
+from repro_torch.exchange.dist import WorkerGroup
 from repro_torch.exchange.faults import (
     FaultPlan,
     FaultyBackend,
@@ -52,6 +54,7 @@ __all__ = [
     "RaggedBackend",
     "SendInfo",
     "TransientExchangeError",
+    "WorkerGroup",
     "WorkerLostError",
     "make_exchange",
     "maybe_inject",

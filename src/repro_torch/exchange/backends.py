@@ -1,4 +1,4 @@
-"""Exchange backends: the *how* of a routed exchange, for stacked workers.
+"""Exchange backends: the *how* of a routed exchange, over two transports.
 
 An :class:`ExchangeBackend` implements the plane's verbs — ``bucketize`` /
 ``a2a_start`` / ``a2a_finish`` / ``all_to_all`` / ``backhaul`` / ``cost`` —
@@ -8,7 +8,14 @@ transport keeps all W workers on one device as ``[W, ...]`` tensors, so the
 dense all-to-all is the lane/worker transpose ``[W_src, L, cap] ->
 [L, W_src, cap]``: row ``j`` of worker ``i``'s buffer lands at position
 ``i`` of worker ``j``, exactly the tiled all-to-all of
-``repro.exchange.backends.DenseBackend``.  The collective is split-phase:
+``repro.exchange.backends.DenseBackend``.  Its second runs one worker a
+process: a spec bound to a :class:`~repro_torch.exchange.dist.WorkerGroup`
+holds this rank's ``[1, L, cap]`` buffers, and the same verbs ship them
+over the process group (``all_to_all_single``), into the layout the
+transpose gives.  The backends move rows only through the spec's transport
+(:func:`transport_of`: :class:`StackedTransport` or :class:`GroupTransport`,
+each with ``permute``, ``two_hop``, ``ragged_ship`` and ``rows_of_me``) and
+never ask which one it is.  The collective is split-phase:
 ``a2a_start`` runs the control phase (for the dense transport it only
 stamps the statically known traffic), ``a2a_finish`` ships the rows into
 new receive tensors, so the send set is free to be recycled, and
@@ -22,22 +29,30 @@ new receive tensors, so the send set is free to be recycled, and
   same transpose, with the receive mask taken from the counts.  On stacked
   workers that is the reference's masked fallback: bucketize packs each
   lane from slot 0, so the rows past a peer's count already hold the
-  sender's fills, as the fallback ships them.  A native uneven-split
-  collective waits for the ``torch.distributed`` transport.
+  sender's fills, as the fallback ships them.  Over a process group the
+  ship is native (:func:`~repro_torch.compat.has_ragged_all_to_all`): each
+  lane's counted rows are compacted and move through the uneven
+  ``all_to_all_single``, and land in receive buffers filled with each
+  payload's fill; ``REPRO_DISABLE_NATIVE_RAGGED=1`` ships the masked dense
+  buffers instead.  Both give the transpose's receive tensors bit for bit;
+  only the native ship moves fewer bytes.
 * :class:`LocalBackend` — ``axis=None``: bucketize only, nothing ships.
 * :class:`HierarchicalBackend` — the topology-aware two-tier exchange: an
-  intra-host permutation, then an inter-host one (:func:`_two_hop_a2a`),
-  composing to the dense transpose bit for bit; traffic is priced per
-  distance class, the intra tier dense and the inter tier by real rows.
+  intra-host permutation, then an inter-host one (:func:`_two_hop_a2a`;
+  over a process group two ``all_to_all_single`` calls on the rank's
+  intra-host and inter-host subgroups, :meth:`GroupTransport.two_hop`), composing
+  to the dense transpose bit for bit; traffic is priced per distance
+  class, the intra tier dense and the inter tier by real rows.
 
 ``backhaul`` is the return trip of a request-response exchange: response
 rows ride the request lanes back (the same permutation, which is its own
 inverse).  When the spec carries an :class:`~repro_torch.exchange.spec.
 ExchangeTopology` the start phase also stamps ``shipped_rows_by_class``
-``[W, C]``; worker ``w`` reads its class tables at row ``min(w, L - 1)``.
-The tables live on the device once per ``(L, G, device)``
-(:func:`_class_tensors`).  The ``torch.distributed`` transport is not
-ported yet.
+``[W, C]``; worker ``w`` reads its class tables at row ``min(w, L - 1)``
+(a bound spec's one worker is its rank).  The tables live on the device
+once per ``(L, G, device)`` (:func:`_class_tensors`).  The counts a bound
+exchange stamps are this rank's; the shuffle sums them over the group where
+the reference sums them with ``psum``.
 """
 from __future__ import annotations
 
@@ -48,7 +63,7 @@ from typing import Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.compat import to_device
+from repro_torch.compat import has_ragged_all_to_all, host_fetch, to_device
 from repro_torch.exchange.spec import (
     ExchangeResult,
     ExchangeSpec,
@@ -60,12 +75,16 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import scatter_rows
 
 __all__ = [
+    "BACKEND_NAMES",
     "DenseBackend",
     "ExchangeBackend",
+    "GroupTransport",
     "HierarchicalBackend",
     "LocalBackend",
     "RaggedBackend",
+    "StackedTransport",
     "resolve_backend",
+    "transport_of",
 ]
 
 
@@ -142,6 +161,7 @@ def _bucketize(spec: ExchangeSpec, lane, valid, payloads: Sequence[Payload],
         buf_valid, bufs, SendInfo(lane, slot, ok, overflow, lane_overflow),
         shipped_rows=torch.zeros(w, dtype=torch.int64, device=lane.device),
         lane_counts=lane_counts,
+        fills=tuple(p.fill for p in payloads),
     )
 
 
@@ -157,16 +177,151 @@ def _count_phase_rows(spec: ExchangeSpec, payloads: tuple) -> int:
     return -(-4 * spec.num_lanes // _row_bytes(payloads))
 
 
-def _check_stacked(spec: ExchangeSpec, w: int) -> None:
-    if w != spec.num_lanes:
-        raise ValueError(f"stacked all-to-all needs one lane per worker: "
-                         f"{w} workers, {spec.num_lanes} lanes")
-
-
 def _transposed(b: torch.Tensor) -> torch.Tensor:
     """``b`` with its first two axes swapped, in a new contiguous tensor
     (never a view of ``b``, even when ``W = 1`` makes the swap free)."""
     return b.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+
+
+def _two_hop_a2a(x: torch.Tensor, num_hosts: int, lanes_per_host: int) -> torch.Tensor:
+    """The hierarchical all-to-all on stacked send buffers ``[W, L, cap,
+    ...]`` with ``W = L = num_hosts * lanes_per_host``, lane ``j`` on host
+    ``j // lanes_per_host`` at rank ``j % lanes_per_host``.
+
+    Hop 1 moves rows within each host: worker ``(h, s)`` hands its rows for
+    rank ``r`` of every host to worker ``(h, r)``.  Hop 2 moves them across
+    hosts: worker ``(h, r)`` hands the rows for host ``h'`` to worker
+    ``(h', r)``.  Each hop is a copy into a new tensor.  The composition
+    lands row ``x[src, dst]`` at ``out[dst, src]``, the flat transpose bit
+    for bit, so applying it twice is the identity and the backhaul rides the
+    same function."""
+    h, g = num_hosts, lanes_per_host
+    tail = tuple(x.shape[2:])
+    rest = tuple(range(4, 4 + len(tail)))
+    v = x.reshape((h, g, h, g) + tail)  # [src host, src rank, dst host, dst rank]
+    hop1 = v.permute((0, 3, 2, 1) + rest).contiguous()  # worker (h, r): [h', s]
+    hop2 = hop1.permute((2, 1, 0, 3) + rest).contiguous()  # worker (h', r): [h, s]
+    return hop2.reshape((h * g, h * g) + tail)
+
+
+class StackedTransport:
+    """All W workers as ``[W, ...]`` tensors on one device: the dense
+    all-to-all is the lane/worker transpose, and the ragged ship is the
+    reference's masked fallback (bucketize packs each lane from slot 0, so
+    the rows past a peer's count already hold the sender's fills)."""
+
+    def check(self, spec: ExchangeSpec, w: int) -> None:
+        if w != spec.num_lanes:
+            raise ValueError(f"stacked all-to-all needs one lane per worker: "
+                             f"{w} workers, {spec.num_lanes} lanes")
+
+    def workers(self, w: int) -> int:
+        """The workers an exchange spans when ``w`` of them are held here."""
+        return w
+
+    def permute(self, b: torch.Tensor) -> torch.Tensor:
+        """Row ``j`` of worker ``i`` -> position ``i`` of worker ``j``, in a
+        new tensor."""
+        return _transposed(b)
+
+    def two_hop(self, x: torch.Tensor, num_hosts: int, lanes_per_host: int) -> torch.Tensor:
+        return _two_hop_a2a(x, num_hosts, lanes_per_host)
+
+    def rows_of_me(self, table: torch.Tensor, w: int) -> torch.Tensor:
+        """``table[min(w_i, L - 1)]`` for each of ``w`` workers: worker
+        ``i`` reads its own row, and workers past the last lane read the
+        last."""
+        l = table.shape[0]
+        if w <= l:
+            return table[:w]
+        return torch.cat([table, table[-1:].expand((w - l,) + tuple(table.shape[1:]))])
+
+    def ragged_ship(self, spec: ExchangeSpec, payloads: Sequence[torch.Tensor], fills: tuple,
+                    send_counts: torch.Tensor, recv_counts: torch.Tensor) -> tuple:
+        return tuple(self.permute(b) for b in payloads)
+
+
+class GroupTransport:
+    """One worker a process over a
+    :class:`~repro_torch.exchange.dist.WorkerGroup`: this rank's tensors
+    are ``[1, ...]`` and the rows move through ``all_to_all_single`` into
+    the layout the stacked transpose gives.  The ragged ship is native
+    (:func:`~repro_torch.compat.has_ragged_all_to_all`) unless
+    ``REPRO_DISABLE_NATIVE_RAGGED`` forces the masked dense one."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def check(self, spec: ExchangeSpec, w: int) -> None:
+        if w != 1:
+            raise ValueError(f"a process-group exchange holds one worker a rank, got {w}")
+
+    def workers(self, w: int) -> int:
+        return self.group.world_size
+
+    def permute(self, b: torch.Tensor) -> torch.Tensor:
+        return self.group.all_to_all(b[0])[None]
+
+    def two_hop(self, x: torch.Tensor, num_hosts: int, lanes_per_host: int) -> torch.Tensor:
+        """:func:`_two_hop_a2a` for this rank's ``[1, L, cap, ...]`` send
+        buffer (rank ``(h, s)`` = ``h * G + s``).
+
+        Hop 1 is an all-to-all on the rank's intra-host subgroup: rank
+        ``(h, s)`` sends its rows for place ``r`` of every host to ``(h,
+        r)``, which holds them as ``[h', s]``.  Hop 2 is one on its
+        inter-host subgroup: ``(h, r)`` sends the rows for host ``h'`` to
+        ``(h', r)``, which holds them as ``[h, s]``: the rows of source ``h
+        * G + s``, the transpose's layout bit for bit."""
+        h, g = num_hosts, lanes_per_host
+        intra, inter = self.group.tiers(g)
+        tail = tuple(x.shape[2:])
+        v = x[0].reshape((h, g) + tail)  # [dst host, dst place]
+        hop1 = self.group.all_to_all(v.transpose(0, 1), group=intra)  # [src place, dst host]
+        hop2 = self.group.all_to_all(hop1.transpose(0, 1), group=inter)  # [src host, src place]
+        return hop2.reshape((1, h * g) + tail)
+
+    def rows_of_me(self, table: torch.Tensor, w: int) -> torch.Tensor:
+        """The one worker here is the rank: its row of ``table``."""
+        r = min(self.group.rank, table.shape[0] - 1)
+        return table[r: r + 1]
+
+    def ragged_ship(self, spec: ExchangeSpec, payloads: Sequence[torch.Tensor], fills: tuple,
+                    send_counts: torch.Tensor, recv_counts: torch.Tensor) -> tuple:
+        """The native ragged ship of this rank's ``[1, L, cap, ...]``
+        buffers: each lane's first ``send_counts[0, l]`` rows (bucketize
+        packs a lane from slot 0) go compacted through the uneven
+        ``all_to_all_single``, and the ``recv_counts[0, j]`` rows from peer
+        ``j`` land at the head of lane ``j`` of a receive buffer filled with
+        the payload's fill: what the dense ship carries there, bit for bit.
+        The split sizes are host integers, so the counts are fetched first
+        (a host sync the audit counts outside a safe point)."""
+        if not has_ragged_all_to_all():
+            return tuple(self.permute(b) for b in payloads)
+        if len(fills) != len(payloads):
+            raise ValueError("a native ragged ship needs each payload's fill "
+                             "(ExchangeResult.fills)")
+        counts = host_fetch(torch.stack([send_counts[0], recv_counts[0]]).to(torch.int64))
+        send, recv = counts[0].tolist(), counts[1].tolist()
+        slots = torch.arange(spec.capacity, device=send_counts.device, dtype=torch.int32)
+        live_send = slots[None, :] < send_counts[0][:, None]
+        live_recv = slots[None, :] < recv_counts[0][:, None]
+        out = []
+        for b, fill in zip(payloads, fills):
+            rows = self.group.all_to_all_uneven(b[0][live_send], send, recv)
+            full = torch.full_like(b[0], fill)
+            full[live_recv] = rows
+            out.append(full[None])
+        return tuple(out)
+
+
+_STACKED = StackedTransport()
+
+
+def transport_of(spec: ExchangeSpec) -> StackedTransport | GroupTransport:
+    """The transport ``spec``'s rows move over: the stacked one, or the
+    process group it is bound to.  The backends ship through it and never
+    ask which it is."""
+    return _STACKED if spec.group is None else GroupTransport(spec.group)
 
 
 def _per_worker(like: torch.Tensor, value: int) -> torch.Tensor:
@@ -184,21 +339,12 @@ def _class_tensors(num_lanes: int, lanes_per_host: int, device: str):
             to_device(topo.class_onehot.astype(np.int64), device))
 
 
-def _rows_of_me(table: torch.Tensor, w: int) -> torch.Tensor:
-    """``table[min(w_i, L - 1)]`` for each of ``w`` workers: worker ``i``
-    reads its own row, and workers past the last lane read the last."""
-    l = table.shape[0]
-    if w <= l:
-        return table[:w]
-    return torch.cat([table, table[-1:].expand((w - l,) + tuple(table.shape[1:]))])
-
-
 def _by_class_dense(spec: ExchangeSpec, like: torch.Tensor) -> torch.Tensor:
     """Dense-priced per-class traffic ``[W, C]``: every lane ships its full
     capacity, so each worker's split is its lanes of each class x capacity."""
     topo = spec.topology
     counts, _ = _class_tensors(topo.num_lanes, topo.lanes_per_host, str(like.device))
-    return _rows_of_me(counts, like.shape[0]) * spec.capacity
+    return transport_of(spec).rows_of_me(counts, like.shape[0]) * spec.capacity
 
 
 def _by_class_counts(spec: ExchangeSpec, counts: torch.Tensor) -> torch.Tensor:
@@ -206,7 +352,7 @@ def _by_class_counts(spec: ExchangeSpec, counts: torch.Tensor) -> torch.Tensor:
     occupancy ``counts[W, L]`` summed over each distance class."""
     topo = spec.topology
     _, onehot = _class_tensors(topo.num_lanes, topo.lanes_per_host, str(counts.device))
-    me = _rows_of_me(onehot, counts.shape[0])  # [W, C, L]
+    me = transport_of(spec).rows_of_me(onehot, counts.shape[0])  # [W, C, L]
     return (me * counts.to(torch.int64)[:, None, :]).sum(dim=2)
 
 
@@ -255,10 +401,11 @@ class DenseBackend:
         new receive tensors."""
         if spec.axis is None:
             return buffers
-        _check_stacked(spec, buffers.valid.shape[0])
+        t = transport_of(spec)
+        t.check(spec, buffers.valid.shape[0])
         return self._stamped(spec, buffers)._replace(
-            valid=_transposed(buffers.valid),
-            payloads=tuple(_transposed(b) for b in buffers.payloads),
+            valid=t.permute(buffers.valid),
+            payloads=tuple(t.permute(b) for b in buffers.payloads),
         )
 
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
@@ -272,10 +419,11 @@ class DenseBackend:
         ``(rows, shipped int64[W], occupied int64[W])``."""
         if spec.axis is None:
             return _no_ship(buffers)
-        _check_stacked(spec, buffers.shape[0])
+        t = transport_of(spec)
+        t.check(spec, buffers.shape[0])
         pad = _per_worker(buffers, spec.rows)
         occupied = pad if send_counts is None else send_counts.sum(dim=1, dtype=torch.int64)
-        return _transposed(buffers), pad, occupied
+        return t.permute(buffers), pad, occupied
 
     def cost(self, spec: ExchangeSpec | None, plan_rows: np.ndarray,
              slack: float = 1.25) -> float:
@@ -316,20 +464,25 @@ class RaggedBackend:
             by[:, _count_phase_class(spec)] += phase_rows
         return buffers._replace(
             shipped_rows=counts.sum(dim=1, dtype=torch.int64) + phase_rows,
-            lane_counts=counts, recv_counts=_transposed(counts),
+            lane_counts=counts, recv_counts=transport_of(spec).permute(counts),
             shipped_rows_by_class=by)
 
     def a2a_finish(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         """Phase 2: the rows by the dense transpose, valid where the
-        started counts say (rows past a count hold the sender's fills)."""
+        started counts say (rows past a count hold the sender's fills).
+        Over a process group the counted rows ship natively
+        (:meth:`GroupTransport.ragged_ship`) unless
+        ``REPRO_DISABLE_NATIVE_RAGGED`` is set."""
         if spec.axis is None:
             return buffers
-        _check_stacked(spec, buffers.valid.shape[0])
+        t = transport_of(spec)
+        t.check(spec, buffers.valid.shape[0])
         recv = buffers.recv_counts
         slots = torch.arange(spec.capacity, device=recv.device, dtype=torch.int32)
         return buffers._replace(
             valid=slots[None, None, :] < recv[:, :, None],
-            payloads=tuple(_transposed(b) for b in buffers.payloads))
+            payloads=t.ragged_ship(spec, buffers.payloads, buffers.fills,
+                                   buffers.lane_counts, recv))
 
     def all_to_all(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         return self.a2a_finish(spec, self.a2a_start(spec, buffers))
@@ -345,12 +498,13 @@ class RaggedBackend:
         gives them.  Without counts the return trip ships dense."""
         if spec.axis is None:
             return _no_ship(buffers)
-        _check_stacked(spec, buffers.shape[0])
-        rows = _transposed(buffers)
+        t = transport_of(spec)
+        t.check(spec, buffers.shape[0])
         if send_counts is None or recv_counts is None:
             pad = _per_worker(buffers, spec.rows)
-            return rows, pad, pad
+            return t.permute(buffers), pad, pad
         shipped = send_counts.sum(dim=1, dtype=torch.int64)
+        rows, = t.ragged_ship(spec, (buffers,), (0,), send_counts, recv_counts)
         slots = torch.arange(spec.capacity, device=rows.device, dtype=torch.int32)
         live = slots[None, None, :] < recv_counts[:, :, None]
         live = live.reshape(live.shape + (1,) * (rows.ndim - 3))
@@ -367,27 +521,6 @@ class RaggedBackend:
         return float(plan_rows.sum()) / plan_rows.size * slack
 
 
-def _two_hop_a2a(x: torch.Tensor, num_hosts: int, lanes_per_host: int) -> torch.Tensor:
-    """The hierarchical all-to-all on stacked send buffers ``[W, L, cap,
-    ...]`` with ``W = L = num_hosts * lanes_per_host``, lane ``j`` on host
-    ``j // lanes_per_host`` at rank ``j % lanes_per_host``.
-
-    Hop 1 moves rows within each host: worker ``(h, s)`` hands its rows for
-    rank ``r`` of every host to worker ``(h, r)``.  Hop 2 moves them across
-    hosts: worker ``(h, r)`` hands the rows for host ``h'`` to worker
-    ``(h', r)``.  Each hop is a copy into a new tensor.  The composition
-    lands row ``x[src, dst]`` at ``out[dst, src]``, the flat transpose bit
-    for bit, so applying it twice is the identity and the backhaul rides the
-    same function."""
-    h, g = num_hosts, lanes_per_host
-    tail = tuple(x.shape[2:])
-    rest = tuple(range(4, 4 + len(tail)))
-    v = x.reshape((h, g, h, g) + tail)  # [src host, src rank, dst host, dst rank]
-    hop1 = v.permute((0, 3, 2, 1) + rest).contiguous()  # worker (h, r): [h', s]
-    hop2 = hop1.permute((2, 1, 0, 3) + rest).contiguous()  # worker (h', r): [h, s]
-    return hop2.reshape((h * g, h * g) + tail)
-
-
 class HierarchicalBackend:
     """Two-tier transport: an intra-host hop, then an inter-host hop.
 
@@ -400,7 +533,8 @@ class HierarchicalBackend:
 
     Without a usable topology (none on the spec, one host, lanes not a
     multiple of ``lanes_per_host``, or a stacked worker count other than the
-    lane count) the ship falls back to the flat transpose.  The instance
+    lane count) the ship falls back to the flat transpose (over a process
+    group, the dense all-to-all).  The instance
     counts its ships by kind: ``two_hop_ships`` and ``flat_ships``.
     """
 
@@ -424,19 +558,20 @@ class HierarchicalBackend:
         g = min(topo.lanes_per_host, l)
         if g <= 1 or g >= l or l % g:
             return None
-        if num_workers != l:
+        if transport_of(spec).workers(num_workers) != l:
             return None
         return l // g, g
 
     def _ship(self, spec: ExchangeSpec, tensors: Sequence[torch.Tensor]) -> tuple:
         """Each of ``tensors`` through one ship (counted once)."""
-        plan = self._plan(spec, tensors[0].shape[0])
+        t, w = transport_of(spec), tensors[0].shape[0]
+        t.check(spec, w)
+        plan = self._plan(spec, w)
         if plan is None:
-            _check_stacked(spec, tensors[0].shape[0])
             self.flat_ships += 1
-            return tuple(_transposed(t) for t in tensors)
+            return tuple(t.permute(x) for x in tensors)
         self.two_hop_ships += 1
-        return tuple(_two_hop_a2a(t, *plan) for t in tensors)
+        return tuple(t.two_hop(x, *plan) for x in tensors)
 
     def a2a_start(self, spec: ExchangeSpec, buffers: ExchangeResult) -> ExchangeResult:
         """No count phase blocks the control plane: the intra tier ships its
@@ -529,6 +664,7 @@ class LocalBackend:
 
 _BACKENDS = {"dense": DenseBackend, "hierarchical": HierarchicalBackend,
              "local": LocalBackend, "ragged": RaggedBackend}
+BACKEND_NAMES = tuple(sorted(_BACKENDS))
 
 
 def resolve_backend(backend, spec: ExchangeSpec | None = None) -> ExchangeBackend:

@@ -1,0 +1,214 @@
+"""The process-group transport's handle: one worker per process.
+
+The port's first transport stacks all W workers on one device as ``[W,
+...]`` tensors.  Its second runs one worker per process of a
+``torch.distributed`` process group: an
+:class:`~repro_torch.exchange.spec.ExchangeSpec` bound to a
+:class:`WorkerGroup` (``ExchangeSpec(..., group=g)``) crosses processes,
+and each process's tensors carry a leading worker axis of 1.  The same
+four backends move the rows (:mod:`repro_torch.exchange.backends`), and
+the streaming job runs on it with ``StreamingJob(..., group=g)``.
+
+:class:`WorkerGroup` holds the group's rank, world size and device, the
+intra-host and inter-host subgroups the hierarchical backend needs, and
+the thin collective helpers the port calls: the dense and the uneven
+``all_to_all_single``, sum and max ``all_reduce`` (several tensors packed
+into one call), and an ``all_gather`` of rows in rank order.  Each helper
+adds the bytes it hands the collective to :attr:`WorkerGroup.traffic`.
+
+The backend is the caller's choice, ``"gloo"`` or ``"nccl"``, and it is
+never switched on a failure: a collective that fails raises.  Gloo takes
+CUDA tensors and stages them through host memory inside the collective;
+NCCL keeps them on the card, and needs one card a rank.
+
+Start W processes with ``torch.multiprocessing`` under the spawn start
+method (forking after CUDA is up breaks the children) and call
+:meth:`WorkerGroup.init` in each with its rank, the world size and a
+shared ``init_method`` (``file://`` or ``tcp://``); under ``torchrun``
+call it with no arguments, and it reads ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` from the environment.  Build the CUDA kernels
+(:func:`repro_torch.kernels.build.library`) in the parent before the
+spawn, so the children load one library instead of racing to build it.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.compat import resolve_device
+
+__all__ = ["WorkerGroup"]
+
+BACKENDS = ("gloo", "nccl")
+
+
+class WorkerGroup:
+    """The default process group as the exchange plane sees it: this
+    process's ``rank`` among ``world_size`` workers, the ``device`` its
+    worker's tensors live on, and the collectives over them.
+
+    ``traffic`` maps each collective kind (``"all_to_all"``,
+    ``"all_to_all_uneven"``, ``"all_reduce"``, ``"all_gather"``) to the
+    bytes this rank handed it, its own share included."""
+
+    def __init__(self, device=None):
+        if not dist.is_initialized():
+            raise RuntimeError("WorkerGroup needs an initialized process group "
+                               "(WorkerGroup.init or torch.distributed.init_process_group)")
+        self.backend = str(dist.get_backend())
+        self.rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        self.device = resolve_device(device)
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("an nccl group moves CUDA tensors; give it a CUDA device")
+        # host values (walls, digests, placement) ride tensors on this device:
+        # nccl takes CUDA tensors only, gloo host ones without a copy
+        self.host_device = self.device if self.backend == "nccl" else torch.device("cpu")
+        self.traffic = {"all_to_all": 0, "all_to_all_uneven": 0, "all_reduce": 0,
+                        "all_gather": 0}
+        self._tiers: dict[int, tuple] = {}
+
+    @classmethod
+    def init(cls, *, backend: str = "gloo", rank: int | None = None,
+             world_size: int | None = None, init_method: str | None = None,
+             device=None) -> "WorkerGroup":
+        """Join the process group and return its handle.
+
+        ``rank``, ``world_size`` and ``init_method`` default to what
+        ``torchrun`` exports (``RANK``, ``WORLD_SIZE``, ``env://``).
+        ``device=None`` (or ``"cuda"``) is the card: ``cuda:LOCAL_RANK``
+        modulo the cards present, so W ranks on one card share
+        ``cuda:0``."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        rank = int(os.environ["RANK"]) if rank is None else int(rank)
+        world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else int(world_size)
+        device = resolve_device(device)
+        if device.type == "cuda":
+            if device.index is None:
+                local = int(os.environ.get("LOCAL_RANK", rank))
+                device = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                                world_size=world_size)
+        return cls(device)
+
+    def close(self) -> None:
+        """Leave the process group (every rank calls it)."""
+        dist.destroy_process_group()
+
+    # -- subgroups --------------------------------------------------------
+    def tiers(self, lanes_per_host: int) -> tuple:
+        """``(intra, inter)``: this rank's subgroup of the ranks on its
+        modeled host (``rank // lanes_per_host``) and of the ranks at its
+        place on every host (``rank % lanes_per_host``).  The first call for
+        a ``lanes_per_host`` builds every such subgroup on every rank, in
+        one order (``dist.new_group`` is collective), so all ranks must
+        make it together; later calls return the cached pair."""
+        g = int(lanes_per_host)
+        if g not in self._tiers:
+            w = self.world_size
+            if g < 1 or w % g:
+                raise ValueError(f"{w} ranks do not split into hosts of {g}")
+            h = w // g
+            intra = [dist.new_group([x * g + s for s in range(g)]) for x in range(h)]
+            inter = [dist.new_group([x * g + r for x in range(h)]) for r in range(g)]
+            self._tiers[g] = (intra[self.rank // g], inter[self.rank % g])
+        return self._tiers[g]
+
+    # -- collectives ------------------------------------------------------
+    def all_to_all(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """The dense all-to-all over dim 0 of ``x`` (split evenly among the
+        ranks of ``group``, default all): chunk ``j`` goes to rank ``j``,
+        and chunk ``j`` of the result came from rank ``j``.  A new
+        tensor."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        self.traffic["all_to_all"] += x.numel() * x.element_size()
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    def all_to_all_uneven(self, x: torch.Tensor, send: list[int],
+                          recv: list[int]) -> torch.Tensor:
+        """The uneven all-to-all: ``send[j]`` rows of ``x`` (in rank order)
+        go to rank ``j``, and ``recv[j]`` rows of the result came from
+        rank ``j``."""
+        x = x.contiguous()
+        out = x.new_empty((int(sum(recv)),) + tuple(x.shape[1:]))
+        self.traffic["all_to_all_uneven"] += x.numel() * x.element_size()
+        dist.all_to_all_single(out, x, output_split_sizes=[int(r) for r in recv],
+                               input_split_sizes=[int(s) for s in send])
+        return out
+
+    def _reduce(self, tensors, op) -> tuple:
+        """Each of ``tensors`` reduced by ``op`` over the group, packed into
+        one int64 (or float64, when any is floating) all-reduce; the
+        results keep their shapes and dtypes."""
+        dtype = (torch.float64 if any(t.is_floating_point() for t in tensors)
+                 else torch.int64)
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+        self.traffic["all_reduce"] += flat.numel() * flat.element_size()
+        dist.all_reduce(flat, op=op)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at: at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        return tuple(out)
+
+    def sum(self, *tensors: torch.Tensor) -> tuple:
+        """Each tensor summed over the ranks (one collective for all)."""
+        return self._reduce(tensors, dist.ReduceOp.SUM)
+
+    def max(self, *tensors: torch.Tensor) -> tuple:
+        """Each tensor's elementwise max over the ranks."""
+        return self._reduce(tensors, dist.ReduceOp.MAX)
+
+    def gather_rows(self, *tensors: torch.Tensor) -> tuple:
+        """Each ``[1, ...]`` tensor as the stacked ``[W, ...]`` of every
+        rank's, in rank order.  Tensors of one dtype ride one all-gather."""
+        out: list = [None] * len(tensors)
+        by_dtype: dict = {}
+        for i, t in enumerate(tensors):
+            if t.shape[0] != 1:
+                raise ValueError(f"gather_rows takes one row a rank, got {tuple(t.shape)}")
+            by_dtype.setdefault(t.dtype, []).append(i)
+        w = self.world_size
+        for dtype, idx in by_dtype.items():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            parts = [torch.empty_like(flat) for _ in range(w)]
+            self.traffic["all_gather"] += flat.numel() * flat.element_size()
+            dist.all_gather(parts, flat)
+            rows = torch.stack(parts)
+            at = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[i] = rows[:, at: at + n].reshape((w,) + tuple(tensors[i].shape[1:]))
+                at += n
+        return tuple(out)
+
+    def host_max(self, values) -> np.ndarray:
+        """float64 host values, elementwise max over the ranks."""
+        t = torch.tensor(np.asarray(values, np.float64), device=self.host_device)
+        return self.max(t)[0].cpu().numpy()
+
+    def host_gather(self, values) -> np.ndarray:
+        """int64 host values of every rank, ``[W, ...]`` in rank order."""
+        t = torch.tensor(np.asarray(values, np.int64), device=self.host_device)
+        return self.gather_rows(t[None])[0].cpu().numpy()
+
+    def all_gather_object(self, obj) -> list:
+        """A picklable value of every rank, in rank order."""
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj)
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+    def __repr__(self) -> str:
+        return (f"WorkerGroup(backend={self.backend!r}, rank={self.rank}, "
+                f"world_size={self.world_size}, device={str(self.device)!r})")
+

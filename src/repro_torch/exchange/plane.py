@@ -1,5 +1,6 @@
 """The exchange plane: ``route -> bucketize -> all_to_all -> unpack`` for
-stacked workers.
+stacked workers, or for one worker a process when the spec is bound to a
+:class:`~repro_torch.exchange.dist.WorkerGroup`.
 
 An :class:`~repro_torch.exchange.spec.ExchangeSpec` names the static shape
 of one exchange, an :class:`~repro_torch.exchange.backends.ExchangeBackend`
@@ -112,6 +113,7 @@ def route_bucketize(exchange: "Exchange", tables: PartitionerTables, keys, valid
         SendInfo(lane, slot, ok, overflow, lane_overflow),
         shipped_rows=torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device),
         lane_counts=counts.clamp(max=spec.capacity).to(torch.int32),
+        fills=(key_fill, 0.0, 0),
     )
     return part, buffers
 

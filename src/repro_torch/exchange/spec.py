@@ -4,9 +4,12 @@
 capacity over an optional worker axis, and the lanes' locality,
 ``ExchangeTopology``); ``Payload``/``SendInfo``/``ExchangeResult`` describe
 what travels through it; ``ExchangeStats`` is the telemetry record the
-control plane consumes.  The port's workers are *stacked* on one device, so
-every tensor here carries a leading worker axis ``W``: send buffers are
-``[W, L, capacity, ...]``.
+control plane consumes.  Every tensor here carries a leading worker axis
+``W``: send buffers are ``[W, L, capacity, ...]``.  The port's first
+transport *stacks* all W workers on one device; a spec bound to a
+:class:`~repro_torch.exchange.dist.WorkerGroup` (``group=``) crosses
+processes instead, one worker a process, and each process's tensors carry
+a worker axis of 1.
 
 Vocabulary (as in ``repro.exchange.spec``):
 
@@ -167,16 +170,28 @@ class ExchangeSpec:
     ``topology`` localizes the lanes (:class:`ExchangeTopology`); a
     topology of another lane count is snapped to ``num_lanes``.  ``None`` is
     the flat exchange: no per-class accounting.
+
+    ``group`` (a :class:`~repro_torch.exchange.dist.WorkerGroup`) binds the
+    exchange to a process group: each process holds one worker (tensors
+    ``[1, ...]``) and the backends ship over the group.  A lane is a rank,
+    so a bound spec that crosses ``axis`` needs ``num_lanes`` equal to the
+    world size (``ValueError`` otherwise), as the reference's ragged shim
+    needs lanes that coincide with the axis's shards.
     """
 
     num_lanes: int
     capacity: int
     axis: str | None = None
     topology: ExchangeTopology | None = None
+    group: object = None
 
     def __post_init__(self):
         if self.topology is not None and self.topology.num_lanes != self.num_lanes:
             object.__setattr__(self, "topology", self.topology.resized(self.num_lanes))
+        if (self.group is not None and self.axis is not None
+                and self.num_lanes != self.group.world_size):
+            raise ValueError(f"a spec bound to {self.group.world_size} ranks needs one lane "
+                             f"a rank, got {self.num_lanes} lanes")
 
     @property
     def rows(self) -> int:
@@ -228,6 +243,10 @@ class ExchangeResult(NamedTuple):
     # inter-host), stamped by the backend's start phase when the spec
     # carries a topology; None on a flat spec
     shipped_rows_by_class: torch.Tensor = None  # int[W, C]
+    # each payload's pad value (the ``Payload.fill`` its buffer was built
+    # with), so the process-group ragged ship can fill its receive buffers
+    # with what the dense ship would have carried there
+    fills: tuple = ()
 
     def unpack(self):
         """Flatten lane-major buffers to record-major ``[W, L*capacity, ...]``."""

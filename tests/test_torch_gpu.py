@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import dist_cases
 from repro_torch import compat
 from repro_torch.core.baselines import make_baseline
 from repro_torch.core.histogram import CountMinSketch, Histogram
@@ -1691,3 +1692,26 @@ def test_jamba_card_equals_cpu(cuda, ep_shards):
     with pytest.raises(ValueError, match="chunk contract"):
         model.prefill(sides["cuda"], {"tokens": torch.zeros((1, 300), dtype=torch.int64,
                                                             device=cuda)}, cfg, pol, 304)
+
+
+def test_two_processes_on_the_card_equal_the_stacked_job(cuda, tmp_path):
+    """Two ranks share the card under gloo (NCCL refuses two ranks on one
+    card), one worker each, the kernels built once before the spawn: the
+    serial and depth-2 drivers equal the stacked two-worker job on the card
+    in every metric but the walls, in the gathered state and in each rank's
+    decisions."""
+    build.library()
+    ranks = dist_cases.spawn(tmp_path, 2, {"sections": ("gpu job",), "device": "cuda"})
+    batches = list(drifting_zipf(dist_cases.NUM_BATCHES, 16_384, **dist_cases.STREAM))
+    skip = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+    for driver in ("serial", "depth 2"):
+        stacked = StreamingJob(device="cuda", num_workers=2, **dist_cases.JOB,
+                               dr=DRConfig(**dist_cases.CFG, **dist_cases.DRIVERS[driver]))
+        dist_cases.feed(stacked, driver, batches)
+        rec = ranks[0][f"gpu/{driver}"]
+        assert [_fields(m, skip) for m in stacked.metrics] == [
+            {k: v for k, v in m.items() if k not in skip} for m in rec["metrics"]]
+        assert any(m.repartitioned for m in stacked.metrics)
+        np.testing.assert_array_equal(rec["keys"], stacked.state_keys.cpu().numpy())
+        np.testing.assert_array_equal(rec["vals"], stacked.state_vals.cpu().numpy())
+        assert ranks[1][f"gpu/{driver}"]["decisions"] == rec["decisions"]

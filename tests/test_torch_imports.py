@@ -25,7 +25,8 @@ from repro_torch.kernels.ref import lookup_dispatch_ref, route_bucketize_ref
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_mutations.py", REPO / "route_mutations.py",
-    REPO / "rank_ab.py", REPO / "route_ab.py", REPO / "sketch_ab.py"]
+    REPO / "rank_ab.py", REPO / "route_ab.py", REPO / "sketch_ab.py", REPO / "dist_probe.py",
+    REPO / "tests" / "dist_cases.py"]
 SENT = 2**31 - 1
 
 
@@ -41,6 +42,7 @@ def test_import_with_jax_blocked():
         "assert 'repro_torch.models.xlstm' in names\n"
         "assert 'repro_torch.models.encdec' in names\n"
         "assert 'repro_torch.models.ssm' in names\n"
+        "assert 'repro_torch.exchange.dist' in names\n"
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
