@@ -427,6 +427,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     build the library, run phase 2's three drivers (``drive``) for the
     ``phase2`` dict and ``exact`` pairs, then ``chip_smoke.dist_phase(
     dev, card, batches, phase2, exact)`` from a script under ``build/``.
+26. Training over the process group: stablelm-1.6b at its full published
+    width and depth (24 layers, d 2,048, 32 heads MHA, hd 64, d_ff 5,632,
+    vocab 100,352, untied; 1.64 B parameters).  (a) Two gloo ranks share
+    the card, ``default_options``' dtypes (bf16 parameters, float32 Adam
+    moments), float32 error feedback, remat, each rank its own seeded 2 x
+    1,024 tokens; 2 steps of grads, ``compressed_grad_sync`` over the
+    group, ``apply_updates``: the ranks' parameters equal bit for bit after
+    each step (sha256), the error-feedback identity on the last layer's
+    ``attn/wo`` within 1e-5; walls (grads, sync, AdamW), bytes handed to
+    gloo, peaks, flash launches; then ``compressed_grad_sync`` over a
+    one-rank nccl group and a one-rank gloo group in this process equal to
+    the sync with no group, bit for bit.  (b) The GPipe pipeline
+    (``make_pp_loss``, M 4 microbatches of 1 x 1,024) over 2 and 4 gloo
+    stages (12 and 6 layers each): in float32 with TF32 off the loss
+    within rtol 2e-4 of the plain model's ``loss_fn`` on this process and
+    every gradient within 1e-3 by relative norm; then bf16 forward and
+    backward walls beside the plain model's and the bubble share (S - 1) /
+    (M + S - 1); flash launches a step (2 forwards under remat and 1
+    backward a layer a tick).  (c) Both flash kernels at stablelm's shape
+    (G 32, P 1, hd 64, 1,024 causal, B 1 and 2) against their plain
+    versions, bf16 and float32, timed beside SDPA.  (d) The sharding rules
+    (``param_shardings`` over ``model.abstract_params``, no storage) of
+    every registry architecture at both production meshes, with each one's
+    parameter bytes a device (host only).  The flash and flash-backward
+    rows gain ``launches_phase_26`` and ``phase_26``.  Alone: build the
+    library, set TF32 off, then ``chip_smoke.train_dist_phase(torch.device(
+    "cuda"), chip_smoke.card_line())`` from a script under ``build/``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -1405,6 +1432,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in dp:
             row.update(dp[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    td = train_dist_phase(dev, card)
+    for row in kernels:
+        if row["name"] in td:
+            row.update(td[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
         f"recorded none of the kernels they timed and ran again")
     log(card)
@@ -6289,6 +6322,491 @@ def dist_phase(dev, card, batches, phase2, exact) -> dict:
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
     return {k: {"launches_phase_25": launches[k]} for k in names}
+
+
+# phase 26: int8 gradient sync, the GPipe pipeline and the sharding rules over
+# the process group, training stablelm-1.6b at full width and depth
+TRAIN_DIST_DIR = Path(__file__).resolve().parent / "build" / "phase26"
+STABLELM = "stablelm-1.6b"
+DP_WORLD = 2
+DP_BATCH = 2               # a rank's own seeded 2 x 1,024 tokens
+DP_STEPS = 2
+PP_STAGES = (2, 4)
+PP_MICRO = 4
+PP_BATCH = 4               # 4 microbatches of 1 x 1,024 tokens
+PP_LOSS_RTOL = 2e-4        # the reference's own test's limit (tests/test_pipeline.py)
+PP_GRAD_REL = 1e-3         # a leaf's |pipelined - plain| / |plain|
+PP_BF16_STEPS = 2          # timed bf16 steps after one untimed
+EF_TOL = 1e-5              # the error-feedback identity (tests/test_compression_elastic.py)
+TRAIN_DIST_TIMEOUT_S = 420.0
+
+
+def _stablelm_policy(dtype):
+    from repro_torch.models.modules import Policy
+
+    return Policy(param_dtype=dtype, compute_dtype=dtype, remat=True)
+
+
+def _leaf_paths(tree, offset=0) -> list[str]:
+    """The paths of ``tree``'s leaves in ``leaves`` order; a stage's local
+    layer ``i`` is named by its global index ``offset + i``."""
+    from repro_torch.launch.sharding import _tree_paths
+
+    out = []
+    for path, _ in _tree_paths(tree):
+        parts = path.split("/")
+        if parts[0] == "layers":
+            parts[1] = str(int(parts[1]) + offset)
+        out.append("/".join(parts))
+    return out
+
+
+def _ef_leaf(cfg) -> str:
+    """The leaf (a) reads the error-feedback identity on: the last layer's
+    attention output projection."""
+    return f"layers/{cfg.num_layers - 1}/attn/wo"
+
+
+def _digest(tensors) -> str:
+    """sha256 over the bytes of ``tensors`` (copied to the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _dp_rank(g, out: dict) -> None:
+    """(a): stablelm-1.6b at full width and depth, default_options' dtypes,
+    this rank's own seeded batches; each step grads, compressed_grad_sync,
+    apply_updates."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import default_options
+    from repro_torch.models import model
+    from repro_torch.train.compression import compressed_grad_sync, init_error_feedback
+    from repro_torch.train.optimizer import OptConfig, apply_updates, init_opt, leaves
+    from repro_torch.train.train_step import trainable
+
+    cfg = get_config(STABLELM)
+    opts = default_options(cfg)
+    pol = _stablelm_policy(opts.param_dtype)
+    opt_cfg = OptConfig(moment_dtype=opts.moment_dtype)
+    params = trainable(model.init_params(cfg, 0, pol))
+    flat = leaves(params)
+    li = _leaf_paths(params).index(_ef_leaf(cfg))
+    opt = init_opt(params, opt_cfg)
+    err = init_error_feedback(params)
+    sync = compressed_grad_sync(g, MeshShape((g.world_size,), ("data",)))
+    rng = np.random.default_rng(1000 + g.rank)
+    true_sum = torch.zeros_like(flat[li], dtype=torch.float32)
+    synced_sum = torch.zeros_like(true_sum)
+    steps = []
+    _zero_launch_counts()
+    for _ in range(DP_STEPS):
+        batch = _lm_batch(rng.integers(0, cfg.vocab_size, (DP_BATCH, TRAIN_SEQ + 1)), g.device)
+        g.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, batch, cfg, pol)
+        grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        true_sum += grads[li].float()
+        before = g.traffic["all_reduce"]
+        mean, err = sync(grads, err)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        synced_sum += mean[li]
+        params, opt, metrics = apply_updates(params, mean, opt, opt_cfg)
+        del mean
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        steps.append(dict(loss=float(loss.detach()), grad_norm=float(metrics["grad_norm"]),
+                          grads_ms=(t1 - t0) * 1e3, sync_ms=(t2 - t1) * 1e3,
+                          update_ms=(t3 - t2) * 1e3, step_ms=(t3 - t0) * 1e3,
+                          bytes=g.traffic["all_reduce"] - before, digest=_digest(flat)))
+    out.update(steps=steps, launches=_launch_counts(), peak=torch.cuda.max_memory_allocated(),
+               true_sum=true_sum.cpu(), synced_sum=synced_sum.cpu(),
+               final_error=leaves(err)[li].cpu(), n_params=sum(p.numel() for p in flat))
+
+
+def _pp_batch(vocab: int, dev):
+    return _lm_batch(np.random.default_rng(26).integers(0, vocab, (PP_BATCH, TRAIN_SEQ + 1)),
+                     dev)
+
+
+def _pp_rank(g, plan: dict, out: dict) -> None:
+    """(b): one stage a rank at full width and depth; float32 (TF32 off)
+    against the parent's plain loss and gradients, then bf16 steps timed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.pipeline import make_pp_loss, stack_stage_params, stage_params
+    from repro_torch.models import model
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import trainable
+
+    cfg = get_config(STABLELM)
+    n, r = g.world_size, g.rank
+    per_stage = cfg.num_layers // n
+    batch = _pp_batch(cfg.vocab_size, g.device)
+
+    def stage(dtype):
+        params = model.init_params(cfg, 1, _stablelm_policy(dtype))
+        mine = trainable(stage_params(stack_stage_params(cfg, params, n), r))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return mine
+
+    def step(mine, pol):
+        loss_fn = make_pp_loss(cfg, pol, g, microbatches=PP_MICRO)
+        g.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = loss_fn(mine, batch)
+        grads = torch.autograd.grad(loss, leaves(mine))
+        torch.cuda.synchronize()
+        return loss.detach(), grads, (time.perf_counter() - t) * 1e3
+
+    mine = stage(torch.float32)
+    before = g.traffic["shift"]
+    _zero_launch_counts()
+    loss, grads, wall = step(mine, _stablelm_policy(torch.float32))
+    out["f32"] = dict(loss=float(loss), wall_ms=wall, launches=_launch_counts(),
+                      shift_bytes=g.traffic["shift"] - before,
+                      peak=torch.cuda.max_memory_allocated())
+    plain = torch.load(plan["plain"], mmap=True, weights_only=True)
+    rel = {}
+    for path, got in zip(_leaf_paths(mine, r * per_stage), grads):
+        want = plain[path].to(g.device)
+        rel[path] = float((got - want).norm() / want.norm().clamp(min=1e-30))
+    out["f32"]["rel"] = rel
+    del mine, grads, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    mine = stage(torch.bfloat16)
+    pol = _stablelm_policy(torch.bfloat16)
+    step(mine, pol)  # untimed: the allocators' blocks
+    walls = []
+    for _ in range(PP_BF16_STEPS):
+        _zero_launch_counts()
+        before = dict(g.traffic)
+        loss, grads, wall = step(mine, pol)
+        walls.append(wall)
+    traffic = {k: g.traffic[k] - before[k] for k in ("shift", "all_reduce")}
+    # the replicated leaves' gradient sum alone (the backward's one
+    # all-reduce: the embedding, the final norm, the head), as the step ran it
+    rep = [x for path, x in zip(_leaf_paths(mine), grads) if not path.startswith("layers/")]
+    del grads
+    sum_ms = []
+    for _ in range(2):
+        g.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g.sum(*rep, dtype=rep[0].dtype)
+        torch.cuda.synchronize()
+        sum_ms.append((time.perf_counter() - t) * 1e3)
+    out["bf16"] = dict(loss=float(loss), walls_ms=walls, launches=_launch_counts(),
+                       peak=torch.cuda.max_memory_allocated(), traffic=traffic,
+                       replicated_sum_ms=sum_ms,
+                       replicated_bytes=sum(x.numel() * x.element_size() for x in rep))
+
+
+def train_dist_rank(rank: int, world: int, plan: dict) -> None:
+    """Phase 26's rank ``rank`` of ``world``: joins the gloo group through a
+    ``file://`` store in the git-ignored build directory, loads the library
+    the parent built, runs ``plan["part"]`` (``dp`` or ``pp``) and saves
+    what it saw beside the store; the parent checks.  A failure raises, and
+    the parent re-raises it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.exchange.dist import WorkerGroup
+    from repro_torch.kernels import build
+
+    build.library()
+    g = WorkerGroup.init(backend="gloo", rank=rank, world_size=world,
+                         init_method=f"file://{plan['store']}", device="cuda")
+    out = {"rank": rank}
+    if plan["part"] == "dp":
+        _dp_rank(g, out)
+    else:
+        _pp_rank(g, plan, out)
+    g.close()
+    torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
+
+
+def spawn_train_ranks(world: int, plan: dict) -> list[dict]:
+    """Spawn ``world`` ranks of :func:`train_dist_rank`, wait and return what
+    each saved; a rank that raises, or a run past the timeout (a rank
+    waiting on a collective another never calls), fails the phase."""
+    import torch.multiprocessing as mp
+
+    store = Path(plan["store"])
+    store.unlink(missing_ok=True)
+    ctx = mp.start_processes(train_dist_rank, args=(world, plan), nprocs=world,
+                             start_method="spawn", join=False)
+    deadline = time.monotonic() + TRAIN_DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 26: {world} ranks did not finish in "
+                                   f"{TRAIN_DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(store.with_name(f"{store.name}.rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _sync_world_one(dev, backend: str, store: Path, grads: list, error: list):
+    """``compressed_grad_sync`` over a one-rank ``backend`` group in this
+    process: ``(mean, error)`` on the card."""
+    from repro_torch.exchange.dist import WorkerGroup
+    from repro_torch.train.compression import compressed_grad_sync
+
+    store.unlink(missing_ok=True)
+    g = WorkerGroup.init(backend=backend, rank=0, world_size=1, init_method=f"file://{store}",
+                         device=dev)
+    try:
+        err = [e.clone() for e in error]
+        mean, err = compressed_grad_sync(g)(grads, err)
+        torch.cuda.synchronize()
+    finally:
+        g.close()
+    return list(mean), err
+
+
+def _bytes_per_device(params, specs) -> int:
+    """Each leaf's bytes over the product of the mesh axes its spec names."""
+    from repro_torch.launch.sharding import _tree_paths
+
+    shard = dict(_tree_paths(specs))
+    total = 0
+    for path, leaf in _tree_paths(params):
+        s = shard[path]
+        div = 1
+        for ax in s.spec:
+            for a in (ax if isinstance(ax, tuple) else (() if ax is None else (ax,))):
+                div *= s.mesh.shape[a]
+        total += leaf.numel() * leaf.element_size() // div
+    return total
+
+
+def train_dist_phase(dev, card) -> dict:
+    """Phase 26: (a) two gloo ranks train stablelm-1.6b data-parallel with
+    the int8 error-feedback sync, (b) the GPipe pipeline over 2 and 4 gloo
+    stages against the plain model, (c) both flash kernels at stablelm's
+    shape, (d) the sharding rules of every registry architecture at both
+    production meshes (host only).  Returns the flash rows'
+    ``launches_phase_26`` and ``phase_26``."""
+    import shutil
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import make_production_mesh, tp_size
+    from repro_torch.launch.sharding import default_options, param_shardings
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.compression import compressed_grad_sync
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import trainable
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIST_DIR, ignore_errors=True)
+    TRAIN_DIST_DIR.mkdir(parents=True)
+    cfg = get_config(STABLELM)
+    launches = {"flash_attention": {}, "flash_attention_bwd": {}}
+
+    # ---- (a) data parallelism with the int8 error-feedback sync ---------
+    t = time.perf_counter()
+    ranks = spawn_train_ranks(DP_WORLD, dict(part="dp", store=str(TRAIN_DIST_DIR / "dp")))
+    n_params = ranks[0]["n_params"]
+    log(f"phase 26 (a): {STABLELM} at full width and depth ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size:,}; {n_params:,} parameters, bf16, float32 moments "
+        f"and error feedback, remat) on {DP_WORLD} gloo ranks sharing the card, each its own "
+        f"seeded {DP_BATCH} x {TRAIN_SEQ} tokens a step; spawned, {DP_STEPS} steps and joined in "
+        f"{time.perf_counter() - t:.1f} s; card {card}")
+    for i in range(DP_STEPS):
+        st = [r["steps"][i] for r in ranks]
+        assert len({s["digest"] for s in st}) == 1, [s["digest"] for s in st]
+        assert all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in st), st
+        log(f"phase 26 (a): step {i}: losses by rank {[round(s['loss'], 4) for s in st]}, grad "
+            f"norm {st[0]['grad_norm']:.4f} (the synced mean's); parameters equal bit for bit on "
+            f"every rank (sha256 {st[0]['digest'][:16]}); walls (max over ranks): step "
+            f"{max(s['step_ms'] for s in st):.1f} ms = grads {max(s['grads_ms'] for s in st):.1f} "
+            f"+ sync {max(s['sync_ms'] for s in st):.1f} + AdamW "
+            f"{max(s['update_ms'] for s in st):.1f}; float32 handed to gloo's all-reduce "
+            f"{st[0]['bytes']:,} bytes a rank ({st[0]['bytes'] / n_params:.1f} a parameter); "
+            f"card {card}")
+    lhs = sum(r["synced_sum"] for r in ranks) / DP_WORLD + \
+        sum(r["final_error"] for r in ranks) / DP_WORLD
+    rhs = sum(r["true_sum"] for r in ranks) / DP_WORLD
+    np.testing.assert_allclose(lhs.numpy(), rhs.numpy(), rtol=EF_TOL, atol=EF_TOL)
+    gap = float((lhs - rhs).abs().max())
+    log(f"phase 26 (a): error feedback on {_ef_leaf(cfg)} ({rhs.numel():,} elements): the synced "
+        f"gradients summed over the steps plus the ranks' mean final error equal the ranks' mean "
+        f"true gradient sum within {gap:.3g} (<= {EF_TOL:g} + {EF_TOL:g} x |sum|, largest |sum| "
+        f"{float(rhs.abs().max()):.4g})")
+    log(f"phase 26 (a): peak memory by rank {[round(r['peak'] / 1e9, 2) for r in ranks]} GB; "
+        f"flash launches over the {DP_STEPS} steps by rank "
+        f"{[r['launches']['flash_attention'] for r in ranks]} forward, "
+        f"{[r['launches']['flash_attention_bwd'] for r in ranks]} backward "
+        f"({cfg.num_layers} layers x 2 forwards under remat, 1 backward, a step)")
+    for r in ranks:
+        assert r["launches"]["flash_attention"] == 2 * cfg.num_layers * DP_STEPS, r["launches"]
+        assert r["launches"]["flash_attention_bwd"] == cfg.num_layers * DP_STEPS, r["launches"]
+    launches["flash_attention"]["(a) a data-parallel step, by rank"] = [
+        r["launches"]["flash_attention"] // DP_STEPS for r in ranks]
+    launches["flash_attention_bwd"]["(a) a data-parallel step, by rank"] = [
+        r["launches"]["flash_attention_bwd"] // DP_STEPS for r in ranks]
+    del ranks
+    # one rank: nccl and gloo give the same sync as no group
+    gen = torch.Generator(device=dev).manual_seed(260)
+    shapes = [(cfg.d_model, cfg.num_heads, cfg.head_dim), (cfg.d_ff, cfg.d_model),
+              (cfg.d_model,), (4096, cfg.d_model)]
+    grads = [torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes]
+    error = [1e-3 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+    err0 = [e.clone() for e in error]
+    none_mean, none_err = compressed_grad_sync()(grads, err0)
+    by = {b: _sync_world_one(dev, b, TRAIN_DIST_DIR / f"{b}1", grads, error)
+          for b in ("gloo", "nccl")}
+    for b, (mean, err) in by.items():
+        assert all(torch.equal(a, c) for a, c in zip(mean, none_mean)), b
+        assert all(torch.equal(a, c) for a, c in zip(err, none_err)), b
+    log(f"phase 26 (a): one rank: compressed_grad_sync over an nccl group and over a gloo group "
+        f"of one, and with no group, give the same means and errors bit for bit on "
+        f"{len(shapes)} leaves {shapes}")
+    del grads, error, err0, none_mean, none_err, by
+    torch.cuda.empty_cache()
+
+    # ---- (b) the pipeline: the plain model first, on this process -------
+    t = time.perf_counter()
+    pol32 = _stablelm_policy(torch.float32)
+    batch = _pp_batch(cfg.vocab_size, dev)
+    params = trainable(model.init_params(cfg, 1, pol32))
+    flat = leaves(params)
+    loss, _ = model.loss_fn(params, batch, cfg, pol32)
+    grads = torch.autograd.grad(loss, flat)
+    plain_loss = float(loss.detach())
+    torch.save({p: x.cpu() for p, x in zip(_leaf_paths(params), grads)},
+               TRAIN_DIST_DIR / "plain.pt")
+    del params, flat, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    pol16 = _stablelm_policy(torch.bfloat16)
+    params = trainable(model.init_params(cfg, 1, pol16))
+    flat = leaves(params)
+    plain_walls = []
+    for i in range(PP_BF16_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, batch, cfg, pol16)
+        torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        if i:
+            plain_walls.append((time.perf_counter() - t0) * 1e3)
+    del params, flat, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 26 (b): the plain model, one process, {PP_BATCH} x {TRAIN_SEQ} tokens under "
+        f"remat: float32 (TF32 off) loss {plain_loss:.6f}, gradients saved for the stages; bf16 "
+        f"forward and backward {[round(w, 1) for w in plain_walls]} ms; "
+        f"{time.perf_counter() - t:.1f} s")
+    pp = {}
+    for n in PP_STAGES:
+        t = time.perf_counter()
+        ranks = spawn_train_ranks(n, dict(part="pp", store=str(TRAIN_DIST_DIR / f"pp{n}"),
+                                          plain=str(TRAIN_DIST_DIR / "plain.pt")))
+        joined = time.perf_counter() - t
+        losses = [r["f32"]["loss"] for r in ranks]
+        assert len(set(losses)) == 1, losses
+        assert abs(losses[0] - plain_loss) <= PP_LOSS_RTOL * abs(plain_loss), (losses, plain_loss)
+        rel = {k: v for r in ranks for k, v in r["f32"]["rel"].items()}
+        assert len(rel) == len(leaves(model.abstract_params(cfg, pol32))), len(rel)
+        worst = max(rel, key=rel.get)
+        assert rel[worst] <= PP_GRAD_REL, (worst, rel[worst])
+        ticks = PP_MICRO + n - 1
+        layers = cfg.num_layers // n
+        for r in ranks:
+            for dt in ("f32", "bf16"):
+                lc = r[dt]["launches"]
+                assert lc["flash_attention"] == 2 * ticks * layers, (n, dt, lc)
+                assert lc["flash_attention_bwd"] == ticks * layers, (n, dt, lc)
+        walls = [max(r["bf16"]["walls_ms"][i] for r in ranks) for i in range(PP_BF16_STEPS)]
+        bubble = (n - 1) / ticks
+        shift = [r["f32"]["shift_bytes"] for r in ranks]
+        log(f"phase 26 (b): {n} gloo stages of {layers} layers, M {PP_MICRO} microbatches of "
+            f"{PP_BATCH // PP_MICRO} x {TRAIN_SEQ}, {ticks} ticks: spawned, run and joined in "
+            f"{joined:.1f} s; float32 (TF32 off) loss {losses[0]:.6f} on every rank against the "
+            f"plain {plain_loss:.6f} (rel {abs(losses[0] - plain_loss) / abs(plain_loss):.3g} <= "
+            f"{PP_LOSS_RTOL:g}); every one of {len(rel)} gradients within "
+            f"{rel[worst]:.3g} of the plain one by relative norm (<= {PP_GRAD_REL:g}; worst "
+            f"{worst}); bytes handed to the shifts by rank (float32, forward and backward) "
+            f"{shift}; float32 step wall by rank "
+            f"{[round(r['f32']['wall_ms'], 1) for r in ranks]} ms; card {card}")
+        log(f"phase 26 (b): {n} stages, bf16: forward and backward {[round(w, 1) for w in walls]} "
+            f"ms (max over ranks) against the plain model's {[round(w, 1) for w in plain_walls]} "
+            f"ms on one process ({statistics.median(walls) / statistics.median(plain_walls):.2f}x); "
+            f"bubble share (S - 1) / (M + S - 1) = {bubble:.3f}; bf16 losses "
+            f"{sorted({round(r['bf16']['loss'], 4) for r in ranks})}; flash launches a step on "
+            f"each rank {ranks[0]['bf16']['launches']['flash_attention']} forward ({ticks} ticks x "
+            f"{layers} layers x 2 under remat), "
+            f"{ranks[0]['bf16']['launches']['flash_attention_bwd']} backward; peaks by rank "
+            f"{[round(r['bf16']['peak'] / 1e9, 2) for r in ranks]} GB (float32 run "
+            f"{[round(r['f32']['peak'] / 1e9, 2) for r in ranks]}); card {card}")
+        log(f"phase 26 (b): {n} stages, bf16, one step's bytes a rank: shifts "
+            f"{[r['bf16']['traffic']['shift'] for r in ranks]}, the replicated leaves' gradient "
+            f"sum (embedding, final norm, head; one all-reduce in bf16) "
+            f"{[r['bf16']['traffic']['all_reduce'] for r in ranks]}; that sum alone "
+            f"({ranks[0]['bf16']['replicated_bytes']:,} bytes a rank) takes "
+            f"{[round(max(r['bf16']['replicated_sum_ms'][i] for r in ranks), 1) for i in range(2)]}"
+            f" ms (max over ranks); the float32 step above is each process's first (its "
+            f"warm-up included); card {card}")
+        key = f"(b) a pipelined step, S={n}, M={PP_MICRO}, on each rank"
+        launches["flash_attention"][key] = ranks[0]["bf16"]["launches"]["flash_attention"]
+        launches["flash_attention_bwd"][key] = ranks[0]["bf16"]["launches"]["flash_attention_bwd"]
+        pp[n] = dict(walls=walls, bubble=bubble)
+        del ranks
+    shutil.rmtree(TRAIN_DIST_DIR, ignore_errors=True)
+
+    # ---- (c) both flash kernels at stablelm's shape ----------------------
+    g, hd = cfg.num_kv_heads, cfg.head_dim
+    p = cfg.num_heads // g
+    checked = check_flash_shapes(
+        dev, card, {"B 1 (a pipeline microbatch)": (1, g, p, TRAIN_SEQ, TRAIN_SEQ, hd, True),
+                    "B 2 (a data-parallel rank's batch)": (2, g, p, TRAIN_SEQ, TRAIN_SEQ, hd,
+                                                           True)},
+        "26 (c)", seed=26)
+
+    # ---- (d) the sharding rules at the production meshes (host) ---------
+    t = time.perf_counter()
+    for arch in ARCH_IDS:
+        acfg = get_config(arch)
+        opts = default_options(acfg)
+        line = []
+        for multi_pod in (False, True):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            params = model.abstract_params(acfg, Policy(tp=tp_size(mesh),
+                                                       param_dtype=opts.param_dtype))
+            specs = param_shardings(params, mesh, opts)
+            total = sum(x.numel() * x.element_size() for x in leaves(params))
+            line.append(f"{'x'.join(map(str, mesh.dims))}: {_bytes_per_device(params, specs):,} "
+                        f"bytes a device of {total:,}")
+        log(f"phase 26 (d): {arch} (fsdp {opts.fsdp}, moments {opts.moment_dtype}): parameters "
+            f"at {'; '.join(line)}")
+    log(f"phase 26 (d): {len(ARCH_IDS)} architectures' specs at both production meshes in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {"flash_attention": {"launches_phase_26": launches["flash_attention"],
+                                "phase_26": {k: v["fwd"] for k, v in checked.items()}},
+            "flash_attention_bwd": {"launches_phase_26": launches["flash_attention_bwd"],
+                                    "phase_26": {k: v["bwd"] for k, v in checked.items()}}}
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ the streaming job runs on it with ``StreamingJob(..., group=g)``.
 intra-host and inter-host subgroups the hierarchical backend needs, and
 the thin collective helpers the port calls: the dense and the uneven
 ``all_to_all_single``, sum and max ``all_reduce`` (several tensors packed
-into one call), and an ``all_gather`` of rows in rank order.  Each helper
-adds the bytes it hands the collective to :attr:`WorkerGroup.traffic`.
+into one call; float64 for floats, or float32 with ``dtype=``), an
+``all_gather`` of rows in rank order, and :meth:`WorkerGroup.shift`, the
+hand-off of one tensor from each rank to the next (jax's ``ppermute``
+over ``i -> i + 1``).  Each helper adds the bytes it hands the collective
+to :attr:`WorkerGroup.traffic`.
 
 The backend is the caller's choice, ``"gloo"`` or ``"nccl"``, and it is
 never switched on a failure: a collective that fails raises.  Gloo takes
@@ -51,8 +54,9 @@ class WorkerGroup:
     worker's tensors live on, and the collectives over them.
 
     ``traffic`` maps each collective kind (``"all_to_all"``,
-    ``"all_to_all_uneven"``, ``"all_reduce"``, ``"all_gather"``) to the
-    bytes this rank handed it, its own share included."""
+    ``"all_to_all_uneven"``, ``"all_reduce"``, ``"all_gather"``,
+    ``"shift"``) to the bytes this rank handed it, its own share
+    included."""
 
     def __init__(self, device=None):
         if not dist.is_initialized():
@@ -68,7 +72,7 @@ class WorkerGroup:
         # nccl takes CUDA tensors only, gloo host ones without a copy
         self.host_device = self.device if self.backend == "nccl" else torch.device("cpu")
         self.traffic = {"all_to_all": 0, "all_to_all_uneven": 0, "all_reduce": 0,
-                        "all_gather": 0}
+                        "all_gather": 0, "shift": 0}
         self._tiers: dict[int, tuple] = {}
 
     @classmethod
@@ -143,12 +147,13 @@ class WorkerGroup:
                                input_split_sizes=[int(s) for s in send])
         return out
 
-    def _reduce(self, tensors, op) -> tuple:
+    def _reduce(self, tensors, op, dtype=None) -> tuple:
         """Each of ``tensors`` reduced by ``op`` over the group, packed into
-        one int64 (or float64, when any is floating) all-reduce; the
-        results keep their shapes and dtypes."""
-        dtype = (torch.float64 if any(t.is_floating_point() for t in tensors)
-                 else torch.int64)
+        one all-reduce in ``dtype`` (``None``: int64, or float64 when any is
+        floating); the results keep their shapes and dtypes."""
+        if dtype is None:
+            dtype = (torch.float64 if any(t.is_floating_point() for t in tensors)
+                     else torch.int64)
         flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
         self.traffic["all_reduce"] += flat.numel() * flat.element_size()
         dist.all_reduce(flat, op=op)
@@ -158,9 +163,11 @@ class WorkerGroup:
             at += t.numel()
         return tuple(out)
 
-    def sum(self, *tensors: torch.Tensor) -> tuple:
-        """Each tensor summed over the ranks (one collective for all)."""
-        return self._reduce(tensors, dist.ReduceOp.SUM)
+    def sum(self, *tensors: torch.Tensor, dtype: torch.dtype | None = None) -> tuple:
+        """Each tensor summed over the ranks (one collective for all), in
+        float64 (int64 for integers) unless ``dtype`` names the type the
+        sum runs in: ``torch.float32`` sums as a float32 ``psum`` does."""
+        return self._reduce(tensors, dist.ReduceOp.SUM, dtype)
 
     def max(self, *tensors: torch.Tensor) -> tuple:
         """Each tensor's elementwise max over the ranks."""
@@ -188,6 +195,23 @@ class WorkerGroup:
                 out[i] = rows[:, at: at + n].reshape((w,) + tuple(tensors[i].shape[1:]))
                 at += n
         return tuple(out)
+
+    def shift(self, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """Each rank's ``x`` handed to rank ``rank + offset``: the result is
+        what rank ``rank - offset`` handed over, or zeros where there is no
+        such rank (jax's ``ppermute`` over ``[(i, i + offset)]``).  Every
+        rank calls it, with tensors of one shape and dtype.  One uneven
+        ``all_to_all_single``; gloo stages CUDA tensors through host memory
+        inside it."""
+        flat = x.contiguous().view(-1)
+        n, w, r = flat.numel(), self.world_size, self.rank
+        send = [n if j == r + offset else 0 for j in range(w)]
+        recv = [n if j == r - offset else 0 for j in range(w)]
+        out = torch.zeros_like(flat)
+        self.traffic["shift"] += sum(send) * flat.element_size()
+        dist.all_to_all_single(out[: sum(recv)], flat[: sum(send)], output_split_sizes=recv,
+                               input_split_sizes=send)
+        return out.view(x.shape)
 
     def host_max(self, values) -> np.ndarray:
         """float64 host values, elementwise max over the ranks."""

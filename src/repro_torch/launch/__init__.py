@@ -1,2 +1,4 @@
-"""Launchers (a port of ``repro.launch``): ``serve``, and ``mesh``'s lane
-topology for the stacked workers."""
+"""Launchers (a port of ``repro.launch``): ``serve`` and ``train``; ``mesh``
+(mesh shapes, the production meshes, a ``DeviceMesh`` over a process
+group, the exchange plane's lane topology), ``sharding`` (the sharding
+rules) and ``pipeline`` (GPipe over a process group)."""

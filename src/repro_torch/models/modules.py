@@ -87,7 +87,9 @@ class Policy:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                f"Policy.mesh={self.mesh!r} is not ported yet (ROADMAP.md, queue 1 item 10)")
+                f"Policy.mesh={self.mesh!r}: executing under a mesh (make_policy's shard "
+                f"callback, the MoE layers over a group's model axis) is the next slice "
+                f"of the port and not ported yet (ROADMAP.md, queue 1 item 10)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"Policy.remat_policy must be one of {REMAT_POLICIES}, got "
                              f"{self.remat_policy!r}")
@@ -99,7 +101,11 @@ def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in float32 on ``gen``'s device, then cast.
     The draw is scaled in place: one of jamba's stacked expert weights is
     25.8 GB in float32, and a second such copy does not fit beside its
-    model on an 80 GB card."""
+    model on an 80 GB card.  A ``gen`` on the meta device
+    (:class:`~repro_torch.models.model.ShapeOnly`) draws nothing: the
+    result is an empty meta tensor of the shape and dtype."""
+    if gen.device.type == "meta":  # shapes only (model.abstract_params)
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 

@@ -172,9 +172,10 @@ def test_native_ragged_ships_only_the_counted_rows(runs):
         native, masked = r["fused traffic/ragged/flat"], r["fused traffic/ragged/flat/masked"]
         counted = int(r["fused counts/ragged/flat"].sum())
         assert native == {"all_to_all": 4 * dc.W, "all_to_all_uneven": counted * row,
-                          "all_reduce": 0, "all_gather": 0}
+                          "all_reduce": 0, "all_gather": 0, "shift": 0}
         assert masked == {"all_to_all": 4 * dc.W + dc.W * dc.CAP * row,
-                          "all_to_all_uneven": 0, "all_reduce": 0, "all_gather": 0}
+                          "all_to_all_uneven": 0, "all_reduce": 0, "all_gather": 0,
+                          "shift": 0}
         assert counted < dc.W * dc.CAP
 
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import dist_cases
+import train_dist_cases
 from repro_torch import compat
 from repro_torch.core.baselines import make_baseline
 from repro_torch.core.histogram import CountMinSketch, Histogram
@@ -1715,3 +1716,59 @@ def test_two_processes_on_the_card_equal_the_stacked_job(cuda, tmp_path):
         np.testing.assert_array_equal(rec["keys"], stacked.state_keys.cpu().numpy())
         np.testing.assert_array_equal(rec["vals"], stacked.state_vals.cpu().numpy())
         assert ranks[1][f"gpu/{driver}"]["decisions"] == rec["decisions"]
+
+
+def test_pipeline_on_the_card_equals_the_plain_model(cuda, tmp_path):
+    """Two gloo stages share the card: stablelm-1.6b's smoke config at 4
+    layers, float32 under remat, TF32 off; the pipelined loss and every
+    gradient against the plain model on the card, the flash kernels
+    launched by every stage (2 forwards under remat and 1 backward a layer
+    a tick)."""
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import trainable
+    from repro_torch.launch.pipeline import stack_stage_params, stage_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.library()
+    ranks = train_dist_cases.wait(train_dist_cases.start(
+        tmp_path, 2, {"case": "pipeline card", "device": "cuda"}), tmp_path, 2)
+    cfg = train_dist_cases.pp_config()
+    pol = Policy(remat=True)
+    params = trainable(model.init_params(cfg, 0, pol, device=cuda))
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in train_dist_cases.pp_batch(cfg.vocab_size).items()}
+    loss, _ = model.loss_fn(params, batch, cfg, pol)
+    grads = dict(zip(map(id, leaves(params)), torch.autograd.grad(loss, leaves(params))))
+    ticks = train_dist_cases.PP_MICRO + 1
+    for r in ranks:
+        assert abs(float(r["loss"]) - float(loss)) <= 2e-4 * abs(float(loss))
+        mine = leaves(stage_params(stack_stage_params(cfg, params, 2), r["rank"]))
+        for got, p in zip(r["grads"], mine):
+            want = grads[id(p)].cpu()
+            assert float((got - want).norm() / want.norm()) <= 1e-3
+        assert r["launches"] == (2 * ticks * cfg.num_layers // 2, ticks * cfg.num_layers // 2)
+
+
+def test_compressed_sync_on_the_card_equals_the_host(cuda, tmp_path):
+    """Two gloo ranks on the card: each rank's mean and error equal bit for
+    bit what the same int8 quantization and float32 sum give on the host
+    (a sum of two is one add, in either order)."""
+    from repro_torch.train.compression import _quantize
+
+    build.library()
+    ranks = train_dist_cases.wait(train_dist_cases.start(
+        tmp_path, 2, {"case": "compression card", "device": "cuda"}), tmp_path, 2)
+    inputs = [train_dist_cases.compression_inputs(r) for r in range(2)]
+    for k in inputs[0][0]:
+        deq, err = [], []
+        for g, e in inputs:
+            g32 = torch.from_numpy(g[k]) + torch.from_numpy(e[k])
+            q, s = _quantize(g32)
+            deq.append(q.to(torch.float32) * s)
+            err.append(g32 - deq[-1])
+        mean = (deq[0] + deq[1]) / 2
+        for r in ranks:
+            assert torch.equal(r["mean"][k], mean), k
+            assert torch.equal(r["error"][k], err[r["rank"]]), k

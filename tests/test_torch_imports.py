@@ -26,7 +26,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_mutations.py", REPO / "route_mutations.py",
     REPO / "rank_ab.py", REPO / "route_ab.py", REPO / "sketch_ab.py", REPO / "dist_probe.py",
-    REPO / "tests" / "dist_cases.py"]
+    REPO / "tests" / "dist_cases.py", REPO / "tests" / "train_dist_cases.py"]
 SENT = 2**31 - 1
 
 
@@ -43,6 +43,8 @@ def test_import_with_jax_blocked():
         "assert 'repro_torch.models.encdec' in names\n"
         "assert 'repro_torch.models.ssm' in names\n"
         "assert 'repro_torch.exchange.dist' in names\n"
+        "assert {'repro_torch.train.compression', 'repro_torch.launch.pipeline',\n"
+        "        'repro_torch.launch.sharding', 'repro_torch.launch.mesh'} <= set(names)\n"
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'jaxlib', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
@@ -344,3 +346,59 @@ def test_scan_covers_the_ssm_module():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split("\n")[0] == "(1, 8, 16) (1, 32, 4) (1, 3, 32)"
+
+
+def test_scan_covers_the_gradient_sync_pipeline_and_sharding_modules():
+    """The scan reaches the int8 gradient sync, the pipeline, the sharding
+    rules and the mesh helpers, which import with jax blocked, touch no
+    device and no process group, and give the production meshes' specs."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/train/compression.py", "src/repro_torch/launch/pipeline.py",
+            "src/repro_torch/launch/sharding.py", "src/repro_torch/launch/mesh.py",
+            "tests/train_dist_cases.py"} <= names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import torch, torch.distributed as dist\n"
+            "from repro_torch.configs.registry import get_config\n"
+            "from repro_torch.launch import mesh, pipeline, sharding\n"
+            "from repro_torch.models import model\n"
+            "from repro_torch.models.modules import Policy\n"
+            "from repro_torch.train import compression\n"
+            "assert not dist.is_initialized()\n"
+            "cfg = get_config('stablelm-1.6b')\n"
+            "m = mesh.make_production_mesh()\n"
+            "p = model.abstract_params(cfg, Policy(tp=mesh.tp_size(m)))\n"
+            "s = sharding.param_shardings(p, m, sharding.default_options(cfg))\n"
+            "print(s['layers'][0]['attn']['wq'].spec, mesh.dp_size(m), torch.cuda.is_initialized())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO / "src",
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "(None, 'model', None) 16 False"
+
+
+def test_device_mesh_and_gradient_sync_refuse_a_group_of_the_wrong_size():
+    """A (2, 2) mesh over 3 ranks, a sync over 4 replicas on 2 ranks: both
+    raise before touching a collective."""
+    import types
+
+    from repro_torch.launch.mesh import MeshShape, device_mesh
+    from repro_torch.train.compression import compressed_grad_sync
+
+    group = types.SimpleNamespace(world_size=3, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="3 ranks"):
+        device_mesh(MeshShape((2, 2), ("data", "model")), group)
+    with pytest.raises(ValueError, match="4 replicas"):
+        compressed_grad_sync(types.SimpleNamespace(world_size=2, rank=0),
+                             MeshShape((4, 2), ("data", "model")), ("data",))
+    # the replicas along the named axes are what must match
+    compressed_grad_sync(types.SimpleNamespace(world_size=2, rank=0),
+                         MeshShape((2, 4), ("data", "model")), ("data",))
+
+
+def test_policy_mesh_still_raises_naming_the_next_slice():
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.modules import Policy
+
+    with pytest.raises(NotImplementedError, match="next slice"):
+        Policy(mesh=make_production_mesh())
