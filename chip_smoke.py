@@ -319,8 +319,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     against a 256-token prefill and 256 + 256 against 512 (a 511-token
     prefill is off the contract), within 2e-3 x (1 + |logit|); walls by
     prompt length, device operations a 1,024-token prefill and a decoded
-    token, idle shares.  (b) 3 train steps of 4 x 1,024 tokens (bf16,
-    float32 moments): finite loss and grad norm, walls, tokens/s, peak
+    token, idle shares.  (b) 3 train steps of 4 x 1,024 tokens at 6 of
+    the 12 layers (bf16, float32 moments; the depth cut keeps the whole run
+    inside its time limit): finite loss and grad norm, walls, tokens/s, peak
     memory, one profiled step, one sLSTM layer's forward and backward
     alone (its device operations a time step, the layers' share of the
     step); then 8 steps on one batch of 4 x 256 at ``OptConfig(lr=1e-3,
@@ -454,6 +455,39 @@ Phases, in order; any failure raises and the script exits non-zero:
     rows gain ``launches_phase_26`` and ``phase_26``.  Alone: build the
     library, set TF32 off, then ``chip_smoke.train_dist_phase(torch.device(
     "cuda"), chip_smoke.card_line())`` from a script under ``build/``.
+27. ``Policy.mesh``: four gloo ranks share the card, each a device of a
+    ``ProcessMesh`` (``launch/mesh.py``) under ``make_policy``, holding
+    the dense leaves whole and its own expert slots
+    (``carry.init_rank_params``).  (a) Llama 4 Scout at full width, 6 of
+    48 layers, bf16, at (1, 4): phase 9's mix cut to 12 requests through
+    ``DRScheduler(4)`` x ``ServeEngine(4 slots)`` on every rank, under
+    phase 18's final placement, against the same requests served by
+    ``Policy(ep_shards=4)`` in this process first (freed before the
+    spawn): every rank's tokens and logits equal (sha256); logits within
+    0.125 x max(1, |stacked|) wherever the router's counts and drops agree
+    (the calls where it sent a token elsewhere are logged), tokens equal
+    but within 2 x 0.125 of a tie; launches a rank.  (a') The same in
+    float32 at 2 layers, two prompts (1,024 and 1,022 tokens) and 8
+    teacher-forced decode steps each: logits within 1e-3, greedy tokens
+    equal but within 2e-3 of a tie.  (b) One MoE layer at full width,
+    float32, 2 x 512 tokens, capacity 8.0, at (1, 4) and (2, 2):
+    ``moe_apply`` dense, native ragged and masked ragged
+    (``REPRO_DISABLE_NATIVE_RAGGED=1``) and ``moe_apply_replicated``
+    against the stacked path and ``moe_ref``: counts, drops and occupied
+    rows equal (shipped rows at (1, 4)), ``y`` within 1e-4 x max(1,
+    |ref|), every rank's equal.  (c) At (2, 2), 2 layers, capacity 8.0: a
+    B 2 x 1,024 prefill and a decode step against ``Policy(ep_shards=2)``
+    within 0.125, and a B 1 prefill refused (the reference's data-axis
+    contract).  (d) ``dispatch_count`` on every rank's own hop 1, hop 2
+    and decode inputs, bit for bit against its plain version, timed on
+    rank 0.  (e) Per rank: prefill and decode walls (the slowest rank's
+    median) beside the stacked run's and phase 18's, bytes handed to gloo
+    by collective, peak memory beside the reckoning, the card's use.  The
+    dispatch_count and flash rows gain ``launches_phase_27`` (a rank).
+    Alone: set TF32 off, ``build.library()``, then
+    ``chip_smoke.mesh_phase(torch.device("cuda"), chip_smoke.card_line())``
+    from a script under ``build/`` (a fixed placement stands in for phase
+    18's).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -548,7 +582,7 @@ def cuda_ms(fn, *, warmup=3, reps=20) -> float:
 
 # own_device_time's sessions, and those that kept none of the kernels
 # they timed and ran again
-PROFILER = {"sessions": 0, "empty": 0}
+PROFILER = {"sessions": 0, "empty": 0, "fallback": 0}
 
 
 def device_ms(fn, *, n=20) -> float:
@@ -595,8 +629,11 @@ def own_device_time(fn, names, *, flush=None, n=20):
     that records the host too.  Now and then a session keeps the host's
     launches and no device operation at all (seen on an H100: about one
     in five late in a long run, none when its phase runs alone, and a
-    session run straight after such one mostly keeps them all); it is
-    run again, up to five times, and then this raises."""
+    session run straight after such one mostly keeps them all; once, five
+    in a row in phase 20); it is run again, up to five times.  Then,
+    without ``flush``, the time is :func:`device_ms`'s (every kernel of
+    the call, by events behind a spin; no split, 0 operations); with it,
+    this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -628,7 +665,16 @@ def own_device_time(fn, names, *, flush=None, n=20):
         PROFILER["empty"] += 1
         log(f"profiler: session {attempt + 1} recorded none of {names}"
             + ("; running it again" if attempt < 4 else ""))
-    raise AssertionError(f"the profiler saw none of {names} in five sessions")
+    if flush is not None:
+        raise AssertionError(f"the profiler saw none of {names} in five sessions")
+    # the sessions keep losing the device's events: time the calls' device
+    # work by CUDA events behind a spin instead (device_ms: every kernel fn
+    # launches, not only the named ones), and say so
+    PROFILER["fallback"] += 1
+    ms = device_ms(fn)
+    log(f"profiler: five sessions recorded none of {names}; device time by events behind a "
+        f"spin instead: {ms:.4f} ms")
+    return ms, {"device_ms, all of the call's kernels": ms}, 0
 
 
 def device_op_count(fn, *, tries=6) -> int:
@@ -1438,8 +1484,15 @@ def main() -> int:
     for row in kernels:
         if row["name"] in td:
             row.update(td[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp = mesh_phase(dev, card, moe["serving"])
+    for row in kernels:
+        if row["name"] in mp:
+            row.update(mp[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
-        f"recorded none of the kernels they timed and ran again")
+        f"recorded none of the kernels they timed and ran again; {PROFILER['fallback']} "
+        f"timings fell back to events behind a spin after five such sessions")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3390,6 +3443,9 @@ def moe_phase(dev, card) -> dict:
     prefill_ms = statistics.median(p["wall"] for p in prefills) * 1e3
     decode_ms = statistics.median(d["wall"] for d in decodes) * 1e3
     dropped = sum(p["overflow"] for p in prefills) + sum(d["overflow"] for d in decodes)
+    # for phase 27: the placement the serving run ended with, and its walls
+    served = {"place": np.asarray(ctl.placement.place).copy(), "prefill_ms": prefill_ms,
+              "decode_ms": decode_ms}
     log(f"phase 18 (a): routed={sched.routed} imbalance={sched.imbalance():.2f}; prompts "
         f"{int(lens.min())}-{int(lens.max())} tokens, {len(split_pre)} a multiple of "
         f"{EP_SHARDS} (moe_apply), {len(repl_pre)} not (moe_apply_replicated); {tokens} tokens "
@@ -3554,6 +3610,7 @@ def moe_phase(dev, card) -> dict:
         f"(<= {BF16_REL:g}); card {card}")
     log(f"phase 18: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
     del params, engines
+    out["serving"] = served
     return out
 
 
@@ -4354,6 +4411,7 @@ XLSTM_BATCH = 4
 # sLSTM's per-time-step loop takes 6-10 s a step at 1,024 time steps
 # (PERF.md §5), which would put the script past its 1,200 s
 XLSTM_STEPS, XLSTM_OVERFIT_SEQ = 3, 256
+XLSTM_TRAIN_LAYERS = 6   # (b) trains 6 of the 12 layers: the whole run's time limit
 TEACHER_TOL = 2e-3       # the reference's teacher-forced limit (tests/test_models_smoke.py)
 CARD_CPU_TOL = 1e-4      # smoke config, float32: x max(1, |cpu|)
 
@@ -4521,7 +4579,8 @@ def _remat_runs(dev, cfg, base: dict, variants: dict, opt_cfg, batches, tag, car
 
 def xlstm_phase(dev, card) -> dict:
     """Phase 21: the xLSTM family and activation checkpointing.  (a)
-    xlstm-125m served at full width and depth, (b) trained, (c) its smoke
+    xlstm-125m served at full width and depth, (b) trained at 6 of its 12
+    layers, (c) its smoke
     config card against CPU, (d) remat on gemma-2b at full width and depth,
     (e) remat on Scout at 2 of 48 layers over 4 stacked EP shards.  Returns
     the phase-21 entries of the flash, flash-backward and dispatch_count
@@ -4617,11 +4676,12 @@ def xlstm_phase(dev, card) -> dict:
     del p32, params
     torch.cuda.empty_cache()
 
-    # ---- (b) training at full width and depth -----------------------------
-    params = model.init_params(cfg, 0, pol, device=dev)
+    # ---- (b) training at full width, half depth ---------------------------
+    tcfg = dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_LAYERS)
+    params = model.init_params(tcfg, 0, pol, device=dev)
     opt_cfg = OptConfig()
     opt = init_opt(params, opt_cfg)
-    step = make_train_step(cfg, pol, opt_cfg)
+    step = make_train_step(tcfg, pol, opt_cfg)
     batches = [_lm_batch(x, dev) for x in lm_token_stream(
         XLSTM_STEPS, XLSTM_BATCH, TRAIN_SEQ + 1, cfg.vocab_size, seed=21)]
     gc.collect()
@@ -4638,8 +4698,9 @@ def xlstm_phase(dev, card) -> dict:
         ms.append(m)
     peak = torch.cuda.max_memory_allocated() / 1e9
     wall = statistics.median(walls[1:])
-    log(f"phase 21 (b): {XLSTM_STEPS} steps of {XLSTM_BATCH} x {TRAIN_SEQ} lm_token_stream "
-        f"tokens through make_train_step (bf16 parameters, float32 moments): losses "
+    log(f"phase 21 (b): {tcfg.num_layers} of {cfg.num_layers} layers, {XLSTM_STEPS} steps of "
+        f"{XLSTM_BATCH} x {TRAIN_SEQ} lm_token_stream tokens through make_train_step (bf16 "
+        f"parameters, float32 moments): losses "
         f"{[round(float(m['loss']), 4) for m in ms]}, grad_norm "
         f"{[round(float(m['grad_norm']), 3) for m in ms]}; step walls (ms) "
         f"{[round(w, 1) for w in walls]}: median of steps 2-{XLSTM_STEPS} {wall:.1f} ms, "
@@ -4674,7 +4735,7 @@ def xlstm_phase(dev, card) -> dict:
         slstm_walls.append((time.perf_counter() - t) * 1e3)
     one = statistics.median(slstm_walls[1:])
     sprof = _profiled_step(slstm_layer)
-    n_slstm = sum(blk.mixer == "slstm" for blk in cfg.pattern) * cfg.num_periods
+    n_slstm = sum(blk.mixer == "slstm" for blk in tcfg.pattern) * tcfg.num_periods
     share = n_slstm * one / wall
     log(f"phase 21 (b): one sLSTM layer's forward and backward at [{XLSTM_BATCH}, {TRAIN_SEQ}, "
         f"{cfg.d_model}] alone: {one:.1f} ms (median of 2), {sprof['device_ops']:,} device "
@@ -4685,7 +4746,7 @@ def xlstm_phase(dev, card) -> dict:
     torch.cuda.empty_cache()
     over_cfg = OptConfig(lr=1e-3, warmup=1)
     opt = init_opt(params, over_cfg)
-    over = make_train_step(cfg, pol, over_cfg)
+    over = make_train_step(tcfg, pol, over_cfg)
     one_batch = _lm_batch(next(iter(lm_token_stream(
         1, XLSTM_BATCH, XLSTM_OVERFIT_SEQ + 1, cfg.vocab_size, seed=22))), dev)
     losses = []
@@ -5887,6 +5948,7 @@ DIST_DR = dict(imbalance_trigger=1.2, migration_cost_weight=0.2)
 DIST_BATCHES_B = 4          # (b) and (c): the first 4 of phase 2's batches
 NCCL_STATE = 1 << 20        # (c) at W=1: every key of 4 batches on one worker
 DIST_SKIP = {"wall_time_s", "exchange_wall_s", "overlap_fraction"}
+DIST_TIMEOUT_S = 600.0
 
 
 def _dist_kernels():
@@ -6095,29 +6157,6 @@ def dist_rank(rank: int, world: int, plan: dict) -> None:
     torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
 
 
-def spawn_ranks(world: int, plan: dict, timeout_s: float = 600.0) -> list[dict]:
-    """Spawn ``world`` ranks of :func:`dist_rank` (the spawn start method),
-    wait for them, and return what each saved.  A rank that raises makes
-    this raise; a run past ``timeout_s`` kills them and raises."""
-    import torch.multiprocessing as mp
-
-    store = Path(plan["store"])
-    store.unlink(missing_ok=True)
-    ctx = mp.start_processes(dist_rank, args=(world, plan), nprocs=world, start_method="spawn",
-                             join=False)
-    deadline = time.monotonic() + timeout_s
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"phase 25: {world} ranks did not finish in {timeout_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    return [torch.load(store.with_name(f"{store.name}.rank{r}.pt"), weights_only=False)
-            for r in range(world)]
-
-
 def _same_metrics(want, got: list[dict], tag) -> None:
     """``got`` (dicts) equal to ``want`` (BatchMetrics) but the walls."""
     assert len(want) == len(got), (tag, len(want), len(got))
@@ -6193,9 +6232,9 @@ def dist_phase(dev, card, batches, phase2, exact) -> dict:
 
     # ---- (a) and (b): 8 gloo ranks on the one card ----------------------
     t = time.perf_counter()
-    ranks = spawn_ranks(DIST_WORLD, dict(
+    ranks = spawn_ranks(dist_rank, DIST_WORLD, dict(
         backend="gloo", part="ab", store=str(DIST_DIR / "gloo8"), job=DIST_JOB,
-        batches=str(DIST_DIR / "batches.npy"), num_batches=len(batches)))
+        batches=str(DIST_DIR / "batches.npy"), num_batches=len(batches)), DIST_TIMEOUT_S, 25)
     log(f"phase 25: 8 gloo ranks spawned, ran (a) and (b) and joined in "
         f"{time.perf_counter() - t:.1f} s (gloo takes the CUDA tensors and stages them "
         f"through host memory inside each collective); card memory in use with all 8 up "
@@ -6301,10 +6340,10 @@ def dist_phase(dev, card, batches, phase2, exact) -> dict:
 
     # ---- (c) a one-rank nccl group -------------------------------------
     t = time.perf_counter()
-    ranks = spawn_ranks(1, dict(
+    ranks = spawn_ranks(dist_rank, 1, dict(
         backend="nccl", part="c", store=str(DIST_DIR / "nccl1"),
         job={**DIST_JOB, "state_capacity": NCCL_STATE},
-        batches=str(DIST_DIR / "batches.npy"), num_batches=DIST_BATCHES_B))
+        batches=str(DIST_DIR / "batches.npy"), num_batches=DIST_BATCHES_B), DIST_TIMEOUT_S, 25)
     for backend in ("dense", "ragged"):
         job = f"(c) {backend}"
         rec = ranks[0]["jobs"][job]
@@ -6539,22 +6578,25 @@ def train_dist_rank(rank: int, world: int, plan: dict) -> None:
     torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
 
 
-def spawn_train_ranks(world: int, plan: dict) -> list[dict]:
-    """Spawn ``world`` ranks of :func:`train_dist_rank`, wait and return what
-    each saved; a rank that raises, or a run past the timeout (a rank
-    waiting on a collective another never calls), fails the phase."""
+def spawn_ranks(target, world: int, plan: dict, timeout_s: float, phase: int) -> list[dict]:
+    """Spawn ``world`` ranks of ``target(rank, world, plan)`` (phase 25's
+    :func:`dist_rank`, 26's :func:`train_dist_rank`, 27's
+    :func:`mesh_rank`) under the spawn start method, wait and return
+    what each saved beside ``plan["store"]``; a rank that raises, or a run
+    past ``timeout_s`` (a rank waiting on a collective another never
+    calls), fails the phase."""
     import torch.multiprocessing as mp
 
     store = Path(plan["store"])
     store.unlink(missing_ok=True)
-    ctx = mp.start_processes(train_dist_rank, args=(world, plan), nprocs=world,
-                             start_method="spawn", join=False)
-    deadline = time.monotonic() + TRAIN_DIST_TIMEOUT_S
+    ctx = mp.start_processes(target, args=(world, plan), nprocs=world, start_method="spawn",
+                             join=False)
+    deadline = time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"phase 26: {world} ranks did not finish in "
-                                   f"{TRAIN_DIST_TIMEOUT_S} s")
+                raise TimeoutError(f"phase {phase}: {world} ranks did not finish in "
+                                   f"{timeout_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -6624,7 +6666,8 @@ def train_dist_phase(dev, card) -> dict:
 
     # ---- (a) data parallelism with the int8 error-feedback sync ---------
     t = time.perf_counter()
-    ranks = spawn_train_ranks(DP_WORLD, dict(part="dp", store=str(TRAIN_DIST_DIR / "dp")))
+    ranks = spawn_ranks(train_dist_rank, DP_WORLD,
+                        dict(part="dp", store=str(TRAIN_DIST_DIR / "dp")), TRAIN_DIST_TIMEOUT_S, 26)
     n_params = ranks[0]["n_params"]
     log(f"phase 26 (a): {STABLELM} at full width and depth ({cfg.num_layers} layers, d "
         f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff "
@@ -6721,8 +6764,10 @@ def train_dist_phase(dev, card) -> dict:
     pp = {}
     for n in PP_STAGES:
         t = time.perf_counter()
-        ranks = spawn_train_ranks(n, dict(part="pp", store=str(TRAIN_DIST_DIR / f"pp{n}"),
-                                          plain=str(TRAIN_DIST_DIR / "plain.pt")))
+        ranks = spawn_ranks(train_dist_rank, n,
+                            dict(part="pp", store=str(TRAIN_DIST_DIR / f"pp{n}"),
+                                 plain=str(TRAIN_DIST_DIR / "plain.pt")),
+                            TRAIN_DIST_TIMEOUT_S, 26)
         joined = time.perf_counter() - t
         losses = [r["f32"]["loss"] for r in ranks]
         assert len(set(losses)) == 1, losses
@@ -6807,6 +6852,668 @@ def train_dist_phase(dev, card) -> dict:
                                 "phase_26": {k: v["fwd"] for k, v in checked.items()}},
             "flash_attention_bwd": {"launches_phase_26": launches["flash_attention_bwd"],
                                     "phase_26": {k: v["bwd"] for k, v in checked.items()}}}
+
+
+# phase 27: Policy.mesh, both MoE paths over a process mesh's model axis
+MESH_DIR = Path(__file__).resolve().parent / "build" / "phase27"
+MESH_WORLD = 4
+MESH_LAYERS = 6          # Scout's layers served at (1, 4): the reckoning in the phase's log
+MESH_CUT_LAYERS = 2      # (c) at (2, 2)
+MESH_REQUESTS = 12       # phase 9's mix, cut in request count
+MESH_NEW = 16
+MESH_SEED = 27
+MESH_LAYER_TOKENS = (2, 512)   # (b): 1,024 tokens, B 2 so that (2, 2)'s data axis splits it
+# bf16 logits, mesh against stacked: |diff| <= 0.125 x max(1, |stacked|) where the router's
+# counts and drops agree.  Two bf16 summation orders of one model: the replicated path sums
+# float32 partials over the ranks and slices the shared expert over F, the stacked path sums
+# bf16 partials and runs the whole shared FFN, and moe_apply runs the shared expert on a
+# rank's block; rounding differences grow through the layers (0.0898 at 6 layers, 0.0352
+# at 2 on an H100 80GB HBM3 at 700 W).  The sharp check of the same path is (a') in float32.
+MESH_LOGIT_TOL = 0.125
+MESH_F32_TOL = 1e-4            # (b), float32: |mesh - ref| <= 1e-4 x max(1, |ref|)
+MESH_TF_TOL = 1e-3             # (a'), float32 logits: phase 11's card-against-CPU limit
+MESH_TF_LAYERS = 2             # (a'): float32 at full width, 4 ranks' 13.8 GB each
+MESH_TF_PROMPTS = (1024, 1022)  # moe_apply, then the replicated path
+MESH_TF_STEPS = 8
+MESH_ROUTER_MARGIN = 1e-5      # (b)'s top-two router logits apart by more (float64 reading)
+MESH_TIMEOUT_S = 600.0
+MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+
+
+class _Tape(list):
+    """A request's ``out_tokens`` that tags the serving call which made
+    each token with the request and the token's place."""
+
+    def __init__(self, rid, calls):
+        super().__init__()
+        self.rid, self.calls = rid, calls
+
+    def append(self, tok):
+        self.calls[-1].update(rid=self.rid, step=len(self))
+        super().append(tok)
+
+
+def _mesh_serve(cfg, params, pol, inv, plan, dev, *, keep_logits) -> dict:
+    """Phase 27 (a)'s serving run: the plan's requests routed by
+    ``DRScheduler(4)`` to four 4-slot ``ServeEngine``s, ``model.prefill``
+    and ``model.decode_step`` wrapped to pass ``inv_place`` and to record
+    each call's wall (synchronized), launches and last-position logits
+    (bf16 on the host when ``keep_logits``, else a digest)."""
+    import hashlib
+
+    import repro_torch.models.model as model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import DRScheduler
+
+    import repro_torch.models.transformer as transformer
+
+    calls: list = []
+    orig = {"prefill": model.prefill, "decode": model.decode_step,
+            "backbone": transformer.backbone}
+    moe_out: dict = {}
+
+    def backbone(*a, **k):
+        res = orig["backbone"](*a, **k)
+        moe_out["counts"], moe_out["overflow"] = res[2], res[3]
+        return res
+
+    def timed(kind):
+        def call(*a, **k):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = orig[kind](*a, inv_place=inv, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            now = _launch_counts()
+            last = logits[0, -1, : cfg.vocab_size].cpu()
+            rec = {"kind": kind, "wall": wall,
+                   "len": a[1]["tokens"].shape[1] if kind == "prefill" else 1,
+                   "dc": now["dispatch_count"] - before["dispatch_count"],
+                   "fa": now["flash_attention"] - before["flash_attention"],
+                   "finite": bool(torch.isfinite(last).all()),
+                   "counts": moe_out["counts"].cpu(), "overflow": float(moe_out["overflow"]),
+                   "digest": hashlib.sha256(last.view(torch.int16).numpy().tobytes()).hexdigest()}
+            if keep_logits:
+                rec["logits"] = last
+            calls.append(rec)
+            return logits, cache
+        return call
+
+    sched = DRScheduler(4)
+    engines = [ServeEngine(cfg, params, pol, slots=4, max_len=2064, device=dev) for _ in range(4)]
+    queues: list[list] = [[] for _ in range(4)]
+    for i, (prompt, session) in enumerate(zip(plan["prompts"], plan["sessions"])):
+        req = Request(rid=i, prompt=prompt, max_new_tokens=MESH_NEW, session_key=int(session),
+                      out_tokens=_Tape(i, calls))
+        queues[sched.route(req.session_key, cost_tokens=MESH_NEW)].append(req)
+    model.prefill, model.decode_step = timed("prefill"), timed("decode")
+    transformer.backbone = backbone
+    try:
+        t = time.perf_counter()
+        for eng, q in zip(engines, queues):
+            eng.run(q, max_ticks=200)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+    finally:
+        model.prefill, model.decode_step = orig["prefill"], orig["decode"]
+        transformer.backbone = orig["backbone"]
+    reqs = sorted((r for q in queues for r in q), key=lambda r: r.rid)
+    assert all(r.done and len(r.out_tokens) == MESH_NEW for r in reqs)
+    return {"calls": calls, "tokens": [list(r.out_tokens) for r in reqs], "serve_s": serve_s,
+            "queues": [[r.rid for r in q] for q in queues]}
+
+
+def _mesh_teacher_forced(cfg, params, pol, inv, dev) -> list:
+    """(a')'s float32 last-position logits on the host, one a call: each of
+    ``MESH_TF_PROMPTS`` prefilled, then ``MESH_TF_STEPS`` decode steps fed
+    seeded tokens, the same in every run."""
+    import repro_torch.models.model as model
+
+    rng = np.random.default_rng(MESH_SEED + 5)
+    out = []
+    for n in MESH_TF_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)), device=dev)
+        feed = rng.integers(0, cfg.vocab_size, MESH_TF_STEPS)
+        logits, cache = model.prefill(params, {"tokens": toks}, cfg, pol,
+                                      max_len=n + MESH_TF_STEPS + 8, inv_place=inv)
+        out.append(logits[0, -1, : cfg.vocab_size].float().cpu())
+        for t in feed:
+            tok = torch.full((1, 1), int(t), dtype=torch.int64, device=dev)
+            logits, cache = model.decode_step(params, cache, tok, cfg, pol, inv_place=inv)
+            out.append(logits[0, -1, : cfg.vocab_size].float().cpu())
+    return out
+
+
+def _mesh_layer_inputs(cfg, dev, experts=None):
+    """(b)'s float32 layer (``experts``: a rank's logical experts, ``None``
+    all) and its input, drawn from seeded generators on the card."""
+    from repro_torch.moe.layer import init_moe
+
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    p = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, torch.float32, experts)
+    gx = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+    x = torch.randn(MESH_LAYER_TOKENS + (cfg.d_model,), generator=gx, device=dev)
+    return p, x
+
+
+def _moe_record(out, keep_y: bool) -> dict:
+    import hashlib
+
+    rec = {"counts": out.counts.cpu(), "overflow": float(out.overflow),
+           "aux": float(out.aux_loss),
+           "y_digest": hashlib.sha256(out.y.float().cpu().numpy().tobytes()).hexdigest()}
+    if out.shipped_rows is not None:
+        rec["shipped"], rec["occupied"] = int(out.shipped_rows), int(out.occupied_rows)
+    if keep_y:
+        rec["y"] = out.y.float().cpu()
+    return rec
+
+
+def _mesh_tokens(plan_key: str, vocab: int, shape):
+    return np.random.default_rng(MESH_SEED + len(plan_key)).integers(0, vocab, shape)
+
+
+def mesh_rank(rank: int, world: int, plan: dict) -> None:
+    """Phase 27's rank ``rank`` of ``world``: joins the gloo group through a
+    ``file://`` store in the git-ignored build directory, lays the (1, 4)
+    and (2, 2) meshes over it, runs (a)-(d) as the same calls on every
+    rank, and saves what it saw beside the store; the parent checks.  A
+    failure raises, and the parent re-raises it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch.models.model as model
+    import repro_torch.models.transformer as transformer
+    from repro_torch.carry import init_rank_params, rank_slots
+    from repro_torch.configs.registry import get_config
+    from repro_torch.exchange.dist import WorkerGroup
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import ShardingOptions, make_policy
+    from repro_torch.moe.layer import moe_apply, moe_apply_replicated
+
+    build.library()
+    dev = torch.device("cuda")
+    g = WorkerGroup.init(backend="gloo", rank=rank, world_size=world,
+                         init_method=f"file://{plan['store']}", device="cuda")
+    meshes = {name: ProcessMesh(MeshShape(dims, ("data", "model")), g)
+              for name, dims in MESHES.items()}
+    bf16 = torch.bfloat16
+    opts = ShardingOptions(compute_dtype=bf16, param_dtype=bf16)
+    full = get_config("llama4-scout-17b-a16e")
+    out: dict = {"rank": rank, "coords": {n: m.coords for n, m in meshes.items()}}
+
+    # ---- (a) serving at (1, 4) --------------------------------------------
+    cfg = dataclasses.replace(full, num_layers=plan["layers"])
+    pm = meshes["1x4"]
+    pol = make_policy(cfg, pm, "prefill", opts)
+    t = time.perf_counter()
+    params = init_rank_params(cfg, MESH_SEED, pol, place=plan["place"], device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["slots"] = rank_slots(pm, cfg.moe.num_experts, plan["place"])
+    out["experts_held"] = int(params["layers"][0]["moe"]["wi"].shape[0])
+    out["param_bytes"] = sum(x.numel() * x.element_size() for x in _leaves(params))
+    inv = torch.as_tensor(plan["inv"], device=dev)
+    g.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(g.traffic)
+    _zero_launch_counts()
+    rec = _mesh_serve(cfg, params, pol, inv, plan, dev, keep_logits=rank == 0)
+    out["launches"] = {k: v for k, v in _launch_counts().items()
+                       if k in ("dispatch_count", "flash_attention")}
+    out["traffic"] = {k: v - before[k] for k, v in g.traffic.items()}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    g.barrier()  # every rank holds its parameters and caches' high water
+    free, total = torch.cuda.mem_get_info()
+    out["card_used"] = total - free
+    out["serve"] = rec
+
+    # ---- (d) dispatch_count on this rank's own inputs ----------------------
+    captured = []
+    orig_slots = ops.dispatch_slots
+
+    def slots_capture(dest, valid=None, *, num_parts):
+        captured.append((dest.clone(), None if valid is None else valid.clone(), num_parts))
+        return orig_slots(dest, valid, num_parts=num_parts)
+
+    toks = torch.as_tensor(_mesh_tokens("d", cfg.vocab_size, (1, 1024)), device=dev)
+    ops.dispatch_slots = slots_capture
+    try:
+        _, cache = model.prefill(params, {"tokens": toks}, cfg, pol, max_len=1040,
+                                 inv_place=inv)
+        hops = captured[:2]
+        captured.clear()
+        model.decode_step(params, cache, toks[:, :1], cfg, pol, inv_place=inv)
+        dec = captured[:1]
+    finally:
+        ops.dispatch_slots = orig_slots
+    del cache
+    dc = {}
+    for name, (dest, valid, parts) in zip(("hop 1", "hop 2", "decode"), hops + dec):
+        valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+        dest = dest.to(torch.int32).contiguous()
+        got = dispatch_count(dest, valid, num_parts=parts)
+        want = dispatch_count_plain(dest, valid, num_parts=parts)
+        torch.cuda.synchronize()
+        w, n = dest.shape
+        dc[name] = {"equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+                    "shape": f"W={w} n={n} L={parts}", "valid": int(valid.sum()),
+                    "bytes": w * n * (4 + 1) + w * n * 4 + w * parts * 4}
+    # times on rank 0 alone, the other ranks waiting at a barrier
+    if rank == 0:
+        for name, (dest, valid, parts) in zip(("hop 1", "hop 2", "decode"), hops + dec):
+            valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+            dest = dest.to(torch.int32).contiguous()
+            dc[name].update(
+                ms=cuda_ms(lambda: dispatch_count(dest, valid, num_parts=parts)),
+                plain_ms=cuda_ms(lambda: dispatch_count_plain(dest, valid, num_parts=parts)),
+                device_ms=device_ms(lambda: dispatch_count(dest, valid, num_parts=parts)))
+    g.barrier()
+    out["dispatch_count"] = dc
+    del params, captured, hops, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (a') float32, teacher-forced, at (1, 4) ---------------------------
+    import hashlib
+
+    tcfg = dataclasses.replace(full, num_layers=MESH_TF_LAYERS)
+    tpol = make_policy(tcfg, meshes["1x4"], "prefill", ShardingOptions(
+        compute_dtype=torch.float32, param_dtype=torch.float32))
+    params = init_rank_params(tcfg, MESH_SEED + 4, tpol, place=plan["place"], device=dev)
+    tf = _mesh_teacher_forced(tcfg, params, tpol, inv, dev)
+    out["tf"] = {"logits": tf if rank == 0 else None,
+                 "digests": [hashlib.sha256(t.numpy().tobytes()).hexdigest() for t in tf]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one MoE layer at full width, float32, at both meshes ----------
+    layer = {}
+    for mname, pm in meshes.items():
+        p, x = _mesh_layer_inputs(full, dev, rank_slots(pm, full.moe.num_experts))
+        for be, flag in (("dense", None), ("ragged", ""), ("ragged masked", "1")):
+            if flag is not None:
+                os.environ["REPRO_DISABLE_NATIVE_RAGGED"] = flag
+            try:
+                pol = make_policy(full, pm, "prefill", ShardingOptions(
+                    compute_dtype=torch.float32, param_dtype=torch.float32, moe_cf=8.0))
+                pol = dataclasses.replace(pol, exchange_backend=be.split()[0])
+                for path, fn in (("apply", moe_apply), ("replicated", moe_apply_replicated)):
+                    if path == "replicated" and be != "dense":
+                        continue  # no exchange on the replicated path
+                    t0 = time.perf_counter()
+                    got = fn(p, x, full.moe, full.ffn_kind, pol)
+                    torch.cuda.synchronize()
+                    rec = _moe_record(got, keep_y=rank == 0)
+                    rec["wall"] = time.perf_counter() - t0
+                    layer[f"{mname}/{path}/{be}"] = rec
+            finally:
+                os.environ.pop("REPRO_DISABLE_NATIVE_RAGGED", None)
+        del p, x
+        torch.cuda.empty_cache()
+    out["layer"] = layer
+
+    # ---- (c) the model at (2, 2): B 2 prefill and a decode step ------------
+    pm = meshes["2x2"]
+    cfg2 = dataclasses.replace(full, num_layers=MESH_CUT_LAYERS)
+    pol = make_policy(cfg2, pm, "prefill", dataclasses.replace(opts, moe_cf=8.0))
+    params = init_rank_params(cfg2, MESH_SEED + 3, pol, device=dev)
+    toks = torch.as_tensor(_mesh_tokens("c", cfg2.vocab_size, (2, 1024)), device=dev)
+    stats, paths = [], []
+    orig_bb = transformer.backbone
+    orig_fn = {n: getattr(transformer, n) for n in ("moe_apply", "moe_apply_replicated")}
+
+    def backbone(*a, **k):
+        res = orig_bb(*a, **k)
+        stats.append(float(res[3]))
+        return res
+
+    transformer.backbone = backbone
+    for n, fn in orig_fn.items():
+        setattr(transformer, n, lambda *a, _fn=fn, _n=n, **k: (paths.append(_n), _fn(*a, **k))[1])
+    try:
+        lp, cache = model.prefill(params, {"tokens": toks}, cfg2, pol, max_len=1040)
+        ld, _ = model.decode_step(params, cache, toks[:, :1], cfg2, pol)
+        torch.cuda.synchronize()
+        served_paths = list(paths)  # the refused prefill below enters moe_apply too
+        try:
+            model.prefill(params, {"tokens": toks[:1]}, cfg2, pol, max_len=1040)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    finally:
+        transformer.backbone = orig_bb
+        for n, fn in orig_fn.items():
+            setattr(transformer, n, fn)
+    out["cut"] = {"logits": [lp[:, -1, : cfg2.vocab_size].cpu(),
+                             ld[:, -1, : cfg2.vocab_size].cpu()] if rank == 0 else None,
+                  "overflow": stats, "paths": served_paths, "refused": refused,
+                  "experts_held": int(params["layers"][0]["moe"]["wi"].shape[0])}
+    del params, cache
+    g.close()
+    torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
+
+
+def _top_two_margin(logits) -> tuple[float, float]:
+    """(top logit, top - second) of a float vector."""
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0]), float(top[0] - top[1])
+
+
+def _rank_bytes(cfg, ntp: int) -> tuple[int, int]:
+    """(bytes a rank holds outside the layers, bytes a layer a rank) in
+    bf16, experts over ``ntp`` model ranks: the reckoning of phase 27."""
+    from repro_torch.launch.sharding import _tree_paths
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+
+    params = model.abstract_params(dataclasses.replace(cfg, num_layers=1),
+                                   Policy(param_dtype=torch.bfloat16))
+    outside = per_layer = 0
+    for path, leaf in _tree_paths(params):
+        n = leaf.numel() * leaf.element_size()
+        if path.startswith("layers/"):
+            per_layer += n // ntp if re.search(r"moe/w[io]$", path) else n
+        else:
+            outside += n
+    return outside, per_layer
+
+
+def mesh_phase(dev, card, served=None) -> dict:
+    """Phase 27: ``Policy.mesh`` over four gloo ranks sharing the card.  (a)
+    Llama 4 Scout at full width (``MESH_LAYERS`` of 48 layers, bf16) served
+    at (1, 4) under ``make_policy`` against the stacked run
+    (``Policy(ep_shards=4)``) on the same weights, placement and requests;
+    (b) one MoE layer at full width, float32, at (1, 4) and (2, 2), both
+    paths on every transport, against the stacked path and ``moe_ref``;
+    (a') the same in float32 at 2 layers, teacher-forced; (c)
+    ``model.prefill`` at B 2 and a decode step at (2, 2), two layers, and
+    the B 1 refusal; (d) ``dispatch_count`` on each rank's own hop inputs;
+    (e) walls, bytes by collective and memory a rank.  ``served``
+    is phase 18's serving record (its placement and walls; ``None``: a
+    fixed placement, phase 27 run alone).  Returns the ``kernels`` line's
+    phase-27 entries by kernel name."""
+    import repro_torch.models.model as model
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import ShardingOptions, policy_fields
+    from repro_torch.models.modules import Policy
+    from repro_torch.moe.kip_placement import apply_placement_to_weights
+    from repro_torch.moe.layer import moe_apply, moe_apply_replicated, moe_ref
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=MESH_LAYERS)
+    e = full.moe.num_experts
+    place = (np.asarray(served["place"], np.int64) if served is not None
+             else np.roll(np.arange(e), 5))
+    inv = np.zeros(e, np.int32)
+    inv[place] = np.arange(e, dtype=np.int32)
+    opts = ShardingOptions(compute_dtype=bf16, param_dtype=bf16)
+    outside, per_layer = _rank_bytes(full, 4)
+    reckoned = MESH_WORLD * (outside + MESH_LAYERS * per_layer)
+    log(f"phase 27: reckoning at (1, 4), bf16: a rank holds {outside / 1e9:.2f} GB outside the "
+        f"layers (embedding, head, norm) and {per_layer / 1e9:.3f} GB a layer (attention, "
+        f"shared expert, router, {e // 4} of {e} experts); {MESH_WORLD} ranks x {MESH_LAYERS} "
+        f"layers = {reckoned / 1e9:.2f} GB of parameters on the card, before caches and "
+        f"contexts; (2, 2) holds {e // 2} experts a rank")
+
+    # ---- (a) the stacked run first, in this process -------------------------
+    rng = np.random.default_rng(MESH_SEED)
+    sessions = np.where(rng.random(MESH_REQUESTS) < 0.3, 7, rng.integers(0, 1000, MESH_REQUESTS))
+    lens = rng.integers(256, 2049, MESH_REQUESTS)
+    assert (lens % 4 == 0).any() and (lens % 4 != 0).any(), lens
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    plan = {"store": str(MESH_DIR / "store"), "layers": MESH_LAYERS, "place": place,
+            "inv": inv, "prompts": prompts, "sessions": sessions}
+    spol = Policy(ep_shards=4, **policy_fields(MeshShape((1, 4), ("data", "model")), opts))
+    params = model.init_params(cfg, MESH_SEED, spol, device=dev)
+    for lay in params["layers"]:
+        lay["moe"] = apply_placement_to_weights(lay["moe"], place)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stacked = _mesh_serve(cfg, params, spol, torch.as_tensor(inv, device=dev), plan, dev,
+                          keep_logits=True)
+    stacked_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(full, num_layers=MESH_TF_LAYERS)
+    tpol = Policy(ep_shards=4, **policy_fields(MeshShape((1, 4), ("data", "model")),
+                                               ShardingOptions(compute_dtype=torch.float32,
+                                                               param_dtype=torch.float32)))
+    params = model.init_params(tcfg, MESH_SEED + 4, tpol, device=dev)
+    for lay in params["layers"]:
+        lay["moe"] = apply_placement_to_weights(lay["moe"], place)
+    tf_want = _mesh_teacher_forced(tcfg, params, tpol, torch.as_tensor(inv, device=dev), dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) and (c)'s stacked runs and the oracle -------------------------
+    p, x = _mesh_layer_inputs(full, dev)
+    spec = full.moe
+    margins = torch.topk((x.reshape(-1, full.d_model).double() @ p["router"].double()), 2).values
+    margin = float((margins[:, 0] - margins[:, 1]).min())
+    assert margin > MESH_ROUTER_MARGIN, margin
+    f32 = Policy(moe_capacity_factor=8.0)
+    layer_want = {"ref": _moe_record(moe_ref(p, x, spec, full.ffn_kind, f32), True)}
+    for mname, (_, ntp) in MESHES.items():
+        for be in ("dense", "ragged"):
+            spol_b = dataclasses.replace(f32, tp=ntp, ep_shards=ntp, exchange_backend=be)
+            layer_want[f"{mname}/apply/{be}"] = _moe_record(
+                moe_apply(p, x, spec, full.ffn_kind, spol_b), True)
+        layer_want[f"{mname}/replicated/dense"] = _moe_record(moe_apply_replicated(
+            p, x, spec, full.ffn_kind, dataclasses.replace(f32, tp=ntp, ep_shards=ntp)), True)
+    torch.cuda.synchronize()
+    del p, x
+    cfg2 = dataclasses.replace(full, num_layers=MESH_CUT_LAYERS)
+    spol2 = Policy(ep_shards=2, **policy_fields(MeshShape((2, 2), ("data", "model")),
+                                                dataclasses.replace(opts, moe_cf=8.0)))
+    params = model.init_params(cfg2, MESH_SEED + 3, spol2, device=dev)
+    toks = torch.as_tensor(_mesh_tokens("c", cfg2.vocab_size, (2, 1024)), device=dev)
+    lp, cache = model.prefill(params, {"tokens": toks}, cfg2, spol2, max_len=1040)
+    ld, _ = model.decode_step(params, cache, toks[:, :1], cfg2, spol2)
+    cut_want = [lp[:, -1, : cfg2.vocab_size].cpu(), ld[:, -1, : cfg2.vocab_size].cpu()]
+    del params, cache, lp, ld
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre_s = time.perf_counter() - t_phase
+    log(f"phase 27: the stacked runs in this process took {pre_s:.1f} s (peak "
+        f"{stacked_peak / 1e9:.2f} GB serving); (b)'s router inputs keep their top two "
+        f"logits {margin:.3g} apart (> {MESH_ROUTER_MARGIN:g})")
+
+    # ---- the ranks --------------------------------------------------------
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, MESH_WORLD, plan, MESH_TIMEOUT_S, 27)
+    spawn_s = time.perf_counter() - t
+
+    # (a): every rank the same tokens and logits; rank 0 against the stacked run
+    r0 = ranks[0]["serve"]
+    for r in ranks:
+        assert r["serve"]["tokens"] == r0["tokens"], r["rank"]
+        assert [c["digest"] for c in r["serve"]["calls"]] == [c["digest"] for c in r0["calls"]]
+        assert all(c["finite"] for c in r["serve"]["calls"])
+        assert r["experts_held"] == e // 4 and sorted(r["slots"]) == sorted(
+            place[4 * r["coords"]["1x4"]["model"]: 4 * r["coords"]["1x4"]["model"] + 4].tolist())
+    assert r0["queues"] == stacked["queues"]
+    by_req: dict = {}
+    for kind, run in (("stacked", stacked), ("mesh", r0)):
+        for c in run["calls"]:
+            by_req.setdefault(c["rid"], {}).setdefault(kind, []).append(c)
+    errs, diverged = [], []
+    for rid, runs in sorted(by_req.items()):
+        for sc, mc in zip(runs["stacked"], runs["mesh"]):
+            assert (sc["step"], sc["kind"], sc["len"]) == (mc["step"], mc["kind"], mc["len"])
+            top, gap = _top_two_margin(sc["logits"])
+            x = {"rid": rid, "step": sc["step"], "len": sc["len"],
+                 "err": bf16_rel_err(mc["logits"], sc["logits"]),
+                 "same_routing": torch.equal(sc["counts"], mc["counts"])
+                 and sc["overflow"] == mc["overflow"],
+                 "drops": (sc["overflow"], mc["overflow"]), "gap": gap,
+                 "near": gap <= 2 * MESH_LOGIT_TOL * max(1.0, abs(top))}
+            errs.append(x)
+            if stacked["tokens"][rid][sc["step"]] != r0["tokens"][rid][sc["step"]]:
+                diverged.append(x)
+                break  # the runs decode different tokens from here on
+    held = [x for x in errs if x["same_routing"]]
+    flips = [x for x in errs if not x["same_routing"]]
+    worst = max(x["err"] for x in held)
+    log(f"phase 27 (a): against the stacked run, {len(errs)} calls compared up to each "
+        f"request's first differing token: {len(held)} with the router's counts and drops "
+        f"equal, logits max |diff| / max(1, |stacked|) {worst:.3g} (<= {MESH_LOGIT_TOL:g}); "
+        f"{len(flips)} where the router sent a token elsewhere (not held to it): "
+        + ", ".join(f"request {x['rid']} call {x['step']} {x['err']:.3g}" for x in flips)
+        + "; worst held calls: " + "; ".join(
+            f"request {x['rid']} call {x['step']} ({x['len']} tokens, drops {x['drops'][0]:g})"
+            f": {x['err']:.3g}" for x in sorted(held, key=lambda x: -x["err"])[:5])
+        + f"; first differing tokens (request, call, stacked top-two margin, routing equal): "
+        + (", ".join(f"({x['rid']}, {x['step']}, {x['gap']:.4g}, {x['same_routing']})"
+                     for x in diverged) or "none")
+        + f"; calls with a stacked top-two margin within 2 x {MESH_LOGIT_TOL:g} x max(1, "
+        f"|top|): {sum(x['near'] for x in errs)}")
+    assert worst <= MESH_LOGIT_TOL, worst
+    assert all(x["near"] or not x["same_routing"] for x in diverged), diverged
+
+    # (a'): float32, teacher-forced, against the stacked run
+    tf_errs, tf_near = [], 0
+    for got, want in zip(ranks[0]["tf"]["logits"], tf_want):
+        top, gap = _top_two_margin(want)
+        tf_errs.append(bf16_rel_err(got, want))
+        if gap > 2 * MESH_TF_TOL * max(1.0, abs(top)):
+            assert int(torch.argmax(got)) == int(torch.argmax(want)), (len(tf_errs), gap)
+        else:
+            tf_near += 1
+    assert len(tf_errs) == len(MESH_TF_PROMPTS) * (MESH_TF_STEPS + 1)
+    assert all(r["tf"]["digests"] == ranks[0]["tf"]["digests"] for r in ranks)
+    assert max(tf_errs) <= MESH_TF_TOL, tf_errs
+    log(f"phase 27 (a'): float32 at full width, {MESH_TF_LAYERS} layers, the same placement: "
+        f"prompts of {MESH_TF_PROMPTS} tokens (moe_apply, then the replicated path) and "
+        f"{MESH_TF_STEPS} teacher-forced decode steps each on the (1, 4) mesh against "
+        f"Policy(ep_shards=4): logits max |diff| / max(1, |stacked|) {max(tf_errs):.3g} (<= "
+        f"{MESH_TF_TOL:g}), by call {[float(f'{e:.3g}') for e in tf_errs]}; greedy tokens "
+        f"equal at every call but {tf_near} within 2 x {MESH_TF_TOL:g} of a tie; every rank's "
+        f"logits equal")
+    calls = r0["calls"]
+    pre = [c for c in calls if c["kind"] == "prefill"]
+    dec = [c for c in calls if c["kind"] == "decode"]
+    for c in pre:
+        split = c["len"] % 4 == 0
+        assert c["dc"] == MESH_LAYERS * (2 if split else 1) and c["fa"] == MESH_LAYERS, c
+    assert all(c["dc"] == MESH_LAYERS and c["fa"] == 0 for c in dec)
+    launches = {k: [r["launches"][k] for r in ranks] for k in ("dispatch_count",
+                                                               "flash_attention")}
+    assert all(n > 0 for v in launches.values() for n in v), launches
+    assert launches["dispatch_count"][0] == sum(c["dc"] for c in calls)
+    tokens = sum(len(t) for t in r0["tokens"])
+    med = lambda run, kind: statistics.median(c["wall"] for c in run["calls"]
+                                              if c["kind"] == kind) * 1e3
+    walls = {kind: max(med(r["serve"], kind) for r in ranks) for kind in ("prefill", "decode")}
+    swalls = {kind: med(stacked, kind) for kind in ("prefill", "decode")}
+    serve_s = max(r["serve"]["serve_s"] for r in ranks)
+    log(f"phase 27 (a): {full.name} at full width, {MESH_LAYERS} of {full.num_layers} layers, "
+        f"bf16, make_policy on a (1, 4) ProcessMesh of {MESH_WORLD} gloo ranks on the card, "
+        f"each holding experts {[r['slots'] for r in ranks]} under phase 18's placement "
+        f"{place.tolist()}: {MESH_REQUESTS} requests (prompts {sorted(lens.tolist())}), "
+        f"{tokens} tokens in {serve_s:.2f} s (slowest rank); every rank's tokens and logits "
+        f"equal (sha256); card {card}")
+    log(f"phase 27 (a): launches a rank in the serving run {launches}; a prefill "
+        f"dispatch_count {2 * MESH_LAYERS} (moe_apply) or {MESH_LAYERS} (replicated), flash "
+        f"{MESH_LAYERS}; a decoded token dispatch_count {MESH_LAYERS}, flash 0")
+
+    # (b): integers equal to the stacked path at the same model axis, y within tolerance
+    blines = []
+    for key, got in ranks[0]["layer"].items():
+        mname, path, be = key.split("/")
+        ntp = MESHES[mname][1]
+        digests = {r["layer"][key]["y_digest"] for r in ranks}
+        assert len(digests) == 1, key
+        want = layer_want[f"{mname}/{path}/{be.split()[0]}"]
+        ref = layer_want["ref"]
+        assert torch.equal(got["counts"], want["counts"]) and torch.equal(got["counts"],
+                                                                         ref["counts"]), key
+        assert got["overflow"] == want["overflow"] == 0.0, key
+        e_stack = bf16_rel_err(got["y"], want["y"])
+        e_ref = bf16_rel_err(got["y"], ref["y"])
+        assert max(e_stack, e_ref) <= MESH_F32_TOL, (key, e_stack, e_ref)
+        assert abs(got["aux"] - want["aux"]) <= MESH_F32_TOL * max(1.0, abs(want["aux"])) or (
+            MESHES[mname][0] > 1), key
+        if path == "apply":
+            assert got["occupied"] == want["occupied"], key
+            if mname == "1x4":
+                assert got["shipped"] == want["shipped"], key
+        walls_b = max(r["layer"][key]["wall"] for r in ranks) * 1e3
+        blines.append(f"{key}: y against stacked {e_stack:.3g}, against moe_ref {e_ref:.3g}; "
+                      f"shipped {got.get('shipped')} / occupied {got.get('occupied')} (stacked "
+                      f"{want.get('shipped')} / {want.get('occupied')}); {walls_b:.1f} ms")
+    for k in ("1x4/apply/ragged", "2x2/apply/ragged"):
+        a, b = ranks[0]["layer"][k], ranks[0]["layer"][k + " masked"]
+        assert torch.equal(a["y"], b["y"]) and a["shipped"] == b["shipped"], k
+    log(f"phase 27 (b): one MoE layer at full width, float32, {MESH_LAYER_TOKENS[0]} x "
+        f"{MESH_LAYER_TOKENS[1]} tokens, capacity 8.0 (nothing dropped), counts equal to the "
+        f"stacked path's and moe_ref's, every rank's y equal, native and masked ragged equal; "
+        + "; ".join(blines) + f" (<= {MESH_F32_TOL:g} x max(1, |ref|)); card {card}")
+
+    # (c): the (2, 2) model against its stacked run
+    cut = ranks[0]["cut"]
+    errs = [bf16_rel_err(g_, w_) for g_, w_ in zip(cut["logits"], cut_want)]
+    assert max(errs) <= MESH_LOGIT_TOL, errs
+    assert all(r["cut"]["paths"] == cut["paths"] for r in ranks)
+    assert cut["paths"] == ["moe_apply"] * MESH_CUT_LAYERS + ["moe_apply_replicated"] * (
+        MESH_CUT_LAYERS), cut["paths"]
+    assert all(v == 0.0 for v in cut["overflow"]) and cut["experts_held"] == e // 2
+    assert cut["refused"] and "do not divide the batch" in cut["refused"], cut["refused"]
+    log(f"phase 27 (c): (2, 2), {MESH_CUT_LAYERS} layers, capacity 8.0: a B 2 x 1,024 prefill "
+        f"(moe_apply, each rank a 1 x 512 block, {e // 2} experts a rank) and a decode step "
+        f"(replicated, F split over the data axis) against Policy(ep_shards=2): logits max "
+        f"|diff| / max(1, |stacked|) {errs[0]:.3g} and {errs[1]:.3g} (<= {MESH_LOGIT_TOL:g}); "
+        f"a B 1 prefill raised ValueError ({cut['refused']})")
+
+    # (d): the kernel on each rank's own inputs
+    dc_rows = ranks[0]["dispatch_count"]
+    for r in ranks:
+        assert all(v["equal"] for v in r["dispatch_count"].values()), r["rank"]
+    for name, row in dc_rows.items():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"phase 27 (d): dispatch_count [{name}] {row['shape']} ({row['valid']} valid) on "
+            f"every rank's own inputs: bit-equal to its plain version; rank 0: {row['ms']:.4f} "
+            f"ms by events around one call, device time {row['device_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms by bytes ({row['bytes']} "
+            f"bytes); card {card}")
+
+    # (e): walls, bytes and memory a rank
+    traffic = {k: max(r["traffic"][k] for r in ranks) for k in ranks[0]["traffic"]}
+    peak = max(r["peak"] for r in ranks)
+    log(f"phase 27 (e): walls a rank (the slowest rank's median): prefill {walls['prefill']:.2f} "
+        f"ms, decode {walls['decode']:.2f} ms a token; the stacked run at the same depth "
+        f"{swalls['prefill']:.2f} / {swalls['decode']:.2f} ms"
+        + (f"; phase 18's (8 layers, KIP moves) {served['prefill_ms']:.2f} / "
+           f"{served['decode_ms']:.2f} ms" if served is not None else "")
+        + f"; bytes handed to gloo by the serving run, the largest rank: {traffic}; peak "
+        f"allocated {peak / 1e9:.2f} GB a rank (parameters "
+        f"{max(r['param_bytes'] for r in ranks) / 1e9:.2f} GB; reckoned "
+        f"{(outside + MESH_LAYERS * per_layer) / 1e9:.2f}), the card's use with all ranks up "
+        f"{ranks[0]['card_used'] / 1e9:.2f} GB (reckoned parameters {reckoned / 1e9:.2f} GB); "
+        f"rank init {max(r['init_s'] for r in ranks):.1f} s; the ranks' run {spawn_s:.1f} s; "
+        f"card {card}")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    launch_rows = {"prefill_moe_apply": 2 * MESH_LAYERS, "prefill_replicated": MESH_LAYERS,
+                   "decoded_token": MESH_LAYERS}
+    return {"dispatch_count": {"launches_phase_27": launches["dispatch_count"],
+                               "launches_phase_27_per_call": launch_rows,
+                               "phase_27": dc_rows},
+            "flash_attention": {"launches_phase_27": launches["flash_attention"],
+                                "launches_phase_27_per_call": {"prefill": MESH_LAYERS,
+                                                               "decoded_token": 0}}}
 
 
 if __name__ == "__main__":

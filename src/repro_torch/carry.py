@@ -7,6 +7,12 @@ arrays) into the port's per-layer parameters, and ``opt_from_jax`` its
 ``OptState`` (step and the two Adam moment trees) into the port's, so
 both packages start a training step from the same state.
 
+Under a process mesh (``Policy.mesh``) a rank holds every dense leaf whole
+and only its own expert slots: :func:`rank_params` cuts a whole tree (the
+port's, or the reference's through ``params_from_jax``) to them, and
+:func:`init_rank_params` draws them alone, equal bit for bit to the same
+slots of the whole model's ``init_params`` from the same seed.
+
 The snapshot's keys are the reference's own (state tables, partitioner
 tables with ``heavy_repl``, split fields, sketch, tick counters, the lane
 topology's ``topology_*`` keys, the lane health record and quarantine
@@ -25,7 +31,8 @@ from repro_torch.core.streaming import StreamingJob
 from repro_torch.models.modules import Policy
 from repro_torch.train.optimizer import OptState
 
-__all__ = ["job_from_reference_snapshot", "opt_from_jax", "params_from_jax"]
+__all__ = ["init_rank_params", "job_from_reference_snapshot", "opt_from_jax",
+           "params_from_jax", "rank_params", "rank_slots"]
 
 
 def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
@@ -139,3 +146,61 @@ def _layers_from_jax(tree: dict, cfg: ArchConfig, convert) -> dict:
     for j in range(len(cfg.tail)):
         out[f"tail{j}"] = conv(tree[f"tail{j}"])
     return out
+
+
+def rank_slots(mesh, num_experts: int, place=None, *, tp_axis: str = "model") -> list[int]:
+    """The logical experts this rank's slots hold, in slot order: slots
+    ``[j * e_loc, (j + 1) * e_loc)`` on model coordinate ``j`` of ``mesh``
+    (a :class:`~repro_torch.launch.mesh.ProcessMesh`), ``e_loc =
+    num_experts / mesh.shape[tp_axis]``, under the placement ``place``
+    (slot ``p`` holds logical expert ``place[p]``; ``None``: the
+    identity)."""
+    ntp = mesh.shape[tp_axis]
+    if num_experts % ntp:
+        raise ValueError(f"experts {num_experts} not a multiple of the {ntp} ranks of "
+                         f"{tp_axis!r}")
+    e_loc, j = num_experts // ntp, mesh.index(tp_axis)
+    place = np.arange(num_experts) if place is None else np.asarray(place)
+    return [int(x) for x in place[j * e_loc: (j + 1) * e_loc]]
+
+
+def rank_params(params, mesh, *, tp_axis: str = "model"):
+    """This rank's cut of a whole parameter tree under ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ProcessMesh`): every MoE layer's
+    ``wi`` and ``wo`` keep slots ``[j * e_loc, (j + 1) * e_loc)`` on model
+    coordinate ``j`` (the ``"model"`` entry of the rules' decode specs,
+    ``launch/sharding.py``), copied so that the whole tree can be freed;
+    every other leaf is the same tensor.  A reference tree goes through
+    :func:`params_from_jax` first."""
+    def cut(node):
+        if isinstance(node, list):
+            return [cut(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if {"router", "wi", "wo"} <= set(node):
+            e = node["wi"].shape[0]
+            sl = rank_slots(mesh, e, tp_axis=tp_axis)
+            return {k: v[sl[0]: sl[-1] + 1].clone() if k in ("wi", "wo") else cut(v)
+                    for k, v in node.items()}
+        return {k: cut(v) for k, v in node.items()}
+
+    return cut(params)
+
+
+def init_rank_params(cfg: ArchConfig, seed: int, pol: Policy, *, place=None,
+                     device=None) -> dict:
+    """This rank's parameters under ``pol.mesh``, drawn as
+    ``model.init_params(cfg, seed, pol)`` draws the whole model, keeping
+    only the experts of :func:`rank_slots` (``place``: the placement the
+    slots follow, ``None`` the identity) in every MoE layer: no other
+    expert is ever held beside them.  They equal, bit for bit, the same
+    slots of the whole model's draw permuted by ``place``
+    (``moe.kip_placement.apply_placement_to_weights``)."""
+    from repro_torch.models import model
+
+    if pol.mesh is None:
+        raise ValueError("init_rank_params needs Policy.mesh: without one a rank holds "
+                         "every expert (model.init_params)")
+    slots = rank_slots(pol.mesh, cfg.moe.num_experts, place,
+                       tp_axis=pol.tp_axis) if cfg.moe is not None else None
+    return model.init_params(cfg, seed, pol, device=device, experts=slots)

@@ -19,6 +19,13 @@ hand-off of one tensor from each rank to the next (jax's ``ppermute``
 over ``i -> i + 1``).  Each helper adds the bytes it hands the collective
 to :attr:`WorkerGroup.traffic`.
 
+:meth:`WorkerGroup.split` cuts the world into subgroups (one mesh axis's
+ranks, say) and returns this rank's as a view: a ``WorkerGroup`` with its
+own ``rank``, ``world_size`` and ``ranks``, whose collectives run on the
+subgroup and add to the world's ``traffic``.  An
+``ExchangeSpec(group=view)`` ships over that axis alone, through the same
+backends.
+
 The backend is the caller's choice, ``"gloo"`` or ``"nccl"``, and it is
 never switched on a failure: a collective that fails raises.  Gloo takes
 CUDA tensors and stages them through host memory inside the collective;
@@ -49,9 +56,10 @@ BACKENDS = ("gloo", "nccl")
 
 
 class WorkerGroup:
-    """The default process group as the exchange plane sees it: this
-    process's ``rank`` among ``world_size`` workers, the ``device`` its
-    worker's tensors live on, and the collectives over them.
+    """The default process group as the exchange plane sees it (or, from
+    :meth:`split`, a view of one of its subgroups): this process's
+    ``rank`` among ``world_size`` workers, the ``device`` its worker's
+    tensors live on, and the collectives over them.
 
     ``traffic`` maps each collective kind (``"all_to_all"``,
     ``"all_to_all_uneven"``, ``"all_reduce"``, ``"all_gather"``,
@@ -73,7 +81,10 @@ class WorkerGroup:
         self.host_device = self.device if self.backend == "nccl" else torch.device("cpu")
         self.traffic = {"all_to_all": 0, "all_to_all_uneven": 0, "all_reduce": 0,
                         "all_gather": 0, "shift": 0}
+        self.ranks = tuple(range(self.world_size))  # global ranks, in this group's order
+        self._pg = None                              # None: the default (world) group
         self._tiers: dict[int, tuple] = {}
+        self._splits: dict[tuple, WorkerGroup] = {}
 
     @classmethod
     def init(cls, *, backend: str = "gloo", rank: int | None = None,
@@ -101,10 +112,50 @@ class WorkerGroup:
         return cls(device)
 
     def close(self) -> None:
-        """Leave the process group (every rank calls it)."""
+        """Leave the process group (every rank calls it on the world's
+        handle; that ends every subgroup too)."""
+        if self._pg is not None:
+            raise ValueError("close the world's WorkerGroup, not a subgroup's view")
         dist.destroy_process_group()
 
     # -- subgroups --------------------------------------------------------
+    def split(self, partition) -> "WorkerGroup":
+        """This rank's view of its part of ``partition``: disjoint lists of
+        global ranks that cover the world, each in the order its subgroup
+        numbers them.  Every rank calls it together with the same
+        ``partition`` (``dist.new_group`` is collective and builds every
+        part on every rank, in the listed order); a later call with the
+        same partition returns the cached view.
+
+        The view's ``rank`` and ``world_size`` are its place and size in
+        the subgroup, ``ranks`` its members' global ranks; its collectives
+        run on the subgroup and add their bytes to this group's
+        ``traffic``."""
+        if self._pg is not None:
+            raise ValueError("split the world's WorkerGroup, not a subgroup's view")
+        parts = tuple(tuple(int(r) for r in part) for part in partition)
+        members = sorted(r for part in parts for r in part)
+        if members != list(range(self.world_size)):
+            raise ValueError(f"a partition of the {self.world_size} ranks must hold each "
+                             f"once, got {[list(p) for p in parts]}")
+        if parts not in self._splits:
+            mine = None
+            for part in parts:
+                pg = dist.new_group(list(part))
+                if self.rank in part:
+                    mine = (part, pg)
+            self._splits[parts] = self._view(*mine)
+        return self._splits[parts]
+
+    def _view(self, ranks: tuple, pg) -> "WorkerGroup":
+        view = object.__new__(WorkerGroup)
+        view.backend, view.device, view.host_device = self.backend, self.device, self.host_device
+        view.rank, view.world_size = ranks.index(self.rank), len(ranks)
+        view.ranks, view._pg = ranks, pg
+        view.traffic = self.traffic
+        view._tiers, view._splits = {}, {}
+        return view
+
     def tiers(self, lanes_per_host: int) -> tuple:
         """``(intra, inter)``: this rank's subgroup of the ranks on its
         modeled host (``rank // lanes_per_host``) and of the ranks at its
@@ -113,6 +164,8 @@ class WorkerGroup:
         one order (``dist.new_group`` is collective), so all ranks must
         make it together; later calls return the cached pair."""
         g = int(lanes_per_host)
+        if self._pg is not None:
+            raise ValueError("build the tiers on the world's WorkerGroup, not a subgroup's view")
         if g not in self._tiers:
             w = self.world_size
             if g < 1 or w % g:
@@ -132,7 +185,7 @@ class WorkerGroup:
         x = x.contiguous()
         out = torch.empty_like(x)
         self.traffic["all_to_all"] += x.numel() * x.element_size()
-        dist.all_to_all_single(out, x, group=group)
+        dist.all_to_all_single(out, x, group=self._pg if group is None else group)
         return out
 
     def all_to_all_uneven(self, x: torch.Tensor, send: list[int],
@@ -144,7 +197,7 @@ class WorkerGroup:
         out = x.new_empty((int(sum(recv)),) + tuple(x.shape[1:]))
         self.traffic["all_to_all_uneven"] += x.numel() * x.element_size()
         dist.all_to_all_single(out, x, output_split_sizes=[int(r) for r in recv],
-                               input_split_sizes=[int(s) for s in send])
+                               input_split_sizes=[int(s) for s in send], group=self._pg)
         return out
 
     def _reduce(self, tensors, op, dtype=None) -> tuple:
@@ -156,7 +209,7 @@ class WorkerGroup:
                      else torch.int64)
         flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
         self.traffic["all_reduce"] += flat.numel() * flat.element_size()
-        dist.all_reduce(flat, op=op)
+        dist.all_reduce(flat, op=op, group=self._pg)
         out, at = [], 0
         for t in tensors:
             out.append(flat[at: at + t.numel()].view(t.shape).to(t.dtype))
@@ -187,7 +240,7 @@ class WorkerGroup:
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
             parts = [torch.empty_like(flat) for _ in range(w)]
             self.traffic["all_gather"] += flat.numel() * flat.element_size()
-            dist.all_gather(parts, flat)
+            dist.all_gather(parts, flat, group=self._pg)
             rows = torch.stack(parts)
             at = 0
             for i in idx:
@@ -210,7 +263,7 @@ class WorkerGroup:
         out = torch.zeros_like(flat)
         self.traffic["shift"] += sum(send) * flat.element_size()
         dist.all_to_all_single(out[: sum(recv)], flat[: sum(send)], output_split_sizes=recv,
-                               input_split_sizes=send)
+                               input_split_sizes=send, group=self._pg)
         return out.view(x.shape)
 
     def host_max(self, values) -> np.ndarray:
@@ -226,13 +279,14 @@ class WorkerGroup:
     def all_gather_object(self, obj) -> list:
         """A picklable value of every rank, in rank order."""
         out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self._pg)
         return out
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self._pg)
 
     def __repr__(self) -> str:
+        sub = "" if self._pg is None else f", ranks={list(self.ranks)}"
         return (f"WorkerGroup(backend={self.backend!r}, rank={self.rank}, "
-                f"world_size={self.world_size}, device={str(self.device)!r})")
+                f"world_size={self.world_size}{sub}, device={str(self.device)!r})")
 

@@ -10,6 +10,15 @@ and :func:`device_mesh` lays one over the ranks of a process group as a
 constants: importing this module touches no device and no process group,
 as the reference's rule says.
 
+:class:`ProcessMesh` is a ``MeshShape`` laid over the ranks of a
+:class:`~repro_torch.exchange.dist.WorkerGroup` in rank order, one rank a
+device, as ``device_mesh`` lays it: this rank's coordinates, and the
+subgroup of any axis or tuple of axes (:meth:`WorkerGroup.split` views),
+built by every rank together when the mesh is made.  It reads as a
+``MeshShape`` does, so ``dp_axes_of``, ``tp_size`` and the rules take it;
+``Policy(mesh=...)`` executes under it (``launch/sharding.py``
+``make_policy``, ``moe/layer.py``).
+
 The reference reads a mesh's process placement
 (``repro.launch.mesh.exchange_topology_of``): lanes are host-major, and
 ``lanes_per_host`` is the contiguous run of the first host along the
@@ -24,14 +33,17 @@ overrides it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import socket
 from typing import Sequence
 
+import numpy as np
+
 from repro_torch.exchange.spec import ExchangeTopology
 
-__all__ = ["MeshShape", "device_mesh", "dp_axes_of", "dp_size", "exchange_topology_of",
-           "lanes_per_host_of", "make_production_mesh", "tp_size"]
+__all__ = ["MeshShape", "ProcessMesh", "device_mesh", "dp_axes_of", "dp_size",
+           "exchange_topology_of", "lanes_per_host_of", "make_production_mesh", "tp_size"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +75,76 @@ class MeshShape:
     def size(self) -> int:
         """The number of devices."""
         return math.prod(self.dims)
+
+
+class ProcessMesh:
+    """``layout`` (a :class:`MeshShape`) laid over the ranks of ``group``
+    (the world's :class:`~repro_torch.exchange.dist.WorkerGroup`) in rank
+    order, the last axis minor: rank ``r`` sits at ``np.unravel_index(r,
+    layout.dims)``.  A ``(data, model)`` mesh's model subgroups are then
+    the contiguous runs ``WorkerGroup.tiers(model)`` calls hosts.
+
+    Every rank makes it together (``ValueError`` unless the group has as
+    many ranks as the mesh has devices): it builds the subgroup of every
+    non-empty tuple of axes, in one order, and keeps this rank's.  A
+    subgroup numbers its ranks by their coordinates along its axes, major
+    first.  ``.shape``, ``.axis_names`` and ``.dims`` read as
+    ``MeshShape``'s."""
+
+    def __init__(self, layout: MeshShape, group):
+        if group.world_size != layout.size:
+            raise ValueError(f"a mesh of {layout.size} devices {layout.dims} cannot be laid "
+                             f"over a group of {group.world_size} ranks")
+        self.layout, self.group = layout, group
+        names, dims = layout.axis_names, layout.dims
+        self.coords = {a: int(c) for a, c in zip(names, np.unravel_index(group.rank, dims))}
+        grid = np.arange(layout.size).reshape(dims)
+        self._subgroups = {}
+        for n in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n):
+                if n == len(names):
+                    self._subgroups[axes] = group
+                    continue
+                keep = [names.index(a) for a in axes]
+                rest = [i for i in range(len(names)) if i not in keep]
+                parts = grid.transpose(rest + keep).reshape(-1, math.prod(dims[i] for i in keep))
+                self._subgroups[axes] = group.split(parts.tolist())
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return self.layout.shape
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.layout.axis_names
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return self.layout.dims
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        """``axes`` (a name or a tuple of names) in mesh order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} are not distinct axes of {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def subgroup(self, axes):
+        """The :class:`~repro_torch.exchange.dist.WorkerGroup` view of the
+        ranks that share this rank's coordinates off ``axes`` (a name or a
+        tuple of names): all of them is the world's group itself."""
+        return self._subgroups[self._axes(axes)]
+
+    def index(self, axes) -> int:
+        """This rank's linear index along ``axes`` (mesh order, major
+        first): its rank in :meth:`subgroup`; 0 for no axes."""
+        axes = self._axes(axes)
+        return self._subgroups[axes].rank if axes else 0
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.dims}, {self.axis_names}, rank {self.group.rank} at "
+                f"{self.coords})")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -21,8 +21,13 @@ is the reference's without the leading ``None`` that ``_pad`` puts on the
 period axis.  Build full-size trees for the rules with
 ``model.abstract_params`` (meta tensors, no storage).
 
-``make_policy`` (a ``Policy`` that executes under a mesh) is not ported:
-``Policy.mesh`` still raises (ROADMAP.md, queue 1 item 10).
+:func:`make_policy` is the reference's: the ``Policy`` that runs a model
+under a :class:`~repro_torch.launch.mesh.ProcessMesh`, every field as the
+reference sets it.  Its ``shard`` callback returns ``x`` unchanged: every
+rank holds the activations whole, and the reference's constraint changes
+their layout, not their values.  The table it constrains by (logical
+activation name -> spec) stays here as :func:`activation_specs`, for the
+tensor-parallel layout that would redistribute by it.
 """
 from __future__ import annotations
 
@@ -34,9 +39,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import dp_axes_of
+from repro_torch.models.modules import Policy, no_shard
 
-__all__ = ["NamedSpec", "ShardingOptions", "batch_shardings", "cache_shardings",
-           "default_options", "param_shardings"]
+__all__ = ["NamedSpec", "ShardingOptions", "activation_specs", "batch_shardings",
+           "cache_shardings", "default_options", "make_policy", "param_shardings",
+           "policy_fields"]
 
 TP = "model"
 
@@ -64,6 +71,71 @@ def default_options(cfg: ArchConfig) -> ShardingOptions:
     big = cfg.param_count() > 20e9
     huge = cfg.param_count() > 100e9
     return ShardingOptions(fsdp=big, moment_dtype=torch.bfloat16 if huge else torch.float32)
+
+
+def _data_axes(mesh, opts: ShardingOptions) -> tuple[str, ...]:
+    """The batch axes: the whole mesh under ``pure_dp``, else the data
+    axes."""
+    return tuple(mesh.axis_names) if opts.pure_dp else dp_axes_of(mesh)
+
+
+def policy_fields(mesh, opts: ShardingOptions) -> dict:
+    """The fields :func:`make_policy` sets beside ``mesh`` and ``shard``,
+    read from ``mesh``'s shape alone (any object with ``.shape`` and
+    ``.axis_names``): ``tp`` the model axis's size (1 under ``pure_dp``),
+    ``dp_axes`` the data axes (the whole mesh under ``pure_dp``), and the
+    options' dtypes, chunks and knobs."""
+    return dict(
+        param_dtype=opts.param_dtype,
+        compute_dtype=opts.compute_dtype,
+        tp=1 if opts.pure_dp else mesh.shape[TP],
+        dp_axes=_data_axes(mesh, opts),
+        tp_axis=TP,
+        remat=opts.remat,
+        attn_q_chunk=opts.attn_q_chunk,
+        attn_kv_chunk=opts.attn_kv_chunk,
+        attn_p_bf16=opts.attn_p_bf16,
+        recurrent_bf16=opts.recurrent_bf16,
+        remat_policy=opts.remat_policy,
+        moe_capacity_factor=opts.moe_cf,
+        slstm_unroll=opts.slstm_unroll,
+    )
+
+
+def make_policy(cfg: ArchConfig, mesh, shape_kind: str, opts: ShardingOptions) -> Policy:
+    """The reference's ``make_policy``: ``Policy()`` for ``mesh=None``, else
+    a policy that executes under ``mesh`` (a :class:`~repro_torch.launch.
+    mesh.ProcessMesh`; anything else raises ``ValueError`` in ``Policy``)
+    with :func:`policy_fields`.  Its ``shard`` is the identity: the
+    reference's constraints (:func:`activation_specs`) move no value."""
+    if mesh is None:
+        return Policy()
+    return Policy(shard=no_shard, mesh=mesh, **policy_fields(mesh, opts))
+
+
+def activation_specs(mesh, shape_kind: str, opts: ShardingOptions) -> dict:
+    """The specs the reference's ``make_policy`` constrains each logical
+    activation name to (``act_btd``, ``act_q``, ``act_kv``,
+    ``ffn_hidden4``, ``ssm_inner``, ``logits``), as :class:`NamedSpec`
+    on ``mesh``; under ``pure_dp`` only ``act_btd`` and ``logits``, batch
+    over the whole mesh.  Empty where it constrains nothing: decode, or
+    ``sp`` off.  A tensor of another rank than its spec's is left as it
+    is there."""
+    if shape_kind not in ("train", "prefill") or not opts.sp:
+        return {}
+    dp = _data_axes(mesh, opts)
+    dp_spec = dp if len(dp) > 1 else dp[0]
+    if opts.pure_dp:
+        return {name: NamedSpec(mesh, (dp_spec, None, None)) for name in ("act_btd", "logits")}
+    specs = {
+        "act_btd": (dp_spec, TP, None),
+        "act_q": (dp_spec, None, TP, None),
+        "act_kv": (dp_spec, None, TP, None),
+        "ffn_hidden4": (dp_spec, None, None, TP),
+        "ssm_inner": (dp_spec, None, TP),
+        "logits": (dp_spec, None, TP),
+    }
+    return {name: NamedSpec(mesh, spec) for name, spec in specs.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,17 +40,22 @@ def is_encdec(cfg: ArchConfig) -> bool:
     return cfg.encdec
 
 
-def init_params(cfg: ArchConfig, seed: int, pol: Policy, *, device=None) -> dict:
+def init_params(cfg: ArchConfig, seed: int, pol: Policy, *, device=None,
+                experts=None) -> dict:
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``
     (``device=None``: the CUDA device).  ``device="meta"`` gives their
-    shapes and dtypes only (:func:`abstract_params`)."""
+    shapes and dtypes only (:func:`abstract_params`).  ``experts`` keeps
+    only those logical experts, in slot order, in every MoE layer
+    (``carry.init_rank_params``)."""
     if device is not None and torch.device(device) == META:
         gen = ShapeOnly()
     else:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
     if is_encdec(cfg):
+        if experts is not None:
+            raise ValueError(f"{cfg.name} has no MoE layers to keep experts of")
         return encdec.init_params(cfg, gen, pol)
-    return transformer.init_params(cfg, gen, pol)
+    return transformer.init_params(cfg, gen, pol, experts)
 
 
 def loss_fn(params, batch, cfg: ArchConfig, pol: Policy, inv_place=None):

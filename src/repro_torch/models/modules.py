@@ -44,15 +44,28 @@ def no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    """dtype policy threaded through the model (one device: ``shard`` is
-    the identity and ``tp`` only pads the head layout).
+    """dtype policy threaded through the model.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`: a mesh laid
+    over the ranks of a process group; ``None``: one process) runs the
+    model SPMD, every rank the same calls on the same inputs, as
+    ``launch/sharding.py`` ``make_policy`` sets it up.  Every rank holds
+    the activations and the dense leaves whole (``shard``, the reference's
+    layout constraint, changes no value: the identity here), and only its
+    own expert slots (``carry.rank_params``).  The MoE layers run the
+    reference's ``shard_map`` bodies on each rank over the mesh's
+    ``tp_axis`` subgroup, the batch over ``dp_axes``
+    (``moe/layer.py``).  Anything else as ``mesh``, a bare ``MeshShape``
+    included (it has no ranks to run on), raises ``ValueError``; so does
+    ``mesh`` with ``ep_shards``.
 
     ``ep_shards`` stands for what the reference reads as
-    ``mesh.shape[tp_axis]``: the number of expert-parallel shards, stacked
-    on the one device.  At 0 the MoE layers run the dense oracle
-    ``moe_ref``, as the reference does with ``mesh=None``; ``tp`` alone
-    never switches the path.  ``moe_capacity_factor`` (0: the config's)
-    and ``exchange_backend`` (the dispatch transport: ``"dense"``,
+    ``mesh.shape[tp_axis]`` on one process: the number of expert-parallel
+    shards, stacked on the one device.  At 0 (and no mesh) the MoE layers
+    run the dense oracle ``moe_ref``, as the reference does with
+    ``mesh=None``; ``tp`` alone never switches the path (it pads the head
+    layout).  ``moe_capacity_factor`` (0: the config's) and
+    ``exchange_backend`` (the dispatch transport: ``"dense"``,
     ``"ragged"``, an instance, or ``None`` for dense) are the reference's.
 
     ``remat`` checkpoints each period's activations in training
@@ -62,16 +75,15 @@ class Policy:
     again; any other policy raises ``ValueError``.  ``recurrent_bf16``
     rounds the mLSTM's ``[chunk, chunk]`` weight products' operands to
     bf16 (float32 sums), and ``slstm_unroll`` is the reference's sLSTM
-    scan grouping, which changes no bit (``models/xlstm.py``).
-
-    ``mesh`` is kept so that setting it fails loudly: it raises
-    ``NotImplementedError`` (ROADMAP.md, queue 1 item 10)."""
+    scan grouping, which changes no bit (``models/xlstm.py``)."""
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     shard: Shard = no_shard
-    tp: int = 1                      # head padding target
-    mesh: object = None
+    tp: int = 1                      # model-axis size (head padding target)
+    mesh: object = None              # ProcessMesh (None: one process)
+    dp_axes: tuple = ("data",)       # batch axes ("pod", "data") multi-pod
+    tp_axis: str = "model"
     remat: bool = False
     attn_q_chunk: int = 2048         # the plain flash version's chunks
     attn_kv_chunk: int = 2048
@@ -86,10 +98,16 @@ class Policy:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                f"Policy.mesh={self.mesh!r}: executing under a mesh (make_policy's shard "
-                f"callback, the MoE layers over a group's model axis) is the next slice "
-                f"of the port and not ported yet (ROADMAP.md, queue 1 item 10)")
+            from repro_torch.launch.mesh import ProcessMesh
+
+            if not isinstance(self.mesh, ProcessMesh):
+                raise ValueError(
+                    f"Policy.mesh needs a ProcessMesh (launch.mesh.ProcessMesh: a MeshShape "
+                    f"laid over the ranks of a WorkerGroup), got {self.mesh!r}; a bare "
+                    f"MeshShape has no ranks to run on")
+            if self.ep_shards:
+                raise ValueError(f"Policy.mesh and Policy.ep_shards={self.ep_shards} both set: "
+                                 f"the mesh's {self.tp_axis!r} axis holds the EP shards")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"Policy.remat_policy must be one of {REMAT_POLICIES}, got "
                              f"{self.remat_policy!r}")

@@ -9,11 +9,13 @@ entry per layer: ``params["layers"][i]`` is layer ``i = period *
 len(pattern) + j`` (pattern position ``j``), and the non-repeating tail
 blocks stay ``params["tail{j}"]``, as in the reference.
 
-A ``moe`` FFN runs ``repro_torch.moe.layer`` with the reference's rule:
-the dense oracle ``moe_ref`` without EP shards (``Policy.ep_shards == 0``,
-the reference's ``mesh=None``), else ``moe_apply`` when the sequence
-splits over the shards and is longer than one token, else
-``moe_apply_replicated``.  ``inv_place`` (logical expert -> physical slot,
+A ``moe`` FFN runs ``repro_torch.moe.layer`` with the reference's rule.
+Under ``Policy.mesh``: ``moe_apply`` when ``Policy.tp`` divides the
+sequence and it is longer than one token, else ``moe_apply_replicated``.
+Without a mesh: the dense oracle ``moe_ref`` without EP shards
+(``Policy.ep_shards == 0``, the reference's ``mesh=None``), else
+``moe_apply`` when the sequence splits over the stacked shards and is
+longer than one token, else ``moe_apply_replicated``.  ``inv_place`` (logical expert -> physical slot,
 ``None``: the identity) is the KIP placement the expert weights are laid
 out by.
 
@@ -89,7 +91,7 @@ def layers(cfg: ArchConfig) -> list[Block]:
 
 
 def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayout,
-                pol: Policy) -> dict:
+                pol: Policy, experts=None) -> dict:
     dt, dev = pol.param_dtype, gen.device
     p: dict[str, Any] = {"ln1": init_norm(cfg.norm_kind, cfg.d_model, dt, dev)}
     if blk.mixer == "mamba":
@@ -107,7 +109,7 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, blk: Block, lay: HeadLayo
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, dt)
     elif blk.ffn == "moe":
         p["ln2"] = init_norm(cfg.norm_kind, cfg.d_model, dt, dev)
-        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, dt)
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, dt, experts)
     return p
 
 
@@ -117,8 +119,10 @@ def _heads_p(cfg: ArchConfig, pol: Policy) -> int:
     return -(-h // pol.tp) * pol.tp
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
-    """Random parameters drawn from ``gen`` on its device."""
+def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy, experts=None) -> dict:
+    """Random parameters drawn from ``gen`` on its device; every MoE layer
+    keeps only ``experts`` (logical ids in slot order, ``None``: all; see
+    ``moe.layer.init_moe``)."""
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, pol.tp)
     params: dict[str, Any] = {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, pol.param_dtype),
@@ -127,9 +131,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, pol: Policy) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (pad_vocab(cfg.vocab_size), cfg.d_model),
                                    cfg.d_model**-0.5, pol.param_dtype)
-    params["layers"] = [_init_block(gen, cfg, blk, lay, pol) for blk in layers(cfg)]
+    params["layers"] = [_init_block(gen, cfg, blk, lay, pol, experts) for blk in layers(cfg)]
     for j, blk in enumerate(cfg.tail):
-        params[f"tail{j}"] = _init_block(gen, cfg, blk, lay, pol)
+        params[f"tail{j}"] = _init_block(gen, cfg, blk, lay, pol, experts)
     return params
 
 
@@ -173,8 +177,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, pol: Policy, *,
 
 
 def _moe_fn(h: torch.Tensor, pol: Policy):
-    """The reference's path rule (``pol.ep_shards`` stands for the mesh's
-    model-axis size; no shards is its ``mesh=None``)."""
+    """The reference's path rule: under a mesh by ``pol.tp``; without one,
+    ``pol.ep_shards`` stands for the mesh's model-axis size and no shards
+    is its ``mesh=None``."""
+    if pol.mesh is not None:
+        if h.shape[1] % pol.tp == 0 and h.shape[1] > 1:
+            return moe_apply         # prefill: the sequence splits over the model axis
+        return moe_apply_replicated  # decode: tokens replicated over EP
     if pol.ep_shards == 0:
         return moe_ref
     if h.shape[1] % pol.ep_shards == 0 and h.shape[1] > 1:

@@ -1,35 +1,56 @@
 """Expert-parallel MoE layer with DR-style dispatch, over EP shards stacked
-on one device (a port of ``repro.moe.layer``).
+on one device or over a process mesh's model axis (a port of
+``repro.moe.layer``).
 
 The token -> expert exchange *is* the paper's keyed shuffle: keys are
 expert ids, partitions are EP shards, and the routing table is the KIP
 placement (``inv_place``: logical expert -> physical slot).  The reference
-runs the layer under ``shard_map`` over ``(data, model)``; the port keeps
-its ``N = Policy.ep_shards`` model shards stacked on the leading axis of
-``[N, ...]`` tensors, as ``StreamingJob`` stacks its workers, with one
-data shard.  The exchange is the port's plane (``repro_torch.exchange``):
-hop 1 ships over the policy's transport (dense or ragged), hop 2 buckets
-into local experts with the ``dispatch_count`` kernel on the card, and the
-combine rides the same lanes back (``backhaul`` + ``take_from``).
+runs the layer under ``shard_map`` over ``(data, model)``.  The port runs
+it two ways.  Stacked (``Policy.ep_shards = N``): the ``N`` model shards
+live on the leading axis of ``[N, ...]`` tensors on one device, as
+``StreamingJob`` stacks its workers, with one data shard.  Over a mesh
+(``Policy.mesh``, a :class:`~repro_torch.launch.mesh.ProcessMesh`): each
+rank runs the reference's ``shard_map`` body on its own block, its
+tensors ``[1, ...]``, and the records cross processes over the mesh's
+model-axis subgroup.  Either way the exchange is the port's plane
+(``repro_torch.exchange``): hop 1 ships over the policy's transport
+(dense or ragged), hop 2 buckets into local experts with the
+``dispatch_count`` kernel on the card, and the combine rides the same
+lanes back (``backhaul`` + ``take_from``).
 
 Three evaluation paths, as in the reference:
 
 * ``moe_ref`` — the dense oracle (every expert on every token, exact
   combine): the plain version of the whole layer.
 * ``moe_apply`` — the distributed dispatch: shard ``m`` holds the
-  sequence slice ``[m * S / N, (m + 1) * S / N)`` of every batch row and
-  the experts of physical slots ``[m * E / N, (m + 1) * E / N)``.
+  sequence slice ``[m * S / N, (m + 1) * S / N)`` of every batch row (of
+  its data coordinate's batch block, over a mesh) and the experts of
+  physical slots ``[m * E / N, (m + 1) * E / N)``.
 * ``moe_apply_replicated`` — decode: the tokens go to every shard, each
-  computes its own experts, and the shards' partial outputs are summed.
+  computes its own experts (over a mesh, its data coordinate's ``F /
+  dpn`` slice of them), and the shards' partial outputs are summed.
 
-The router runs once over all tokens in ``[B, S]`` order on every path,
-so the three paths route a token alike on one device.  Within one
+Stacked, the router runs once over all tokens in ``[B, S]`` order on every
+path, so the three paths route a token alike on one device.  Within one
 record's shard the ``psum`` of the reference is a sum over the stacked
 axis; the shared expert, F-sliced over the model axis in the reference's
 decode path, is one FFN here (the sum of its slices).
+
+Over a mesh, every rank holds ``x`` whole and gets ``y`` whole back:
+``moe_apply`` gathers the ranks' blocks over the whole mesh, and
+``moe_apply_replicated`` sums their partial outputs in one float32
+all-reduce (cast back to the compute dtype).  A rank's ``wi`` and ``wo``
+hold its own slots (``carry.rank_params``).  The statistics are the reference's: ``counts``, ``overflow``
+and ``aux_loss`` summed (``aux_loss`` averaged) over all ranks in
+float32, ``shipped_rows`` and ``occupied_rows`` in int64.  ``moe_apply``
+needs the data axes to divide ``B`` and the model axis to divide ``S``
+(``ValueError``): the reference's ``shard_map`` raises there too, so its
+``ServeEngine``, which prefills ``[1, S]``, cannot serve a MoE model on a
+mesh whose data axes hold more than one device (ROADMAP.md, queue 3).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -67,15 +88,38 @@ class MoEOut(NamedTuple):
                              occupied_rows=occ, backend=backend)
 
 
-def init_moe(gen: torch.Generator, d: int, spec: MoESpec, ffn_kind: str, dtype) -> dict:
+def init_moe(gen: torch.Generator, d: int, spec: MoESpec, ffn_kind: str, dtype,
+             experts=None) -> dict:
     """Router (float32), stacked expert FFNs ``wi [E, d, gate, f]``, ``wo
-    [E, f, d]`` and the shared expert, drawn from ``gen``."""
+    [E, f, d]`` and the shared expert, drawn from ``gen`` in that order,
+    one expert at a time (every ``wi``, then every ``wo``).
+
+    ``experts`` (logical expert ids in slot order; ``None``: all, in
+    order) keeps only those experts' draws, stacked in that order: the
+    others are drawn and dropped, so the kept slots equal the same experts
+    of the whole draw bit for bit while no more than one other expert is
+    ever held (a rank's cut, ``carry.init_rank_params``)."""
     e, f = spec.num_experts, spec.d_ff_expert
     gate = 2 if ffn_kind in ("swiglu", "geglu") else 1
+    keep = list(range(e)) if experts is None else [int(x) for x in experts]
+    if sorted(set(keep)) != sorted(keep) or not all(0 <= x < e for x in keep):
+        raise ValueError(f"experts {keep} are not distinct ids below {e}")
+    slot = {x: i for i, x in enumerate(keep)}
+
+    def stacked(shape, scale):
+        if gen.device.type == "meta":  # shapes only (model.abstract_params)
+            return torch.empty((len(keep),) + shape, dtype=dtype, device="meta")
+        out = torch.empty((len(keep),) + shape, dtype=dtype, device=gen.device)
+        for x in range(e):
+            w = normal(gen, shape, scale, dtype)
+            if x in slot:
+                out[slot[x]] = w
+        return out
+
     p = {
         "router": normal(gen, (d, e), d**-0.5, torch.float32),
-        "wi": normal(gen, (e, d, gate, f), d**-0.5, dtype),
-        "wo": normal(gen, (e, f, d), f**-0.5, dtype),
+        "wi": stacked((d, gate, f), d**-0.5),
+        "wo": stacked((f, d), f**-0.5),
     }
     if spec.shared_expert:
         p["shared"] = init_ffn(gen, d, f, ffn_kind, dtype)
@@ -167,7 +211,11 @@ def moe_apply(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str, pol: Polic
     """``x [B, S, d]`` with ``S`` a multiple of ``N = pol.ep_shards``: each
     shard routes its sequence slice, ships every record to the shard that
     owns its expert (hop 1), buckets the received records into its local
-    experts (hop 2), and the results ride the same lanes back."""
+    experts (hop 2), and the results ride the same lanes back.  Under
+    ``pol.mesh`` each rank does so for its own block
+    (:func:`_moe_apply_mesh`)."""
+    if pol.mesh is not None:
+        return _moe_apply_mesh(p, x, spec, ffn_kind, pol, inv_place)
     n, e_loc = _shards(pol, spec)
     b, s, d = x.shape
     if s % n:
@@ -237,7 +285,11 @@ def moe_apply_replicated(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str,
     """Decode-path EP (no weight movement): every shard sees every token,
     buckets the (token, expert) pairs of its own experts locally, runs
     them, and the shards' partial outputs are summed (the reference's
-    ``psum``).  With one data shard each expert's F-slice is all of F."""
+    ``psum``).  With one data shard each expert's F-slice is all of F.
+    Under ``pol.mesh`` each rank computes its own partial output
+    (:func:`_moe_replicated_mesh`)."""
+    if pol.mesh is not None:
+        return _moe_replicated_mesh(p, x, spec, ffn_kind, pol, inv_place)
     n, e_loc = _shards(pol, spec)
     b, s, d = x.shape
     e, k = spec.num_experts, spec.top_k
@@ -270,4 +322,181 @@ def moe_apply_replicated(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str,
     counts = torch.bincount(rec_e.long(), minlength=e).to(torch.float32)
     # the reference's pmean over the shards times the model-axis size
     return MoEOut(y.reshape(b, s, d), counts, overflow.mean() * n,
+                  _aux_loss(probs, ids, e))
+
+
+# ---------------------------------------------------------------------------
+# over a process mesh: the reference's shard_map bodies, one rank each
+# ---------------------------------------------------------------------------
+
+
+class _MeshAxes(NamedTuple):
+    mesh: object        # the ProcessMesh
+    dp: tuple           # the data axes, mesh order
+    tp: str             # the model axis
+    dpn: int            # ranks over the data axes
+    ntp: int            # ranks over the model axis
+    e_loc: int          # experts a model shard
+    i: int              # this rank's index over the data axes
+    j: int              # ... and over the model axis
+
+
+def _mesh_axes(pol: Policy, spec: MoESpec, p: dict, x: torch.Tensor) -> _MeshAxes:
+    """The mesh's axes as the layer reads them; raises for a mesh the layer
+    cannot run over, and for autograd: the hops over the group carry no
+    gradient (training under the mesh is not ported, ROADMAP.md queue 1)."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in (p["router"], p["wi"], p["wo"]))):
+        raise NotImplementedError("training under Policy.mesh is not ported: the MoE hops "
+                                  "over the group carry no gradient (ROADMAP.md, queue 1)")
+    pm, dp, tp = pol.mesh, tuple(pol.dp_axes), pol.tp_axis
+    if tp in dp or set(pm.axis_names) != set(dp) | {tp}:
+        raise ValueError(f"the MoE layers run over data axes {dp} and a model axis {tp!r} "
+                         f"that together are the mesh's axes {pm.axis_names}")
+    ntp = pm.shape[tp]
+    if spec.num_experts % ntp:
+        raise ValueError(f"experts {spec.num_experts} not a multiple of the model axis's "
+                         f"{ntp} ranks")
+    dpn = math.prod(pm.shape[a] for a in dp)
+    return _MeshAxes(pm, dp, tp, dpn, ntp, spec.num_experts // ntp, pm.index(dp), pm.index(tp))
+
+
+def _rank_slots(p: dict, ax: _MeshAxes) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's ``wi`` and ``wo``: its model shard's ``e_loc`` experts,
+    as ``carry.rank_params`` and ``carry.init_rank_params`` cut them."""
+    wi, wo = p["wi"], p["wo"]
+    if wi.shape[0] != ax.e_loc or wo.shape[0] != ax.e_loc:
+        raise ValueError(f"a rank holds its model shard's {ax.e_loc} experts "
+                         f"(carry.rank_params), got wi {tuple(wi.shape)}")
+    return wi, wo
+
+
+def _moe_apply_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str, pol: Policy,
+                    inv_place: torch.Tensor | None) -> MoEOut:
+    """``moe_apply`` on rank ``(i, j)``: batch block ``i`` over the data
+    axes, sequence block ``j`` over the model axis, as ``P(dp, tp, None)``
+    gives ``shard_map``'s body; hop 1 and the backhaul over the model
+    subgroup, ``y`` gathered over the whole mesh."""
+    ax = _mesh_axes(pol, spec, p, x)
+    b, s, d = x.shape
+    if b % ax.dpn:
+        raise ValueError(
+            f"moe_apply: the data axes {ax.dp} ({ax.dpn} ranks) do not divide the batch {b}; "
+            f"the reference's shard_map splits the batch evenly over them (P(dp, tp, None)), "
+            f"so a prefill of [1, S] with S a multiple of the model axis cannot run on a mesh "
+            f"whose data axes hold more than one device")
+    if s % ax.ntp:
+        raise ValueError(f"moe_apply: the model axis's {ax.ntp} ranks do not divide the "
+                         f"sequence {s} (the reference's shard_map splits it evenly)")
+    e, k = spec.num_experts, spec.top_k
+    cf = pol.moe_capacity_factor or spec.capacity_factor
+    cd = pol.compute_dtype
+    if inv_place is None:
+        inv_place = _identity_place(spec, x.device)
+    b_l, s_l = b // ax.dpn, s // ax.ntp
+    x_loc = x[ax.i * b_l: (ax.i + 1) * b_l, ax.j * s_l: (ax.j + 1) * s_l]
+    t = x_loc.reshape(-1, d)
+    tn = t.shape[0]
+    w, ids, probs = _route(p["router"], t, spec)
+    rec_e = ids.reshape(1, tn * k)
+    rec_w = w.reshape(1, tn * k)
+    phys = inv_place.to(device=x.device, dtype=torch.int32)[rec_e.long()]
+    dev = phys // ax.e_loc
+    eloc = phys % ax.e_loc
+    rec_x = t.to(cd).repeat_interleave(k, dim=0)[None]
+
+    # hop 1 over the model subgroup, on the policy's transport
+    c1 = _capacity(cf, tn * k, ax.ntp)
+    ship = make_exchange(ExchangeSpec(num_lanes=ax.ntp, capacity=c1, axis=ax.tp,
+                                      group=ax.mesh.subgroup(ax.tp)), pol.exchange_backend)
+    res1 = ship(dev, torch.ones_like(dev, dtype=torch.bool),
+                [Payload(rec_x, 0), Payload(eloc, 0)])
+    rvalid, (rxf, ref_) = res1.unpack()
+
+    # hop 2: the received records into this rank's experts, locally
+    c2 = _capacity(cf, tn * k, ax.e_loc)
+    local = make_exchange(ExchangeSpec(num_lanes=ax.e_loc, capacity=c2))
+    res2 = local.bucketize(ref_, rvalid, [Payload(rxf, 0)])
+    overflow = (res1.send.overflow + res2.send.overflow).sum().to(torch.float32)
+    wi, wo = _rank_slots(p, ax)
+    eout = _expert_ffn(wi.to(cd), wo.to(cd), res2.payloads[0].reshape(ax.e_loc, c2, d),
+                       ffn_kind)
+
+    back = take_from(eout.reshape(1, ax.e_loc, c2, d), res2.send).reshape(1, ax.ntp, c1, d)
+    ret, back_shipped, back_occupied = ship.backhaul(back, forward=res1)
+    val = take_from(ret, res1.send)
+    y = (val * rec_w[..., None].to(cd)).reshape(tn, k, d).sum(dim=1)
+    if "shared" in p:
+        y = y + apply_ffn(p["shared"], x_loc, ffn_kind, pol).reshape(-1, d)
+
+    # y back to [B, S, d] on every rank: the blocks in rank order, then
+    # laid out by their (data..., model) coordinates
+    g = ax.mesh.group
+    rows, = g.gather_rows(y.reshape(1, b_l, s_l, d))
+    names = ax.mesh.axis_names
+    order = [names.index(a) for a in ax.dp + (ax.tp,)]
+    nd = len(names)
+    y = rows.reshape(tuple(ax.mesh.dims) + (b_l, s_l, d)).permute(
+        order + [nd, nd + 1, nd + 2]).reshape(ax.dpn, ax.ntp, b_l, s_l, d)
+    y = y.permute(0, 2, 1, 3, 4).reshape(b, s, d)
+
+    counts = torch.bincount(rec_e.reshape(-1).long(), minlength=e).to(torch.float32)
+    counts, overflow, aux = g.sum(counts, overflow, _aux_loss(probs, ids, e),
+                                  dtype=torch.float32)
+    fwd_occupied = tn * k - res1.send.overflow.to(torch.int64)
+    shipped, occupied = g.sum((res1.shipped_rows + back_shipped).sum(),
+                              (fwd_occupied + back_occupied).sum())
+    return MoEOut(y, counts, overflow, aux / g.world_size, shipped, occupied)
+
+
+def _moe_replicated_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str,
+                         pol: Policy, inv_place: torch.Tensor | None) -> MoEOut:
+    """``moe_apply_replicated`` on rank ``(i, j)``: every token, the
+    (token, expert) pairs of model shard ``j``'s experts through F-slice
+    ``i`` of them (the data axes split F), the shared expert's F-slice ``j``
+    over ``dpn``, and one float32 all-reduce of the partial outputs over
+    all ranks."""
+    ax = _mesh_axes(pol, spec, p, x)
+    b, s, d = x.shape
+    e, k = spec.num_experts, spec.top_k
+    cf = pol.moe_capacity_factor or spec.capacity_factor
+    cd = pol.compute_dtype
+    if inv_place is None:
+        inv_place = _identity_place(spec, x.device)
+    t = x.reshape(-1, d)
+    tn = t.shape[0]
+    w, ids, probs = _route(p["router"], t, spec)
+    rec_e = ids.reshape(-1)
+    phys = inv_place.to(device=x.device, dtype=torch.int32)[rec_e.long()]
+    mine = ((phys // ax.e_loc) == ax.j)[None]
+    eloc = torch.where(mine, (phys % ax.e_loc)[None], 0)
+
+    c2 = _capacity(cf, tn * k, ax.e_loc)
+    local = make_exchange(ExchangeSpec(num_lanes=ax.e_loc, capacity=c2))
+    res = local.bucketize(eloc, mine, [Payload(t.to(cd).repeat_interleave(k, dim=0)[None], 0)])
+    wi, wo = _rank_slots(p, ax)
+    f = wi.shape[-1]
+    if f % ax.dpn:
+        raise ValueError(f"moe_apply_replicated: the data axes' {ax.dpn} ranks do not divide "
+                         f"the experts' hidden size {f}")
+    fl = f // ax.dpn
+    wi, wo = wi[..., ax.i * fl: (ax.i + 1) * fl], wo[:, ax.i * fl: (ax.i + 1) * fl]
+    eout = _expert_ffn(wi.to(cd), wo.to(cd), res.payloads[0].reshape(ax.e_loc, c2, d),
+                       ffn_kind)
+    val = take_from(eout.reshape(1, ax.e_loc, c2, d), res.send)[0]
+    y = (val * w.reshape(tn * k, 1).to(cd)).reshape(tn, k, d).sum(dim=1)
+    if "shared" in p:
+        sh = p["shared"]
+        fs = sh["wi"].shape[-1]
+        if fs % ax.ntp:
+            raise ValueError(f"moe_apply_replicated: the model axis's {ax.ntp} ranks do not "
+                             f"divide the shared expert's hidden size {fs}")
+        sl = slice(ax.j * (fs // ax.ntp), (ax.j + 1) * (fs // ax.ntp))
+        part = {"wi": sh["wi"][..., sl], "wo": sh["wo"][sl]}
+        y = y + apply_ffn(part, t, ffn_kind, pol) / ax.dpn
+    g = ax.mesh.group
+    y, overflow = g.sum(y, res.send.overflow.to(torch.float32).sum(), dtype=torch.float32)
+    counts = torch.bincount(rec_e.long(), minlength=e).to(torch.float32)
+    # the reference's pmean over every rank times the model axis's size
+    return MoEOut(y.reshape(b, s, d), counts, overflow / g.world_size * ax.ntp,
                   _aux_loss(probs, ids, e))

@@ -307,13 +307,15 @@ def run(rank: int, world: int, store: str, plan: dict) -> None:
     torch.save(out, Path(store).parent / f"rank{rank}.pt")
 
 
-def spawn(d: Path, world: int, plan: dict, timeout_s: float = SPAWN_TIMEOUT_S) -> list:
-    """Spawn ``world`` ranks of :func:`run` with their store in ``d``, wait
-    for them (a rank that raises makes this raise) and return their saved
-    results, in rank order."""
+def spawn(d: Path, world: int, plan: dict, timeout_s: float = SPAWN_TIMEOUT_S,
+          target=run) -> list:
+    """Spawn ``world`` ranks of ``target(rank, world, store, plan)`` (default
+    :func:`run`) with their store in ``d``, wait for them (a rank that
+    raises makes this raise) and return their saved results, in rank
+    order."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(run, args=(world, str(d / "store"), plan), nprocs=world,
+    ctx = mp.start_processes(target, args=(world, str(d / "store"), plan), nprocs=world,
                              start_method="spawn", join=False)
     deadline = time.monotonic() + timeout_s
     try:

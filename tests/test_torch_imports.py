@@ -396,9 +396,19 @@ def test_device_mesh_and_gradient_sync_refuse_a_group_of_the_wrong_size():
                          MeshShape((2, 4), ("data", "model")), ("data",))
 
 
-def test_policy_mesh_still_raises_naming_the_next_slice():
+def test_policy_mesh_still_raises_naming_the_next_slice(tmp_path):
+    """``Policy.mesh`` takes a ProcessMesh (a mesh laid over a group's
+    ranks); a bare MeshShape, which has no ranks, or anything else raises
+    ``ValueError``, and so does a mesh beside stacked EP shards."""
+    import mesh_cases
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.modules import Policy
 
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="bare MeshShape"):
         Policy(mesh=make_production_mesh())
+    with pytest.raises(ValueError, match="ProcessMesh"):
+        Policy(mesh=object())
+    with mesh_cases.one_rank_mesh(tmp_path) as pm:
+        assert Policy(mesh=pm).mesh is pm
+        with pytest.raises(ValueError, match="ep_shards"):
+            Policy(mesh=pm, ep_shards=4)

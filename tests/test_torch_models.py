@@ -162,13 +162,22 @@ def test_rope_matches(pct, theta):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_policy_rejects_unported_fields():
-    """The mesh field still raises; the MoE fields are ported and
-    construct (their parity is ``tests/test_torch_moe*.py``'s; remat's is
+def test_policy_rejects_unported_fields(tmp_path):
+    """The mesh field takes a ProcessMesh and nothing else (its parity is
+    ``tests/test_torch_policy_mesh.py``'s); the MoE fields construct (their
+    parity is ``tests/test_torch_moe*.py``'s; remat's is
     ``tests/test_torch_remat.py``'s)."""
-    for kw in ({"mesh": object()},):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmod.Policy(**kw)
+    import mesh_cases
+    from repro_torch.launch.mesh import MeshShape
+
+    for bad in (object(), MeshShape((1, 4), ("data", "model"))):
+        with pytest.raises(ValueError, match="ProcessMesh"):
+            tmod.Policy(mesh=bad)
+    with mesh_cases.one_rank_mesh(tmp_path) as pm:
+        pol = tmod.Policy(mesh=pm, dp_axes=("data",), tp_axis="model")
+        assert (pol.mesh, pol.dp_axes, pol.tp_axis) == (pm, ("data",), "model")
+        with pytest.raises(ValueError, match="ep_shards"):
+            tmod.Policy(mesh=pm, ep_shards=1)
     pol = tmod.Policy(moe_capacity_factor=1.5, exchange_backend="ragged", ep_shards=4)
     assert (pol.moe_capacity_factor, pol.exchange_backend, pol.ep_shards) == (1.5, "ragged", 4)
     with pytest.raises(ValueError, match="ep_shards"):
@@ -397,14 +406,26 @@ def test_moe_families_are_supported(arch):
     assert moe and all(m["router"].dtype == torch.float32 for m in moe)
 
 
-def test_training_is_not_ported():
-    """The part of training still to port raises: the mesh.  The loss, the
-    train step (``tests/test_torch_train.py``), activation checkpointing
-    (``tests/test_torch_remat.py``) and the enc-dec loss
+def test_training_is_not_ported(tmp_path):
+    """The part of training still to port raises: a MoE layer under the
+    mesh with gradients on (its hops over the group carry none).  Under the
+    mesh without gradients it serves (``tests/test_torch_policy_mesh.py``);
+    the loss, the train step (``tests/test_torch_train.py``), activation
+    checkpointing (``tests/test_torch_remat.py``) and the enc-dec loss
     (``tests/test_torch_encdec.py``) run."""
-    for field, value in (("mesh", object()),):
-        with pytest.raises(NotImplementedError, match=field):
-            tmod.Policy(**{field: value})
+    import mesh_cases
+
+    cfg = tbase.reduce_for_smoke(treg.get_config("llama4-scout-17b-a16e"))
+    with mesh_cases.one_rank_mesh(tmp_path) as pm:
+        pol = tmod.Policy(mesh=pm)
+        params = tmodel.init_params(cfg, 0, pol, device="cpu")
+        toks = torch.zeros((1, 8), dtype=torch.int64)
+        batch = {"tokens": toks, "labels": toks, "mask": torch.ones((1, 8))}
+        with torch.no_grad():
+            assert torch.isfinite(tmodel.loss_fn(params, batch, cfg, pol)[0]).all()
+        params["layers"][0]["moe"]["wi"].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            tmodel.loss_fn(params, batch, cfg, pol)
 
 
 def test_init_params_targets_the_card_by_default():

@@ -271,9 +271,10 @@ def test_save_moe_never_reruns_the_dispatch(monkeypatch, remat_policy, reruns):
                      "dispatch_count": 2 * moe_layers}
 
 
-def test_policy_fields():
+def test_policy_fields(tmp_path):
     """``remat`` and both policies construct; another policy raises
-    ``ValueError``; ``mesh`` still raises ``NotImplementedError``."""
+    ``ValueError``; ``mesh`` takes a ProcessMesh, remat included, and
+    raises ``ValueError`` for anything else or beside ``ep_shards``."""
     for rp in POLICIES:
         pol = tmod.Policy(remat=True, remat_policy=rp)
         assert (pol.remat, pol.remat_policy) == (True, rp)
@@ -282,5 +283,15 @@ def test_policy_fields():
     for bad in ("full", "save_attn", ""):
         with pytest.raises(ValueError, match="remat_policy"):
             tmod.Policy(remat=True, remat_policy=bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ProcessMesh"):
         tmod.Policy(mesh=object())
+    import mesh_cases
+    from repro_torch.launch.mesh import MeshShape
+
+    with pytest.raises(ValueError, match="bare MeshShape"):
+        tmod.Policy(mesh=MeshShape((2, 2), ("data", "model")))
+    with mesh_cases.one_rank_mesh(tmp_path) as pm:
+        pol = tmod.Policy(mesh=pm, remat=True, remat_policy="save_moe")
+        assert (pol.mesh, pol.remat_policy) == (pm, "save_moe")
+        with pytest.raises(ValueError, match="ep_shards"):
+            tmod.Policy(mesh=pm, ep_shards=2)
