@@ -429,8 +429,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``phase2`` dict and ``exact`` pairs, then ``chip_smoke.dist_phase(
     dev, card, batches, phase2, exact)`` from a script under ``build/``.
 26. Training over the process group: stablelm-1.6b at its full published
-    width and depth (24 layers, d 2,048, 32 heads MHA, hd 64, d_ff 5,632,
-    vocab 100,352, untied; 1.64 B parameters).  (a) Two gloo ranks share
+    width (d 2,048, 32 heads MHA, hd 64, d_ff 5,632, vocab 100,352,
+    untied), cut to 12 of its 24 layers (1.03 B parameters) to keep the
+    whole run inside its time once phase 28 came.  (a) Two gloo ranks share
     the card, ``default_options``' dtypes (bf16 parameters, float32 Adam
     moments), float32 error feedback, remat, each rank its own seeded 2 x
     1,024 tokens; 2 steps of grads, ``compressed_grad_sync`` over the
@@ -488,6 +489,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``chip_smoke.mesh_phase(torch.device("cuda"), chip_smoke.card_line())``
     from a script under ``build/`` (a fixed placement stands in for phase
     18's).
+28. Training under ``Policy.mesh``.  (a) One MoE layer of Llama 4 Scout
+    at full width, float32, capacity 8.0, slots permuted, on four gloo
+    ranks at (1, 4) and (2, 2): ``moe_apply`` on the dense and native
+    ragged transports (2 x 512 tokens, loss ``sum(y * C)``) and
+    ``moe_apply_replicated`` (2 x 511, no model axis divides it; ``+ 0.5
+    aux``): every gradient a rank holds (``x``, router, shared expert, its
+    ``wi`` / ``wo`` slots) within 1e-4 x max(1, |stacked|) of the stacked
+    ``Policy(ep_shards=4)`` gradients computed in this process first
+    (saved under the git-ignored ``build/phase28/`` a quarter of the slots
+    a file, freed before the spawn); counts, drops and occupied rows
+    equal; the whole leaves' gradients equal on every rank and the slots'
+    on each model coordinate's data replicas; walls, peaks, gloo bytes.
+    (b) Scout at full width, 1 of 48 layers (the reckoning: 4 ranks at one
+    layer need 88.7 GB), bf16, ``make_policy(cfg, mesh, "train",
+    default_options)`` (remat ``"nothing"``, bf16 moments) at (1, 2) on
+    two gloo ranks, 2 x 1,024 tokens repeated for 3 steps at
+    ``OptConfig(lr=1e-3, warmup=1)``: each rank's loss and ``grad_norm``
+    equal on both ranks and within 1e-2 / 5e-2 of the stacked
+    ``Policy(ep_shards=2)`` step run first in this process; every dense
+    leaf equal on both ranks after every step (sha256); the loss falls;
+    then the safe point: both controllers' decision digests equal, the
+    controller's move (or, if it keeps every expert on its rank, a forced
+    swap across ranks) applied to ``wi``, ``wo`` and both moments, each
+    equal after it to the gathered tensor from before it, permuted, bit for
+    bit.  (c) The walls a step (the slowest rank): the whole step, AdamW,
+    the collectives with autograd off; the stacked step's; gloo bytes by
+    collective; peak memory a rank and the card's use beside the
+    reckoning; ``dispatch_count`` and flash forward and backward launches
+    a step on each rank, which the rows gain as ``launches_phase_28``.
+    Alone: set TF32 off, ``build.library()``, then
+    ``chip_smoke.mesh_train_phase(torch.device("cuda"),
+    chip_smoke.card_line())`` from a script under ``build/``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 the result line ``{"ok": true, "device": {...}}``.
@@ -1490,6 +1523,12 @@ def main() -> int:
     for row in kernels:
         if row["name"] in mp:
             row.update(mp[row["name"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt = mesh_train_phase(dev, card)
+    for row in kernels:
+        if row["name"] in mt:
+            row.update(mt[row["name"]])
     log(f"profiler: {PROFILER['sessions']} sessions timed kernels, {PROFILER['empty']} of them "
         f"recorded none of the kernels they timed and ran again; {PROFILER['fallback']} "
         f"timings fell back to events behind a spin after five such sessions")
@@ -6364,9 +6403,10 @@ def dist_phase(dev, card, batches, phase2, exact) -> dict:
 
 
 # phase 26: int8 gradient sync, the GPipe pipeline and the sharding rules over
-# the process group, training stablelm-1.6b at full width and depth
+# the process group, training stablelm-1.6b at full width, 12 of 24 layers
 TRAIN_DIST_DIR = Path(__file__).resolve().parent / "build" / "phase26"
 STABLELM = "stablelm-1.6b"
+STABLELM_LAYERS = 12       # of its 24: the whole run's time limit, once phase 28 came
 DP_WORLD = 2
 DP_BATCH = 2               # a rank's own seeded 2 x 1,024 tokens
 DP_STEPS = 2
@@ -6417,7 +6457,7 @@ def _digest(tensors) -> str:
 
 
 def _dp_rank(g, out: dict) -> None:
-    """(a): stablelm-1.6b at full width and depth, default_options' dtypes,
+    """(a): stablelm-1.6b at full width, 12 of 24 layers, default_options' dtypes,
     this rank's own seeded batches; each step grads, compressed_grad_sync,
     apply_updates."""
     from repro_torch.configs.registry import get_config
@@ -6428,7 +6468,7 @@ def _dp_rank(g, out: dict) -> None:
     from repro_torch.train.optimizer import OptConfig, apply_updates, init_opt, leaves
     from repro_torch.train.train_step import trainable
 
-    cfg = get_config(STABLELM)
+    cfg = dataclasses.replace(get_config(STABLELM), num_layers=STABLELM_LAYERS)
     opts = default_options(cfg)
     pol = _stablelm_policy(opts.param_dtype)
     opt_cfg = OptConfig(moment_dtype=opts.moment_dtype)
@@ -6478,7 +6518,7 @@ def _pp_batch(vocab: int, dev):
 
 
 def _pp_rank(g, plan: dict, out: dict) -> None:
-    """(b): one stage a rank at full width and depth; float32 (TF32 off)
+    """(b): one stage a rank at full width, 12 of 24 layers; float32 (TF32 off)
     against the parent's plain loss and gradients, then bf16 steps timed."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.pipeline import make_pp_loss, stack_stage_params, stage_params
@@ -6486,7 +6526,7 @@ def _pp_rank(g, plan: dict, out: dict) -> None:
     from repro_torch.train.optimizer import leaves
     from repro_torch.train.train_step import trainable
 
-    cfg = get_config(STABLELM)
+    cfg = dataclasses.replace(get_config(STABLELM), num_layers=STABLELM_LAYERS)
     n, r = g.world_size, g.rank
     per_stage = cfg.num_layers // n
     batch = _pp_batch(cfg.vocab_size, g.device)
@@ -6661,7 +6701,7 @@ def train_dist_phase(dev, card) -> dict:
     t_phase = time.perf_counter()
     shutil.rmtree(TRAIN_DIST_DIR, ignore_errors=True)
     TRAIN_DIST_DIR.mkdir(parents=True)
-    cfg = get_config(STABLELM)
+    cfg = dataclasses.replace(get_config(STABLELM), num_layers=STABLELM_LAYERS)
     launches = {"flash_attention": {}, "flash_attention_bwd": {}}
 
     # ---- (a) data parallelism with the int8 error-feedback sync ---------
@@ -6669,7 +6709,7 @@ def train_dist_phase(dev, card) -> dict:
     ranks = spawn_ranks(train_dist_rank, DP_WORLD,
                         dict(part="dp", store=str(TRAIN_DIST_DIR / "dp")), TRAIN_DIST_TIMEOUT_S, 26)
     n_params = ranks[0]["n_params"]
-    log(f"phase 26 (a): {STABLELM} at full width and depth ({cfg.num_layers} layers, d "
+    log(f"phase 26 (a): {STABLELM} at full width ({cfg.num_layers} of 24 layers, d "
         f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size:,}; {n_params:,} parameters, bf16, float32 moments "
         f"and error feedback, remat) on {DP_WORLD} gloo ranks sharing the card, each its own "
@@ -7514,6 +7554,637 @@ def mesh_phase(dev, card, served=None) -> dict:
             "flash_attention": {"launches_phase_27": launches["flash_attention"],
                                 "launches_phase_27_per_call": {"prefill": MESH_LAYERS,
                                                                "decoded_token": 0}}}
+
+
+
+MT_DIR = Path(__file__).resolve().parent / "build" / "phase28"
+MT_SEED = 28
+MT_APPLY_TOKENS = (2, 512)     # (a) moe_apply: 1,024 tokens; both meshes' axes divide them
+MT_REP_TOKENS = (2, 511)       # (a) the replicated path: 1,022 tokens no model axis divides
+MT_AUX_W = 0.5                 # (a) the replicated path's loss: sum(y * C) + 0.5 aux
+MT_GRAD_RTOL = 1e-4            # (a) float32 gradients: x max(1, |stacked|) ...
+MT_GRAD_ATOL = 1e-5            # ... + this x the leaf's largest |stacked| (sums in another order)
+MT_ROUTER_MARGIN = 1e-5        # (a) top-two router logits apart by more (float64 reading)
+MT_PLACE_ROLL = 5              # (a) slot p holds logical expert (p - 5) mod 16
+MT_WORLD_A = 4
+MT_TRAIN_MESH = (1, 2)         # (b): 4 ranks at one layer would need 88.7 GB (the reckoning)
+MT_TRAIN_LAYERS = 1
+MT_TRAIN_BATCH = (2, 1024)
+MT_STEPS = 3
+MT_LR = 1e-3                   # OptConfig(lr=1e-3, warmup=1), phase 19's one-batch rate
+MT_LOSS_RTOL = 1e-2            # (b) bf16: each rank's loss against the stacked step's
+MT_GNORM_RTOL = 5e-2           # (b) bf16: grad_norm against the stacked step's
+MT_TIMEOUT_S = 600.0
+
+
+def _mt_layer(cfg, dev, experts=None):
+    """(a)'s float32 layer (``experts``: a rank's slots, ``None`` all), its
+    two inputs and a cotangent each, drawn from seeded generators on the
+    card."""
+    from repro_torch.moe.layer import init_moe
+
+    gen = torch.Generator(device=dev).manual_seed(MT_SEED)
+    p = init_moe(gen, cfg.d_model, cfg.moe, cfg.ffn_kind, torch.float32, experts)
+    gx = torch.Generator(device=dev).manual_seed(MT_SEED + 1)
+    xs = {"apply": torch.randn(MT_APPLY_TOKENS + (cfg.d_model,), generator=gx, device=dev),
+          "replicated": torch.randn(MT_REP_TOKENS + (cfg.d_model,), generator=gx, device=dev)}
+    cots = {k: torch.randn(v.shape, generator=gx, device=dev) for k, v in xs.items()}
+    return p, xs, cots
+
+
+def _mt_grads(fn, p, x, cot, spec, ffn_kind, pol, inv, path):
+    """One forward and backward of (a)'s loss, timed (synchronized): the
+    output, the loss, ``{leaf: grad}`` and the wall in ms."""
+    leaves = {"router": p["router"], "wi": p["wi"], "wo": p["wo"],
+              "shared/wi": p["shared"]["wi"], "shared/wo": p["shared"]["wo"]}
+    leaves = {k: v.requires_grad_(True) for k, v in leaves.items()}
+    xg = x.requires_grad_(True)
+    q = {"router": leaves["router"], "wi": leaves["wi"], "wo": leaves["wo"],
+         "shared": {"wi": leaves["shared/wi"], "wo": leaves["shared/wo"]}}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(q, xg, spec, ffn_kind, pol, inv)
+    loss = (out.y * cot).sum()
+    if path == "replicated":
+        loss = loss + MT_AUX_W * out.aux_loss
+    grads = torch.autograd.grad(loss, list(leaves.values()) + [xg])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    names = list(leaves) + ["x"]
+    return out, float(loss.detach()), dict(zip(names, grads)), wall
+
+
+def _grad_err(got, want) -> tuple[float, float, float]:
+    """``(max |got - want| / max(1, |want|), max |got - want| / max |want|,
+    the largest excess of |got - want| over MT_GRAD_RTOL x max(1, |want|)
+    + MT_GRAD_ATOL x max |want|)``, in float32 slices of 2^26 elements (the
+    gradients of 8 experts are 2.7 GB a tensor).  A float32 gradient sums
+    a term a token: two summation orders part by more than 1e-4 x max(1,
+    |want|) where the sum cancels to near 0 from terms of the leaf's scale,
+    hence the share of the leaf's largest entry."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    g, w = got.reshape(-1), want.reshape(-1)
+    sl = [slice(i, i + (1 << 26)) for i in range(0, g.numel(), 1 << 26)]
+    top = max(float(w[s_].abs().max()) for s_ in sl)
+    rel = diff = excess = torch.full((), -float("inf"), device=got.device)
+    for s_ in sl:
+        dd, ww = (g[s_] - w[s_]).abs(), w[s_].abs()
+        rel = torch.maximum(rel, (dd / ww.clamp(min=1.0)).max())
+        diff = torch.maximum(diff, dd.max())
+        excess = torch.maximum(excess, (dd - MT_GRAD_RTOL * ww.clamp(min=1.0)
+                                        - MT_GRAD_ATOL * top).max())
+    return float(rel), float(diff) / max(top, 1e-30), float(excess)
+
+
+def _bits_fingerprint(t) -> tuple[int, int]:
+    """Two position-weighted int64 sums of a float32 tensor's bits, on the
+    card: equal tensors give equal pairs, and a change that keeps both
+    takes a contrived pattern (4 GB of slot gradients a rank would take
+    seconds to hash on the host)."""
+    flat = t.detach().contiguous().view(-1).view(torch.int32)
+    a = b = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), 1 << 26):
+        bits = flat[i: i + (1 << 26)].to(torch.int64)
+        pos = torch.arange(i, i + bits.numel(), device=t.device, dtype=torch.int64)
+        a = a + (bits * (pos % 65521 + 1)).sum()
+        b = b + (bits * (pos % 65519 + 7)).sum()
+    return int(a), int(b)
+
+
+def _dense_sha(params) -> list:
+    """sha256 of every dense leaf's bits (host copies, one leaf at a time)."""
+    import hashlib
+
+    from repro_torch.train.optimizer import expert_flags, leaves
+
+    return [hashlib.sha256(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                           .tobytes()).hexdigest()
+            for t, f in zip(leaves(params), expert_flags(params)) if not f]
+
+
+class _CollectiveWalls:
+    """The group's collectives timed (synchronized before and after) by
+    kind, split into the backward (autograd off inside a train step's
+    backward) and AdamW (``inside``); installed on the class, so every
+    subgroup's view is counted."""
+
+    def __init__(self):
+        from repro_torch.exchange.dist import WorkerGroup
+
+        self.cls, self.saved = WorkerGroup, {}
+        self.ms = {}
+        self.phase = "forward"
+        for name in ("_reduce", "_all_to_all", "_all_to_all_uneven", "_gather_rows"):
+            fn = self.saved[name] = getattr(WorkerGroup, name)
+            setattr(WorkerGroup, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def call(group, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(group, *a, **k)
+            torch.cuda.synchronize()
+            phase = self.phase if self.phase != "forward" or torch.is_grad_enabled() else (
+                "backward")
+            key = f"{phase}/{name.lstrip('_')}"
+            self.ms[key] = self.ms.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return res
+        return call
+
+    def undo(self):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def mesh_train_rank(rank: int, world: int, plan: dict) -> None:
+    """Phase 28's rank ``rank`` of ``world``: (a) at (1, 4) and (2, 2) the
+    float32 layer's gradients on its own slots against the stacked ones the
+    parent saved, (b) at (1, 2) the training steps and the safe point; saves
+    what it saw beside the store.  A failure raises, and the parent
+    re-raises it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.exchange.dist import WorkerGroup
+    from repro_torch.kernels import build
+
+    build.library()
+    g = WorkerGroup.init(backend="gloo", rank=rank, world_size=world,
+                         init_method=f"file://{plan['store']}", device="cuda")
+    out = {"rank": rank}
+    if plan["part"] == "layer":
+        _mt_layer_rank(g, plan, out)
+    else:
+        _mt_train_rank(g, plan, out)
+    g.close()
+    torch.save(out, Path(plan["store"]).with_name(f"{Path(plan['store']).name}.rank{rank}.pt"))
+
+
+def _mt_layer_rank(g, plan, out) -> None:
+    import hashlib
+
+    from repro_torch.carry import rank_slots
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import ShardingOptions, make_policy
+    from repro_torch.moe.layer import moe_apply, moe_apply_replicated
+
+    dev = torch.device("cuda")
+    full = get_config("llama4-scout-17b-a16e")
+    e = full.moe.num_experts
+    inv = torch.as_tensor(plan["inv"], device=dev)
+    for mname, dims in MESHES.items():
+        pm = ProcessMesh(MeshShape(dims, ("data", "model")), g)
+        slots = rank_slots(pm, e, plan["place"])
+        p, xs, cots = _mt_layer(full, dev, slots)
+        j, ntp = pm.coords["model"], dims[1]
+        quarters = range(j * (4 // ntp), (j + 1) * (4 // ntp))
+        opts = ShardingOptions(compute_dtype=torch.float32, param_dtype=torch.float32, moe_cf=8.0)
+        for path, fn, backends in (("apply", moe_apply, ("dense", "ragged")),
+                                   ("replicated", moe_apply_replicated, ("dense",))):
+            want = torch.load(MT_DIR / f"a_{path}_common.pt", map_location=dev)
+            slot_want = [torch.load(MT_DIR / f"a_{path}_q{q}.pt", mmap=True) for q in quarters]
+            for be in backends:
+                pol = dataclasses.replace(make_policy(full, pm, "train", opts),
+                                          exchange_backend=be)
+                before = dict(g.traffic)
+                g.barrier()
+                torch.cuda.reset_peak_memory_stats()
+                res, loss, grads, wall = _mt_grads(fn, p, xs[path], cots[path], full.moe,
+                                                   full.ffn_kind, pol, inv, path)
+                rec = {"wall_ms": wall, "peak": torch.cuda.max_memory_allocated(),
+                       "loss": loss, "counts": res.counts.cpu(),
+                       "overflow": float(res.overflow),
+                       "traffic": {k: v - before[k] for k, v in g.traffic.items()},
+                       "errs": {}, "sha": {}}
+                if res.occupied_rows is not None:
+                    rec["occupied"] = int(res.occupied_rows)
+                for leaf in ("x", "router", "shared/wi", "shared/wo"):
+                    rec["errs"][leaf] = _grad_err(grads[leaf], want[leaf])
+                    rec["sha"][leaf] = hashlib.sha256(
+                        grads[leaf].cpu().numpy().tobytes()).hexdigest()
+                parts = {"wi": [], "wo": []}
+                at = 0
+                for part in slot_want:
+                    n = part["wi"].shape[0]
+                    for name in ("wi", "wo"):
+                        parts[name].append(_grad_err(grads[name][at: at + n],
+                                                     part[name].to(dev)))
+                    at += n
+                for name, errs in parts.items():   # over the quarters' largest entries
+                    rec["errs"][name] = tuple(max(e_[i] for e_ in errs) for i in range(3))
+                rec["sha"]["wi/wo"] = [_bits_fingerprint(grads[n]) for n in ("wi", "wo")]
+                out[f"{mname}/{path}/{be}"] = rec
+                del res, grads
+                torch.cuda.empty_cache()
+            del want, slot_want
+        out[f"{mname}/held"] = sum(t.numel() * t.element_size() for t in _leaves(p))
+        del p, xs, cots
+        torch.cuda.empty_cache()
+
+
+def _mt_train_setup(dev, mesh=None):
+    """(b)'s configuration, options, optimizer config and batch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.sharding import default_options
+    from repro_torch.train.optimizer import OptConfig
+
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=MT_TRAIN_LAYERS)
+    opts = default_options(full)   # fsdp (a layout the port does not execute), bf16 moments
+    ocfg = OptConfig(lr=MT_LR, warmup=1, moment_dtype=opts.moment_dtype)
+    rng = np.random.default_rng(MT_SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (MT_TRAIN_BATCH[0], MT_TRAIN_BATCH[1] + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], device=dev),
+             "mask": torch.ones(MT_TRAIN_BATCH, dtype=torch.float32, device=dev)}
+    return full, cfg, opts, ocfg, batch
+
+
+def _mt_train_rank(g, plan, out) -> None:
+    from repro_torch.carry import gather_rank_params, init_rank_params
+    from repro_torch.launch.mesh import MeshShape, ProcessMesh
+    from repro_torch.launch.sharding import make_policy
+    from repro_torch.moe.kip_placement import PlacementController, apply_placement_in_place
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import init_opt
+
+    dev = torch.device("cuda")
+    full, cfg, opts, ocfg, batch = _mt_train_setup(dev)
+    pm = ProcessMesh(MeshShape(MT_TRAIN_MESH, ("data", "model")), g)
+    pol = make_policy(cfg, pm, "train", opts)
+    out["policy"] = {"remat": pol.remat, "remat_policy": pol.remat_policy,
+                     "param_dtype": str(pol.param_dtype), "fsdp": opts.fsdp,
+                     "moment_dtype": str(ocfg.moment_dtype)}
+    t = time.perf_counter()
+    params = init_rank_params(cfg, MT_SEED + 2, pol, device=dev)
+    opt = init_opt(params, ocfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["param_bytes"] = sum(x.numel() * x.element_size() for x in _leaves(params))
+    out["opt_bytes"] = sum(x.numel() * x.element_size() for x in _leaves([opt.m, opt.v]))
+    step = ts.make_train_step(cfg, pol, ocfg)
+    walls = _CollectiveWalls()
+    orig_apply = ts.apply_updates
+    adamw = []
+
+    def timed_apply(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls.phase = "adamw"
+        try:
+            res = orig_apply(*a, **k)
+            torch.cuda.synchronize()
+        finally:
+            walls.phase = "forward"
+        adamw.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dispatch_count import dispatch_count, dispatch_count_plain
+
+    captured = []
+    orig_slots = ops.dispatch_slots
+
+    def slots_capture(dest, valid=None, *, num_parts):
+        if len(captured) < 2:   # the first step's hop 1 and hop 2
+            captured.append((dest.clone(), None if valid is None else valid.clone(), num_parts))
+        return orig_slots(dest, valid, num_parts=num_parts)
+
+    ts.apply_updates = timed_apply
+    ops.dispatch_slots = slots_capture
+    steps = []
+    try:
+        for i in range(MT_STEPS):
+            walls.ms = {}
+            before = dict(g.traffic)
+            _zero_launch_counts()
+            g.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            steps.append({"wall_ms": wall, "adamw_ms": adamw[-1], "coll_ms": dict(walls.ms),
+                          "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "lr": float(m["lr"]), "overflow": float(m["overflow"]),
+                          "counts": m["expert_counts"].cpu(),
+                          "launches": _launch_counts(),
+                          "traffic": {k: v - before[k] for k, v in g.traffic.items()},
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "dense": _dense_sha(params)})
+    finally:
+        ts.apply_updates = orig_apply
+        ops.dispatch_slots = orig_slots
+        walls.undo()
+    out["steps"] = steps
+    # dispatch_count on this rank's own hop inputs, timed on rank 0 alone
+    dc = {}
+    for name, (dest, valid, parts) in zip(("hop 1", "hop 2"), captured):
+        valid = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+        dest = dest.to(torch.int32).contiguous()
+        got = dispatch_count(dest, valid, num_parts=parts)
+        want = dispatch_count_plain(dest, valid, num_parts=parts)
+        torch.cuda.synchronize()
+        w, n = dest.shape
+        dc[name] = {"equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+                    "shape": f"W={w} n={n} L={parts}", "valid": int(valid.sum()),
+                    "bytes": w * n * (4 + 1) + w * n * 4 + w * parts * 4}
+        if g.rank == 0:
+            dc[name].update(
+                ms=cuda_ms(lambda: dispatch_count(dest, valid, num_parts=parts)),
+                plain_ms=cuda_ms(lambda: dispatch_count_plain(dest, valid, num_parts=parts)),
+                device_ms=device_ms(lambda: dispatch_count(dest, valid, num_parts=parts)))
+    g.barrier()
+    out["dispatch_count"] = dc
+    del captured
+    g.barrier()   # every rank holds its parameters and moments
+    free, total = torch.cuda.mem_get_info()
+    out["card_used"] = total - free
+
+    # ---- the safe point -------------------------------------------------
+    e = cfg.moe.num_experts
+    e_loc = e // MT_TRAIN_MESH[1]
+    ctl = PlacementController(e, MT_TRAIN_MESH[1])
+    ctl.observe(steps[-1]["counts"].numpy())
+    changed, _, perm = ctl.maybe_update()
+    digest = ctl.check_agreement(g)
+    perm = np.asarray(perm, np.int64)
+    crossing = (perm // e_loc != np.arange(e) // e_loc).any()
+    forced = not (changed and crossing)
+    if forced:   # the controller kept every expert on its rank: swap one across
+        perm = np.arange(e)
+        perm[[0, e_loc]] = perm[[e_loc, 0]]
+    mine = perm[pm.coords["model"] * e_loc: (pm.coords["model"] + 1) * e_loc]
+    moved, move_ms, before = True, 0.0, dict(g.traffic)
+    for tree in ts.moe_state(params, opt):
+        whole = gather_rank_params(tree, pm)
+        g.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_placement_in_place([tree], perm, pm)
+        torch.cuda.synchronize()
+        move_ms += (time.perf_counter() - t0) * 1e3
+        idx = torch.as_tensor(mine, device=dev)
+        moved &= all(torch.equal(tree[n], whole[n].index_select(0, idx)) for n in ("wi", "wo"))
+        del whole
+        torch.cuda.empty_cache()
+    out["safe_point"] = {"changed": bool(changed), "forced": bool(forced), "digest": digest,
+                         "perm": perm.tolist(), "moved_equal": bool(moved), "move_ms": move_ms,
+                         "crossing_slots": int((perm // e_loc != np.arange(e) // e_loc).sum()),
+                         "traffic": {k: v - before[k] for k, v in g.traffic.items()},
+                         "leaf": bool(params["layers"][0]["moe"]["wi"].requires_grad)}
+    del params, opt
+
+
+def mesh_train_phase(dev, card) -> dict:
+    """Phase 28: training under ``Policy.mesh``.  (a) One MoE layer of
+    Llama 4 Scout at full width, float32, on four gloo ranks at (1, 4) and
+    (2, 2): ``moe_apply`` (dense, native ragged) and
+    ``moe_apply_replicated``, every gradient (``x``, router, shared
+    expert, each rank's ``wi`` / ``wo`` slots) against the stacked
+    ``Policy(ep_shards=4)`` path's on the same weights, computed here first
+    and freed before the spawn.  (b) Scout at full width, one layer, bf16,
+    under ``make_policy(..., "train", default_options)`` at (1, 2) on two
+    gloo ranks: three steps on one batch against the stacked
+    ``Policy(ep_shards=2)`` step, then the safe point's move across ranks.
+    (c) Walls, gloo bytes, memory and launches.  Returns the ``kernels``
+    line's phase-28 entries by kernel name."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import policy_fields
+    from repro_torch.models import model
+    from repro_torch.models.modules import Policy
+    from repro_torch.moe.kip_placement import apply_placement_to_weights
+    from repro_torch.moe.layer import moe_apply, moe_apply_replicated
+    from repro_torch.train.optimizer import init_opt
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    full = get_config("llama4-scout-17b-a16e")
+    spec, e, d = full.moe, full.moe.num_experts, full.d_model
+    place = np.roll(np.arange(e), MT_PLACE_ROLL)
+    inv = np.zeros(e, np.int32)
+    inv[place] = np.arange(e, dtype=np.int32)
+    MT_DIR.mkdir(parents=True, exist_ok=True)
+
+    # ---- (a) the stacked gradients, saved for the ranks --------------------
+    p, xs, cots = _mt_layer(full, dev)
+    p = apply_placement_to_weights(p, place)
+    for path, x in xs.items():
+        logits = x.reshape(-1, d).double() @ p["router"].double()
+        top = torch.topk(logits, 2).values
+        margin = float((top[:, 0] - top[:, 1]).min())
+        assert margin > MT_ROUTER_MARGIN, (path, margin)
+    spol = Policy(moe_capacity_factor=8.0, tp=4, ep_shards=4)
+    stacked = {}
+    for path, fn in (("apply", moe_apply), ("replicated", moe_apply_replicated)):
+        torch.cuda.reset_peak_memory_stats()
+        res, loss, grads, wall = _mt_grads(fn, p, xs[path], cots[path], spec, full.ffn_kind,
+                                           spol, torch.as_tensor(inv, device=dev), path)
+        stacked[path] = {"wall_ms": wall, "loss": loss, "counts": res.counts.cpu(),
+                         "overflow": float(res.overflow),
+                         "occupied": None if res.occupied_rows is None else int(
+                             res.occupied_rows),
+                         "peak": torch.cuda.max_memory_allocated()}
+        torch.save({k: grads[k].cpu() for k in ("x", "router", "shared/wi", "shared/wo")},
+                   MT_DIR / f"a_{path}_common.pt")
+        for q in range(4):   # quarters of the slots: a (1, 4) rank's, or half a (2, 2) rank's
+            torch.save({n: grads[n][q * (e // 4): (q + 1) * (e // 4)].cpu()
+                        for n in ("wi", "wo")}, MT_DIR / f"a_{path}_q{q}.pt")
+        del res, grads
+    whole_bytes = sum(t.numel() * t.element_size() for t in _leaves(p))
+    del p, xs, cots
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre_s = time.perf_counter() - t_phase
+    log(f"phase 28 (a): the stacked Policy(ep_shards=4) gradients in this process, "
+        f"{pre_s:.1f} s with saving them under build/phase28 ({whole_bytes / 1e9:.2f} GB of "
+        f"float32 layer; forward + backward {stacked['apply']['wall_ms']:.1f} ms moe_apply, "
+        f"{stacked['replicated']['wall_ms']:.1f} ms replicated; peaks "
+        f"{stacked['apply']['peak'] / 1e9:.2f} / {stacked['replicated']['peak'] / 1e9:.2f} GB)")
+
+    t = time.perf_counter()
+    plan = {"store": str(MT_DIR / "store"), "part": "layer", "place": place, "inv": inv}
+    ranks = spawn_ranks(mesh_train_rank, MT_WORLD_A, plan, MT_TIMEOUT_S, 28)
+    spawn_a = time.perf_counter() - t
+    lines = []
+    for key in ranks[0]:
+        if key.count("/") != 2:
+            continue
+        mname, path, be = key.split("/")
+        want = stacked[path]
+        recs = [r[key] for r in ranks]
+        for rec in recs:
+            assert torch.equal(rec["counts"], want["counts"]), key
+            assert rec["overflow"] == want["overflow"] == 0.0, key
+            if path == "apply":
+                assert rec["occupied"] == want["occupied"], key
+            assert max(e_[2] for e_ in rec["errs"].values()) <= 0.0, (key, rec["errs"])
+            for leaf in ("x", "router", "shared/wi", "shared/wo"):
+                assert rec["sha"][leaf] == recs[0]["sha"][leaf], (key, leaf)
+        errs = {leaf: tuple(max(rec["errs"][leaf][i] for rec in recs) for i in range(2))
+                for leaf in recs[0]["errs"]}
+        wall = max(rec["wall_ms"] for rec in recs)
+        peak = max(rec["peak"] for rec in recs)
+        traffic = {k: v for k, v in recs[0]["traffic"].items() if v}
+        lines.append(f"{key}: gradients against stacked (max |diff| / max(1, |stacked|), / the "
+                     f"leaf's max |stacked|) "
+                     f"{', '.join(f'{k} {v[0]:.3g} / {v[1]:.3g}' for k, v in errs.items())}; "
+                     f"forward + backward {wall:.1f} ms (stacked {want['wall_ms']:.1f}); peak "
+                     f"{peak / 1e9:.2f} GB a rank; gloo bytes rank 0 {traffic}")
+    for mname, dims in MESHES.items():
+        reps = {}
+        for r in ranks:
+            coord = (r["rank"] // dims[1], r["rank"] % dims[1])
+            for key in (k for k in r if k.startswith(mname) and k.count("/") == 2):
+                reps.setdefault((key, coord[1]), set()).add(tuple(r[key]["sha"]["wi/wo"]))
+        assert all(len(v) == 1 for v in reps.values()), mname
+    held = {m: max(r[f"{m}/held"] for r in ranks) for m in MESHES}
+    log(f"phase 28 (a): {full.name}'s MoE layer at full width (d {d}, {e} experts top-"
+        f"{spec.top_k}, d_ff {spec.d_ff_expert}, shared expert), float32, capacity 8.0, slots "
+        f"permuted (slot p holds expert (p - {MT_PLACE_ROLL}) mod {e}), moe_apply on "
+        f"{MT_APPLY_TOKENS[0]} x {MT_APPLY_TOKENS[1]} tokens (loss sum(y * C): its aux is the "
+        f"mean over the mesh's blocks, another blocking than the stacked path's at (2, 2)) and "
+        f"the replicated path on {MT_REP_TOKENS[0]} x {MT_REP_TOKENS[1]} (sum(y * C) + "
+        f"{MT_AUX_W} aux), {MT_WORLD_A} gloo ranks: counts, drops (0) and occupied rows equal "
+        f"to the stacked path's, every gradient within {MT_GRAD_RTOL:g} x max(1, |stacked|) + "
+        f"{MT_GRAD_ATOL:g} x the leaf's max |stacked|, x / "
+        f"router / shared equal on every rank (sha256) and the slot gradients on each model "
+        f"coordinate's data replicas (a fingerprint of their bits); " + "; ".join(lines) + f"; a rank holds "
+        f"{held['1x4'] / 1e9:.2f} GB (1, 4) and {held['2x2'] / 1e9:.2f} GB (2, 2) of float32 "
+        f"layer (reckoned: {whole_bytes / 1e9:.2f} GB x (1 / 4 or 1 / 2 of the experts, all of "
+        f"the shared expert and router)), with its gradients twice that before activations; "
+        f"the ranks' run {spawn_a:.1f} s; card {card}")
+    shutil.rmtree(MT_DIR, ignore_errors=True)
+    MT_DIR.mkdir(parents=True, exist_ok=True)
+
+    # ---- (b) the stacked training step first, in this process --------------
+    _, cfg, opts, ocfg, batch = _mt_train_setup(dev)
+    spol = Policy(ep_shards=MT_TRAIN_MESH[1],
+                  **policy_fields(MeshShape(MT_TRAIN_MESH, ("data", "model")), opts))
+    params = model.init_params(cfg, MT_SEED + 2, spol, device=dev)
+    opt = init_opt(params, ocfg)
+    step = make_train_step(cfg, spol, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    want = []
+    for _ in range(MT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        want.append({"wall_ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "counts": m["expert_counts"].cpu()})
+    stacked_peak = torch.cuda.max_memory_allocated()
+    del params, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    outside, per_layer = _rank_bytes(full, MT_TRAIN_MESH[1])
+    p_rank = outside + MT_TRAIN_LAYERS * per_layer
+    reckoned = 4 * p_rank    # bf16 parameters, gradients and both moments
+    outside4, per_layer4 = _rank_bytes(full, 4)
+    log(f"phase 28 (b): reckoning at {MT_TRAIN_MESH}, bf16 at 8 bytes a parameter "
+        f"(parameter, gradient, bf16 m and v): a rank holds {outside / 2e9:.3f} B parameters "
+        f"outside the layers and {per_layer / 2e9:.3f} B a layer ({e // MT_TRAIN_MESH[1]} of "
+        f"{e} experts) = {reckoned / 1e9:.2f} GB before activations, "
+        f"{MT_TRAIN_MESH[1] * reckoned / 1e9:.2f} GB for both ranks; at (1, 4) four ranks "
+        f"would hold {4 * 4 * (outside4 + per_layer4) / 1e9:.2f} GB at one layer (more than "
+        f"the card's 80 GB)")
+
+    t = time.perf_counter()
+    plan = {"store": str(MT_DIR / "store"), "part": "train"}
+    ranks = spawn_ranks(mesh_train_rank, MT_TRAIN_MESH[0] * MT_TRAIN_MESH[1], plan,
+                        MT_TIMEOUT_S, 28)
+    spawn_b = time.perf_counter() - t
+    r0 = ranks[0]
+    for r in ranks:
+        assert r["policy"] == r0["policy"] and r["policy"]["remat_policy"] == "nothing"
+        for i, (s_, s0) in enumerate(zip(r["steps"], r0["steps"])):
+            assert (s_["loss"], s_["grad_norm"], s_["lr"]) == (s0["loss"], s0["grad_norm"],
+                                                                s0["lr"]), (r["rank"], i)
+            assert s_["dense"] == s0["dense"], ("dense leaves differ", r["rank"], i)
+            assert torch.equal(s_["counts"], s0["counts"]), (r["rank"], i)
+            assert s_["launches"] == s0["launches"], (r["rank"], i)
+        sp = r["safe_point"]
+        assert sp["digest"] == r0["safe_point"]["digest"] and sp["perm"] == r0["safe_point"]["perm"]
+        assert sp["moved_equal"] and sp["leaf"] and sp["crossing_slots"] > 0, sp
+    losses = [s_["loss"] for s_ in r0["steps"]]
+    errs = []
+    for s_, w in zip(r0["steps"], want):
+        assert np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"])
+        le = abs(s_["loss"] - w["loss"]) / abs(w["loss"])
+        ge = abs(s_["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+        errs.append((le, ge, bool(torch.equal(s_["counts"], w["counts"]))))
+        assert le <= MT_LOSS_RTOL and ge <= MT_GNORM_RTOL, errs
+    assert losses[-1] < losses[0], losses
+    launches = r0["steps"][-1]["launches"]
+    assert launches["dispatch_count"] > 0 and launches["flash_attention"] > 0 and (
+        launches["flash_attention_bwd"] > 0), launches
+    dc_rows = r0["dispatch_count"]
+    assert len(dc_rows) == 2 and all(v["equal"] for r in ranks
+                                     for v in r["dispatch_count"].values()), dc_rows
+    for name, row in dc_rows.items():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"phase 28 (c): dispatch_count [{name}] {row['shape']} ({row['valid']} valid) on "
+            f"every rank's own inputs of a training step: bit-equal to its plain version; rank "
+            f"0: {row['ms']:.4f} ms by events around one call, device time "
+            f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.6f} ms by bytes ({row['bytes']} bytes); card {card}")
+    wall = [max(r["steps"][i]["wall_ms"] for r in ranks) for i in range(MT_STEPS)]
+    adamw = [max(r["steps"][i]["adamw_ms"] for r in ranks) for i in range(MT_STEPS)]
+    coll = {}
+    for r in ranks:
+        for k, v in r["steps"][-1]["coll_ms"].items():
+            coll[k] = max(coll.get(k, 0.0), v)
+    bwd_sums = sum(v for k, v in coll.items() if k.startswith("backward/"))
+    peak = max(s_["peak"] for r in ranks for s_ in r["steps"])
+    sp = r0["safe_point"]
+    log(f"phase 28 (b): {full.name} at full width, {MT_TRAIN_LAYERS} of {full.num_layers} "
+        f"layers, make_policy(cfg, mesh, 'train', default_options) on a {MT_TRAIN_MESH} "
+        f"ProcessMesh of 2 gloo ranks ({r0['policy']}), {MT_TRAIN_BATCH[0]} x "
+        f"{MT_TRAIN_BATCH[1]} tokens repeated, OptConfig(lr={MT_LR:g}, warmup=1): losses "
+        f"{[round(v, 5) for v in losses]} (falling), grad norms "
+        f"{[round(s_['grad_norm'], 5) for s_ in r0['steps']]}; against Policy(ep_shards=2) in "
+        f"this process (losses {[round(w['loss'], 5) for w in want]}, norms "
+        f"{[round(w['grad_norm'], 5) for w in want]}): loss / grad_norm relative differences "
+        f"{[(float(f'{a:.3g}'), float(f'{b:.3g}'), c) for a, b, c in errs]} (<= "
+        f"{MT_LOSS_RTOL:g} / {MT_GNORM_RTOL:g}; the last: expert counts equal); both ranks' "
+        f"loss, grad_norm, lr, counts and every dense leaf (sha256) equal after every step; "
+        f"card {card}")
+    log(f"phase 28 (b): the safe point: the controllers' digests equal ({sp['digest']}), "
+        f"{'no move crossing ranks from the controller, so a forced swap' if sp['forced'] else 'the controller moved experts across ranks'}"
+        f" (perm {sp['perm']}, {sp['crossing_slots']} slots cross ranks); wi, wo, m and v "
+        f"after the move equal the gathered tensors from before it, permuted, bit for bit on "
+        f"both ranks; move {max(r['safe_point']['move_ms'] for r in ranks):.1f} ms (the slowest "
+        f"rank; gloo bytes rank 0 {({k: v for k, v in sp['traffic'].items() if v})})")
+    fwd_bwd = [max(s_["wall_ms"] - s_["adamw_ms"] for s_ in (r["steps"][i] for r in ranks))
+               for i in range(MT_STEPS)]
+    log(f"phase 28 (c): walls a step (the slowest rank): {[round(w, 1) for w in wall]} ms: "
+        f"forward + backward {[round(w, 1) for w in fwd_bwd]} ms, AdamW "
+        f"{[round(a, 1) for a in adamw]} ms; in the last step, collectives "
+        f"with autograd off (the backward's gradient sums and hop transposes, and the remat "
+        f"recompute's hops) {bwd_sums:.1f} ms, by kind "
+        f"{({k: round(v, 1) for k, v in coll.items()})}; the stacked step "
+        f"{[round(w['wall_ms'], 1) for w in want]} ms; gloo bytes a step rank 0 "
+        f"{({k: v for k, v in r0['steps'][-1]['traffic'].items() if v})}; peak allocated "
+        f"{peak / 1e9:.2f} GB a rank (parameters {r0['param_bytes'] / 1e9:.2f} GB, moments "
+        f"{r0['opt_bytes'] / 1e9:.2f} GB; reckoned {reckoned / 1e9:.2f} GB before "
+        f"activations), the card's use with both ranks up {r0['card_used'] / 1e9:.2f} GB, the "
+        f"stacked step's peak {stacked_peak / 1e9:.2f} GB; launches a step a rank {launches}; "
+        f"rank init {max(r['init_s'] for r in ranks):.1f} s; the ranks' run {spawn_b:.1f} s; "
+        f"card {card}")
+    shutil.rmtree(MT_DIR, ignore_errors=True)
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {"dispatch_count": {"launches_phase_28": [r["steps"][-1]["launches"]["dispatch_count"]
+                                                     for r in ranks], "phase_28": dc_rows},
+            "flash_attention": {"launches_phase_28": [r["steps"][-1]["launches"][
+                "flash_attention"] for r in ranks]},
+            "flash_attention_bwd": {"launches_phase_28": [r["steps"][-1]["launches"][
+                "flash_attention_bwd"] for r in ranks]}}
 
 
 if __name__ == "__main__":

@@ -9,9 +9,12 @@ both packages start a training step from the same state.
 
 Under a process mesh (``Policy.mesh``) a rank holds every dense leaf whole
 and only its own expert slots: :func:`rank_params` cuts a whole tree (the
-port's, or the reference's through ``params_from_jax``) to them, and
+port's, or the reference's through ``params_from_jax``) to them,
+:func:`rank_opt` cuts an ``OptState``'s moments the same way, and
 :func:`init_rank_params` draws them alone, equal bit for bit to the same
 slots of the whole model's ``init_params`` from the same seed.
+:func:`gather_rank_params` is the way back: every rank's slots gathered
+over the model axis into the whole tree.
 
 The snapshot's keys are the reference's own (state tables, partitioner
 tables with ``heavy_repl``, split fields, sketch, tick counters, the lane
@@ -31,8 +34,8 @@ from repro_torch.core.streaming import StreamingJob
 from repro_torch.models.modules import Policy
 from repro_torch.train.optimizer import OptState
 
-__all__ = ["init_rank_params", "job_from_reference_snapshot", "opt_from_jax",
-           "params_from_jax", "rank_params", "rank_slots"]
+__all__ = ["gather_rank_params", "init_rank_params", "job_from_reference_snapshot",
+           "opt_from_jax", "params_from_jax", "rank_opt", "rank_params", "rank_slots"]
 
 
 def job_from_reference_snapshot(snap: dict, *, config: DRConfig | None = None,
@@ -185,6 +188,39 @@ def rank_params(params, mesh, *, tp_axis: str = "model"):
         return {k: cut(v) for k, v in node.items()}
 
     return cut(params)
+
+
+def rank_opt(opt_state: OptState, mesh, *, tp_axis: str = "model") -> OptState:
+    """This rank's cut of a whole ``OptState`` (the port's, or the
+    reference's through :func:`opt_from_jax`): both moment trees cut as
+    :func:`rank_params` cuts the parameters, the step as it is."""
+    return OptState(opt_state.step, rank_params(opt_state.m, mesh, tp_axis=tp_axis),
+                    rank_params(opt_state.v, mesh, tp_axis=tp_axis))
+
+
+@torch.no_grad()
+def gather_rank_params(tree, mesh, *, tp_axis: str = "model"):
+    """The whole tree from every rank's cut (a parameter or a moment tree,
+    as :func:`rank_params` cuts it): each MoE layer's ``wi`` and ``wo``
+    gathered over the model axis's ranks in slot order, every other leaf
+    the same tensor.  Every rank calls it together and gets the whole
+    tree."""
+    group = mesh.subgroup(tp_axis)
+
+    def whole(t):
+        rows, = group.gather_rows(t[None])
+        return rows.reshape((-1,) + tuple(t.shape[1:]))
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if {"router", "wi", "wo"} <= set(node):
+            return {k: whole(v) if k in ("wi", "wo") else walk(v) for k, v in node.items()}
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(tree)
 
 
 def init_rank_params(cfg: ArchConfig, seed: int, pol: Policy, *, place=None,

@@ -44,6 +44,14 @@ new receive tensors, so the send set is free to be recycled, and
   to the dense transpose bit for bit; traffic is priced per distance
   class, the intra tier dense and the inter tier by real rows.
 
+Over a process group the rows carry gradients: :class:`GroupTransport`
+ships through the :class:`~repro_torch.exchange.dist.WorkerGroup`'s
+collectives, whose backward is each collective's transpose (the dense
+all-to-all again, the uneven one over the forward's split sizes swapped),
+so hop 1 and ``backhaul`` differentiate on every backend, the native
+ragged ship included, with no second fetch of its counts.  The stacked
+transport's permutations are tensor ops, differentiable as they are.
+
 ``backhaul`` is the return trip of a request-response exchange: response
 rows ride the request lanes back (the same permutation, which is its own
 inverse).  When the spec carries an :class:`~repro_torch.exchange.spec.
@@ -294,7 +302,8 @@ class GroupTransport:
         ``j`` land at the head of lane ``j`` of a receive buffer filled with
         the payload's fill: what the dense ship carries there, bit for bit.
         The split sizes are host integers, so the counts are fetched first
-        (a host sync the audit counts outside a safe point)."""
+        (a host sync the audit counts outside a safe point); under autograd
+        the backward reuses them, swapped, and fetches nothing."""
         if not has_ragged_all_to_all():
             return tuple(self.permute(b) for b in payloads)
         if len(fills) != len(payloads):

@@ -19,6 +19,20 @@ hand-off of one tensor from each rank to the next (jax's ``ppermute``
 over ``i -> i + 1``).  Each helper adds the bytes it hands the collective
 to :attr:`WorkerGroup.traffic`.
 
+The helpers carry gradients.  When autograd records and a floating input
+requires grad, each runs as a ``torch.autograd.Function`` whose backward
+is the collective's transpose, as jax's is under ``shard_map``: the dense
+all-to-all's backward is the same all-to-all, the uneven one's swaps the
+forward's split sizes (kept, never fetched again), ``gather_rows``' is this
+rank's own row (every rank differentiates the same replicated value),
+``sum``'s is the identity, ``shift``'s hands each gradient back to the
+rank before, and :meth:`WorkerGroup.sum_grads` is the identity forward
+and the all-reduce backward: a replicated input whose ranks each use part
+of it (jax's transpose of a ``P()`` input).  Integer tensors carry no
+gradient.  A backward that calls collectives is safe only when every
+rank's graph holds the same collectives in the same order, so every rank
+makes the same calls with tensors that require grad alike.
+
 :meth:`WorkerGroup.split` cuts the world into subgroups (one mesh axis's
 ranks, say) and returns this rank's as a view: a ``WorkerGroup`` with its
 own ``rank``, ``world_size`` and ``ranks``, whose collectives run on the
@@ -181,7 +195,12 @@ class WorkerGroup:
         """The dense all-to-all over dim 0 of ``x`` (split evenly among the
         ranks of ``group``, default all): chunk ``j`` goes to rank ``j``,
         and chunk ``j`` of the result came from rank ``j``.  A new
-        tensor."""
+        tensor; its backward is the same all-to-all."""
+        if _records(x):
+            return _AllToAll.apply(x, self, group)
+        return self._all_to_all(x, group)
+
+    def _all_to_all(self, x: torch.Tensor, group=None) -> torch.Tensor:
         x = x.contiguous()
         out = torch.empty_like(x)
         self.traffic["all_to_all"] += x.numel() * x.element_size()
@@ -192,12 +211,20 @@ class WorkerGroup:
                           recv: list[int]) -> torch.Tensor:
         """The uneven all-to-all: ``send[j]`` rows of ``x`` (in rank order)
         go to rank ``j``, and ``recv[j]`` rows of the result came from
-        rank ``j``."""
+        rank ``j``.  Its backward ships the gradients back with the two
+        lists swapped."""
+        send, recv = [int(s) for s in send], [int(r) for r in recv]
+        if _records(x):
+            return _AllToAllUneven.apply(x, self, send, recv)
+        return self._all_to_all_uneven(x, send, recv)
+
+    def _all_to_all_uneven(self, x: torch.Tensor, send: list[int],
+                           recv: list[int]) -> torch.Tensor:
         x = x.contiguous()
         out = x.new_empty((int(sum(recv)),) + tuple(x.shape[1:]))
         self.traffic["all_to_all_uneven"] += x.numel() * x.element_size()
-        dist.all_to_all_single(out, x, output_split_sizes=[int(r) for r in recv],
-                               input_split_sizes=[int(s) for s in send], group=self._pg)
+        dist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send,
+                               group=self._pg)
         return out
 
     def _reduce(self, tensors, op, dtype=None) -> tuple:
@@ -219,8 +246,23 @@ class WorkerGroup:
     def sum(self, *tensors: torch.Tensor, dtype: torch.dtype | None = None) -> tuple:
         """Each tensor summed over the ranks (one collective for all), in
         float64 (int64 for integers) unless ``dtype`` names the type the
-        sum runs in: ``torch.float32`` sums as a float32 ``psum`` does."""
+        sum runs in: ``torch.float32`` sums as a float32 ``psum`` does.
+        The backward is the identity: every rank differentiates the same
+        summed value, so each rank's term takes its gradient as it is."""
+        if _records(*tensors):
+            return _Sum.apply(self, dtype, *tensors)
         return self._reduce(tensors, dist.ReduceOp.SUM, dtype)
+
+    def sum_grads(self, *tensors: torch.Tensor) -> tuple:
+        """The tensors as they are, forward; backward, their gradients
+        summed over the ranks in one all-reduce a dtype, each in its own
+        dtype (jax's ``psum`` of a replicated input's cotangent).  For a
+        value every rank holds whole and each rank uses part of: its
+        gradient is then the whole one on every rank.  Without autograd
+        recording, the tensors themselves."""
+        if _records(*tensors):
+            return _SumGrads.apply(self, *tensors)
+        return tensors
 
     def max(self, *tensors: torch.Tensor) -> tuple:
         """Each tensor's elementwise max over the ranks."""
@@ -228,7 +270,14 @@ class WorkerGroup:
 
     def gather_rows(self, *tensors: torch.Tensor) -> tuple:
         """Each ``[1, ...]`` tensor as the stacked ``[W, ...]`` of every
-        rank's, in rank order.  Tensors of one dtype ride one all-gather."""
+        rank's, in rank order.  Tensors of one dtype ride one all-gather.
+        The backward takes this rank's own row of each gradient: every
+        rank differentiates the same gathered value."""
+        if _records(*tensors):
+            return _GatherRows.apply(self, *tensors)
+        return self._gather_rows(*tensors)
+
+    def _gather_rows(self, *tensors: torch.Tensor) -> tuple:
         out: list = [None] * len(tensors)
         by_dtype: dict = {}
         for i, t in enumerate(tensors):
@@ -255,7 +304,12 @@ class WorkerGroup:
         such rank (jax's ``ppermute`` over ``[(i, i + offset)]``).  Every
         rank calls it, with tensors of one shape and dtype.  One uneven
         ``all_to_all_single``; gloo stages CUDA tensors through host memory
-        inside it."""
+        inside it.  The backward hands each gradient back (``-offset``)."""
+        if _records(x):
+            return _Shift.apply(x, self, offset)
+        return self._shift(x, offset)
+
+    def _shift(self, x: torch.Tensor, offset: int) -> torch.Tensor:
         flat = x.contiguous().view(-1)
         n, w, r = flat.numel(), self.world_size, self.rank
         send = [n if j == r + offset else 0 for j in range(w)]
@@ -290,3 +344,112 @@ class WorkerGroup:
         return (f"WorkerGroup(backend={self.backend!r}, rank={self.rank}, "
                 f"world_size={self.world_size}{sub}, device={str(self.device)!r})")
 
+
+
+# ---------------------------------------------------------------------------
+# the collectives under autograd
+# ---------------------------------------------------------------------------
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records a collective of ``tensors``: grad mode on
+    and a floating tensor among them that requires grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad and t.is_floating_point() for t in tensors)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The dense all-to-all; its transpose is itself."""
+
+    @staticmethod
+    def forward(ctx, x, group, pg):
+        ctx.group, ctx.pg = group, pg
+        return group._all_to_all(x, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group._all_to_all(g, ctx.pg), None, None
+
+
+class _AllToAllUneven(torch.autograd.Function):
+    """The uneven all-to-all; the backward ships the gradients back over
+    the forward's split sizes, swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return group._all_to_all_uneven(x, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group._all_to_all_uneven(g, ctx.recv, ctx.send), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``[1, ...]`` rows gathered to ``[W, ...]``; the backward is this
+    rank's own row of each gradient."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.rank = group.rank
+        ctx.set_materialize_grads(True)
+        return group._gather_rows(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        r = ctx.rank
+        return (None,) + tuple(g[r: r + 1] for g in grads)
+
+
+class _Sum(torch.autograd.Function):
+    """Tensors summed over the ranks; the backward is the identity (each
+    rank's term of the same replicated sum).  A sum of a tensor that needs
+    no gradient comes out needing none."""
+
+    @staticmethod
+    def forward(ctx, group, dtype, *tensors):
+        ctx.floating = [t.is_floating_point() and t.requires_grad for t in tensors]
+        out = group._reduce(tensors, dist.ReduceOp.SUM, dtype)
+        ctx.mark_non_differentiable(*(o for o, f in zip(out, ctx.floating) if not f))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(g if f else None for g, f in zip(grads, ctx.floating))
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity forward; the backward sums the gradients over the
+    ranks, one all-reduce a dtype, each in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.set_materialize_grads(True)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out: list = list(grads)
+        by_dtype: dict = {}
+        for i, g in enumerate(grads):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            summed = ctx.group._reduce([grads[i] for i in idx], dist.ReduceOp.SUM, dtype)
+            for i, g in zip(idx, summed):
+                out[i] = g
+        return (None,) + tuple(out)
+
+
+class _Shift(torch.autograd.Function):
+    """Each rank's tensor to rank ``rank + offset``; the backward hands each
+    gradient back to rank ``rank - offset``."""
+
+    @staticmethod
+    def forward(ctx, x, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return group._shift(x, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group._shift(g, -ctx.offset), None, None

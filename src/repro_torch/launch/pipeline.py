@@ -15,12 +15,14 @@ while ``0 <= t - i < M``); stage 0 embeds it, every stage runs its layers
 microbatch losses over their count, is the same on every rank.  Uniform
 patterns only (one block kind, no tail), as in the reference.
 
-Gradients flow back through autograd: the hand-off is a
-``torch.autograd.Function`` whose backward ships each gradient from rank
-``i + 1`` back to rank ``i``, and the replicated leaves enter through one
+Gradients flow back through autograd, through the group's collectives
+(:mod:`repro_torch.exchange.dist`): the hand-off (``WorkerGroup.shift``)
+ships each gradient from rank ``i + 1`` back to rank ``i`` in its
+backward, the replicated leaves enter through ``WorkerGroup.sum_grads``,
 whose backward sums their gradients over the ranks in their own dtype
-(the reference's transpose of a ``P()`` input), so every rank ends with
-the plain model's gradient of what it holds.  Differentiate with respect to every parameter
+(the reference's transpose of a ``P()`` input), and the loss is a
+``WorkerGroup.sum`` whose backward is the identity, so every rank ends
+with the plain model's gradient of what it holds.  Differentiate with respect to every parameter
 a rank holds.
 
 A collective in a backward is only safe when every rank's graph holds the
@@ -67,54 +69,6 @@ def stage_params(stacked: dict, stage: int) -> dict:
     """What rank ``stage`` holds of :func:`stack_stage_params`' tree: its
     stage's layers (``layers``) and the replicated leaves."""
     return {**stacked, "layers": stacked["layers"][stage]}
-
-
-class _Handoff(torch.autograd.Function):
-    """Forward: each rank's activation to the next rank.  Backward: each
-    rank's gradient to the previous one."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.shift(x, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.group.shift(g, -1), None
-
-
-class _Replicated(torch.autograd.Function):
-    """Forward: the replicated leaves as they are.  Backward: their
-    gradients summed over the ranks in one all-reduce, in their own dtype
-    as the reference's ``psum`` of a ``P()`` input's cotangent (float32
-    where the dtypes differ).  Only the ranks that use a leaf give it a
-    gradient (stage 0 the embedding, the last stage the head and the final
-    norm); the others add zeros."""
-
-    @staticmethod
-    def forward(ctx, group, *leaves):
-        ctx.group = group
-        return tuple(x.view_as(x) for x in leaves)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        dtypes = {g.dtype for g in grads}
-        dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-        return (None,) + ctx.group.sum(*grads, dtype=dtype)
-
-
-class _LossSum(torch.autograd.Function):
-    """Forward: ``[loss, count]`` summed over the ranks.  Backward: the
-    identity to this rank's own term (every rank differentiates the same
-    replicated loss, seeded with 1)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return group.sum(x, dtype=torch.float32)[0]
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 class _Tie(torch.autograd.Function):
@@ -167,7 +121,7 @@ def make_pp_loss(cfg: ArchConfig, pol: Policy, group, *, microbatches: int):
         tied = "lm_head" not in params
         rep = [params["embed"]["tok"]] + ([] if tied else [params["lm_head"]])
         norm_keys = sorted(params["final_norm"])
-        rep = _Replicated.apply(group, *rep, *(params["final_norm"][k] for k in norm_keys))
+        rep = group.sum_grads(*rep, *(params["final_norm"][k] for k in norm_keys))
         embed_tok, lm_head = rep[0], rep[0] if tied else rep[1]
         final_norm = dict(zip(norm_keys, rep[len(rep) - len(norm_keys):]))
         pos = transformer._positions(cfg, mb, s, 0, device=dev)
@@ -191,8 +145,8 @@ def make_pp_loss(cfg: ArchConfig, pol: Policy, group, *, microbatches: int):
                 total = total + torch.stack([mb_loss, torch.ones_like(mb_loss)])
             elif torch.is_grad_enabled() and y.requires_grad:
                 total = _Tie.apply(total, y)
-            buf = _Handoff.apply(y, group)
-        loss, count = _LossSum.apply(total, group).unbind()
+            buf = group.shift(y, 1)
+        loss, count = group.sum(total, dtype=torch.float32)[0].unbind()
         return loss / torch.clamp(count, min=1.0)
 
     return loss_fn

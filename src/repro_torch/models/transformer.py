@@ -11,7 +11,9 @@ blocks stay ``params["tail{j}"]``, as in the reference.
 
 A ``moe`` FFN runs ``repro_torch.moe.layer`` with the reference's rule.
 Under ``Policy.mesh``: ``moe_apply`` when ``Policy.tp`` divides the
-sequence and it is longer than one token, else ``moe_apply_replicated``.
+sequence and it is longer than one token, else ``moe_apply_replicated``;
+both paths serve and train there (their gradients summed over the mesh
+as the reference's ``shard_map`` sums them, ``train.train_step``).
 Without a mesh: the dense oracle ``moe_ref`` without EP shards
 (``Policy.ep_shards == 0``, the reference's ``mesh=None``), else
 ``moe_apply`` when the sequence splits over the stacked shards and is

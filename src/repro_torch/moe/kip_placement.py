@@ -18,12 +18,23 @@ control plane: router statistics feed a :class:`~repro_torch.control.
 Telemetry` window, the :class:`~repro_torch.control.PlacementPolicy`
 returns a typed action, and every decision lands in the controller's
 :class:`~repro_torch.control.DecisionLog`.  All of it is host numpy, as in
-the reference; only :func:`apply_placement_to_weights` touches tensors, on
-the weights' own device.
+the reference; only :func:`apply_placement_to_weights` and
+:func:`apply_placement_in_place` touch tensors, on the weights' own device.
+
+Under a process mesh (``Policy.mesh``) each rank holds its model shard's
+slots, and the safe point's move crosses ranks: a slot whose expert comes
+from another model rank receives its weights and both Adam moments over
+the model axis's subgroup (one uneven all-to-all a tensor, the moved
+slots only), the operator-state migration done between processes.
+Every rank's controller observes the same mesh-summed counts and so
+decides alike; :meth:`PlacementController.check_agreement` compares a
+digest of each decision across the group and raises if a rank decided
+otherwise.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -267,6 +278,28 @@ class PlacementController:
         return moved > 0, new, perm
 
 
+    def check_agreement(self, group) -> int:
+        """Compare a digest of the decision just logged, of the load
+        estimate it read and of the placement after it across ``group`` (a
+        :class:`~repro_torch.exchange.dist.WorkerGroup`; every rank calls
+        it at the same safe point); a rank that saw other counts or decided
+        otherwise raises on every rank.  Returns the digest, the same on
+        every rank."""
+        d = self.decisions.records[-1] if self.decisions.records else None
+        h = hashlib.blake2b(digest_size=8)
+        h.update(repr(None if d is None else (d.tick, d.kind, d.taken, d.reason, d.imbalance,
+                                              sorted(d.detail.items()))).encode())
+        h.update(np.ascontiguousarray(self.loads_ewma, np.float64).tobytes())
+        h.update(np.ascontiguousarray(self.placement.place, np.int32).tobytes())
+        digests = group.host_gather(np.frombuffer(h.digest(), np.int64))
+        if not (digests == digests[0]).all():
+            kind = None if d is None else d.kind
+            raise RuntimeError(f"the ranks placed the experts differently at step "
+                               f"{self.steps}: rank {group.rank} took {kind}; digests "
+                               f"{digests.ravel().tolist()}")
+        return int(digests.ravel()[0])
+
+
 def replicated_assignment(loads: np.ndarray, n_shards: int, replicas: int,
                           eps: float = 0.02) -> tuple[np.ndarray, np.ndarray]:
     """Beyond-paper: heavy-expert replication (serving-oriented).
@@ -311,7 +344,7 @@ def apply_placement_to_weights(moe_params: dict, perm) -> dict:
     return {k: permute(k, v) if not isinstance(v, dict) else v for k, v in moe_params.items()}
 
 
-def apply_placement_in_place(moe_trees, perm) -> None:
+def apply_placement_in_place(moe_trees, perm, mesh=None, *, tp_axis: str = "model") -> None:
     """The training safe point's state migration: ``wi`` and ``wo`` of each
     dict of ``moe_trees`` (every MoE layer's parameters and each of its
     two Adam moments, as ``train.train_step.moe_state`` lists them)
@@ -319,7 +352,15 @@ def apply_placement_in_place(moe_trees, perm) -> None:
     the same tensors under ``torch.no_grad()``: a parameter stays the leaf
     that requires grad, and its moments stay paired with it.  The
     reference's launcher moves the weights alone and leaves the moments
-    where they were (ROADMAP.md, queue 3)."""
+    where they were (ROADMAP.md, queue 3).
+
+    Under ``mesh`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`) each
+    tensor holds this rank's slots ``[j * e_loc, (j + 1) * e_loc)`` on
+    model coordinate ``j`` (``carry.rank_params``), and every rank calls it
+    together with the same ``perm``: see :func:`_move_across_ranks`."""
+    if mesh is not None:
+        _move_across_ranks(moe_trees, np.asarray(perm, np.int64), mesh.subgroup(tp_axis))
+        return
     idx = None
     with torch.no_grad():
         for tree in moe_trees:
@@ -328,3 +369,43 @@ def apply_placement_in_place(moe_trees, perm) -> None:
                 if idx is None or idx.device != t.device:
                     idx = torch.as_tensor(np.asarray(perm, np.int64), device=t.device)
                 t.copy_(torch.index_select(t, 0, idx))
+
+
+@torch.no_grad()
+def _move_across_ranks(moe_trees, perm: np.ndarray, group) -> None:
+    """``perm`` applied to slots cut over ``group`` (the model axis's ranks,
+    ``e_loc`` slots each): new slot ``p`` of rank ``j`` takes old slot
+    ``perm[p]``.  Slots whose old slot is on this rank are copied here; the
+    others arrive over the group, one uneven all-to-all a tensor carrying
+    only those slots (rows to each rank in its slot order, so each source's
+    rows land in the order it sent them).  With no slot crossing ranks (all
+    ranks know ``perm``) nothing ships."""
+    n, j = group.world_size, group.rank
+    e_loc = len(perm) // n
+    src = perm // e_loc
+    mine = np.arange(j * e_loc, (j + 1) * e_loc)
+    send_rows = [perm[p] - j * e_loc for r in range(n) if r != j
+                 for p in range(r * e_loc, (r + 1) * e_loc) if src[p] == j]
+    send = [0 if r == j else int((src[r * e_loc:(r + 1) * e_loc] == j).sum())
+            for r in range(n)]
+    recv_slots = [p - j * e_loc for s in range(n) if s != j for p in mine if src[p] == s]
+    recv = [0 if s == j else int((src[mine] == s).sum()) for s in range(n)]
+    local = [p for p in mine if src[p] == j]
+    crossing = bool((src != np.arange(len(perm)) // e_loc).any())
+    idx = {}
+    for tree in moe_trees:
+        for name in ("wi", "wo"):
+            t = tree[name]
+            if t.shape[0] != e_loc:
+                raise ValueError(f"a rank holds its model shard's {e_loc} slots "
+                                 f"(carry.rank_params), got {tuple(t.shape)}")
+            if t.device not in idx:
+                as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=t.device)
+                idx[t.device] = (as_t(send_rows), as_t([p - j * e_loc for p in local]),
+                                 as_t([perm[p] - j * e_loc for p in local]), as_t(recv_slots))
+            send_i, to_i, from_i, recv_i = idx[t.device]
+            new = torch.empty_like(t)
+            new[to_i] = t[from_i]
+            if crossing:
+                new[recv_i] = group.all_to_all_uneven(t[send_i], send, recv)
+            t.copy_(new)

@@ -47,6 +47,22 @@ needs the data axes to divide ``B`` and the model axis to divide ``S``
 (``ValueError``): the reference's ``shard_map`` raises there too, so its
 ``ServeEngine``, which prefills ``[1, S]``, cannot serve a MoE model on a
 mesh whose data axes hold more than one device (ROADMAP.md, queue 3).
+
+Both mesh paths train.  Every rank differentiates the same replicated
+loss, and each input takes the sum the reference's ``shard_map`` in_specs
+give its cotangent (:meth:`~repro_torch.exchange.dist.WorkerGroup.
+sum_grads`, inside the backward, each gradient in its own dtype): the
+router and the shared expert (``P()``; F-sliced over the model axis on
+the replicated path) over every rank, ``wi`` and ``wo`` over the data
+axes (``P(tp)``; the replicated path's F-slices), and ``x`` over every
+rank (``moe_apply``: each rank's block lands in its own block of the
+whole ``x``; the replicated path: a sum of partials).  The hops, the
+gather of ``y`` and the sum of the partial outputs carry gradients
+through the group's collectives (their backward is their transpose:
+the reverse all-to-all, this rank's own block, the identity).
+``moe_apply``'s ``aux_loss`` is the mean of the ranks' (each rank's term
+gets ``1 / W`` of its gradient); the replicated path's is each rank's
+own, the same on every rank, and counts once in the summed gradients.
 """
 from __future__ import annotations
 
@@ -341,14 +357,9 @@ class _MeshAxes(NamedTuple):
     j: int              # ... and over the model axis
 
 
-def _mesh_axes(pol: Policy, spec: MoESpec, p: dict, x: torch.Tensor) -> _MeshAxes:
+def _mesh_axes(pol: Policy, spec: MoESpec) -> _MeshAxes:
     """The mesh's axes as the layer reads them; raises for a mesh the layer
-    cannot run over, and for autograd: the hops over the group carry no
-    gradient (training under the mesh is not ported, ROADMAP.md queue 1)."""
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in (p["router"], p["wi"], p["wo"]))):
-        raise NotImplementedError("training under Policy.mesh is not ported: the MoE hops "
-                                  "over the group carry no gradient (ROADMAP.md, queue 1)")
+    cannot run over."""
     pm, dp, tp = pol.mesh, tuple(pol.dp_axes), pol.tp_axis
     if tp in dp or set(pm.axis_names) != set(dp) | {tp}:
         raise ValueError(f"the MoE layers run over data axes {dp} and a model axis {tp!r} "
@@ -371,13 +382,32 @@ def _rank_slots(p: dict, ax: _MeshAxes) -> tuple[torch.Tensor, torch.Tensor]:
     return wi, wo
 
 
+def _summed_inputs(p: dict, x: torch.Tensor, ax: _MeshAxes) -> tuple[dict, torch.Tensor]:
+    """``p`` and ``x`` as they are, their gradients summed in the backward
+    as the reference's in_specs sum their cotangents: the router, the
+    shared expert and ``x`` over every rank, ``wi`` and ``wo`` over the data
+    axes.  Every rank makes the same calls, so their backward collectives
+    run in one order."""
+    g = ax.mesh.group
+    shared = p.get("shared")
+    names = sorted(shared) if shared is not None else []
+    router, x, *sh = g.sum_grads(p["router"], x, *(shared[k] for k in names))
+    wi, wo = _rank_slots(p, ax)
+    if ax.dpn > 1:
+        wi, wo = ax.mesh.subgroup(ax.dp).sum_grads(wi, wo)
+    out = {**p, "router": router, "wi": wi, "wo": wo}
+    if shared is not None:
+        out["shared"] = {**shared, **dict(zip(names, sh))}
+    return out, x
+
+
 def _moe_apply_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str, pol: Policy,
                     inv_place: torch.Tensor | None) -> MoEOut:
     """``moe_apply`` on rank ``(i, j)``: batch block ``i`` over the data
     axes, sequence block ``j`` over the model axis, as ``P(dp, tp, None)``
     gives ``shard_map``'s body; hop 1 and the backhaul over the model
     subgroup, ``y`` gathered over the whole mesh."""
-    ax = _mesh_axes(pol, spec, p, x)
+    ax = _mesh_axes(pol, spec)
     b, s, d = x.shape
     if b % ax.dpn:
         raise ValueError(
@@ -394,6 +424,7 @@ def _moe_apply_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str, pol:
     if inv_place is None:
         inv_place = _identity_place(spec, x.device)
     b_l, s_l = b // ax.dpn, s // ax.ntp
+    p, x = _summed_inputs(p, x, ax)
     x_loc = x[ax.i * b_l: (ax.i + 1) * b_l, ax.j * s_l: (ax.j + 1) * s_l]
     t = x_loc.reshape(-1, d)
     tn = t.shape[0]
@@ -456,13 +487,14 @@ def _moe_replicated_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str,
     ``i`` of them (the data axes split F), the shared expert's F-slice ``j``
     over ``dpn``, and one float32 all-reduce of the partial outputs over
     all ranks."""
-    ax = _mesh_axes(pol, spec, p, x)
+    ax = _mesh_axes(pol, spec)
     b, s, d = x.shape
     e, k = spec.num_experts, spec.top_k
     cf = pol.moe_capacity_factor or spec.capacity_factor
     cd = pol.compute_dtype
     if inv_place is None:
         inv_place = _identity_place(spec, x.device)
+    p, x = _summed_inputs(p, x, ax)
     t = x.reshape(-1, d)
     tn = t.shape[0]
     w, ids, probs = _route(p["router"], t, spec)
@@ -497,6 +529,10 @@ def _moe_replicated_mesh(p: dict, x: torch.Tensor, spec: MoESpec, ffn_kind: str,
     g = ax.mesh.group
     y, overflow = g.sum(y, res.send.overflow.to(torch.float32).sum(), dtype=torch.float32)
     counts = torch.bincount(rec_e.long(), minlength=e).to(torch.float32)
+    # every rank's aux is the same value; each takes 1 / W of its gradient,
+    # so the router's summed gradient counts it once (the reference divides
+    # a P() output's cotangent by the mesh's size)
+    aux = _aux_loss(probs, ids, e)
+    aux = aux.detach() + (aux - aux.detach()) / g.world_size
     # the reference's pmean over every rank times the model axis's size
-    return MoEOut(y.reshape(b, s, d), counts, overflow / g.world_size * ax.ntp,
-                  _aux_loss(probs, ids, e))
+    return MoEOut(y.reshape(b, s, d), counts, overflow / g.world_size * ax.ntp, aux)

@@ -20,6 +20,15 @@ Two departures from the reference, both exact:
   the bits the whole tensor would.  The squared norm is summed by slices
   too (its summation order is not the reference's, which sums each whole
   leaf in XLA's order).
+
+Under a process mesh (``mesh=``, ``Policy.mesh``) a rank holds every dense
+leaf whole and its model shard's expert slots (``carry.rank_params``),
+their gradients already summed as the reference's in_specs sum them
+(``moe/layer.py``).  The global norm then counts the dense leaves once and
+sums the expert slots' squares over the model axis: each rank gathers the
+model axis's partial sums (a copy) and adds them in rank order, so the
+norm, the clip scale and the learning rate come out equal bit for bit on
+every rank.
 """
 from __future__ import annotations
 
@@ -28,8 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["SLICE", "OptConfig", "OptState", "apply_updates", "global_norm", "init_opt",
-           "leaves", "tree_map"]
+__all__ = ["SLICE", "OptConfig", "OptState", "apply_updates", "expert_flags", "global_norm",
+           "init_opt", "leaves", "tree_map"]
 
 SLICE = 1 << 24  # elements per slice of the update and of the squared norm
 
@@ -89,23 +98,63 @@ def _flat_slices(t: torch.Tensor):
     return [flat[i:i + SLICE] for i in range(0, flat.numel(), SLICE)]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """``sqrt(sum of g**2)`` in float32 over every leaf, summed by slices."""
+def expert_flags(tree) -> list[bool]:
+    """For each leaf of ``tree`` (in :func:`leaves`' order), whether it is
+    a MoE layer's expert slots: ``wi`` or ``wo`` of a dict that also holds
+    a ``router`` (the leaves a rank of a mesh holds a cut of)."""
+    if isinstance(tree, dict):
+        moe = {"router", "wi", "wo"} <= set(tree)
+        return [f for k, v in tree.items()
+                for f in ([True] * len(leaves(v)) if moe and k in ("wi", "wo")
+                          else expert_flags(v))]
+    if isinstance(tree, (list, tuple)):
+        return [f for v in tree for f in expert_flags(v)]
+    return [] if tree is None else [False]
+
+
+def _square_sum(flat: list):
     total = None
-    for g in leaves(tree):
+    for g in flat:
         for part in _flat_slices(g.detach().contiguous()):
             sq = torch.sum(torch.square(part.to(torch.float32)))
             total = sq if total is None else total + sq
+    return total
+
+
+def _norm(flat: list, flags: list, mesh, tp_axis: str) -> torch.Tensor:
+    if mesh is None:
+        return torch.sqrt(_square_sum(flat))
+    dense = _square_sum([g for g, f in zip(flat, flags) if not f])
+    experts = _square_sum([g for g, f in zip(flat, flags) if f])
+    dev = flat[0].device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    dense = zero if dense is None else dense
+    experts = zero if experts is None else experts
+    parts, = mesh.subgroup(tp_axis).gather_rows(experts.reshape(1))
+    total = dense
+    for part in parts.unbind():
+        total = total + part
     return torch.sqrt(total)
 
 
+def global_norm(tree, mesh=None, *, tp_axis: str = "model") -> torch.Tensor:
+    """``sqrt(sum of g**2)`` in float32 over every leaf, summed by slices.
+    Under ``mesh`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`) ``tree``
+    is a rank's cut: the expert slots' squares are summed over the model
+    axis, the dense leaves counted once; every rank calls it together."""
+    return _norm(leaves(tree), expert_flags(tree), mesh, tp_axis)
+
+
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: OptConfig):
+def apply_updates(params, grads, state: OptState, cfg: OptConfig, mesh=None, *,
+                  tp_axis: str = "model"):
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
     the same parameter tensors updated, the state with ``step + 1`` and
     its moments updated in place, and ``{"grad_norm", "lr"}`` as device
-    scalars."""
-    gnorm = global_norm(grads)
+    scalars.  ``grads`` is a tree like ``params`` or its flat leaves.
+    Under ``mesh`` every rank calls it together with its own cut
+    (:func:`global_norm`)."""
+    gnorm = _norm(leaves(grads), expert_flags(params), mesh, tp_axis)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     lr = _schedule(cfg, state.step)

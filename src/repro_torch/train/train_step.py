@@ -14,6 +14,16 @@ does not require grad yet is switched on here (a view, as
 ``carry.params_from_jax`` hands out, is first replaced by its own copy in
 the tree).  ``metrics`` holds device tensors: ``loss``, ``overflow``,
 ``expert_counts`` (MoE), ``grad_norm`` and ``lr``.
+
+Under ``pol.mesh`` (``launch.sharding.make_policy(cfg, mesh, "train",
+opts)``, the step the reference's dry run lowers) every rank of the
+:class:`~repro_torch.launch.mesh.ProcessMesh` calls the step together
+with its own cut of the parameters and moments (``carry.rank_params``,
+``carry.rank_opt``) and the whole batch.  The MoE layers sum each
+gradient over the ranks the reference's in_specs name, inside the
+backward (``moe/layer.py``), and ``apply_updates`` takes the mesh for the
+global norm, so every rank's dense leaves, ``expert_counts``, loss,
+``grad_norm`` and ``lr`` come out equal.
 """
 from __future__ import annotations
 
@@ -62,7 +72,8 @@ def make_train_step(cfg: ArchConfig, pol: Policy, opt: OptConfig):
         loss, metrics = model.loss_fn(params, batch, cfg, pol, inv_place)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
-        params, opt_state, opt_metrics = apply_updates(params, grads, opt_state, opt)
+        params, opt_state, opt_metrics = apply_updates(params, grads, opt_state, opt,
+                                                       pol.mesh, tp_axis=pol.tp_axis)
         del grads
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {"loss": loss.detach(), **metrics, **opt_metrics}

@@ -407,25 +407,36 @@ def test_moe_families_are_supported(arch):
 
 
 def test_training_is_not_ported(tmp_path):
-    """The part of training still to port raises: a MoE layer under the
-    mesh with gradients on (its hops over the group carry none).  Under the
-    mesh without gradients it serves (``tests/test_torch_policy_mesh.py``);
-    the loss, the train step (``tests/test_torch_train.py``), activation
-    checkpointing (``tests/test_torch_remat.py``) and the enc-dec loss
-    (``tests/test_torch_encdec.py``) run."""
+    """Training under the mesh, which this test once pinned as refused, is
+    ported: on a one-rank ``(1, 1)`` mesh, ``loss_fn``'s loss and its
+    gradient of every leaf under ``Policy(mesh=...)`` equal the stacked
+    ``Policy(ep_shards=1)`` path's (float32, within 1e-6 x max(1, |g|):
+    the mesh path routes its own block, the stacked one the whole batch,
+    in another summation order).  The four-rank meshes are
+    ``tests/test_torch_mesh_train.py``'s."""
     import mesh_cases
 
     cfg = tbase.reduce_for_smoke(treg.get_config("llama4-scout-17b-a16e"))
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 8)))
+    batch = {"tokens": toks, "labels": toks.roll(1, dims=1), "mask": torch.ones((2, 8))}
     with mesh_cases.one_rank_mesh(tmp_path) as pm:
-        pol = tmod.Policy(mesh=pm)
-        params = tmodel.init_params(cfg, 0, pol, device="cpu")
-        toks = torch.zeros((1, 8), dtype=torch.int64)
-        batch = {"tokens": toks, "labels": toks, "mask": torch.ones((1, 8))}
-        with torch.no_grad():
-            assert torch.isfinite(tmodel.loss_fn(params, batch, cfg, pol)[0]).all()
-        params["layers"][0]["moe"]["wi"].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tmodel.loss_fn(params, batch, cfg, pol)
+        got = {}
+        for name, pol in (("mesh", tmod.Policy(mesh=pm, **f32)),
+                          ("stacked", tmod.Policy(ep_shards=1, **f32))):
+            params = tmodel.init_params(cfg, 0, pol, device="cpu")
+            flat = _leaves(params)
+            for t in flat:
+                t.requires_grad_(True)
+            loss, metrics = tmodel.loss_fn(params, batch, cfg, pol)
+            got[name] = (loss, metrics["expert_counts"],
+                         torch.autograd.grad(loss, flat, allow_unused=True))
+    (lm, cm, gm), (ls, cs, gs) = got["mesh"], got["stacked"]
+    assert torch.equal(cm, cs)
+    np.testing.assert_allclose(float(lm), float(ls), rtol=1e-6)
+    assert len(gm) == len(gs) and all(g is not None for g in gm)
+    for a, b in zip(gm, gs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_init_params_targets_the_card_by_default():
